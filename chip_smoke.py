@@ -6,31 +6,41 @@
 Phases; any failure exits non-zero and prints no result line.
   1. Print the card's name and power limit; build the CUDA kernels from
      flaxdiff_tpu_torch/csrc with nvcc for sm_90a.
-  2. Hold each kernel against its plain PyTorch version on the card at the
-     shapes of the main path (bf16, plus one f32 case with TF32 off), and time
-     kernel, plain version and, for attention, torch's
-     scaled_dot_product_attention (a yardstick the port never calls) by their
-     device time (CUDA graph replays timed by CUDA events), beside the
-     byte/flop bound.
-  3. The full-width UNet forward at 64x64 in f32, on the card (kernels) and
-     on the CPU (plain versions), with the same random weights; then a short
-     DDIM + CFG trajectory the same way.
-  4. The main path: DDIM-50 with classifier-free guidance (scale 3.0) at
+  2. Hold each of the nine kernels against its plain PyTorch version on the
+     card: the forward kernels at the serving path's shapes, the backward
+     kernels at the training path's (bf16, plus one f32 case each with TF32
+     off). Time kernel, plain version and, for attention, torch's
+     scaled_dot_product_attention forward and backward (a yardstick the port
+     never calls) by their device time (CUDA graph replays timed by CUDA
+     events), beside the byte/flop bound.
+  3. The full-width UNet at 64x64 in f32, on the card (kernels) and on the
+     CPU (plain versions), with the same random weights: a forward, a short
+     DDIM + CFG trajectory, and one training step's loss and gradients with
+     the same draws.
+  4. The serving path: DDIM-50 with classifier-free guidance (scale 3.0) at
      256x256, batch 1, bf16, full width. The launch counters, zeroed just
      before, must show every attention, GEGLU and GroupNorm call went through
-     the kernels.
+     the forward kernels.
+  5. The training path: DiffusionTrainer.train_step on the full-width UNet
+     from the port's own init, batch 16 at 128x128, bf16 over f32 params,
+     AdamW 1e-4 and EMA 0.999, on 4 seeded synthetic batches: 3 warm-up and
+     20 timed steps. Every loss must be finite, the mean of the last 5 below
+     the first, and the launch counters, zeroed just before, must show every
+     forward and backward kernel launched once per call per step.
 The lines before the last are the kernels' JSON record and the card's
 name and power limit; the last is {"ok": true, "device": {...}}. With
---record, the full record (every case, the model checks, the trajectory
-and its per-call breakdown) is also written to PATH as JSON.
+--record, the full record (every case, the model checks, both paths and
+their breakdowns) is also written to PATH as JSON.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -47,23 +57,59 @@ UNET = dict(output_channels=3, emb_features=512, feature_depths=(64, 128, 256, 5
 TEXT_LEN, TEXT_DIM = 77, 768
 STEPS, RESOLUTION, GUIDANCE = 50, 256, 3.0
 # launches of one forward of UNET: attention at levels 2 and 3 (self + cross
-# on the way down and up, cross-only in the middle), 19 res blocks x 2 norms
+# on the way down and up, cross-only in the middle), 19 res blocks x 2 norms;
+# one backward launches each backward kernel as often
 PER_FORWARD = {"flash_fwd": 9, "geglu": 5, "gn_stats": 38, "gn_norm": 38}
+PER_BACKWARD = {"flash_bwd_dq": 9, "flash_bwd_dkv": 9, "gn_bwd_stats": 38, "gn_bwd_dx": 38,
+                "geglu_bwd": 5}
+# the training path: bench.py:build_trainer's configuration
+TRAIN_BATCH, TRAIN_RES, TRAIN_LR, WARMUP, TIMED = 16, 128, 1e-4, 3, 20
+SERVE_BATCH = 2   # one CFG call of the serving path
+
+# phase 2's cases: the forward kernels at the serving path's shapes (batch
+# SERVE_BATCH), the backward kernels at the training path's (batch
+# TRAIN_BATCH); bf16 plus one f32 case each (TF32 off)
+BF16, F32 = torch.bfloat16, torch.float32
+# flash (lq, lk, dtype), 8 heads x 64: self at 64^2 and 32^2 tokens, cross to the text
+FLASH_FWD_CASES = [(4096, 4096, BF16), (4096, TEXT_LEN, BF16), (1024, 1024, BF16),
+                   (1024, TEXT_LEN, BF16), (1024, 1024, F32)]
+# flash backward (batch, lq, lk, dtype): self at 32^2 and 16^2 tokens, cross to the text
+FLASH_BWD_CASES = [(TRAIN_BATCH, 1024, 1024, BF16), (TRAIN_BATCH, 1024, TEXT_LEN, BF16),
+                   (TRAIN_BATCH, 256, 256, BF16), (TRAIN_BATCH, 256, TEXT_LEN, BF16),
+                   (2, 1024, 1024, F32)]
+# GroupNorm (batch, HW, C, dtype), 8 groups: forward cases at SERVE_BATCH
+GN_CASES = [(SERVE_BATCH, 256 * 256, 64, BF16), (SERVE_BATCH, 64 * 64, 256, BF16),
+            (SERVE_BATCH, 32 * 32, 1024, BF16), (SERVE_BATCH, 64 * 64, 256, F32),
+            (TRAIN_BATCH, 128 * 128, 64, BF16), (TRAIN_BATCH, 32 * 32, 256, BF16),
+            (TRAIN_BATCH, 16 * 16, 1024, BF16), (TRAIN_BATCH, 32 * 32, 256, F32)]
+# GEGLU (batch, rows, 2F, dtype): forward cases at SERVE_BATCH
+GEGLU_CASES = [(SERVE_BATCH, 4096, 2048, BF16), (SERVE_BATCH, 1024, 4096, BF16),
+               (SERVE_BATCH, 1024, 4096, F32), (TRAIN_BATCH, 1024, 2048, BF16),
+               (TRAIN_BATCH, 256, 4096, BF16), (TRAIN_BATCH, 256, 4096, F32)]
 
 REPLACES = {
     "flash_fwd": "flaxdiff_tpu/ops/flash_attention.py:78",
+    "flash_bwd_dq": "flaxdiff_tpu/ops/flash_attention.py:132",
+    "flash_bwd_dkv": "flaxdiff_tpu/ops/flash_attention.py:171",
     "gn_stats": "flaxdiff_tpu/ops/fused_norm.py:58",
     "gn_norm": "flaxdiff_tpu/ops/fused_norm.py:85",
+    "gn_bwd_stats": "flaxdiff_tpu/ops/fused_norm.py:112",
+    "gn_bwd_dx": "flaxdiff_tpu/ops/fused_norm.py:149",
     "geglu": "flaxdiff_tpu/ops/fused_adaln.py:500",
+    "geglu_bwd": "flaxdiff_tpu/ops/fused_adaln.py:506",
 }
 # the __global__ functions each wrapper launches, as the profiler names them
-KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_kernel", "gn_stats": "gn_stats_kernel",
-                  "gn_norm": "gn_norm_kernel", "geglu": "geglu_kernel"}
+KERNEL_SYMBOLS = {name: name + "_kernel" for name in REPLACES}
 SOURCES = {
     "flash_fwd": "flaxdiff_tpu_torch/csrc/flash_fwd.cu",
+    "flash_bwd_dq": "flaxdiff_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dkv": "flaxdiff_tpu_torch/csrc/flash_bwd.cu",
     "gn_stats": "flaxdiff_tpu_torch/csrc/groupnorm_silu.cu",
     "gn_norm": "flaxdiff_tpu_torch/csrc/groupnorm_silu.cu",
+    "gn_bwd_stats": "flaxdiff_tpu_torch/csrc/groupnorm_silu.cu",
+    "gn_bwd_dx": "flaxdiff_tpu_torch/csrc/groupnorm_silu.cu",
     "geglu": "flaxdiff_tpu_torch/csrc/geglu.cu",
+    "geglu_bwd": "flaxdiff_tpu_torch/csrc/geglu.cu",
 }
 
 # (dense bf16 flop/s, f32 flop/s outside the tensor cores, bytes/s), NVIDIA's
@@ -130,7 +176,9 @@ def graph_ms(fn, calls: int, replays: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warm-up stream: an autograd backward runs each op on
+    # its forward's stream, so a timed backward's forward is made there too
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -181,49 +229,70 @@ def passes(reading: dict) -> bool:
             and reading.get("lse_err", 0.0) <= reading.get("lse_atol", 0.0))
 
 
+def log_registers(build_log: str) -> None:
+    """Each kernel's most registers over its instantiations, and every
+    instantiation that spills, from nvcc's -Xptxas -v output."""
+    regs, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = next((k for k in KERNEL_SYMBOLS.values() if k in m.group(1)), m.group(1))
+        elif fn and "spill stores" in line and not line.strip().startswith(
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+            log(f"  {fn}: {line.strip()}")
+        elif fn and "Used" in line and "registers" in line:
+            n = int(re.search(r"Used (\d+) registers", line).group(1))
+            regs[fn] = max(regs.get(fn, 0), n)
+    log("  registers: " + ", ".join(f"{k} {v}" for k, v in sorted(regs.items())))
+
+
 # --- phase 2: kernels against their plain versions --------------------------
 
 def kernel_cases(dev, peak):
-    from flaxdiff_tpu_torch.ops import flash_attention, fused_geglu
-    from flaxdiff_tpu_torch.ops.flash_attention import flash_attention_plain
-    from flaxdiff_tpu_torch.ops.fused_adaln import geglu_plain
-    from flaxdiff_tpu_torch.ops.fused_norm import (groupnorm_finalize, groupnorm_normalize,
-                                                   groupnorm_normalize_plain, groupnorm_stats,
-                                                   groupnorm_stats_plain, rows_per_block)
+    from flaxdiff_tpu_torch.ops import (flash_bwd_dkv, flash_bwd_dq, flash_fwd, geglu_bwd,
+                                        geglu_fwd, groupnorm_bwd_dx, groupnorm_bwd_stats)
+    from flaxdiff_tpu_torch.ops.flash_attention import (flash_bwd_dkv_plain, flash_bwd_dq_plain,
+                                                        flash_delta, flash_fwd_plain)
+    from flaxdiff_tpu_torch.ops.fused_adaln import geglu_bwd_plain, geglu_plain
+    from flaxdiff_tpu_torch.ops.fused_norm import (groupnorm_bwd_dx_plain, groupnorm_bwd_finalize,
+                                                   groupnorm_bwd_stats_plain, groupnorm_finalize,
+                                                   groupnorm_normalize, groupnorm_normalize_plain,
+                                                   groupnorm_stats, groupnorm_stats_plain,
+                                                   rows_per_block)
     bf16_rate, f32_rate, byte_rate = peak
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *shape, dtype: torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
     cases = []
 
-    def record(name, shape, dtype, reading, call, plain, flops, nbytes, library=None):
-        """Print the readings and check them, then time kernel, plain
-        version and library call by device time (CUDA graph replays)."""
+    def record(name, shape, dtype, readings, call, plain, flops, nbytes, library=None):
+        """Print the readings (one per output) and check them, then time
+        kernel, plain version and library call by device time (CUDA graph
+        replays)."""
         rate = f32_rate if dtype == torch.float32 else bf16_rate
         b_ms, b_by = bound_ms(flops, nbytes, rate, byte_rate)
         dname = str(dtype).replace("torch.", "")
-        lse = (f", lse err {reading['lse_err']:.3g} (atol {reading['lse_atol']:g})"
-               if "lse_err" in reading else "")
-        log(f"  {name} {shape} {dname}: max err {reading['max_abs_err']:.3g}, least atol "
-            f"{reading['least_atol']:.3g} (atol {reading['atol']:g} at rtol {reading['rtol']:g}), "
-            f"rms rel {reading['rms_rel']:.3g} (limit {reading['rms_rel_limit']}){lse}")
-        check(passes(reading), f"{name} {shape} {dname}: {reading}")
+        for out_name, reading in readings.items():
+            lse = (f", lse err {reading['lse_err']:.3g} (atol {reading['lse_atol']:g})"
+                   if "lse_err" in reading else "")
+            log(f"  {name} {out_name} {shape} {dname}: max err {reading['max_abs_err']:.3g}, "
+                f"least atol {reading['least_atol']:.3g} (atol {reading['atol']:.3g} at rtol "
+                f"{reading['rtol']:g}), rms rel {reading['rms_rel']:.3g} "
+                f"(limit {reading['rms_rel_limit']}){lse}")
+            check(passes(reading), f"{name} {out_name} {shape} {dname}: {reading}")
         ms = graph_ms(call, 20)
         plain_ms = graph_ms(plain, 3, replays=3)
         library_ms = graph_ms(library, 20) if library is not None else None
-        case = dict(name=name, shape=list(shape), dtype=dname, **reading, ms=ms,
+        case = dict(name=name, shape=list(shape), dtype=dname, outputs=readings,
+                    max_abs_err=max(r["max_abs_err"] for r in readings.values()), ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
         log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
-            + (f", sdpa {library_ms:.4f} ms" if library_ms is not None else ""))
+            + (f", library {library_ms:.4f} ms" if library_ms is not None else ""))
         cases.append(case)
 
-    # flash attention [B, Lq, H, D] x [B, Lk, H, D], B*H = 16 (CFG batch 2, 8 heads)
-    for lq, lk, dtype in [(4096, 4096, torch.bfloat16), (4096, TEXT_LEN, torch.bfloat16),
-                          (1024, 1024, torch.bfloat16), (1024, TEXT_LEN, torch.bfloat16),
-                          (1024, 1024, torch.float32)]:
-        q, k, v = randn(2, lq, 8, 64, dtype=dtype), randn(2, lk, 8, 64, dtype=dtype), \
-            randn(2, lk, 8, 64, dtype=dtype)
-        out, lse = flash_attention(q, k, v, return_lse=True)
-        ref, ref_lse = flash_attention_plain(q, k, v)
+    for lq, lk, dtype in FLASH_FWD_CASES:
+        q, k, v = (randn(SERVE_BATCH, n, 8, 64, dtype=dtype) for n in (lq, lk, lk))
+        out, lse = flash_fwd(q, k, v)
+        ref, ref_lse = flash_fwd_plain(q, k, v)
         torch.cuda.synchronize()
         # bf16: p is rounded to bf16 against a running (kernel) or final
         # (plain) row max, which atol covers (up to 1.7e-3 on an H100 for
@@ -238,59 +307,134 @@ def kernel_cases(dev, peak):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
         esz = q.element_size()
-        record("flash_fwd", (2, lq, lk, 8, 64), dtype, reading,
-               lambda: flash_attention(q, k, v), lambda: flash_attention_plain(q, k, v),
-               4.0 * 2 * 8 * lq * lk * 64, esz * 2 * 8 * 64 * (2 * lq + 2 * lk),
+        bh = SERVE_BATCH * 8
+        record("flash_fwd", (SERVE_BATCH, lq, lk, 8, 64), dtype, {"out": reading},
+               lambda: flash_fwd(q, k, v), lambda: flash_fwd_plain(q, k, v),
+               4.0 * bh * lq * lk * 64, bh * (esz * 64 * (2 * lq + 2 * lk) + 4 * lq),
                library=sdpa)
         del q, k, v, out, ref
 
-    # GroupNorm + SiLU, G = 8: stats and normalize kernels separately
-    for hw, c, dtype in [(256 * 256, 64, torch.bfloat16), (64 * 64, 256, torch.bfloat16),
-                         (32 * 32, 1024, torch.bfloat16), (64 * 64, 256, torch.float32)]:
-        x = randn(2, hw, c, dtype=dtype) * 2.0 + 0.5
+    for b, lq, lk, dtype in FLASH_BWD_CASES:
+        q, k, v = (randn(b, n, 8, 64, dtype=dtype) for n in (lq, lk, lk))
+        do = randn(b, lq, 8, 64, dtype=dtype)
+        out, lse = flash_fwd(q, k, v)
+        delta = flash_delta(out, do)
+        dq, (dk, dv) = flash_bwd_dq(q, k, v, do, lse, delta), flash_bwd_dkv(q, k, v, do, lse, delta)
+        dq_ref = flash_bwd_dq_plain(q, k, v, do, lse, delta)
+        dk_ref, dv_ref = flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        # bf16: p and ds are rounded to bf16 on both sides from f32 values
+        # summed in another order; a rounding that flips moves a gradient by
+        # about one ulp of ds times |k|, which atol (relative to the largest
+        # gradient) covers, up to 1.4e-3 of it on an H100; rtol is one
+        # output ulp. The RMS error read <= 1.2e-4; a dropped 64-row tile
+        # of 1024 moves it by ~6%. f32: summation order only
+        limits = ((4e-3, BF16_RTOL, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-5, 1e-5))
+        read = lambda o, r: compare(o, r, atol=limits[0] * float(r.float().abs().max()),
+                                    rtol=limits[1], rms_rel=limits[2])
+        qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        with torch.cuda.stream(side_stream()):   # the graph's capture stream: see graph_ms
+            side_stream().wait_stream(torch.cuda.current_stream())
+            sdpa_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+        torch.cuda.current_stream().wait_stream(side_stream())
+        sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do.transpose(1, 2),
+                                               retain_graph=True)
+        esz, bh, qkvo = q.element_size(), b * 8, (2 * lq + 2 * lk) * 64
+        shape = (b, lq, lk, 8, 64)
+        record("flash_bwd_dq", shape, dtype, {"dq": read(dq, dq_ref)},
+               lambda: flash_bwd_dq(q, k, v, do, lse, delta),
+               lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta),
+               3 * 2.0 * bh * lq * lk * 64, bh * (esz * (qkvo + lq * 64) + 8 * lq),
+               library=sdpa_bwd)
+        record("flash_bwd_dkv", shape, dtype, {"dk": read(dk, dk_ref), "dv": read(dv, dv_ref)},
+               lambda: flash_bwd_dkv(q, k, v, do, lse, delta),
+               lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta),
+               4 * 2.0 * bh * lq * lk * 64, bh * (esz * (qkvo + 2 * lk * 64) + 8 * lq),
+               library=sdpa_bwd)
+        del q, k, v, do, out, dq, dk, dv, dq_ref, dk_ref, dv_ref, qg, kg, vg, sdpa_out
+
+    for b, hw, c, dtype in GN_CASES:
+        x = randn(b, hw, c, dtype=dtype) * 2.0 + 0.5
         scale = torch.rand(c, generator=gen, device=dev) + 0.5
         bias = randn(c, dtype=torch.float32) * 0.1
-        part = groupnorm_stats(x, 8)
-        ref_part = groupnorm_stats_plain(x, 8, rows_per_block(hw, c))
-        torch.cuda.synchronize()
-        # f32 sums of 1024 elements a group and block, in another order; the
-        # sums are ~500 and the moments ~4000, so one missed row moves them
-        # by 1% or more
-        reading = compare(part, ref_part, atol=1e-3, rtol=1e-5, rms_rel=1e-5)
-        nblk = part.shape[1]
-        esz = x.element_size()
-        record("gn_stats", (2, hw, c), dtype, reading, lambda: groupnorm_stats(x, 8),
-               lambda: groupnorm_stats_plain(x, 8, rows_per_block(hw, c)),
-               3.0 * 2 * hw * c, esz * 2 * hw * c + 4 * 2 * nblk * 2 * 8)
-        mean, rstd = groupnorm_finalize(ref_part, hw, c, 1e-6)
-        out = groupnorm_normalize(x, mean, rstd, scale, bias, True)
-        ref = groupnorm_normalize_plain(x, mean, rstd, scale, bias, True)
-        torch.cuda.synchronize()
-        # the same f32 math up to FMA contraction and expf against torch's
-        # sigmoid: a few f32 ulps, then at most one bf16 rounding apart
+        rows = rows_per_block(hw, c)
+        nblk = -(-hw // rows)
+        esz, n = x.element_size(), b * hw * c
         rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-5
-        reading = compare(out, ref, atol=1e-5, rtol=rtol, rms_rel=1e-3)
-        record("gn_norm", (2, hw, c), dtype, reading,
-               lambda: groupnorm_normalize(x, mean, rstd, scale, bias, True),
-               lambda: groupnorm_normalize_plain(x, mean, rstd, scale, bias, True),
-               8.0 * 2 * hw * c, 2 * esz * 2 * hw * c + 8 * c + 8 * 2 * 8)
-        del x, out, ref
-
-    # GEGLU over the packed [B, L, 2F] projection
-    for rows, f2, dtype in [(4096, 2048, torch.bfloat16), (1024, 4096, torch.bfloat16),
-                            (1024, 4096, torch.float32)]:
-        proj = randn(2, rows, f2, dtype=dtype) * 2.0
-        out, ref = fused_geglu(proj), geglu_plain(proj)
+        ref_part = groupnorm_stats_plain(x, 8, rows)
+        mean, rstd = groupnorm_finalize(ref_part, hw, c, 1e-6)
+        if b == SERVE_BATCH:
+            part = groupnorm_stats(x, 8)
+            torch.cuda.synchronize()
+            # f32 sums of 1024 elements a group and block, in another order; the
+            # sums are ~500 and the moments ~4000, so one missed row moves them
+            # by 1% or more
+            reading = compare(part, ref_part, atol=1e-3, rtol=1e-5, rms_rel=1e-5)
+            record("gn_stats", (b, hw, c), dtype, {"partials": reading},
+                   lambda: groupnorm_stats(x, 8), lambda: groupnorm_stats_plain(x, 8, rows),
+                   3.0 * n, esz * n + 4 * b * nblk * 2 * 8)
+            out = groupnorm_normalize(x, mean, rstd, scale, bias, True)
+            ref = groupnorm_normalize_plain(x, mean, rstd, scale, bias, True)
+            torch.cuda.synchronize()
+            # the same f32 math up to FMA contraction and expf against torch's
+            # sigmoid: a few f32 ulps, then at most one bf16 rounding apart
+            reading = compare(out, ref, atol=1e-5, rtol=rtol, rms_rel=1e-3)
+            record("gn_norm", (b, hw, c), dtype, {"out": reading},
+                   lambda: groupnorm_normalize(x, mean, rstd, scale, bias, True),
+                   lambda: groupnorm_normalize_plain(x, mean, rstd, scale, bias, True),
+                   8.0 * n, 2 * esz * n + 8 * c + 8 * b * 8)
+            del out, ref
+            continue
+        g = randn(b, hw, c, dtype=dtype)
+        gs, cs = groupnorm_bwd_stats(x, g, mean, rstd, scale, bias, True)
+        gs_ref, cs_ref = groupnorm_bwd_stats_plain(x, g, mean, rstd, scale, bias, True, rows)
         torch.cuda.synchronize()
+        # f32 sums of up to 8192 elements a block, in another order: up to
+        # 1.5e-7 of the largest sum per element and 2.4e-7 RMS on an H100
+        read = lambda o, r: compare(o, r, atol=1e-6 * float(r.abs().max()), rtol=1e-5,
+                                    rms_rel=1e-6)
+        record("gn_bwd_stats", (b, hw, c), dtype,
+               {"group_sums": read(gs, gs_ref), "channel_sums": read(cs, cs_ref)},
+               lambda: groupnorm_bwd_stats(x, g, mean, rstd, scale, bias, True),
+               lambda: groupnorm_bwd_stats_plain(x, g, mean, rstd, scale, bias, True, rows),
+               16.0 * n, 2 * esz * n + 8 * b * 8 + 8 * c + 4 * b * nblk * 2 * (8 + c))
+        s, _, _ = groupnorm_bwd_finalize(gs_ref, cs_ref, hw)
+        dx = groupnorm_bwd_dx(x, g, mean, rstd, scale, bias, s, True)
+        dx_ref = groupnorm_bwd_dx_plain(x, g, mean, rstd, scale, bias, s, True)
+        torch.cuda.synchronize()
+        # the same f32 math, at most one output rounding apart
+        record("gn_bwd_dx", (b, hw, c), dtype,
+               {"dx": compare(dx, dx_ref, atol=1e-5, rtol=rtol, rms_rel=1e-3)},
+               lambda: groupnorm_bwd_dx(x, g, mean, rstd, scale, bias, s, True),
+               lambda: groupnorm_bwd_dx_plain(x, g, mean, rstd, scale, bias, s, True),
+               20.0 * n, 3 * esz * n + 16 * b * 8 + 8 * c)
+        del x, g, dx, dx_ref
+
+    for b, rows, f2, dtype in GEGLU_CASES:
+        proj = randn(b, rows, f2, dtype=dtype) * 2.0
+        esz, n = proj.element_size(), b * rows * f2 // 2
         # the same f32 math, tanhf against torch's tanh: a few f32 ulps, then
         # at most one bf16 rounding apart
         rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-5
-        reading = compare(out, ref, atol=1e-5, rtol=rtol, rms_rel=1e-3)
-        esz = proj.element_size()
-        record("geglu", (2, rows, f2), dtype, reading,
-               lambda: fused_geglu(proj), lambda: geglu_plain(proj),
-               12.0 * 2 * rows * f2 // 2, esz * 2 * rows * (f2 + f2 // 2))
-        del proj, out, ref
+        if b == SERVE_BATCH:
+            out, ref = geglu_fwd(proj), geglu_plain(proj)
+            torch.cuda.synchronize()
+            record("geglu", (b, rows, f2), dtype,
+                   {"out": compare(out, ref, atol=1e-5, rtol=rtol, rms_rel=1e-3)},
+                   lambda: geglu_fwd(proj), lambda: geglu_plain(proj), 12.0 * n, esz * 3 * n)
+            del proj, out, ref
+            continue
+        dout = randn(b, rows, f2 // 2, dtype=dtype)
+        out, ref = geglu_bwd(proj, dout), geglu_bwd_plain(proj, dout)
+        torch.cuda.synchronize()
+        # as the forward; dgate's tanh' term reads up to 5.4e-6 from torch's
+        # in f32, so atol is relative to the largest element (~50 here)
+        record("geglu_bwd", (b, rows, f2), dtype,
+               {"dproj": compare(out, ref, atol=1e-6 * float(ref.float().abs().max()), rtol=rtol,
+                                 rms_rel=1e-3)},
+               lambda: geglu_bwd(proj, dout), lambda: geglu_bwd_plain(proj, dout),
+               24.0 * n, esz * 5 * n)
+        del proj, dout, out, ref
     return cases
 
 
@@ -365,9 +509,57 @@ def model_checks(dev, state):
     # early DDIM steps divide by a small signal rate, which amplifies the
     # forward's difference
     check(err_traj <= 1e-2, f"trajectory: error {err_traj} above 1e-2")
+    step = train_step_check(dev, gpu, cpu, rng)
     del models, gpu, cpu
     return {"forward_64_f32_err": err, "forward_64_f32_scale": scale,
-            "ddim3_cfg_32_f32_err": err_traj, "ddim3_clipped_share": saturated}
+            "ddim3_cfg_32_f32_err": err_traj, "ddim3_clipped_share": saturated, **step}
+
+
+def train_step_check(dev, gpu, cpu, rng):
+    """One training step's loss and gradients at 64x64, f32, batch 2, the
+    same weights and draws on the card (kernels) and the CPU (plain
+    versions)."""
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.trainer import TrainStepConfig, make_loss_builder
+
+    arrays = {"sample": rng.standard_normal((2, 64, 64, 3)),
+              "cond": rng.standard_normal((2, TEXT_LEN, TEXT_DIM)),
+              "noise": rng.standard_normal((2, 64, 64, 3)),
+              "t": np.array([91, 655], np.int32), "mask": np.array([False, True])}
+    results = []
+    for where, m in ((dev, gpu), ("cpu", cpu)):
+        a = {k: torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v).to(where)
+             for k, v in arrays.items()}
+        build = make_loss_builder(CosineNoiseSchedule(1000, device=where),
+                                  EpsilonPredictionTransform(), TrainStepConfig(normalize=False),
+                                  null_cond=torch.zeros(1, TEXT_LEN, TEXT_DIM, device=where))
+        loss = build({"sample": a["sample"], "cond": a["cond"]}, a["noise"], a["t"],
+                     a["mask"])(m)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        results.append((float(loss.detach()), [g.cpu() for g in grads]))
+    (loss, grads), (ref_loss, ref_grads) = results
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    gmax = max(float(r.abs().max()) for r in ref_grads)
+    worst, worst_name = 0.0, None
+    for (name, _), g, r in zip(cpu.named_parameters(), grads, ref_grads):
+        if name.endswith("to_k.bias"):
+            # zero by the math (softmax ignores the shift a key bias adds to
+            # every logit of a row): both sides hold f32 rounding
+            check(max(float(g.abs().max()), float(r.abs().max())) <= 1e-6 * gmax,
+                  f"{name}: a key-bias gradient is not ~0")
+            continue
+        rel = max_err(g, r) / max(float(r.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    # f32 with TF32 off; convolutions summed in other orders through ~60
+    # layers and back
+    log(f"  train step 64x64 f32: loss {ref_loss:.6f}, relative error {loss_err:.3g}; worst "
+        f"gradient error {worst:.3g} of its max|g| ({worst_name})")
+    check(loss_err <= 1e-5, f"train step loss: relative error {loss_err} above 1e-5")
+    check(worst <= 1e-3, f"gradient {worst_name}: error {worst} of its max|g| above 1e-3")
+    return {"train_step_64_f32_loss": ref_loss, "train_step_64_f32_loss_rel_err": loss_err,
+            "train_step_64_f32_worst_grad_rel_err": worst, "train_step_64_f32_worst_grad": worst_name}
 
 
 def main_path(dev, state):
@@ -399,7 +591,7 @@ def main_path(dev, state):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    expected = {k: v * (STEPS + 1) for k, v in PER_FORWARD.items()}
+    expected = {k: PER_FORWARD.get(k, 0) * (STEPS + 1) for k in counts}
     log(f"  launches {counts}, expected {expected}")
     check(counts == expected, "every attention, GEGLU and GroupNorm call ran its kernel")
     check(tuple(out.shape) == (1, RESOLUTION, RESOLUTION, 3), f"output shape {tuple(out.shape)}")
@@ -409,6 +601,69 @@ def main_path(dev, state):
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "sample_std": float(out.float().std()), "launches": counts}
     res["breakdown"] = forward_breakdown(model, dev, cond, uncond)
+    return res
+
+
+def training_path(dev):
+    """DiffusionTrainer.train_step on the full-width UNet from the port's own
+    init: 3 warm-up and 20 timed steps over 4 seeded synthetic batches."""
+    from flaxdiff_tpu_torch.models import Unet
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.trainer import AdamW, DiffusionTrainer, TrainerConfig
+
+    torch.manual_seed(0)           # the modules' own initializers
+    trainer = DiffusionTrainer(
+        Unet(**UNET, dtype="bfloat16", device=dev), AdamW(TRAIN_LR), CosineNoiseSchedule(1000),
+        EpsilonPredictionTransform(),
+        TrainerConfig(uncond_prob=0.12, ema_decay=0.999, normalize=False, weighted_loss=True,
+                      gate_nonfinite=True, seed=0),
+        null_cond=torch.zeros(1, TEXT_LEN, TEXT_DIM), device=dev)
+    rng = np.random.default_rng(3)
+    shape = (TRAIN_BATCH, TRAIN_RES, TRAIN_RES, 3)
+    batches = [{"sample": torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev),
+                "cond": torch.from_numpy(rng.standard_normal(
+                    (TRAIN_BATCH, TEXT_LEN, TEXT_DIM)).astype(np.float32)).to(dev)}
+               for _ in range(4)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = [trainer.train_step(batches[i % 4]) for i in range(WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses += [trainer.train_step(batches[i % 4]) for i in range(WARMUP, WARMUP + TIMED)]
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = WARMUP + TIMED
+    expected = {k: steps * {**PER_FORWARD, **PER_BACKWARD}[k] for k in counts}
+    log(f"  launches {counts}, expected {expected}")
+    check(counts == expected, "every forward and backward kernel ran once per call per step")
+    losses = [float(x) for x in losses]
+    log("  losses " + " ".join(f"{x:.5f}" for x in losses))
+    check(all(math.isfinite(x) for x in losses), "every loss finite")
+    last5 = float(np.mean(losses[-5:]))
+    check(last5 < losses[0], f"the loss fell: mean of the last 5 {last5} against {losses[0]}")
+    ms = start.elapsed_time(end) / TIMED
+    res = {"ms_per_step": ms, "images_per_s": TRAIN_BATCH * 1e3 / ms,
+           "wall_ms_per_step": wall * 1e3 / TIMED,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "params": trainer.state.params.numel(), "losses": losses,
+           "mean_last5_loss": last5, "launches": counts}
+    log(f"  {ms:.3f} ms per step (CUDA events over {TIMED} steps), "
+        f"{res['images_per_s']:.1f} images/s, peak {res['peak_mem_gib']:.2f} GiB, "
+        f"{res['params']} params")
+    res["breakdown"] = family_profile(lambda: trainer.train_step(batches[0]), training=True)
+    by_family = res["breakdown"]["ms_by_family"]
+    if by_family:
+        # one stream: the kernels' summed device time is the busy time
+        res["idle_share"] = 1.0 - sum(by_family.values()) / ms
+        log(f"  device busy {sum(by_family.values()):.3f} ms of {ms:.3f} ms per step "
+            f"({res['idle_share']:.0%} idle)")
     return res
 
 
@@ -438,7 +693,7 @@ def forward_breakdown(model, dev, cond, uncond):
     return out
 
 
-def family_profile(call) -> dict:
+def family_profile(call, training: bool = False) -> dict:
     """Device time of one call by kernel family, from torch.profiler. The
     profiler's CUPTI tracing sometimes delivers no device events at all; this
     breakdown only explains the busy time measured above, so it is then
@@ -446,8 +701,8 @@ def family_profile(call) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(3):
-        with torch.inference_mode(), profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mode = contextlib.nullcontext() if training else torch.inference_mode()
+        with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
         events = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
@@ -495,9 +750,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     _build.library()
     log(f"  built {lib.name} in {build_s:.1f} s")
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line.lower():
-            log("  " + line.strip())
+    log_registers((lib.parent / "build.log").read_text())
 
     log("phase 2: kernels against their plain versions")
     cases = kernel_cases(dev, peaks(name))
@@ -514,25 +767,37 @@ def main() -> int:
     log(f"trajectory: DDIM-{STEPS} CFG {GUIDANCE} {RESOLUTION}x{RESOLUTION} batch 1 bf16 "
         f"wall {traj['wall_s']:.3f} s ({traj['ms_per_forward']:.2f} ms per forward), "
         f"peak {traj['peak_mem_gib']:.2f} GiB on {smi}")
+    del state
+    torch.cuda.empty_cache()
 
-    kernels = []
+    log(f"phase 5: DiffusionTrainer.train_step, batch {TRAIN_BATCH} at {TRAIN_RES}x{TRAIN_RES}, "
+        f"bf16, {WARMUP} + {TIMED} steps")
+    train = training_path(dev)
+    log(f"training: batch {TRAIN_BATCH} {TRAIN_RES}x{TRAIN_RES} bf16 {train['ms_per_step']:.3f} "
+        f"ms per step, {train['images_per_s']:.1f} images/s, peak {train['peak_mem_gib']:.2f} "
+        f"GiB on {smi}")
+
+    kernels, summary = [], []
     for kname in REPLACES:
         mine = [c for c in cases if c["name"] == kname]
         head = mine[0]
-        kernels.append({
+        by_path = {"serving": traj["launches"][kname], "training": train["launches"][kname]}
+        kernel = {
             "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": REPLACES[kname], "launches": traj["launches"][kname],
+            "replaces": REPLACES[kname], "launches": by_path["training"],
             "max_abs_err": max(c["max_abs_err"] for c in mine), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shape": head["shape"], "dtype": head["dtype"], "cases": mine})
+            "launches_by_path": by_path, "shape": head["shape"], "dtype": head["dtype"]}
+        summary.append(kernel)
+        kernels.append({**kernel, "cases": mine})
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "kernels": kernels,
-              "model": model_res, "trajectory": traj}
+              "model": model_res, "trajectory": traj, "training": train}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
         with open(args.record, "w") as f:
             json.dump(record, f, indent=1)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -10,14 +10,19 @@ flax's auto-named wrappers plus a re-layout of each leaf:
   GroupNorm/LayerNorm scale, bias      -> weight, bias
 
 The Fourier frequencies are not a flax parameter (the JAX model draws them
-from a fixed key in ``setup``), so the caller passes them.
+from a fixed key in ``setup``), so the caller passes them, or the port's
+table of the same draws fills them (``models/common.py``).
+
+Any tree of the params' structure converts the same way: gradients, and the
+AdamW moments of ``train_state_from_flax``.
 """
 from __future__ import annotations
 
-from typing import Iterator, Mapping, Tuple
+from typing import Any, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 # flax's auto names -> the torch attribute names (None: the level is dropped,
 # its parameters belong to the enclosing torch module)
@@ -57,16 +62,36 @@ def _leaf(parent: str, name: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
     raise ValueError(f"unexpected kernel rank {a.ndim}")
 
 
-def unet_state_dict_from_flax(params: Mapping, fourier_freqs: np.ndarray
+def unet_state_dict_from_flax(params: Mapping, fourier_freqs: Optional[np.ndarray] = None
                               ) -> dict[str, torch.Tensor]:
     """A torch ``Unet`` state dict from the JAX ``Unet``'s params tree
-    (numpy or jax leaves) and its FourierEmbedding frequencies."""
+    (numpy or jax leaves), with its FourierEmbedding frequencies if given."""
     state = {}
     for path, a in _flatten(params):
         mods = [_RENAME.get(m, m) for m in path[:-1]]
         key, w = _leaf(path[-2] if len(path) > 1 else "", path[-1], a)
         state[".".join([m for m in mods if m is not None] + [key])] = \
             torch.from_numpy(np.ascontiguousarray(w))
-    state["time_embed.freqs"] = torch.from_numpy(
-        np.ascontiguousarray(np.asarray(fourier_freqs, dtype=np.float32)))
+    if fourier_freqs is not None:
+        state["time_embed.freqs"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(fourier_freqs, dtype=np.float32)))
+    return state
+
+
+def train_state_from_flax(flax_state: Any, model: nn.Module, tx: Any):
+    """A port ``TrainState`` for ``model`` (a port ``Unet``) from a JAX
+    ``TrainState`` with an ``optax.adamw`` optimizer: params and EMA through
+    ``unet_state_dict_from_flax``, adamw's ``mu``/``nu`` as the moments and
+    its ``count`` as the step. ``tx`` is the port's ``AdamW``."""
+    from .trainer.train_state import TrainState
+
+    adam = [s for s in flax_state.opt_state if hasattr(s, "mu") and hasattr(s, "nu")]
+    if len(adam) != 1:
+        raise ValueError("want an optax adamw state with one mu/nu pair")
+    state = TrainState(model, tx, ema_decay=None if flax_state.ema_params is None else 0.999)
+    for flat, tree in ((state.params, flax_state.params), (state.exp_avg, adam[0].mu),
+                       (state.exp_avg_sq, adam[0].nu), (state.ema, flax_state.ema_params)):
+        if flat is not None:
+            flat.copy_(state.flatten(unet_state_dict_from_flax(tree)))
+    state.step = int(np.asarray(adam[0].count))
     return state

@@ -21,18 +21,13 @@
 //     [B, L, H*D] projection reaches the kernel as a view with no transpose;
 //   * lse is stored as [B*H, Lq] f32 (the TPU's 128-lane replication is gone).
 // wgmma/TMA pipelining is later work; this version is right and simple first.
-#include <mma.h>
-#include <type_traits>
-
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // q rows per block
-constexpr int BN = 64;        // kv rows per tile
-constexpr int NWARPS = 4;     // 16 q rows per warp
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1e30f;
+using namespace flash;
+constexpr int BM = TILE;  // q rows per block
+constexpr int BN = TILE;  // kv rows per tile
 
 struct Params {
   const void* q;
@@ -48,131 +43,23 @@ struct Params {
   float scale;
 };
 
-constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
-
-// Shared-memory layout. Leading dimensions are padded by one 16-byte vector so
-// rows stay 16-byte aligned (and WMMA fragment starts 32-byte aligned) while
-// consecutive rows fall on different banks.
+// Shared-memory layout (leading dimensions from flash_common.cuh).
 template <typename T, int D>
 struct Smem {
-  static constexpr int LD_T = D + vec16<T>();   // q, k, v tiles
-  static constexpr int LD_S = BN + 4;           // f32 scores
-  static constexpr int LD_P = BN + vec16<T>();  // probabilities in T
+  static constexpr int LD_T = ld_tile<T, D>();  // q, k, v tiles
+  static constexpr int LD_P = ld_p<T>();        // probabilities in T
   static constexpr int LD_O = D + 4;            // f32 p v product
   // per-warp scratch: scores of its 16 rows, later reused for their p v
   static constexpr int WARP_SCRATCH = (16 * LD_S > 16 * LD_O ? 16 * LD_S : 16 * LD_O);
-  static constexpr int TILE = align128(BM * LD_T * static_cast<int>(sizeof(T)));
+  static constexpr int TILE_BYTES = align128(BM * LD_T * static_cast<int>(sizeof(T)));
   static constexpr int OFF_Q = 0;
-  static constexpr int OFF_K = OFF_Q + TILE;
-  static constexpr int OFF_V = OFF_K + TILE;
-  static constexpr int OFF_P = OFF_V + TILE;
+  static constexpr int OFF_K = OFF_Q + TILE_BYTES;
+  static constexpr int OFF_V = OFF_K + TILE_BYTES;
+  static constexpr int OFF_P = OFF_V + TILE_BYTES;
   static constexpr int OFF_W = OFF_P + align128(BM * LD_P * static_cast<int>(sizeof(T)));
   static constexpr int OFF_STATS = OFF_W + align128(NWARPS * WARP_SCRATCH * 4);
   static constexpr int BYTES = OFF_STATS + 3 * BM * 4;  // running max, sum, rescale
 };
-
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride_l, int row0,
-                                          int rows_total) {
-  constexpr int V = vec16<T>();
-  constexpr int VPR = D / V;
-  constexpr int LD = Smem<T, D>::LD_T;
-  for (int i = threadIdx.x; i < BM * VPR; i += NTHREADS) {
-    const int r = i / VPR, cv = i - r * VPR;
-    const int row = row0 + r;
-    Vec<T, V> val;
-    if (row < rows_total) {
-      val = load_vec<T, V>(src + row * stride_l + cv * V);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) val.v[e] = from_f32<T>(0.f);
-    }
-    store_vec<T, V>(dst + r * LD + cv * V, val);
-  }
-}
-
-// scores[16 x BN] of this warp's rows = q_rows . k_tile^T on the tensor cores.
-template <typename T, int D>
-__device__ __forceinline__ void scores_mma(const T* sQ, const T* sK, float* sS, int warp) {
-  using namespace nvcuda;
-  constexpr int LD = Smem<T, D>::LD_T;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-    wmma::load_matrix_sync(a, sQ + warp * 16 * LD + kk, LD);
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      // B(k, n) = K[n][k]: the row-major K tile read as a column-major B
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bf;
-      wmma::load_matrix_sync(bf, sK + j * 16 * LD + kk, LD);
-      wmma::mma_sync(acc[j], a, bf, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j)
-    wmma::store_matrix_sync(sS + j * 16, acc[j], Smem<T, D>::LD_S, wmma::mem_row_major);
-}
-
-// pv[16 x D] of this warp's rows = p_rows . v_tile on the tensor cores.
-template <typename T, int D>
-__device__ __forceinline__ void pv_mma(const T* sP, const T* sV, float* sO, int warp) {
-  using namespace nvcuda;
-  constexpr int LD = Smem<T, D>::LD_T;
-  constexpr int LDP = Smem<T, D>::LD_P;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < BN; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-    wmma::load_matrix_sync(a, sP + warp * 16 * LDP + kk, LDP);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bf;
-      wmma::load_matrix_sync(bf, sV + kk * LD + j * 16, LD);
-      wmma::mma_sync(acc[j], a, bf, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(sO + j * 16, acc[j], Smem<T, D>::LD_O, wmma::mem_row_major);
-}
-
-// f32 inputs: the same two products with plain FMAs, in full f32.
-template <int D>
-__device__ __forceinline__ void scores_fma(const float* sQ, const float* sK, float* sS, int warp,
-                                           int lane) {
-  constexpr int LD = Smem<float, D>::LD_T;
-  for (int rr = 0; rr < 16; ++rr) {
-    const float* qrow = sQ + (warp * 16 + rr) * LD;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const float* krow = sK + (lane + 32 * half) * LD;
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) s = fmaf(qrow[d], krow[d], s);
-      sS[rr * Smem<float, D>::LD_S + lane + 32 * half] = s;
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void pv_fma(const float* sP, const float* sV, float* sO, int warp,
-                                       int lane) {
-  constexpr int LD = Smem<float, D>::LD_T;
-  constexpr int LDP = Smem<float, D>::LD_P;
-  for (int e = lane; e < 16 * D; e += 32) {
-    const int rr = e / D, col = e - rr * D;
-    const float* prow = sP + (warp * 16 + rr) * LDP;
-    float s = 0.f;
-#pragma unroll 16
-    for (int j = 0; j < BN; ++j) s = fmaf(prow[j], sV[j * LD + col], s);
-    sO[rr * Smem<float, D>::LD_O + col] = s;
-  }
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -230,17 +117,13 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
     load_tile<T, D>(sV, V, p.v_sl, k0, p.lk);
     __syncthreads();
 
-    if constexpr (std::is_same<T, float>::value) {
-      scores_fma<D>(sQ, sK, sW, warp, lane);
-    } else {
-      scores_mma<T, D>(sQ, sK, sW, warp);
-    }
+    scores<T, D>(sQ + warp * 16 * S::LD_T, sK, sW, lane);
     __syncwarp();
 
     // online softmax over this warp's 16 rows; each lane holds 2 of 64 columns
     for (int rr = 0; rr < 16; ++rr) {
       const int r = warp * 16 + rr;
-      const float* srow = sW + rr * S::LD_S;
+      const float* srow = sW + rr * LD_S;
       float s0 = srow[lane] * p.scale;
       float s1 = srow[lane + 32] * p.scale;
       if (k0 + lane >= p.lk) s0 = NEG_INF;
@@ -263,10 +146,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
     __syncwarp();
 
     // the scores are consumed: the warp's scratch now takes its p v rows
-    if constexpr (std::is_same<T, float>::value) {
-      pv_fma<D>(sP, sV, sW, warp, lane);
-    } else {
-      pv_mma<T, D>(sP, sV, sW, warp);
+    {
+      WarpAcc<T, D> pv;
+      pv.zero();
+      pv.add_product(sP + warp * 16 * S::LD_P, sV, lane);
+      pv.store(sW, S::LD_O, lane);
     }
     __syncwarp();
 

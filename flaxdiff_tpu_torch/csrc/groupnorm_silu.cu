@@ -1,12 +1,16 @@
-// Fused GroupNorm + SiLU forward over channels-last [B, HW, C] activations,
-// in two kernels with a small finalize between them (done by the wrapper).
+// Fused GroupNorm + SiLU over channels-last [B, HW, C] activations: the
+// forward in two kernels and the backward in two, each pair with a small
+// finalize between them (done by the wrapper, in torch).
 //
 // Replaces the TPU kernels `_gn_stats_kernel` (flaxdiff_tpu/ops/fused_norm.py:58,
-// launched at :285) and `_gn_norm_kernel` (:85, launched at :314).
+// launched at :285), `_gn_norm_kernel` (:85, launched at :314),
+// `_gn_bwd_stats_kernel` (:112, launched at :187) and `_gn_bwd_dx_kernel`
+// (:149, launched at :220).
 //
-// Bound on the H100: bytes. The function must read x once for the statistics
-// and once more to normalize, and write the output once; the arithmetic per
-// element is a few flops. The design keeps every load coalesced along C
+// Bound on the H100: bytes. The forward must read x once for the statistics
+// and once more to normalize, and write the output once; the backward reads
+// x and the cotangent for its statistics, again for dx, and writes dx; the
+// arithmetic per element is a few flops to a few tens. The design keeps every load coalesced along C
 // (contiguous in channels-last) with 16-byte vectors, and splits HW into
 // blocks so that B x nblk blocks fill the 132 SMs (B x G = 16 blocks, one per
 // group, would leave most of the card idle).
@@ -20,6 +24,17 @@
 //
 // Pass 2 (gn_norm): a grid-stride elementwise pass computing
 // silu((x - mean) * rstd * scale + bias) in f32 and storing the input dtype.
+//
+// Backward pass 1 (gn_bwd_stats): the grid of gn_stats. From the forward's
+// saved [B, G] mean and rstd, each block recomputes x-hat and dy (the SiLU
+// derivative included) for its rows and writes the channel sums of dy and
+// dy * x-hat, [B, nblk, 2, C] (dbias and dscale after the wrapper sums the
+// blocks), and their group sums weighted by scale, [B, nblk, 2, G], which
+// are the group sums of dxhat = dy * scale and dxhat * x-hat. Sums run in a
+// fixed order. Backward pass 2 (gn_bwd_dx): elementwise,
+// dx = rstd (dxhat - mean(dxhat) - x-hat mean(dxhat x-hat)) with the group
+// means the wrapper finalizes. Both passes recompute through one device
+// function, gn_bwd_dy, as the TPU kernels share `_bwd_dy` (:97-109).
 #include "common.cuh"
 
 // Sums per-thread channel partials (`acc`, VEC channels per thread) into
@@ -126,6 +141,117 @@ gn_norm_kernel(const T* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
+// x-hat and dy of one element from the saved statistics: the one recompute
+// both backward kernels share, so they cannot disagree.
+__device__ __forceinline__ void gn_bwd_dy(float x, float g, float mean, float rstd, float scale,
+                                          float bias, int apply_silu, float& xhat, float& dy) {
+  xhat = (x - mean) * rstd;
+  dy = g;
+  if (apply_silu) {
+    const float y = xhat * scale + bias;
+    const float sig = 1.0f / (1.0f + expf(-y));
+    dy = g * sig * (1.0f + y * (1.0f - sig));
+  }
+}
+
+template <typename T, int VEC>
+__global__ void gn_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                                    const float* __restrict__ mean, const float* __restrict__ rstd,
+                                    const float* __restrict__ scale,
+                                    const float* __restrict__ bias, float* __restrict__ gsums,
+                                    float* __restrict__ csums, int hw, int c, int groups,
+                                    int rows_per_block, int apply_silu) {
+  extern __shared__ float smem[];
+  const int nvec = c / VEC;
+  const int rows_per_iter = blockDim.x / nvec;
+  float* part = smem;                        // [blockDim.x * VEC]
+  float* c_dy = part + blockDim.x * VEC;     // [c]
+  float* c_dyx = c_dy + c;                   // [c]
+
+  const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
+  const int tid = threadIdx.x;
+  const int cv = tid % nvec, r_off = tid / nvec;
+  const int row_begin = blk * rows_per_block;
+  const int row_end = min(row_begin + rows_per_block, hw);
+  const int cg = c / groups;
+  const int64_t base = static_cast<int64_t>(b) * hw * c + cv * VEC;
+
+  float m[VEC], rs[VEC], sc[VEC], bi[VEC], a_dy[VEC], a_dyx[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    const int ch = cv * VEC + k;
+    m[k] = mean[b * groups + ch / cg];
+    rs[k] = rstd[b * groups + ch / cg];
+    sc[k] = scale[ch];
+    bi[k] = bias[ch];
+    a_dy[k] = 0.f;
+    a_dyx[k] = 0.f;
+  }
+  for (int r = row_begin + r_off; r < row_end; r += rows_per_iter) {
+    const Vec<T, VEC> xv = load_vec<T, VEC>(x + base + static_cast<int64_t>(r) * c);
+    const Vec<T, VEC> gv = load_vec<T, VEC>(g + base + static_cast<int64_t>(r) * c);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      float xhat, dy;
+      gn_bwd_dy(to_f32(xv.v[k]), to_f32(gv.v[k]), m[k], rs[k], sc[k], bi[k], apply_silu, xhat,
+                dy);
+      a_dy[k] += dy;
+      a_dyx[k] += dy * xhat;
+    }
+  }
+  reduce_channels<VEC>(a_dy, part, c_dy, c, nvec, rows_per_iter);
+  reduce_channels<VEC>(a_dyx, part, c_dyx, c, nvec, rows_per_iter);
+
+  const int64_t at = static_cast<int64_t>(b) * nblk + blk;
+  float* cs = csums + at * 2 * c;
+  for (int ch = tid; ch < c; ch += blockDim.x) {
+    cs[ch] = c_dy[ch];
+    cs[c + ch] = c_dyx[ch];
+  }
+  if (tid < groups) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int j = 0; j < cg; ++j) {
+      const int ch = tid * cg + j;
+      s1 += scale[ch] * c_dy[ch];
+      s2 += scale[ch] * c_dyx[ch];
+    }
+    float* gs = gsums + at * 2 * groups;
+    gs[tid] = s1;
+    gs[groups + tid] = s2;
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(256)
+gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ mean,
+                 const float* __restrict__ rstd, const float* __restrict__ scale,
+                 const float* __restrict__ bias, const float* __restrict__ s,
+                 T* __restrict__ dx, int64_t hw, int c, int groups, int apply_silu,
+                 int64_t total_vecs) {
+  const int nvec = c / VEC;
+  const int cg = c / groups;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < total_vecs;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t b = i / (hw * nvec);
+    const int c0 = static_cast<int>(i % nvec) * VEC;
+    const Vec<T, VEC> xv = load_vec<T, VEC>(x + i * VEC);
+    const Vec<T, VEC> gv = load_vec<T, VEC>(g + i * VEC);
+    Vec<T, VEC> o;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const int ch = c0 + k;
+      const int grp = ch / cg;
+      const int64_t bg = b * groups + grp;
+      float xhat, dy;
+      gn_bwd_dy(to_f32(xv.v[k]), to_f32(gv.v[k]), mean[bg], rstd[bg], scale[ch], bias[ch],
+                apply_silu, xhat, dy);
+      const float s1 = s[(2 * b) * groups + grp], s2 = s[(2 * b + 1) * groups + grp];
+      o.v[k] = from_f32<T>(rstd[bg] * (dy * scale[ch] - s1 - xhat * s2));
+    }
+    store_vec<T, VEC>(dx + i * VEC, o);
+  }
+}
+
 // Threads per stats block: a whole number of rows of channel vectors.
 static int stats_threads(int nvec) {
   if (nvec > 1024) return 0;
@@ -175,6 +301,57 @@ static int norm_dispatch(const void* x, const float* mean, const float* rstd, co
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int VEC>
+static int launch_bwd_stats(const void* x, const void* g, const float* mean, const float* rstd,
+                            const float* scale, const float* bias, float* gsums, float* csums,
+                            int batch, int hw, int c, int groups, int rows_per_block,
+                            int apply_silu, cudaStream_t stream) {
+  const int nvec = c / VEC;
+  const int threads = stats_threads(nvec);
+  if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int nblk = (hw + rows_per_block - 1) / rows_per_block;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(threads) * VEC + 2 * c);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  gn_bwd_stats_kernel<T, VEC><<<dim3(nblk, batch), threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), mean, rstd, scale, bias, gsums, csums,
+      hw, c, groups, rows_per_block, apply_silu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int bwd_stats_dispatch(const void* x, const void* g, const float* mean, const float* rstd,
+                              const float* scale, const float* bias, float* gsums, float* csums,
+                              int batch, int hw, int c, int groups, int rows_per_block,
+                              int apply_silu, cudaStream_t stream) {
+  constexpr int V = vec16<T>();
+  if (c % V == 0 && aligned16(x) && aligned16(g))
+    return launch_bwd_stats<T, V>(x, g, mean, rstd, scale, bias, gsums, csums, batch, hw, c,
+                                  groups, rows_per_block, apply_silu, stream);
+  return launch_bwd_stats<T, 1>(x, g, mean, rstd, scale, bias, gsums, csums, batch, hw, c, groups,
+                                rows_per_block, apply_silu, stream);
+}
+
+template <typename T>
+static int bwd_dx_dispatch(const void* x, const void* g, const float* mean, const float* rstd,
+                           const float* scale, const float* bias, const float* s, void* dx,
+                           int batch, int hw, int c, int groups, int apply_silu,
+                           cudaStream_t stream) {
+  constexpr int V = vec16<T>();
+  const int threads = 256;
+  const int64_t elems = static_cast<int64_t>(batch) * hw * c;
+  const T* xi = static_cast<const T*>(x);
+  const T* gi = static_cast<const T*>(g);
+  T* o = static_cast<T*>(dx);
+  if (c % V == 0 && aligned16(x) && aligned16(g) && aligned16(dx)) {
+    gn_bwd_dx_kernel<T, V><<<grid_for(elems / V, threads), threads, 0, stream>>>(
+        xi, gi, mean, rstd, scale, bias, s, o, hw, c, groups, apply_silu, elems / V);
+  } else {
+    gn_bwd_dx_kernel<T, 1><<<grid_for(elems, threads), threads, 0, stream>>>(
+        xi, gi, mean, rstd, scale, bias, s, o, hw, c, groups, apply_silu, elems);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int gn_stats(const void* x, float* partial, int batch, int hw, int c, int groups,
                         int rows_per_block, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -199,6 +376,44 @@ extern "C" int gn_norm(const void* x, const float* mean, const float* rstd, cons
                                           apply_silu, s);
     case kFloat16:
       return norm_dispatch<__half>(x, mean, rstd, scale, bias, out, batch, hw, c, groups, apply_silu, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int gn_bwd_stats(const void* x, const void* g, const float* mean, const float* rstd,
+                            const float* scale, const float* bias, float* gsums, float* csums,
+                            int batch, int hw, int c, int groups, int rows_per_block,
+                            int apply_silu, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return bwd_stats_dispatch<float>(x, g, mean, rstd, scale, bias, gsums, csums, batch, hw, c,
+                                       groups, rows_per_block, apply_silu, s);
+    case kBFloat16:
+      return bwd_stats_dispatch<__nv_bfloat16>(x, g, mean, rstd, scale, bias, gsums, csums, batch,
+                                               hw, c, groups, rows_per_block, apply_silu, s);
+    case kFloat16:
+      return bwd_stats_dispatch<__half>(x, g, mean, rstd, scale, bias, gsums, csums, batch, hw, c,
+                                        groups, rows_per_block, apply_silu, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int gn_bwd_dx(const void* x, const void* g, const float* mean, const float* rstd,
+                         const float* scale, const float* bias, const float* s, void* dx,
+                         int batch, int hw, int c, int groups, int apply_silu, int dtype,
+                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return bwd_dx_dispatch<float>(x, g, mean, rstd, scale, bias, s, dx, batch, hw, c, groups,
+                                    apply_silu, st);
+    case kBFloat16:
+      return bwd_dx_dispatch<__nv_bfloat16>(x, g, mean, rstd, scale, bias, s, dx, batch, hw, c,
+                                            groups, apply_silu, st);
+    case kFloat16:
+      return bwd_dx_dispatch<__half>(x, g, mean, rstd, scale, bias, s, dx, batch, hw, c, groups,
+                                     apply_silu, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -10,9 +10,12 @@ the promotion of the input's and the parameters' dtypes (f32).
 """
 from __future__ import annotations
 
+import functools
 import math
+from pathlib import Path
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -90,20 +93,37 @@ class ConvLayer(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+_FOURIER_TABLE = Path(__file__).resolve().parent / "fourier_freqs.npz"
+
+
+@functools.cache
+def fourier_freqs(features: int) -> Optional[np.ndarray]:
+    """The JAX model's frequencies for this embedding width,
+    ``jax.random.normal(PRNGKey(42), (features // 2,)) * 16``, bit for bit,
+    from the table ``scripts/make_fourier_freqs.py`` writes; None for a
+    width the table does not hold. Shared: callers copy it."""
+    with np.load(_FOURIER_TABLE) as table:
+        key = str(features)
+        return table[key] if key in table.files else None
+
+
 class FourierEmbedding(nn.Module):
     """Random-Fourier timestep embedding with a FIXED projection.
 
     The JAX package draws ``freqs`` from ``PRNGKey(42)`` in ``setup`` and does
     not store it as a parameter (flaxdiff_tpu/models/common.py:61-63). Here it
-    is a buffer that ``convert.unet_state_dict_from_flax`` fills from the
-    caller's array; it is never redrawn with torch. Until filled it is NaN,
-    so a model that was never loaded cannot pass for a working one.
+    is a buffer, filled at construction from the committed table of those
+    draws; for a width the table lacks it stays NaN until
+    ``convert.unet_state_dict_from_flax`` fills it, so a model that was never
+    given its frequencies cannot pass for a working one. It is never redrawn
+    with torch.
     """
 
     def __init__(self, features: int, device=None):
         super().__init__()
-        self.register_buffer("freqs", torch.full((features // 2,), float("nan"),
-                                                 device=device))
+        freqs = fourier_freqs(features)
+        self.register_buffer("freqs", torch.full((features // 2,), float("nan"), device=device)
+                             if freqs is None else torch.tensor(freqs, device=device))
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         args = t.float()[:, None] * self.freqs[None, :] * 2 * math.pi

@@ -1,21 +1,31 @@
 """Kernels of the port and their plain PyTorch versions.
 
 Every kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
-plain version for CPU tensors; it counts its launches in ``.launches``.
+plain version for CPU tensors; it counts its launches in ``.launches``. The
+differentiable ops (``flash_attention``, ``fused_groupnorm_silu``,
+``fused_geglu``) are ``torch.autograd.Function``s over those wrappers, whose
+backward runs the backward kernels.
 """
 from __future__ import annotations
 
 from .attention import dot_product_attention
-from .flash_attention import flash_attention
-from .fused_adaln import fused_geglu
-from .fused_norm import fused_groupnorm_silu, groupnorm_normalize, groupnorm_stats
+from .flash_attention import (FlashAttentionFn, flash_attention, flash_bwd_dkv, flash_bwd_dq,
+                              flash_fwd)
+from .fused_adaln import GEGLUFn, fused_geglu, geglu_bwd, geglu_fwd
+from .fused_norm import (GroupNormSiLUFn, fused_groupnorm_silu, groupnorm_bwd_dx,
+                         groupnorm_bwd_stats, groupnorm_normalize, groupnorm_stats)
 
 # kernel name -> the wrapper that launches it
 KERNEL_WRAPPERS = {
-    "flash_fwd": flash_attention,
+    "flash_fwd": flash_fwd,
+    "flash_bwd_dq": flash_bwd_dq,
+    "flash_bwd_dkv": flash_bwd_dkv,
     "gn_stats": groupnorm_stats,
     "gn_norm": groupnorm_normalize,
-    "geglu": fused_geglu,
+    "gn_bwd_stats": groupnorm_bwd_stats,
+    "gn_bwd_dx": groupnorm_bwd_dx,
+    "geglu": geglu_fwd,
+    "geglu_bwd": geglu_bwd,
 }
 
 
@@ -28,6 +38,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["dot_product_attention", "flash_attention", "fused_geglu",
-           "fused_groupnorm_silu", "groupnorm_normalize", "groupnorm_stats",
-           "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts"]
+__all__ = ["dot_product_attention", "flash_attention", "flash_bwd_dkv", "flash_bwd_dq",
+           "flash_fwd", "fused_geglu", "fused_groupnorm_silu", "geglu_bwd", "geglu_fwd",
+           "groupnorm_bwd_dx", "groupnorm_bwd_stats", "groupnorm_normalize",
+           "groupnorm_stats", "FlashAttentionFn", "GEGLUFn",
+           "GroupNormSiLUFn", "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts"]

@@ -34,9 +34,14 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "flash_fwd": [_P] * 5 + [_I64] * 12 + [_I] * 5 + [_F, _I, _P],
+    "flash_bwd_dq": [_P] * 7 + [_I64] * 15 + [_I] * 5 + [_F, _I, _P],
+    "flash_bwd_dkv": [_P] * 8 + [_I64] * 15 + [_I] * 5 + [_F, _I, _P],
     "gn_stats": [_P, _P] + [_I] * 6 + [_P],
     "gn_norm": [_P] * 6 + [_I] * 6 + [_P],
+    "gn_bwd_stats": [_P] * 8 + [_I] * 7 + [_P],
+    "gn_bwd_dx": [_P] * 8 + [_I] * 6 + [_P],
     "geglu_fwd": [_P, _P, _I64, _I, _I, _P],
+    "geglu_bwd": [_P, _P, _P, _I64, _I, _I, _P],
 }
 
 

@@ -1,13 +1,16 @@
-"""Flash-attention forward: the CUDA kernel (``csrc/flash_fwd.cu``) and its
-plain PyTorch version.
+"""Flash attention, forward and backward: the CUDA kernels
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), their plain PyTorch versions,
+and the autograd Function that joins them.
 
-Counterpart of ``flaxdiff_tpu/ops/flash_attention.py`` ``_fwd_impl`` (the
-forward Pallas kernel ``_fwd_kernel``). The backward kernels come with the
-training slice; ``lse`` is already returned for them.
+Counterpart of ``flaxdiff_tpu/ops/flash_attention.py``: ``flash_fwd`` replaces
+the Pallas kernel ``_fwd_kernel``, ``flash_bwd_dq`` replaces ``_bwd_dq_kernel``
+and ``flash_bwd_dkv`` replaces ``_bwd_dkv_kernel``. As in JAX, the backward
+recomputes the probabilities from the forward's logsumexp, and
+delta = rowsum(dO * O) is one torch reduction before the two kernels.
 
 Layout: [B, L, H, D] at the interface, the JAX package's BTNH convention.
-The kernel takes explicit (batch, seq, head) strides, so a [B, L, H*D]
-projection viewed as [B, L, H, D] reaches it without a copy.
+The kernels take explicit (batch, seq, head) strides, so a [B, L, H*D]
+projection viewed as [B, L, H, D] reaches them without a copy.
 """
 from __future__ import annotations
 
@@ -18,29 +21,60 @@ import torch
 
 from . import _build
 
-NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: Optional[float] = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _scale(d: int, scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
+
+
+def _bhld(t: torch.Tensor) -> torch.Tensor:
+    """[B, L, H, D] -> [B, H, L, D] in f32."""
+    return t.float().permute(0, 2, 1, 3)
+
+
+def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, Lq, H, D] in q's dtype, lse [B, H, Lq] f32): the kernel's
     arithmetic on whole rows. Scores and softmax are f32; the unnormalized
     probabilities are rounded to v's dtype before the product with v and
     normalized after it, as the kernel (and the TPU kernel) does."""
-    d = q.shape[-1]
-    scale = 1.0 / math.sqrt(d) if scale is None else scale
-    qf = q.float().permute(0, 2, 1, 3)            # [B, H, Lq, D]
-    kf = k.float().permute(0, 2, 1, 3)
-    vf = v.permute(0, 2, 1, 3)
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    scale = _scale(q.shape[-1], scale)
+    s = torch.matmul(_bhld(q), _bhld(k).transpose(-1, -2)) * scale
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = torch.sum(p, dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.matmul(p.to(v.dtype).float(), vf.float()) * (1.0 / l)
+    out = torch.matmul(p.to(v.dtype).float(), _bhld(v)) * (1.0 / l)
     lse = (m + torch.log(l)).squeeze(-1)
     return out.to(q.dtype).permute(0, 2, 1, 3), lse
+
+
+def _bwd_recompute(q, k, v, do, lse, delta, scale):
+    """(p, ds) [B, H, Lq, Lk] f32 from the saved logsumexp:
+    p = exp(scale q k^T - lse), ds = p (dO v^T - delta) scale, as the TPU
+    kernels compute them (flash_attention.py:153-161)."""
+    s = torch.matmul(_bhld(q), _bhld(k).transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(_bhld(do), _bhld(v).transpose(-1, -2))
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, scale: Optional[float] = None) -> torch.Tensor:
+    """dq = ds k with ds rounded to k's dtype first (flash_attention.py:162);
+    [B, Lq, H, D] in q's dtype."""
+    _, ds = _bwd_recompute(q, k, v, do, lse, delta, _scale(q.shape[-1], scale))
+    dq = torch.matmul(ds.to(k.dtype).float(), _bhld(k))
+    return dq.to(q.dtype).permute(0, 2, 1, 3)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk = ds^T q and dv = p^T dO, with p and ds rounded to the input dtype
+    first (flash_attention.py:197,203); [B, Lk, H, D] in k's and v's dtype."""
+    p, ds = _bwd_recompute(q, k, v, do, lse, delta, _scale(q.shape[-1], scale))
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), _bhld(q))
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), _bhld(do))
+    return dk.to(k.dtype).permute(0, 2, 1, 3), dv.to(v.dtype).permute(0, 2, 1, 3)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -54,44 +88,153 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"dtype mismatch: {q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def _check_cuda(*named: Tuple[str, torch.Tensor]) -> None:
+    """What every flash kernel needs of its [B, L, H, D] operands."""
+    _build.require_cuda(*(t for _, t in named))
+    d = named[0][1].shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    vec = 16 // named[0][1].element_size()
+    for name, t in named:
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: head dim must be contiguous")
+        if any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"{name}: strides and data pointer must be 16-byte aligned")
+
+
+def _strides(t: torch.Tensor):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _check_rows(name: str, t: torch.Tensor, b: int, h: int, lq: int) -> None:
+    if tuple(t.shape) != (b, h, lq) or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name}: want contiguous f32 {(b, h, lq)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel (B1): (out [B, Lq, H, D], lse [B, H, Lq] f32).
+    CUDA tensors launch it, CPU tensors take the plain version."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, scale)
+    _check_cuda(("q", q), ("k", k), ("v", v))
+    b, lq, h, d = q.shape
+    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    err = _build.library().flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        b, h, lq, k.shape[1], d, _scale(d, scale), _build.dtype_code(q),
+        _build.stream_handle(q.device))
+    _build.check(err, "flash_fwd")
+    flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO: want {q.dtype} {tuple(q.shape)}, got {do.dtype} "
+                         f"{tuple(do.shape)}")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale: Optional[float] = None) -> torch.Tensor:
+    """The dq kernel (B2): one block per (64-row q tile, batch*head), looping
+    over the kv tiles. lse and delta are [B, H, Lq] f32."""
+    _check_bwd(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    _check_cuda(("q", q), ("k", k), ("v", v), ("dO", do))
+    b, lq, h, d = q.shape
+    _check_rows("lse", lse, b, h, lq)
+    _check_rows("delta", delta, b, h, lq)
+    _build.require_cuda(q, lse, delta)
+    dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    err = _build.library().flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(),
+        *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dq),
+        b, h, lq, k.shape[1], d, _scale(d, scale), _build.dtype_code(q),
+        _build.stream_handle(q.device))
+    _build.check(err, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel (B3): one block per (64-row kv tile, batch*head),
+    looping over the q tiles. lse and delta are [B, H, Lq] f32."""
+    _check_bwd(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    _check_cuda(("q", q), ("k", k), ("v", v), ("dO", do))
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    _check_rows("lse", lse, b, h, lq)
+    _check_rows("delta", delta, b, h, lq)
+    _build.require_cuda(q, lse, delta)
+    dk = torch.empty((b, lk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, lk, h, d), dtype=v.dtype, device=v.device)
+    err = _build.library().flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dk),
+        b, h, lq, lk, d, _scale(d, scale), _build.dtype_code(q),
+        _build.stream_handle(q.device))
+    _build.check(err, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32 as [B, H, Lq], computed once before the
+    two backward kernels (flash_attention.py:343)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """flash_fwd forward; flash_bwd_dq and flash_bwd_dkv backward, from the
+    saved (q, k, v, out, lse), as ``flash_attention``'s custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = flash_delta(out, do)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None, return_lse: bool = False):
     """softmax(scale * q k^T) v over [B, L, H, D] tensors; with
     ``return_lse`` also the per-row logsumexp [B, H, Lq] (f32).
 
-    CUDA tensors launch the kernel, CPU tensors take the plain version;
-    anything the kernel cannot take raises."""
+    Differentiable through ``FlashAttentionFn``: the forward kernel, and the
+    two backward kernels when autograd asks. CUDA tensors launch the
+    kernels, CPU tensors take the plain versions; anything the kernels
+    cannot take raises."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        out, lse = flash_attention_plain(q, k, v, scale)
-        return (out, lse) if return_lse else out
-    _build.require_cuda(q, k, v)
-    b, lq, h, d = q.shape
-    lk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    code = _build.dtype_code(q)
-    vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}: head dim must be contiguous")
-        if any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name}: strides and data pointer must be 16-byte aligned")
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    err = _build.library().flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-        b, h, lq, lk, d, scale, code, _build.stream_handle(q.device))
-    _build.check(err, "flash_fwd")
-    flash_attention.launches += 1
+    out, lse = FlashAttentionFn.apply(q, k, v, scale)
     return (out, lse) if return_lse else out
-
-
-flash_attention.launches = 0

@@ -26,6 +26,17 @@ class NoiseSchedule:
         """(signal_rate, noise_rate) per sample, shape == t.shape."""
         raise NotImplementedError
 
+    def loss_weights(self, t: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def sample_timesteps(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        """Training-time timesteps, drawn from `generator` on its device."""
+        raise NotImplementedError
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        signal, sigma = self.rates(t)
+        return bcast_right(signal, x0.ndim) * x0 + bcast_right(sigma, x0.ndim) * noise
+
     def to(self, device) -> "NoiseSchedule":
         raise NotImplementedError
 

@@ -39,9 +39,12 @@ def exp_beta_schedule(timesteps: int, beta_start: float = 0.0001,
 class DiscreteNoiseSchedule(NoiseSchedule):
     """VP schedule over alpha-bar tables: signal = sqrt(alpha_bar[t]),
     noise = sqrt(1 - alpha_bar[t]), with t truncated to an integer index
-    (``astype(int32)`` in the JAX package, flaxdiff_tpu/schedulers/discrete.py:95)."""
+    (``astype(int32)`` in the JAX package, flaxdiff_tpu/schedulers/discrete.py:95).
+    Loss weights are P2's (k + SNR)^-gamma (Choi et al. 2022), 1 at the
+    default gamma 0. The DDPM posterior tables come with the DDPM sampler."""
 
-    def __init__(self, betas: np.ndarray, device=None):
+    def __init__(self, betas: np.ndarray, device=None, p2_k: float = 1.0,
+                 p2_gamma: float = 0.0):
         # the 1000/T rescale gives beta >= 1 for tiny T: clamp, as the JAX package does
         betas = np.clip(np.asarray(betas, dtype=np.float64), 1e-8, 0.999)
         super().__init__(len(betas))
@@ -51,6 +54,8 @@ class DiscreteNoiseSchedule(NoiseSchedule):
         self.alphas_cumprod = f32(alphas_cumprod)
         self.sqrt_alphas_cumprod = f32(np.sqrt(alphas_cumprod))
         self.sqrt_one_minus_alphas_cumprod = f32(np.sqrt(1.0 - alphas_cumprod))
+        self.p2_loss_weight_k = p2_k
+        self.p2_loss_weight_gamma = p2_gamma
 
     @property
     def device(self) -> torch.device:
@@ -58,27 +63,39 @@ class DiscreteNoiseSchedule(NoiseSchedule):
 
     def to(self, device) -> "DiscreteNoiseSchedule":
         new = object.__new__(type(self))
-        new.timesteps = self.timesteps
-        for name in ("betas", "alphas_cumprod", "sqrt_alphas_cumprod",
-                     "sqrt_one_minus_alphas_cumprod"):
-            setattr(new, name, getattr(self, name).to(device))
+        new.__dict__.update({k: v.to(device) if isinstance(v, torch.Tensor) else v
+                             for k, v in self.__dict__.items()})
         return new
 
+    def _index(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(torch.int32).clamp(0, self.timesteps - 1).long()
+
     def rates(self, t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        idx = t.to(torch.int32).clamp(0, self.timesteps - 1).long()
+        idx = self._index(t)
         return self.sqrt_alphas_cumprod[idx], self.sqrt_one_minus_alphas_cumprod[idx]
+
+    def loss_weights(self, t: torch.Tensor) -> torch.Tensor:
+        ab = self.alphas_cumprod[self._index(t)]
+        return (self.p2_loss_weight_k + ab / (1.0 - ab)) ** (-self.p2_loss_weight_gamma)
+
+    def sample_timesteps(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        """n integer steps uniform in [0, timesteps), int32 as in JAX."""
+        return torch.randint(0, self.timesteps, (n,), generator=generator,
+                             device=generator.device, dtype=torch.int32)
 
 
 def LinearNoiseSchedule(timesteps: int = 1000, beta_start: float = 0.0001,
-                        beta_end: float = 0.02, device=None) -> DiscreteNoiseSchedule:
-    return DiscreteNoiseSchedule(linear_beta_schedule(timesteps, beta_start, beta_end), device)
+                        beta_end: float = 0.02, device=None, **p2) -> DiscreteNoiseSchedule:
+    return DiscreteNoiseSchedule(linear_beta_schedule(timesteps, beta_start, beta_end),
+                                 device, **p2)
 
 
 def CosineNoiseSchedule(timesteps: int = 1000, s: float = 0.008,
-                        device=None) -> DiscreteNoiseSchedule:
-    return DiscreteNoiseSchedule(cosine_beta_schedule(timesteps, s), device)
+                        device=None, **p2) -> DiscreteNoiseSchedule:
+    return DiscreteNoiseSchedule(cosine_beta_schedule(timesteps, s), device, **p2)
 
 
 def ExpNoiseSchedule(timesteps: int = 1000, beta_start: float = 0.0001,
-                     beta_end: float = 0.02, device=None) -> DiscreteNoiseSchedule:
-    return DiscreteNoiseSchedule(exp_beta_schedule(timesteps, beta_start, beta_end), device)
+                     beta_end: float = 0.02, device=None, **p2) -> DiscreteNoiseSchedule:
+    return DiscreteNoiseSchedule(exp_beta_schedule(timesteps, beta_start, beta_end),
+                                 device, **p2)

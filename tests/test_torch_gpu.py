@@ -8,11 +8,17 @@ JAX, so it also runs where JAX is not installed:
 import pytest
 import torch
 
-from flaxdiff_tpu_torch.ops import (flash_attention, fused_geglu, fused_groupnorm_silu,
+from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, flash_attention, flash_bwd_dkv,
+                                    flash_bwd_dq, flash_fwd, fused_geglu, fused_groupnorm_silu,
+                                    geglu_bwd, groupnorm_bwd_dx, groupnorm_bwd_stats,
                                     groupnorm_normalize, groupnorm_stats, launch_counts,
                                     reset_launch_counts)
-from flaxdiff_tpu_torch.ops.flash_attention import flash_attention_plain
-from flaxdiff_tpu_torch.ops.fused_adaln import geglu_plain
+from flaxdiff_tpu_torch.ops.flash_attention import (flash_bwd_dkv_plain, flash_bwd_dq_plain,
+                                                    flash_delta, flash_fwd_plain)
+from flaxdiff_tpu_torch.ops.fused_adaln import geglu_bwd_plain, geglu_plain
+from flaxdiff_tpu_torch.ops.fused_norm import (groupnorm_bwd_dx_plain, groupnorm_bwd_finalize,
+                                               groupnorm_bwd_stats_plain, groupnorm_finalize,
+                                               groupnorm_stats_plain, rows_per_block)
 
 pytestmark = pytest.mark.gpu
 
@@ -44,7 +50,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, lq, lk, d):
     k = _randn(cuda, 2, lk, 3, d, dtype=dtype, seed=2)
     v = _randn(cuda, 2, lk, 3, d, dtype=dtype, seed=3)
     out, lse = flash_attention(q, k, v, return_lse=True)
-    ref, ref_lse = flash_attention_plain(q, k, v)
+    ref, ref_lse = flash_fwd_plain(q, k, v)
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
@@ -82,14 +88,18 @@ def test_geglu_kernel_matches_plain(cuda, dtype):
 
 
 def test_each_wrapper_counts_its_launches(cuda):
+    """One forward and one backward through each differentiable op: every
+    kernel, forward and backward, launches once."""
     reset_launch_counts()
-    q = _randn(cuda, 1, 64, 2, 64)
-    flash_attention(q, q, q)
-    fused_groupnorm_silu(_randn(cuda, 1, 16, 32), torch.ones(32, device=cuda),
-                         torch.zeros(32, device=cuda), groups=4)
-    fused_geglu(_randn(cuda, 1, 4, 64))
+    q = _randn(cuda, 1, 64, 2, 64).requires_grad_()
+    x = _randn(cuda, 1, 16, 32).requires_grad_()
+    loss = flash_attention(q, q, q).sum()
+    loss = loss + fused_groupnorm_silu(x, torch.ones(32, device=cuda),
+                                       torch.zeros(32, device=cuda), groups=4).sum()
+    loss = loss + fused_geglu(torch.cat([x, x], dim=-1)).sum()
+    loss.backward()
     torch.cuda.synchronize()
-    assert launch_counts() == {"flash_fwd": 1, "gn_stats": 1, "gn_norm": 1, "geglu": 1}
+    assert launch_counts() == {name: 1 for name in KERNEL_WRAPPERS}
 
 
 def test_kernels_raise_on_what_they_cannot_take(cuda):
@@ -132,3 +142,147 @@ def test_tiny_unet_forward_card_matches_cpu(cuda):
         ref = cpu(x, t, c)
         out = gpu(x.to(cuda), t.to(cuda), c.to(cuda)).cpu()
     torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, float(ref.abs().max())), rtol=0)
+
+
+# backward kernels against their plain versions: per element
+# |out - ref| <= atol * max|ref| + rtol |ref|. bf16/f16: rtol is one output
+# ulp; atol covers p and ds rounded to the input dtype on both sides from
+# f32 values summed in another order (a rounding that flips moves a gradient
+# by about one ulp of ds times |k|)
+BWD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (4e-3, 2.0 ** -7),
+           torch.float16: (1e-3, 2.0 ** -10)}
+
+
+def _close(out, ref, dtype):
+    atol, rtol = BWD_TOL[dtype]
+    ref = ref.float()
+    torch.testing.assert_close(out.float(), ref, atol=atol * float(ref.abs().max()), rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("lq,lk,d", [(200, 77, 64), (64, 64, 32), (130, 190, 128)])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, lq, lk, d):
+    q = _randn(cuda, 2, lq, 3, d, dtype=dtype, seed=1)
+    k = _randn(cuda, 2, lk, 3, d, dtype=dtype, seed=2)
+    v = _randn(cuda, 2, lk, 3, d, dtype=dtype, seed=3)
+    do = _randn(cuda, 2, lq, 3, d, dtype=dtype, seed=4)
+    out, lse = flash_fwd(q, k, v)
+    delta = flash_delta(out, do)
+    _close(flash_bwd_dq(q, k, v, do, lse, delta), flash_bwd_dq_plain(q, k, v, do, lse, delta),
+           dtype)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
+    dk_ref, dv_ref = flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+    _close(dk, dk_ref, dtype)
+    _close(dv, dv_ref, dtype)
+
+
+def test_flash_bwd_takes_strided_projection_views(cuda):
+    """q/k/v as views of one [B, L, 3*H*D] projection, as the attention
+    layers pass them: the same gradients as contiguous copies."""
+    proj = _randn(cuda, 2, 100, 3 * 4 * 64, dtype=torch.bfloat16)
+    q, k, v = (t.view(2, 100, 4, 64) for t in proj.split(4 * 64, dim=-1))
+    do = _randn(cuda, 2, 100, 4, 64, dtype=torch.bfloat16, seed=5)
+    out, lse = flash_fwd(q, k, v)
+    delta = flash_delta(out, do)
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    assert torch.equal(flash_bwd_dq(q, k, v, do, lse, delta),
+                       flash_bwd_dq(qc, kc, vc, do, lse, delta))
+    for a, b in zip(flash_bwd_dkv(q, k, v, do, lse, delta),
+                    flash_bwd_dkv(qc, kc, vc, do, lse, delta)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("apply_silu", [True, False])
+@pytest.mark.parametrize("shape,groups", [((2, 300, 128), 8), ((1, 63, 48), 4),
+                                          ((2, 16, 1024), 32)])
+def test_groupnorm_bwd_kernels_match_plain(cuda, dtype, apply_silu, shape, groups):
+    x = _randn(cuda, *shape, dtype=dtype) * 3.0 + 1.0
+    g = _randn(cuda, *shape, dtype=dtype, seed=6)
+    c = shape[-1]
+    w = _randn(cuda, c, seed=4) * 0.1 + 1.0
+    b = _randn(cuda, c, seed=5) * 0.1
+    mean, rstd = groupnorm_finalize(groupnorm_stats(x, groups), shape[1], c, 1e-6)
+    gs, cs = groupnorm_bwd_stats(x, g, mean, rstd, w, b, apply_silu)
+    gs_ref, cs_ref = groupnorm_bwd_stats_plain(x, g, mean, rstd, w, b, apply_silu,
+                                               rows_per_block(shape[1], c))
+    # f32 sums of up to 8192 elements in another order
+    torch.testing.assert_close(gs, gs_ref, atol=1e-5 * float(gs_ref.abs().max()), rtol=1e-5)
+    torch.testing.assert_close(cs, cs_ref, atol=1e-5 * float(cs_ref.abs().max()), rtol=1e-5)
+    s, _, _ = groupnorm_bwd_finalize(gs_ref, cs_ref, shape[1])
+    dx = groupnorm_bwd_dx(x, g, mean, rstd, w, b, s, apply_silu)
+    ref = groupnorm_bwd_dx_plain(x, g, mean, rstd, w, b, s, apply_silu)
+    # the same f32 math, at most one output rounding apart
+    torch.testing.assert_close(dx.float(), ref.float(), atol=1e-5, rtol=TOL[dtype][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_geglu_bwd_kernel_matches_plain(cuda, dtype):
+    for shape in [(2, 50, 256), (3, 7, 2 * 13)]:   # 16-byte and scalar paths
+        p = _randn(cuda, *shape, dtype=dtype) * 2.0
+        d = _randn(cuda, *shape[:-1], shape[-1] // 2, dtype=dtype, seed=7)
+        torch.testing.assert_close(geglu_bwd(p, d).float(), geglu_bwd_plain(p, d).float(),
+                                   atol=1e-5, rtol=TOL[dtype][1])
+
+
+def test_autograd_through_the_kernels_matches_cpu(cuda):
+    """Gradients of a small composition of the three differentiable ops, f32,
+    card (kernels) against CPU (plain versions)."""
+    def run(dev):
+        gen = torch.Generator().manual_seed(3)
+        x = torch.randn(2, 40, 64, generator=gen).to(dev).requires_grad_()
+        w = (torch.rand(64, generator=gen) + 0.5).to(dev).requires_grad_()
+        b = (0.1 * torch.randn(64, generator=gen)).to(dev).requires_grad_()
+        ctx = torch.randn(2, 77, 64, generator=gen).to(dev).requires_grad_()
+        h = fused_groupnorm_silu(x, w, b, groups=8)
+        h = flash_attention(h.view(2, 40, 2, 32), ctx.view(2, 77, 2, 32),
+                            ctx.view(2, 77, 2, 32)).reshape(2, 40, 64)
+        loss = (fused_geglu(torch.cat([h, x], dim=-1)) ** 2).sum()
+        return torch.autograd.grad(loss, (x, w, b, ctx))
+
+    for out, ref in zip(run(cuda), run("cpu")):
+        torch.testing.assert_close(out.cpu(), ref, atol=1e-4 * float(ref.abs().max()), rtol=1e-4)
+
+
+def test_tiny_unet_train_step_card_matches_cpu(cuda):
+    """Loss and every gradient of one train step, f32, same weights and
+    draws on both sides."""
+    import numpy as np
+    from flaxdiff_tpu_torch.models import Unet
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.trainer import TrainStepConfig, make_loss_builder
+
+    cfg = dict(output_channels=3, emb_features=32, feature_depths=(32, 64),
+               attention_configs=(None, {"heads": 2, "dim_head": 32}), num_res_blocks=1,
+               norm_groups=8, context_dim=24)
+    rng = np.random.default_rng(0)
+    arrays = dict(sample=rng.standard_normal((2, 16, 16, 3)), cond=rng.standard_normal((2, 77, 24)),
+                  noise=rng.standard_normal((2, 16, 16, 3)))
+    t = torch.tensor([3, 700], dtype=torch.int32)
+    mask = torch.tensor([False, True])
+    cpu = Unet(**cfg, device="cpu")
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn_like(p) * 0.2 if p.ndim < 2 else torch.randn_like(p) / p[0].numel() ** 0.5)
+    gpu = Unet(**cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    results = []
+    for model, dev in ((gpu, cuda), (cpu, "cpu")):
+        a = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in arrays.items()}
+        build = make_loss_builder(CosineNoiseSchedule(1000, device=dev),
+                                  EpsilonPredictionTransform(), TrainStepConfig(normalize=False),
+                                  null_cond=torch.zeros(1, 77, 24, device=dev))
+        loss = build({"sample": a["sample"], "cond": a["cond"]}, a["noise"], t.to(dev),
+                     mask.to(dev))(model)
+        results.append((loss, torch.autograd.grad(loss, list(model.parameters()))))
+    (loss, grads), (ref_loss, ref_grads) = results
+    torch.testing.assert_close(loss.cpu(), ref_loss, atol=0, rtol=1e-5)
+    gmax = max(float(r.abs().max()) for r in ref_grads)
+    for (name, _), g, r in zip(cpu.named_parameters(), grads, ref_grads):
+        if name.endswith("to_k.bias"):
+            # zero by the math (softmax ignores the shift a key bias adds to
+            # every logit of a row): both sides hold f32 rounding
+            assert max(float(g.abs().max()), float(r.abs().max())) <= 1e-6 * gmax, name
+            continue
+        torch.testing.assert_close(g.cpu(), r, atol=1e-4 * float(r.abs().max()), rtol=0)

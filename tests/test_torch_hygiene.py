@@ -62,6 +62,13 @@ def test_entry_points_default_to_cuda():
         DiffusionSampler(lambda x, t, c: x, CosineNoiseSchedule(10),
                          EpsilonPredictionTransform(), DDIMSampler())
     assert Unet(feature_depths=(8,), norm_groups=2, device="cpu") is not None
+    from flaxdiff_tpu_torch.trainer import AdamW, DiffusionTrainer
+    model = Unet(feature_depths=(8,), norm_groups=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DiffusionTrainer(model, AdamW(1e-4), CosineNoiseSchedule(10),
+                         EpsilonPredictionTransform())
+    assert DiffusionTrainer(model, AdamW(1e-4), CosineNoiseSchedule(10),
+                            EpsilonPredictionTransform(), device="cpu") is not None
 
 
 def test_cuda_tensors_never_take_the_plain_path():
@@ -76,3 +83,57 @@ def test_cuda_tensors_never_take_the_plain_path():
         fused_geglu(meta(1, 8, 16))
     with pytest.raises(ValueError, match="CUDA"):
         fused_groupnorm_silu(meta(1, 8, 16), meta(16), meta(16), groups=4)
+
+
+def test_backward_kernels_never_take_the_plain_path():
+    """The backward wrappers follow the same rule: a tensor not on the CPU
+    goes to the kernel or raises."""
+    from flaxdiff_tpu_torch.ops import (flash_bwd_dkv, flash_bwd_dq, geglu_bwd,
+                                        groupnorm_bwd_dx, groupnorm_bwd_stats)
+    meta = lambda *s: torch.empty(*s, device="meta")
+    q, rows = meta(1, 8, 2, 64), meta(1, 2, 8)
+    for fn in (flash_bwd_dq, flash_bwd_dkv):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, q, q, q, rows, rows)
+    x, stats, c = meta(1, 8, 16), meta(1, 4), meta(16)
+    with pytest.raises(ValueError, match="CUDA"):
+        groupnorm_bwd_stats(x, x, stats, stats, c, c, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        groupnorm_bwd_dx(x, x, stats, stats, c, c, meta(1, 2, 4), True)
+    with pytest.raises(ValueError, match="CUDA"):
+        geglu_bwd(meta(1, 8, 16), meta(1, 8, 8))
+
+
+def _cpu_inputs(name):
+    """CPU inputs that require grad, at a small size, for each forward kernel."""
+    gen = torch.Generator().manual_seed(0)
+    leaf = lambda *s: torch.randn(*s, generator=gen).requires_grad_()
+    if name == "flash_fwd":
+        return (leaf(1, 8, 2, 32), leaf(1, 5, 2, 32), leaf(1, 5, 2, 32)), {}
+    if name == "geglu":
+        return (leaf(1, 8, 16),), {}
+    return (leaf(1, 8, 16), leaf(16), leaf(16)), {"groups": 4}
+
+
+def test_differentiable_ops_record_their_function():
+    """Every forward kernel with a backward, reached through its
+    differentiable op on CPU inputs that require grad, records the port's
+    autograd Function: the gradient takes the explicit backward (the plain
+    versions here, the backward kernels on the card), never autograd of the
+    plain forward, and nothing cuts the graph."""
+    from flaxdiff_tpu_torch import ops
+    # forward kernel -> (the differentiable op that launches it, the Function
+    # whose backward runs the backward kernels)
+    differentiable = {
+        "flash_fwd": (ops.flash_attention, ops.FlashAttentionFn),
+        "gn_stats": (ops.fused_groupnorm_silu, ops.GroupNormSiLUFn),
+        "gn_norm": (ops.fused_groupnorm_silu, ops.GroupNormSiLUFn),
+        "geglu": (ops.fused_geglu, ops.GEGLUFn),
+    }
+    assert set(differentiable) == {k for k in ops.KERNEL_WRAPPERS if "bwd" not in k}
+    for name, (op, function) in differentiable.items():
+        args, kwargs = _cpu_inputs(name)
+        out = op(*args, **kwargs)
+        assert isinstance(out.grad_fn, function._backward_cls), (name, out.grad_fn)
+        grads = torch.autograd.grad(out.sum(), args)
+        assert all(g is not None and torch.isfinite(g).all() for g in grads), name

@@ -15,9 +15,9 @@ from flaxdiff_tpu.ops.flash_attention import _fwd_impl
 from flaxdiff_tpu.ops.fused_adaln import fused_geglu as jax_geglu
 from flaxdiff_tpu.ops.fused_norm import fused_groupnorm_silu as jax_gn
 
-from flaxdiff_tpu_torch.ops import (dot_product_attention, flash_attention, fused_geglu,
-                                    fused_groupnorm_silu, groupnorm_normalize, groupnorm_stats,
-                                    launch_counts, reset_launch_counts)
+from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, dot_product_attention, flash_attention,
+                                    fused_geglu, fused_groupnorm_silu, groupnorm_normalize,
+                                    groupnorm_stats, launch_counts, reset_launch_counts)
 
 # f32 on both sides: the two differ only in summation order and in the
 # libraries' exp/tanh/rsqrt, a few ulps each, far below 1e-5 at these sizes
@@ -126,13 +126,15 @@ def test_geglu_plain_matches_pallas_kernel(shape):
 
 
 def test_plain_paths_do_not_count_launches():
+    """Forward and backward on CPU tensors run the plain versions only."""
     reset_launch_counts()
-    x = torch.randn(1, 16, 32)
-    fused_groupnorm_silu(x, torch.ones(32), torch.zeros(32), groups=4)
-    fused_geglu(torch.randn(1, 4, 8))
-    q = torch.randn(1, 8, 2, 32)
-    flash_attention(q, q, q)
-    assert launch_counts() == {"flash_fwd": 0, "gn_stats": 0, "gn_norm": 0, "geglu": 0}
+    x = torch.randn(1, 16, 32, requires_grad=True)
+    out = fused_groupnorm_silu(x, torch.ones(32), torch.zeros(32), groups=4)
+    out = out + fused_geglu(torch.cat([x, x], dim=-1))
+    q = out.view(1, 16, 1, 32)
+    flash_attention(q, q, q).sum().backward()
+    assert x.grad is not None
+    assert launch_counts() == {name: 0 for name in KERNEL_WRAPPERS}
 
 
 def test_wrappers_reject_what_the_kernels_cannot_take():
