@@ -6,13 +6,14 @@
 Phases; any failure exits non-zero and prints no result line.
   1. Print the card's name and power limit; build the CUDA kernels from
      flaxdiff_tpu_torch/csrc with nvcc for sm_90a.
-  2. Hold each of the nine kernels against its plain PyTorch version on the
-     card: the forward kernels at the serving path's shapes, the backward
-     kernels at the training path's (bf16, plus one f32 case each with TF32
-     off). Time kernel, plain version and, for attention, torch's
-     scaled_dot_product_attention forward and backward (a yardstick the port
-     never calls) by their device time (CUDA graph replays timed by CUDA
-     events), beside the byte/flop bound.
+  2. Hold each of the thirteen kernels against its plain PyTorch version on
+     the card: the forward kernels at the serving paths' shapes, the backward
+     kernels at the training paths' (bf16, plus one f32 case each with TF32
+     off, and a ragged case for the AdaLN kernels). Time kernel, plain
+     version and, where one PyTorch call computes the same function (torch's
+     scaled_dot_product_attention forward and backward, torch.addcmul; a
+     yardstick the port never calls), that call, by their device time (CUDA
+     graph replays timed by CUDA events), beside the byte/flop bound.
   3. The full-width UNet at 64x64 in f32, on the card (kernels) and on the
      CPU (plain versions), with the same random weights: a forward, a short
      DDIM + CFG trajectory, and one training step's loss and gradients with
@@ -27,6 +28,16 @@ Phases; any failure exits non-zero and prints no result line.
      20 timed steps. Every loss must be finite, the mean of the last 5 below
      the first, and the launch counters, zeroed just before, must show every
      forward and backward kernel launched once per call per step.
+  3b. The full-width DiT-B/2 on the 32x32x4 latent in f32, card against CPU
+     with the same random weights: a forward, a short DDIM + CFG trajectory
+     and one training step's loss and gradients.
+  6. DiT serving: DDIM-50 with CFG 3.0, the linear schedule, batch 4 (8 rows
+     a call) of 32x32x4 latents, bf16, with a 77x768 text context; the
+     launch counters must show 51 calls of 24 LayerNorm + modulate, 24 gated
+     residual and 12 attention launches.
+  7. DiT training: DiffusionTrainer.train_step, batch 32, bf16 over f32
+     params, AdamW 1e-4, EMA 0.999, 3 warm-up and 20 timed steps, with the
+     same checks as phase 5.
 The lines before the last are the kernels' JSON record and the card's
 name and power limit; the last is {"ok": true, "device": {...}}. With
 --record, the full record (every case, the model checks, both paths and
@@ -66,17 +77,36 @@ PER_BACKWARD = {"flash_bwd_dq": 9, "flash_bwd_dkv": 9, "gn_bwd_stats": 38, "gn_b
 TRAIN_BATCH, TRAIN_RES, TRAIN_LR, WARMUP, TIMED = 16, 128, 1e-4, 3, 20
 SERVE_BATCH = 2   # one CFG call of the serving path
 
+# DiT-B/2 (Peebles & Xie 2023, facebookresearch/DiT models.py DiT_B_2): depth
+# 12, hidden 768, 12 heads of 64, patch 2, MLP ratio 4, on the 32x32x4 latent
+# of a 256x256 image through the SD VAE (random weights, no VAE), with the
+# 77x768 text context
+DIT = dict(output_channels=4, patch_size=2, emb_features=768, num_layers=12, num_heads=12,
+           mlp_ratio=4, in_channels=4, context_dim=TEXT_DIM)
+DIT_RES, DIT_CH, DIT_TOKENS, DIT_WIDTH, DIT_HEADS = 32, 4, 256, 768, 12
+DIT_SERVE_BATCH, DIT_TRAIN_BATCH = 4, 32   # 8 rows a CFG call
+# launches of one DiT forward: two LayerNorm + modulate, two gated residuals
+# and one attention a block; one backward launches each backward kernel as often
+DIT_PER_FORWARD = {"ln_mod": 24, "gate_res": 24, "flash_fwd": 12}
+DIT_PER_BACKWARD = {"ln_mod_bwd": 24, "gate_res_bwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+
 # phase 2's cases: the forward kernels at the serving path's shapes (batch
 # SERVE_BATCH), the backward kernels at the training path's (batch
 # TRAIN_BATCH); bf16 plus one f32 case each (TF32 off)
 BF16, F32 = torch.bfloat16, torch.float32
-# flash (lq, lk, dtype), 8 heads x 64: self at 64^2 and 32^2 tokens, cross to the text
-FLASH_FWD_CASES = [(4096, 4096, BF16), (4096, TEXT_LEN, BF16), (1024, 1024, BF16),
-                   (1024, TEXT_LEN, BF16), (1024, 1024, F32)]
-# flash backward (batch, lq, lk, dtype): self at 32^2 and 16^2 tokens, cross to the text
-FLASH_BWD_CASES = [(TRAIN_BATCH, 1024, 1024, BF16), (TRAIN_BATCH, 1024, TEXT_LEN, BF16),
-                   (TRAIN_BATCH, 256, 256, BF16), (TRAIN_BATCH, 256, TEXT_LEN, BF16),
-                   (2, 1024, 1024, F32)]
+# flash (batch, lq, lk, heads, dtype), heads of 64: the UNet's self at 64^2
+# and 32^2 tokens and cross to the text (8 heads), then the DiT's self over
+# 256 tokens (12 heads)
+FLASH_FWD_CASES = [(SERVE_BATCH, 4096, 4096, 8, BF16), (SERVE_BATCH, 4096, TEXT_LEN, 8, BF16),
+                   (SERVE_BATCH, 1024, 1024, 8, BF16), (SERVE_BATCH, 1024, TEXT_LEN, 8, BF16),
+                   (SERVE_BATCH, 1024, 1024, 8, F32),
+                   (2 * DIT_SERVE_BATCH, DIT_TOKENS, DIT_TOKENS, DIT_HEADS, BF16)]
+# flash backward: the UNet's self at 32^2 and 16^2 tokens and cross to the
+# text, then the DiT's self at its training batch
+FLASH_BWD_CASES = [(TRAIN_BATCH, 1024, 1024, 8, BF16), (TRAIN_BATCH, 1024, TEXT_LEN, 8, BF16),
+                   (TRAIN_BATCH, 256, 256, 8, BF16), (TRAIN_BATCH, 256, TEXT_LEN, 8, BF16),
+                   (2, 1024, 1024, 8, F32),
+                   (DIT_TRAIN_BATCH, DIT_TOKENS, DIT_TOKENS, DIT_HEADS, BF16)]
 # GroupNorm (batch, HW, C, dtype), 8 groups: forward cases at SERVE_BATCH
 GN_CASES = [(SERVE_BATCH, 256 * 256, 64, BF16), (SERVE_BATCH, 64 * 64, 256, BF16),
             (SERVE_BATCH, 32 * 32, 1024, BF16), (SERVE_BATCH, 64 * 64, 256, F32),
@@ -86,6 +116,18 @@ GN_CASES = [(SERVE_BATCH, 256 * 256, 64, BF16), (SERVE_BATCH, 64 * 64, 256, BF16
 GEGLU_CASES = [(SERVE_BATCH, 4096, 2048, BF16), (SERVE_BATCH, 1024, 4096, BF16),
                (SERVE_BATCH, 1024, 4096, F32), (TRAIN_BATCH, 1024, 2048, BF16),
                (TRAIN_BATCH, 256, 4096, BF16), (TRAIN_BATCH, 256, 4096, F32)]
+# the AdaLN kernels (batch, L, C, dtype, views): DiT-B at its serving batch
+# (one CFG call) and its training batch, one f32 case, and a ragged L = 77
+_SB, _TB = 2 * DIT_SERVE_BATCH, DIT_TRAIN_BATCH
+LN_MOD_CASES = [(_SB, DIT_TOKENS, DIT_WIDTH, BF16, 1), (_SB, DIT_TOKENS, DIT_WIDTH, BF16, 2),
+                (_TB, DIT_TOKENS, DIT_WIDTH, BF16, 1), (_TB, DIT_TOKENS, DIT_WIDTH, BF16, 2),
+                (_SB, DIT_TOKENS, DIT_WIDTH, F32, 1), (3, TEXT_LEN, DIT_WIDTH, BF16, 2)]
+LN_MOD_BWD_CASES = [(_TB, DIT_TOKENS, DIT_WIDTH, BF16, 1), (_TB, DIT_TOKENS, DIT_WIDTH, BF16, 2),
+                    (_SB, DIT_TOKENS, DIT_WIDTH, F32, 2), (3, TEXT_LEN, DIT_WIDTH, BF16, 2)]
+GATE_RES_CASES = [(_SB, DIT_TOKENS, DIT_WIDTH, BF16), (_TB, DIT_TOKENS, DIT_WIDTH, BF16),
+                  (_SB, DIT_TOKENS, DIT_WIDTH, F32), (3, TEXT_LEN, DIT_WIDTH, BF16)]
+GATE_RES_BWD_CASES = [(_TB, DIT_TOKENS, DIT_WIDTH, BF16), (_SB, DIT_TOKENS, DIT_WIDTH, F32),
+                      (3, TEXT_LEN, DIT_WIDTH, BF16)]
 
 REPLACES = {
     "flash_fwd": "flaxdiff_tpu/ops/flash_attention.py:78",
@@ -97,9 +139,14 @@ REPLACES = {
     "gn_bwd_dx": "flaxdiff_tpu/ops/fused_norm.py:149",
     "geglu": "flaxdiff_tpu/ops/fused_adaln.py:500",
     "geglu_bwd": "flaxdiff_tpu/ops/fused_adaln.py:506",
+    "ln_mod": "flaxdiff_tpu/ops/fused_adaln.py:138",
+    "ln_mod_bwd": "flaxdiff_tpu/ops/fused_adaln.py:161",
+    "gate_res": "flaxdiff_tpu/ops/fused_adaln.py:380",
+    "gate_res_bwd": "flaxdiff_tpu/ops/fused_adaln.py:386",
 }
 # the __global__ functions each wrapper launches, as the profiler names them
 KERNEL_SYMBOLS = {name: name + "_kernel" for name in REPLACES}
+KERNEL_SYMBOLS.update(ln_mod="ln_mod_fwd_kernel", gate_res="gate_res_fwd_kernel")
 SOURCES = {
     "flash_fwd": "flaxdiff_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_dq": "flaxdiff_tpu_torch/csrc/flash_bwd.cu",
@@ -110,6 +157,10 @@ SOURCES = {
     "gn_bwd_dx": "flaxdiff_tpu_torch/csrc/groupnorm_silu.cu",
     "geglu": "flaxdiff_tpu_torch/csrc/geglu.cu",
     "geglu_bwd": "flaxdiff_tpu_torch/csrc/geglu.cu",
+    "ln_mod": "flaxdiff_tpu_torch/csrc/adaln.cu",
+    "ln_mod_bwd": "flaxdiff_tpu_torch/csrc/adaln.cu",
+    "gate_res": "flaxdiff_tpu_torch/csrc/adaln.cu",
+    "gate_res_bwd": "flaxdiff_tpu_torch/csrc/adaln.cu",
 }
 
 # (dense bf16 flop/s, f32 flop/s outside the tensor cores, bytes/s), NVIDIA's
@@ -289,8 +340,8 @@ def kernel_cases(dev, peak):
             + (f", library {library_ms:.4f} ms" if library_ms is not None else ""))
         cases.append(case)
 
-    for lq, lk, dtype in FLASH_FWD_CASES:
-        q, k, v = (randn(SERVE_BATCH, n, 8, 64, dtype=dtype) for n in (lq, lk, lk))
+    for b, lq, lk, heads, dtype in FLASH_FWD_CASES:
+        q, k, v = (randn(b, n, heads, 64, dtype=dtype) for n in (lq, lk, lk))
         out, lse = flash_fwd(q, k, v)
         ref, ref_lse = flash_fwd_plain(q, k, v)
         torch.cuda.synchronize()
@@ -307,16 +358,16 @@ def kernel_cases(dev, peak):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
         esz = q.element_size()
-        bh = SERVE_BATCH * 8
-        record("flash_fwd", (SERVE_BATCH, lq, lk, 8, 64), dtype, {"out": reading},
+        bh = b * heads
+        record("flash_fwd", (b, lq, lk, heads, 64), dtype, {"out": reading},
                lambda: flash_fwd(q, k, v), lambda: flash_fwd_plain(q, k, v),
                4.0 * bh * lq * lk * 64, bh * (esz * 64 * (2 * lq + 2 * lk) + 4 * lq),
                library=sdpa)
         del q, k, v, out, ref
 
-    for b, lq, lk, dtype in FLASH_BWD_CASES:
-        q, k, v = (randn(b, n, 8, 64, dtype=dtype) for n in (lq, lk, lk))
-        do = randn(b, lq, 8, 64, dtype=dtype)
+    for b, lq, lk, heads, dtype in FLASH_BWD_CASES:
+        q, k, v = (randn(b, n, heads, 64, dtype=dtype) for n in (lq, lk, lk))
+        do = randn(b, lq, heads, 64, dtype=dtype)
         out, lse = flash_fwd(q, k, v)
         delta = flash_delta(out, do)
         dq, (dk, dv) = flash_bwd_dq(q, k, v, do, lse, delta), flash_bwd_dkv(q, k, v, do, lse, delta)
@@ -339,8 +390,8 @@ def kernel_cases(dev, peak):
         torch.cuda.current_stream().wait_stream(side_stream())
         sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do.transpose(1, 2),
                                                retain_graph=True)
-        esz, bh, qkvo = q.element_size(), b * 8, (2 * lq + 2 * lk) * 64
-        shape = (b, lq, lk, 8, 64)
+        esz, bh, qkvo = q.element_size(), b * heads, (2 * lq + 2 * lk) * 64
+        shape = (b, lq, lk, heads, 64)
         record("flash_bwd_dq", shape, dtype, {"dq": read(dq, dq_ref)},
                lambda: flash_bwd_dq(q, k, v, do, lse, delta),
                lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta),
@@ -435,7 +486,100 @@ def kernel_cases(dev, peak):
                lambda: geglu_bwd(proj, dout), lambda: geglu_bwd_plain(proj, dout),
                24.0 * n, esz * 5 * n)
         del proj, dout, out, ref
+    adaln_cases(randn, gen, record)
     return cases
+
+
+def adaln_cases(randn, gen, record):
+    """B10-B13 against their plain versions at the DiT's shapes. Modulators
+    and gates are [B, 1, C] chunks of a packed [B, 1, 6C] projection, as the
+    DiT passes them."""
+    from flaxdiff_tpu_torch.ops import (gate_residual_bwd, gate_residual_fwd, ln_modulate_bwd,
+                                        ln_modulate_fwd)
+    from flaxdiff_tpu_torch.ops.fused_adaln import (ADALN_ROWS, gate_residual_bwd_plain,
+                                                    gate_residual_plain, ln_modulate_bwd_plain,
+                                                    ln_modulate_plain)
+
+    def tokens(b, l, c, dtype):
+        return randn(b, l, c, dtype=dtype) * 2.0 + 0.5
+
+    def chunks(b, c, dtype, n):
+        return (randn(b, 1, 6 * c, dtype=dtype) * 0.5).chunk(6, dim=-1)[:n]
+
+    # views: the same f32 math after row sums taken in another order, a few
+    # f32 ulps of the largest view (read <= 3.4e-8 of it, RMS <= 7.3e-8 on an
+    # H100); mean and rstd likewise (0; 7.3e-8)
+    f32_read = lambda o, r: compare(o, r, atol=1e-6 * float(r.abs().max()), rtol=1e-5,
+                                    rms_rel=1e-6)
+    for b, l, c, dtype, nv in LN_MOD_CASES:
+        x = tokens(b, l, c, dtype)
+        mods = chunks(b, c, dtype, 2 * nv)
+        pairs = tuple(zip(mods[0::2], mods[1::2]))
+        views, mean, rstd = ln_modulate_fwd(x, pairs, 1e-5)
+        ref_views, ref_mean, ref_rstd = ln_modulate_plain(x, pairs, 1e-5)
+        torch.cuda.synchronize()
+        readings = {f"view{i}": f32_read(o, r) for i, (o, r) in enumerate(zip(views, ref_views))}
+        readings.update(mean=f32_read(mean, ref_mean), rstd=f32_read(rstd, ref_rstd))
+        esz, n = x.element_size(), b * l * c
+        record("ln_mod", (b, l, c, nv), dtype, readings,
+               lambda: ln_modulate_fwd(x, pairs, 1e-5), lambda: ln_modulate_plain(x, pairs, 1e-5),
+               (5.0 + 3.0 * nv) * n, esz * n + esz * 2 * nv * b * c + 4 * nv * n + 8 * b * l)
+        del x, views, ref_views
+
+    for b, l, c, dtype, nv in LN_MOD_BWD_CASES:
+        x = tokens(b, l, c, dtype)
+        scales = chunks(b, c, dtype, nv)
+        gs = [randn(b, l, c, dtype=torch.float32) for _ in range(nv)]
+        _, mean, rstd = ln_modulate_plain(x, [(s, s) for s in scales], 1e-5)
+        dx, part = ln_modulate_bwd(x, scales, mean, rstd, gs)
+        dx_ref, part_ref = ln_modulate_bwd_plain(x, scales, mean, rstd, gs)
+        torch.cuda.synchronize()
+        rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-5
+        # dx: the same f32 math, at most one output rounding apart (bf16 RMS
+        # read <= 1.2e-5, f32 <= 4.3e-8); the partials: f32 sums of ADALN_ROWS
+        # rows in another order (<= 6e-8 of the largest, RMS <= 9.6e-8)
+        readings = {"dx": compare(dx, dx_ref, atol=1e-6 * float(dx_ref.float().abs().max()),
+                                  rtol=rtol, rms_rel=1e-4 if dtype == torch.bfloat16 else 1e-6),
+                    "partials": compare(part, part_ref, atol=1e-6 * float(part_ref.abs().max()),
+                                        rtol=1e-5, rms_rel=1e-6)}
+        esz, n, nblk = x.element_size(), b * l * c, -(-l // ADALN_ROWS)
+        record("ln_mod_bwd", (b, l, c, nv), dtype, readings,
+               lambda: ln_modulate_bwd(x, scales, mean, rstd, gs),
+               lambda: ln_modulate_bwd_plain(x, scales, mean, rstd, gs),
+               (12.0 + 6.0 * nv) * n,
+               2 * esz * n + 4 * nv * n + esz * nv * b * c + 8 * b * l + 4 * b * nblk * 2 * nv * c)
+        del x, gs, dx, dx_ref
+
+    # the product and the sum rounded apart on both sides, as torch rounds
+    # them: bit-equal, and held to that
+    for b, l, c, dtype in GATE_RES_CASES:
+        x, h = tokens(b, l, c, dtype), randn(b, l, c, dtype=dtype)
+        (gate,) = chunks(b, c, dtype, 1)
+        out, ref = gate_residual_fwd(x, gate, h), gate_residual_plain(x, gate, h)
+        torch.cuda.synchronize()
+        esz, n = x.element_size(), b * l * c
+        record("gate_res", (b, l, c), dtype, {"out": compare(out, ref, atol=0.0, rtol=0.0,
+                                                             rms_rel=0.0)},
+               lambda: gate_residual_fwd(x, gate, h), lambda: gate_residual_plain(x, gate, h),
+               2.0 * n, 3 * esz * n + esz * b * c,
+               library=lambda: torch.addcmul(x, gate, h))
+        del x, h, out, ref
+
+    for b, l, c, dtype in GATE_RES_BWD_CASES:
+        h, dout = randn(b, l, c, dtype=dtype), randn(b, l, c, dtype=dtype)
+        (gate,) = chunks(b, c, dtype, 1)
+        dh, part = gate_residual_bwd(gate, h, dout)
+        dh_ref, part_ref = gate_residual_bwd_plain(gate, h, dout)
+        torch.cuda.synchronize()
+        esz, n, nblk = h.element_size(), b * l * c, -(-l // ADALN_ROWS)
+        record("gate_res_bwd", (b, l, c), dtype,
+               {"dh": compare(dh, dh_ref, atol=0.0, rtol=0.0, rms_rel=0.0),
+                "partials": compare(part, part_ref, atol=1e-6 * float(part_ref.abs().max()),
+                                    rtol=1e-5, rms_rel=1e-6)},
+               lambda: gate_residual_bwd(gate, h, dout),
+               lambda: gate_residual_bwd_plain(gate, h, dout),
+               3.0 * n, 3 * esz * n + esz * b * c + 4 * b * nblk * c)
+        del h, dout, dh, dh_ref
 
 
 # --- phases 3 and 4: the model -----------------------------------------------
@@ -519,19 +663,34 @@ def train_step_check(dev, gpu, cpu, rng):
     """One training step's loss and gradients at 64x64, f32, batch 2, the
     same weights and draws on the card (kernels) and the CPU (plain
     versions)."""
-    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
     from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
-    from flaxdiff_tpu_torch.trainer import TrainStepConfig, make_loss_builder
 
     arrays = {"sample": rng.standard_normal((2, 64, 64, 3)),
               "cond": rng.standard_normal((2, TEXT_LEN, TEXT_DIM)),
               "noise": rng.standard_normal((2, 64, 64, 3)),
               "t": np.array([91, 655], np.int32), "mask": np.array([False, True])}
+    # zero by the math (softmax ignores the shift a key bias adds to every
+    # logit of a row): both sides hold f32 rounding
+    zero = lambda name: name.endswith("to_k.bias")
+    # f32 with TF32 off; convolutions summed in other orders through ~60
+    # layers and back
+    res = step_check(dev, gpu, cpu, arrays, CosineNoiseSchedule, zero, "train step 64x64 f32")
+    return {f"train_step_64_f32_{k}": v for k, v in res.items()}
+
+
+def step_check(dev, gpu, cpu, arrays, schedule, zero_by_math, label):
+    """Loss and every gradient of one training step, f32, the same weights
+    and draws on the card and the CPU: loss within 1e-5 relative, each
+    gradient within 1e-3 of its max|g|, the ones `zero_by_math` names below
+    1e-6 of the model's largest."""
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.trainer import TrainStepConfig, make_loss_builder
+
     results = []
     for where, m in ((dev, gpu), ("cpu", cpu)):
         a = {k: torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v).to(where)
              for k, v in arrays.items()}
-        build = make_loss_builder(CosineNoiseSchedule(1000, device=where),
+        build = make_loss_builder(schedule(1000, device=where),
                                   EpsilonPredictionTransform(), TrainStepConfig(normalize=False),
                                   null_cond=torch.zeros(1, TEXT_LEN, TEXT_DIM, device=where))
         loss = build({"sample": a["sample"], "cond": a["cond"]}, a["noise"], a["t"],
@@ -543,23 +702,19 @@ def train_step_check(dev, gpu, cpu, rng):
     gmax = max(float(r.abs().max()) for r in ref_grads)
     worst, worst_name = 0.0, None
     for (name, _), g, r in zip(cpu.named_parameters(), grads, ref_grads):
-        if name.endswith("to_k.bias"):
-            # zero by the math (softmax ignores the shift a key bias adds to
-            # every logit of a row): both sides hold f32 rounding
+        if zero_by_math(name):
             check(max(float(g.abs().max()), float(r.abs().max())) <= 1e-6 * gmax,
-                  f"{name}: a key-bias gradient is not ~0")
+                  f"{name}: a gradient zero by the math is not ~0")
             continue
         rel = max_err(g, r) / max(float(r.abs().max()), 1e-30)
         if rel > worst:
             worst, worst_name = rel, name
-    # f32 with TF32 off; convolutions summed in other orders through ~60
-    # layers and back
-    log(f"  train step 64x64 f32: loss {ref_loss:.6f}, relative error {loss_err:.3g}; worst "
+    log(f"  {label}: loss {ref_loss:.6f}, relative error {loss_err:.3g}; worst "
         f"gradient error {worst:.3g} of its max|g| ({worst_name})")
-    check(loss_err <= 1e-5, f"train step loss: relative error {loss_err} above 1e-5")
-    check(worst <= 1e-3, f"gradient {worst_name}: error {worst} of its max|g| above 1e-3")
-    return {"train_step_64_f32_loss": ref_loss, "train_step_64_f32_loss_rel_err": loss_err,
-            "train_step_64_f32_worst_grad_rel_err": worst, "train_step_64_f32_worst_grad": worst_name}
+    check(loss_err <= 1e-5, f"{label} loss: relative error {loss_err} above 1e-5")
+    check(worst <= 1e-3, f"{label} gradient {worst_name}: error {worst} of its max|g| above 1e-3")
+    return {"loss": ref_loss, "loss_rel_err": loss_err, "worst_grad_rel_err": worst,
+            "worst_grad": worst_name}
 
 
 def main_path(dev, state):
@@ -600,7 +755,10 @@ def main_path(dev, state):
     res = {"wall_s": wall, "forwards": STEPS + 1, "ms_per_forward": wall * 1e3 / (STEPS + 1),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "sample_std": float(out.float().std()), "launches": counts}
-    res["breakdown"] = forward_breakdown(model, dev, cond, uncond)
+    x = torch.randn(2, RESOLUTION, RESOLUTION, 3, device=dev)
+    ctx = torch.cat([cond, uncond]).to(dev)
+    res["breakdown"] = forward_breakdown(lambda: model(x, torch.full((2,), 500.0, device=dev), ctx),
+                                         "batch 2 at 256x256")
     return res
 
 
@@ -608,23 +766,35 @@ def training_path(dev):
     """DiffusionTrainer.train_step on the full-width UNet from the port's own
     init: 3 warm-up and 20 timed steps over 4 seeded synthetic batches."""
     from flaxdiff_tpu_torch.models import Unet
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
-    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
     from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
-    from flaxdiff_tpu_torch.trainer import AdamW, DiffusionTrainer, TrainerConfig
 
     torch.manual_seed(0)           # the modules' own initializers
+    res = run_training(dev, Unet(**UNET, dtype="bfloat16", device=dev), CosineNoiseSchedule(1000),
+                       (TRAIN_BATCH, TRAIN_RES, TRAIN_RES, 3), {**PER_FORWARD, **PER_BACKWARD})
+    res["images_per_s"] = res.pop("samples_per_s")
+    return res
+
+
+def run_training(dev, model, schedule, shape, per_step):
+    """DiffusionTrainer.train_step from the model's own init, AdamW 1e-4 at
+    optax's defaults, EMA 0.999, CFG dropout 0.12 to a zeros context: 3
+    warm-up and 20 timed steps over 4 seeded synthetic batches of `shape`
+    with a text context. Every launch counter, zeroed just before, must read
+    `per_step` launches a step."""
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.trainer import AdamW, DiffusionTrainer, TrainerConfig
+
     trainer = DiffusionTrainer(
-        Unet(**UNET, dtype="bfloat16", device=dev), AdamW(TRAIN_LR), CosineNoiseSchedule(1000),
-        EpsilonPredictionTransform(),
+        model, AdamW(TRAIN_LR), schedule, EpsilonPredictionTransform(),
         TrainerConfig(uncond_prob=0.12, ema_decay=0.999, normalize=False, weighted_loss=True,
                       gate_nonfinite=True, seed=0),
         null_cond=torch.zeros(1, TEXT_LEN, TEXT_DIM), device=dev)
     rng = np.random.default_rng(3)
-    shape = (TRAIN_BATCH, TRAIN_RES, TRAIN_RES, 3)
+    batch = shape[0]
     batches = [{"sample": torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev),
                 "cond": torch.from_numpy(rng.standard_normal(
-                    (TRAIN_BATCH, TEXT_LEN, TEXT_DIM)).astype(np.float32)).to(dev)}
+                    (batch, TEXT_LEN, TEXT_DIM)).astype(np.float32)).to(dev)}
                for _ in range(4)]
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -640,7 +810,7 @@ def training_path(dev):
     wall = time.perf_counter() - t0
     counts = launch_counts()
     steps = WARMUP + TIMED
-    expected = {k: steps * {**PER_FORWARD, **PER_BACKWARD}[k] for k in counts}
+    expected = {k: steps * per_step.get(k, 0) for k in counts}
     log(f"  launches {counts}, expected {expected}")
     check(counts == expected, "every forward and backward kernel ran once per call per step")
     losses = [float(x) for x in losses]
@@ -649,22 +819,154 @@ def training_path(dev):
     last5 = float(np.mean(losses[-5:]))
     check(last5 < losses[0], f"the loss fell: mean of the last 5 {last5} against {losses[0]}")
     ms = start.elapsed_time(end) / TIMED
-    res = {"ms_per_step": ms, "images_per_s": TRAIN_BATCH * 1e3 / ms,
+    res = {"ms_per_step": ms, "samples_per_s": batch * 1e3 / ms,
            "wall_ms_per_step": wall * 1e3 / TIMED,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "params": trainer.state.params.numel(), "losses": losses,
            "mean_last5_loss": last5, "launches": counts}
     log(f"  {ms:.3f} ms per step (CUDA events over {TIMED} steps), "
-        f"{res['images_per_s']:.1f} images/s, peak {res['peak_mem_gib']:.2f} GiB, "
+        f"{res['samples_per_s']:.1f} samples/s, peak {res['peak_mem_gib']:.2f} GiB, "
         f"{res['params']} params")
     res["breakdown"] = family_profile(lambda: trainer.train_step(batches[0]), training=True)
     by_family = res["breakdown"]["ms_by_family"]
     if by_family:
         # one stream: the kernels' summed device time is the busy time
-        res["idle_share"] = 1.0 - sum(by_family.values()) / ms
-        log(f"  device busy {sum(by_family.values()):.3f} ms of {ms:.3f} ms per step "
+        res["busy_ms"] = sum(by_family.values())
+        res["idle_share"] = 1.0 - res["busy_ms"] / ms
+        log(f"  device busy {res['busy_ms']:.3f} ms of {ms:.3f} ms per step "
             f"({res['idle_share']:.0%} idle)")
+    del trainer
     return res
+
+
+# --- phases 3b, 6 and 7: the DiT ---------------------------------------------
+
+def dit_model_checks(dev, state):
+    """The full-width DiT-B/2 in f32 on the card (kernels) and the CPU (plain
+    versions), the same random weights: a forward, DDIM-3 + CFG from
+    t = 333, one train step's loss and gradients."""
+    from flaxdiff_tpu_torch.models import SimpleDiT
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
+    from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
+
+    rng = np.random.default_rng(4)
+    models = {}
+    for where in (dev, "cpu"):
+        m = SimpleDiT(**DIT, device=where)
+        m.load_state_dict(state)
+        models[str(where)] = m.eval()
+    gpu, cpu = models[str(dev)], models["cpu"]
+    shape = (2, DIT_RES, DIT_RES, DIT_CH)
+    x = rng.standard_normal(shape).astype(np.float32)
+    t = np.array([37.5, 911.0], np.float32)
+    ctx = rng.standard_normal((2, TEXT_LEN, TEXT_DIM)).astype(np.float32)
+    with torch.inference_mode():
+        ref = cpu(*map(torch.from_numpy, (x, t, ctx)))
+        out = gpu(*(torch.from_numpy(a).to(dev) for a in (x, t, ctx)))
+    scale = max(1.0, float(ref.abs().max()))
+    err = max_err(out.cpu(), ref)
+    # f32 on both sides with TF32 off: GEMMs and row sums in other orders
+    # through 12 blocks
+    log(f"  forward {DIT_RES}x{DIT_RES}x{DIT_CH} f32: max|ref| {scale:.3g}, max err {err:.3g}")
+    check(bool(torch.isfinite(out).all()), "DiT forward output finite")
+    check(err <= 1e-3 * scale, f"DiT full-width forward: error {err} above {1e-3 * scale}")
+
+    # half scale: at t = 333 the linear schedule's signal rate is ~0.57, and
+    # x0 = (x - sigma eps) / signal of a unit-scale x would mostly clip
+    x0 = (0.5 * rng.standard_normal(shape)).astype(np.float32)
+    cond = rng.standard_normal((2, TEXT_LEN, TEXT_DIM)).astype(np.float32)
+    samples = {}
+    for where, m in (("cuda", gpu), ("cpu", cpu)):
+        sampler = DiffusionSampler(lambda a, b, c, m=m: m(a, b, c), LinearNoiseSchedule(1000),
+                                   EpsilonPredictionTransform(), DDIMSampler(),
+                                   guidance_scale=GUIDANCE, device=dev if where == "cuda" else "cpu")
+        samples[where] = sampler.generate_samples(
+            diffusion_steps=3, init_samples=torch.from_numpy(x0),
+            conditioning=torch.from_numpy(cond),
+            unconditional=torch.zeros(2, TEXT_LEN, TEXT_DIM), start_step=333.0,
+            channels=DIT_CH).cpu()
+    err_traj = max_err(samples["cuda"], samples["cpu"])
+    saturated = float((samples["cpu"].abs() >= 1.0).float().mean())
+    log(f"  DDIM-3 + CFG {DIT_RES}x{DIT_RES}x{DIT_CH} f32 from t=333: max err {err_traj:.3g}, "
+        f"{saturated:.0%} of values clipped")
+    check(saturated < 0.6, "DiT trajectory samples mostly inside the clip range")
+    check(err_traj <= 1e-2, f"DiT trajectory: error {err_traj} above 1e-2")
+    arrays = {"sample": rng.standard_normal(shape), "cond": rng.standard_normal((2, TEXT_LEN, TEXT_DIM)),
+              "noise": rng.standard_normal(shape), "t": np.array([91, 655], np.int32),
+              "mask": np.array([False, True])}
+    # the raster order rotates keys by position, so no gradient is zero by the math
+    step = step_check(dev, gpu, cpu, arrays, LinearNoiseSchedule, lambda name: False,
+                      f"train step {DIT_RES}x{DIT_RES}x{DIT_CH} f32")
+    del models, gpu, cpu
+    return {"forward_f32_err": err, "forward_f32_scale": scale, "ddim3_cfg_f32_err": err_traj,
+            "ddim3_clipped_share": saturated, **{f"train_step_f32_{k}": v for k, v in step.items()}}
+
+
+def dit_serving_path(dev, state):
+    """DDIM-50 + CFG 3.0 with DiT-B/2 in bf16: batch 4 of 32x32x4 latents
+    with a 77x768 text context and zeros as the null context."""
+    from flaxdiff_tpu_torch.device import make_generator
+    from flaxdiff_tpu_torch.models import SimpleDiT
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
+    from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
+
+    model = SimpleDiT(**DIT, dtype="bfloat16", device=dev)
+    model.load_state_dict(state)
+    model.eval()
+    sampler = DiffusionSampler(lambda x, t, c: model(x, t, c), LinearNoiseSchedule(1000),
+                               EpsilonPredictionTransform(), DDIMSampler(),
+                               guidance_scale=GUIDANCE, device=dev)
+    rng = np.random.default_rng(5)
+    b = DIT_SERVE_BATCH
+    cond = torch.from_numpy(rng.standard_normal((b, TEXT_LEN, TEXT_DIM)).astype(np.float32))
+    uncond = torch.zeros(b, TEXT_LEN, TEXT_DIM)
+    run = lambda steps, seed: sampler.generate_samples(
+        num_samples=b, resolution=DIT_RES, diffusion_steps=steps,
+        generator=make_generator(seed, dev), conditioning=cond, unconditional=uncond,
+        channels=DIT_CH)
+    run(2, 0)                      # warm-up: GEMM algorithm choice, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run(STEPS, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    expected = {k: DIT_PER_FORWARD.get(k, 0) * (STEPS + 1) for k in counts}
+    log(f"  launches {counts}, expected {expected}")
+    check(counts == expected, "every LayerNorm + modulate, gated residual and attention call "
+          "ran its kernel")
+    check(tuple(out.shape) == (b, DIT_RES, DIT_RES, DIT_CH), f"output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "samples finite")
+    check(float(out.abs().max()) <= 1.0, "samples clipped to [-1, 1]")
+    res = {"wall_s": wall, "forwards": STEPS + 1, "ms_per_forward": wall * 1e3 / (STEPS + 1),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "sample_std": float(out.float().std()), "launches": counts}
+    x = torch.randn(2 * b, DIT_RES, DIT_RES, DIT_CH, device=dev)
+    ctx = torch.cat([cond, uncond]).to(dev)
+    res["breakdown"] = forward_breakdown(
+        lambda: model(x, torch.full((2 * b,), 500.0, device=dev), ctx),
+        f"batch {2 * b} of {DIT_RES}x{DIT_RES}x{DIT_CH}")
+    del model
+    return res
+
+
+def dit_training_path(dev):
+    """DiffusionTrainer.train_step on DiT-B/2 from the port's own init
+    (zero AdaLN and output projections: only the gates and the output
+    projection move at first), batch 32 of 32x32x4 latents, bf16 over f32
+    params, the linear schedule."""
+    from flaxdiff_tpu_torch.models import SimpleDiT
+    from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
+
+    torch.manual_seed(0)
+    return run_training(dev, SimpleDiT(**DIT, dtype="bfloat16", device=dev),
+                        LinearNoiseSchedule(1000), (DIT_TRAIN_BATCH, DIT_RES, DIT_RES, DIT_CH),
+                        {**DIT_PER_FORWARD, **DIT_PER_BACKWARD})
 
 
 # kernel-name fragments -> the layer they belong to, first match wins
@@ -673,21 +975,16 @@ FAMILIES = list(KERNEL_SYMBOLS.items()) + [
     ("gemm", "gemm"), ("gemm", "cutlass"), ("gemm", "nvjet"), ("gemm", "sm90_xmma")]
 
 
-def forward_breakdown(model, dev, cond, uncond):
-    """One CFG forward (batch 2 at 256x256): its time as launched from
-    Python (CUDA events) beside its device busy time (the same forward
-    replayed as a CUDA graph); the difference is the share of the forward
-    the card sits idle. Then, where torch.profiler sees the card, the
-    device time by kernel family."""
-    x = torch.randn(2, RESOLUTION, RESOLUTION, 3, device=dev)
-    t = torch.full((2,), 500.0, device=dev)
-    ctx = torch.cat([cond, uncond]).to(dev)
-    call = lambda: model(x, t, ctx)
+def forward_breakdown(call, what: str):
+    """One CFG model call: its time as launched from Python (CUDA events)
+    beside its device busy time (the same call replayed as a CUDA graph);
+    the difference is the share of the call the card sits idle. Then, where
+    torch.profiler sees the card, the device time by kernel family."""
     with torch.inference_mode():
         fwd_ms = time_ms(call, 10)
         busy = graph_ms(call, 1, replays=10)
     out = {"forward_ms": fwd_ms, "busy_ms": busy, "idle_share": 1.0 - busy / fwd_ms}
-    log(f"  one CFG forward: {fwd_ms:.3f} ms launched from Python, device busy "
+    log(f"  one CFG forward ({what}): {fwd_ms:.3f} ms launched from Python, device busy "
         f"{busy:.3f} ms as a CUDA graph ({out['idle_share']:.0%} idle)")
     out.update(family_profile(call))
     return out
@@ -776,23 +1073,59 @@ def main() -> int:
     log(f"training: batch {TRAIN_BATCH} {TRAIN_RES}x{TRAIN_RES} bf16 {train['ms_per_step']:.3f} "
         f"ms per step, {train['images_per_s']:.1f} images/s, peak {train['peak_mem_gib']:.2f} "
         f"GiB on {smi}")
+    torch.cuda.empty_cache()
 
+    from flaxdiff_tpu_torch.models import SimpleDiT
+    state = random_state(SimpleDiT(**DIT, device="cpu"), 1)
+    # the output projection at a tenth of the drawn scale: the CFG-guided eps
+    # of random weights then stays near unit scale, and the trajectory's x0
+    # mostly inside the clip
+    for key in ("final_proj.weight", "final_proj.bias"):
+        state[key] *= 0.1
+    log("phase 3b: full-width DiT-B/2, card against CPU")
+    dit_res = dit_model_checks(dev, state)
+    torch.cuda.empty_cache()
+
+    log(f"phase 6: DiT-B/2 DDIM-{STEPS} + CFG {GUIDANCE}, batch {DIT_SERVE_BATCH} of "
+        f"{DIT_RES}x{DIT_RES}x{DIT_CH}, bf16")
+    dit_traj = dit_serving_path(dev, state)
+    bd = dit_traj["breakdown"]
+    log(f"DiT trajectory: DDIM-{STEPS} CFG {GUIDANCE} batch {DIT_SERVE_BATCH} bf16 wall "
+        f"{dit_traj['wall_s']:.3f} s ({dit_traj['ms_per_forward']:.2f} ms per call), one call "
+        f"busy {bd['busy_ms']:.3f} ms as a graph ({bd['idle_share']:.0%} idle), peak "
+        f"{dit_traj['peak_mem_gib']:.2f} GiB on {smi}")
+    del state
+    torch.cuda.empty_cache()
+
+    log(f"phase 7: DiT-B/2 DiffusionTrainer.train_step, batch {DIT_TRAIN_BATCH} of "
+        f"{DIT_RES}x{DIT_RES}x{DIT_CH}, bf16, {WARMUP} + {TIMED} steps")
+    dit_train = dit_training_path(dev)
+    log(f"DiT training: batch {DIT_TRAIN_BATCH} bf16 {dit_train['ms_per_step']:.3f} ms per step, "
+        f"{dit_train['samples_per_s']:.1f} latents/s, peak {dit_train['peak_mem_gib']:.2f} GiB, "
+        f"busy {dit_train.get('busy_ms', float('nan')):.3f} ms "
+        f"({dit_train.get('idle_share', float('nan')):.0%} idle) on {smi}")
+
+    paths = {"unet_serving": traj, "unet_training": train, "dit_serving": dit_traj,
+             "dit_training": dit_train}
     kernels, summary = [], []
     for kname in REPLACES:
         mine = [c for c in cases if c["name"] == kname]
         head = mine[0]
-        by_path = {"serving": traj["launches"][kname], "training": train["launches"][kname]}
+        by_path = {path: res["launches"][kname] for path, res in paths.items()}
         kernel = {
             "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": REPLACES[kname], "launches": by_path["training"],
+            "replaces": REPLACES[kname], "launches": sum(by_path.values()),
             "max_abs_err": max(c["max_abs_err"] for c in mine), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "launches_by_path": by_path, "shape": head["shape"], "dtype": head["dtype"]}
+        check(kernel["launches"] > 0, f"{kname} launched on a main path")
         summary.append(kernel)
         kernels.append({**kernel, "cases": mine})
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "kernels": kernels,
-              "model": model_res, "trajectory": traj, "training": train}
+              "model": model_res, "trajectory": traj, "training": train, "dit_model": dit_res,
+              "dit_trajectory": dit_traj, "dit_training": dit_train,
+              "total_s": time.perf_counter() - t0}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
         with open(args.record, "w") as f:

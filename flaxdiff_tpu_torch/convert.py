@@ -1,4 +1,4 @@
-"""flax -> torch parameter conversion for the UNet.
+"""flax -> torch parameter conversion for the UNet and the DiT.
 
 The torch modules carry the flax module names, so conversion is a rename of
 flax's auto-named wrappers plus a re-layout of each leaf:
@@ -8,8 +8,9 @@ flax's auto-named wrappers plus a re-layout of each leaf:
   to_q/to_k/to_v kernel (C, H, D)      -> weight (H*D, C); bias (H, D) -> (H*D)
   to_out kernel (H, D, C)              -> weight (C, H*D)
   GroupNorm/LayerNorm scale, bias      -> weight, bias
+  PositionalEncoding pos_encoding      -> pos_encoding
 
-The Fourier frequencies are not a flax parameter (the JAX model draws them
+The Fourier frequencies are not a flax parameter (the JAX models draw them
 from a fixed key in ``setup``), so the caller passes them, or the port's
 table of the same draws fills them (``models/common.py``).
 
@@ -41,10 +42,12 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tupl
         if isinstance(value, Mapping):
             yield from _flatten(value, prefix + (key,))
         else:
-            yield prefix + (key,), np.asarray(value, dtype=np.float32)
+            yield prefix + (key,), np.array(value, dtype=np.float32)
 
 
 def _leaf(parent: str, name: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
+    if name == "pos_encoding":
+        return name, a
     if name == "scale":
         return "weight", a
     if name == "bias":
@@ -62,10 +65,8 @@ def _leaf(parent: str, name: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
     raise ValueError(f"unexpected kernel rank {a.ndim}")
 
 
-def unet_state_dict_from_flax(params: Mapping, fourier_freqs: Optional[np.ndarray] = None
-                              ) -> dict[str, torch.Tensor]:
-    """A torch ``Unet`` state dict from the JAX ``Unet``'s params tree
-    (numpy or jax leaves), with its FourierEmbedding frequencies if given."""
+def _state_dict_from_flax(params: Mapping, fourier_key: str,
+                          fourier_freqs: Optional[np.ndarray]) -> dict[str, torch.Tensor]:
     state = {}
     for path, a in _flatten(params):
         mods = [_RENAME.get(m, m) for m in path[:-1]]
@@ -73,18 +74,47 @@ def unet_state_dict_from_flax(params: Mapping, fourier_freqs: Optional[np.ndarra
         state[".".join([m for m in mods if m is not None] + [key])] = \
             torch.from_numpy(np.ascontiguousarray(w))
     if fourier_freqs is not None:
-        state["time_embed.freqs"] = torch.from_numpy(
+        state[fourier_key] = torch.from_numpy(
             np.ascontiguousarray(np.asarray(fourier_freqs, dtype=np.float32)))
     return state
 
 
+def unet_state_dict_from_flax(params: Mapping, fourier_freqs: Optional[np.ndarray] = None
+                              ) -> dict[str, torch.Tensor]:
+    """A torch ``Unet`` state dict from the JAX ``Unet``'s params tree
+    (numpy or jax leaves), with its FourierEmbedding frequencies if given."""
+    return _state_dict_from_flax(params, "time_embed.freqs", fourier_freqs)
+
+
+def dit_state_dict_from_flax(params: Mapping, fourier_freqs: Optional[np.ndarray] = None
+                             ) -> dict[str, torch.Tensor]:
+    """A torch ``SimpleDiT`` state dict from the JAX ``SimpleDiT``'s params
+    tree: the patch embed (``embed/patch_embed/proj``, or ``embed/scan_proj``
+    for the Hilbert and zigzag orders), ``cond/{t_proj/Dense_0, Dense_1,
+    t_out, text_proj}``, each ``block_i/{ada/ada_proj, attn/to_q, to_k,
+    to_v, to_out, mlp_in, mlp_out}`` (the norms carry no parameters),
+    ``final_norm`` and ``final_proj``; the time embedding's frequencies,
+    if given, as ``cond.t_fourier.freqs``."""
+    return _state_dict_from_flax(params, "cond.t_fourier.freqs", fourier_freqs)
+
+
+def _converter(model: nn.Module):
+    from .models import SimpleDiT, Unet
+    if isinstance(model, SimpleDiT):
+        return dit_state_dict_from_flax
+    if isinstance(model, Unet):
+        return unet_state_dict_from_flax
+    raise TypeError(f"no flax conversion for {type(model).__name__}")
+
+
 def train_state_from_flax(flax_state: Any, model: nn.Module, tx: Any):
-    """A port ``TrainState`` for ``model`` (a port ``Unet``) from a JAX
-    ``TrainState`` with an ``optax.adamw`` optimizer: params and EMA through
-    ``unet_state_dict_from_flax``, adamw's ``mu``/``nu`` as the moments and
-    its ``count`` as the step. ``tx`` is the port's ``AdamW``."""
+    """A port ``TrainState`` for ``model`` (a port ``Unet`` or ``SimpleDiT``)
+    from a JAX ``TrainState`` with an ``optax.adamw`` optimizer: params and
+    EMA through the model's converter, adamw's ``mu``/``nu`` as the moments
+    and its ``count`` as the step. ``tx`` is the port's ``AdamW``."""
     from .trainer.train_state import TrainState
 
+    to_state_dict = _converter(model)
     adam = [s for s in flax_state.opt_state if hasattr(s, "mu") and hasattr(s, "nu")]
     if len(adam) != 1:
         raise ValueError("want an optax adamw state with one mu/nu pair")
@@ -92,6 +122,6 @@ def train_state_from_flax(flax_state: Any, model: nn.Module, tx: Any):
     for flat, tree in ((state.params, flax_state.params), (state.exp_avg, adam[0].mu),
                        (state.exp_avg_sq, adam[0].nu), (state.ema, flax_state.ema_params)):
         if flat is not None:
-            flat.copy_(state.flatten(unet_state_dict_from_flax(tree)))
+            flat.copy_(state.flatten(to_state_dict(tree)))
     state.step = int(np.asarray(adam[0].count))
     return state

@@ -27,12 +27,15 @@ def compute_dtype(dtype: Optional[torch.dtype], x: torch.Tensor) -> torch.dtype:
     return dtype if dtype is not None else torch.promote_types(x.dtype, torch.float32)
 
 
-def _variance_scaling_(w: torch.Tensor, fan_in: int, fan_out: int, scale: float = 1.0):
-    """Truncated-normal fan-avg init, the JAX package's ``kernel_init``;
-    scale 0 gives exact zeros (its zero-initialised layers)."""
+def _variance_scaling_(w: torch.Tensor, fan_in: int, fan_out: int, scale: float = 1.0,
+                       mode: str = "fan_avg"):
+    """Truncated-normal variance scaling: ``fan_avg`` is the JAX package's
+    ``kernel_init``, ``fan_in`` flax's default (lecun normal), which its DiT
+    layers keep; scale 0 gives exact zeros (its zero-initialised layers)."""
     if scale <= 0.0:
         return nn.init.zeros_(w)
-    std = math.sqrt(scale / ((fan_in + fan_out) / 2.0)) / 0.87962566103423978
+    fan = {"fan_avg": (fan_in + fan_out) / 2.0, "fan_in": float(fan_in)}[mode]
+    std = math.sqrt(scale / fan) / 0.87962566103423978
     return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
 
 
@@ -48,12 +51,12 @@ class Dense(nn.Module):
     """``nn.Dense``: y = x W^T + b over the last axis, computed in `dtype`."""
 
     def __init__(self, in_features: int, features: int, dtype=None, device=None,
-                 init_scale: float = 1.0):
+                 init_scale: float = 1.0, init_mode: str = "fan_avg"):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
-        _variance_scaling_(self.weight, in_features, features, init_scale)
+        _variance_scaling_(self.weight, in_features, features, init_scale, init_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(self.dtype, x)
@@ -66,7 +69,7 @@ class ConvLayer(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int] = (3, 3), strides: Union[int, Sequence[int]] = 1,
-                 dtype=None, device=None, init_scale: float = 1.0):
+                 dtype=None, device=None, init_scale: float = 1.0, init_mode: str = "fan_avg"):
         super().__init__()
         self.dtype = dtype
         self.kernel_size = tuple(kernel_size)
@@ -74,7 +77,8 @@ class ConvLayer(nn.Module):
         kh, kw = self.kernel_size
         self.weight = nn.Parameter(torch.empty(features, in_features, kh, kw, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
-        _variance_scaling_(self.weight, in_features * kh * kw, features * kh * kw, init_scale)
+        _variance_scaling_(self.weight, in_features * kh * kw, features * kh * kw, init_scale,
+                           init_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(self.dtype, x)
@@ -132,11 +136,12 @@ class FourierEmbedding(nn.Module):
 
 class TimeProjection(nn.Module):
     """Two Dense layers with a tanh-approximated GELU between them
-    (``jax.nn.gelu`` defaults to the tanh form)."""
+    (``jax.nn.gelu`` defaults to the tanh form): ``in_features`` wide in,
+    ``features`` wide out, as flax sizes the first layer from its input."""
 
-    def __init__(self, features: int, dtype=None, device=None):
+    def __init__(self, in_features: int, features: int, dtype=None, device=None):
         super().__init__()
-        self.dense_0 = Dense(features, features, dtype, device)
+        self.dense_0 = Dense(in_features, features, dtype, device)
         self.dense_1 = Dense(features, features, dtype, device)
 
     def forward(self, emb: torch.Tensor) -> torch.Tensor:

@@ -65,7 +65,7 @@ class Unet(nn.Module):
                 use_self_and_cross=self_and_cross, device=device))
 
         self.time_embed = FourierEmbedding(emb_features, device)
-        self.time_proj = TimeProjection(emb_features, dtype, device)
+        self.time_proj = TimeProjection(emb_features, emb_features, dtype, device)
         d0 = self.feature_depths[0]
         self.conv_in = ConvLayer(in_channels, d0, (3, 3), 1, dtype, device)
 

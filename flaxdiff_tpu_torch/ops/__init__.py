@@ -3,15 +3,19 @@
 Every kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain version for CPU tensors; it counts its launches in ``.launches``. The
 differentiable ops (``flash_attention``, ``fused_groupnorm_silu``,
-``fused_geglu``) are ``torch.autograd.Function``s over those wrappers, whose
-backward runs the backward kernels.
+``fused_geglu``, ``fused_ln_modulate``/``fused_ln_modulate2``,
+``fused_gate_residual``) are ``torch.autograd.Function``s over those
+wrappers, whose backward runs the backward kernels.
 """
 from __future__ import annotations
 
 from .attention import dot_product_attention
 from .flash_attention import (FlashAttentionFn, flash_attention, flash_bwd_dkv, flash_bwd_dq,
                               flash_fwd)
-from .fused_adaln import GEGLUFn, fused_geglu, geglu_bwd, geglu_fwd
+from .fused_adaln import (GateResidualFn, GEGLUFn, LNModulateFn, fused_gate_residual,
+                          fused_geglu, fused_ln_modulate, fused_ln_modulate2, gate_residual_bwd,
+                          gate_residual_fwd, geglu_bwd, geglu_fwd, ln_modulate_bwd,
+                          ln_modulate_fwd)
 from .fused_norm import (GroupNormSiLUFn, fused_groupnorm_silu, groupnorm_bwd_dx,
                          groupnorm_bwd_stats, groupnorm_normalize, groupnorm_stats)
 
@@ -26,6 +30,10 @@ KERNEL_WRAPPERS = {
     "gn_bwd_dx": groupnorm_bwd_dx,
     "geglu": geglu_fwd,
     "geglu_bwd": geglu_bwd,
+    "ln_mod": ln_modulate_fwd,
+    "ln_mod_bwd": ln_modulate_bwd,
+    "gate_res": gate_residual_fwd,
+    "gate_res_bwd": gate_residual_bwd,
 }
 
 
@@ -39,7 +47,9 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["dot_product_attention", "flash_attention", "flash_bwd_dkv", "flash_bwd_dq",
-           "flash_fwd", "fused_geglu", "fused_groupnorm_silu", "geglu_bwd", "geglu_fwd",
-           "groupnorm_bwd_dx", "groupnorm_bwd_stats", "groupnorm_normalize",
-           "groupnorm_stats", "FlashAttentionFn", "GEGLUFn",
-           "GroupNormSiLUFn", "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts"]
+           "flash_fwd", "fused_gate_residual", "fused_geglu", "fused_groupnorm_silu",
+           "fused_ln_modulate", "fused_ln_modulate2", "gate_residual_bwd", "gate_residual_fwd",
+           "geglu_bwd", "geglu_fwd", "groupnorm_bwd_dx", "groupnorm_bwd_stats",
+           "groupnorm_normalize", "groupnorm_stats", "ln_modulate_bwd", "ln_modulate_fwd",
+           "FlashAttentionFn", "GateResidualFn", "GEGLUFn", "GroupNormSiLUFn", "LNModulateFn",
+           "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts"]

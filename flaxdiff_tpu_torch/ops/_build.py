@@ -42,6 +42,10 @@ _SIGNATURES = {
     "gn_bwd_dx": [_P] * 8 + [_I] * 6 + [_P],
     "geglu_fwd": [_P, _P, _I64, _I, _I, _P],
     "geglu_bwd": [_P, _P, _P, _I64, _I, _I, _P],
+    "ln_mod_fwd": [_P] * 9 + [_I64, _I, _I, _I64, _I, _F, _I, _P],
+    "ln_mod_bwd": [_P] * 9 + [_I, _I, _I, _I64, _I, _I, _I, _P],
+    "gate_res_fwd": [_P] * 4 + [_I64, _I, _I, _I64, _I, _P],
+    "gate_res_bwd": [_P] * 5 + [_I, _I, _I, _I64, _I, _I, _P],
 }
 
 

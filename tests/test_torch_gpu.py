@@ -9,13 +9,17 @@ import pytest
 import torch
 
 from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, flash_attention, flash_bwd_dkv,
-                                    flash_bwd_dq, flash_fwd, fused_geglu, fused_groupnorm_silu,
-                                    geglu_bwd, groupnorm_bwd_dx, groupnorm_bwd_stats,
-                                    groupnorm_normalize, groupnorm_stats, launch_counts,
-                                    reset_launch_counts)
+                                    flash_bwd_dq, flash_fwd, fused_gate_residual, fused_geglu,
+                                    fused_groupnorm_silu, fused_ln_modulate, fused_ln_modulate2,
+                                    gate_residual_bwd, gate_residual_fwd, geglu_bwd,
+                                    groupnorm_bwd_dx, groupnorm_bwd_stats, groupnorm_normalize,
+                                    groupnorm_stats, launch_counts, ln_modulate_bwd,
+                                    ln_modulate_fwd, reset_launch_counts)
 from flaxdiff_tpu_torch.ops.flash_attention import (flash_bwd_dkv_plain, flash_bwd_dq_plain,
                                                     flash_delta, flash_fwd_plain)
-from flaxdiff_tpu_torch.ops.fused_adaln import geglu_bwd_plain, geglu_plain
+from flaxdiff_tpu_torch.ops.fused_adaln import (gate_residual_bwd_plain, gate_residual_plain,
+                                                geglu_bwd_plain, geglu_plain,
+                                                ln_modulate_bwd_plain, ln_modulate_plain)
 from flaxdiff_tpu_torch.ops.fused_norm import (groupnorm_bwd_dx_plain, groupnorm_bwd_finalize,
                                                groupnorm_bwd_stats_plain, groupnorm_finalize,
                                                groupnorm_stats_plain, rows_per_block)
@@ -97,6 +101,8 @@ def test_each_wrapper_counts_its_launches(cuda):
     loss = loss + fused_groupnorm_silu(x, torch.ones(32, device=cuda),
                                        torch.zeros(32, device=cuda), groups=4).sum()
     loss = loss + fused_geglu(torch.cat([x, x], dim=-1)).sum()
+    m = _randn(cuda, 1, 1, 32, seed=2).requires_grad_()
+    loss = loss + fused_gate_residual(x, m, fused_ln_modulate(x, m, m).to(x.dtype)).sum()
     loss.backward()
     torch.cuda.synchronize()
     assert launch_counts() == {name: 1 for name in KERNEL_WRAPPERS}
@@ -284,5 +290,107 @@ def test_tiny_unet_train_step_card_matches_cpu(cuda):
             # zero by the math (softmax ignores the shift a key bias adds to
             # every logit of a row): both sides hold f32 rounding
             assert max(float(g.abs().max()), float(r.abs().max())) <= 1e-6 * gmax, name
+            continue
+        torch.testing.assert_close(g.cpu(), r, atol=1e-4 * float(r.abs().max()), rtol=0)
+
+
+# --- the AdaLN kernels (B10-B13) ---------------------------------------------------
+
+def _adaln_inputs(cuda, shape, dtype, nviews):
+    b, _, c = shape
+    x = _randn(cuda, *shape, dtype=dtype, seed=1) * 2.0 + 3.0
+    mods = [(_randn(cuda, b, 1, c, dtype=dtype, seed=2 + i) * 0.5) for i in range(2 * nviews)]
+    gs = [_randn(cuda, *shape, seed=10 + i) for i in range(nviews)]
+    return x, mods, gs
+
+
+# (shape): DiT-B at its training rows, a ragged L = 77, and a C that takes
+# the scalar path (not a multiple of the 16-byte vector)
+ADALN_SHAPES = [(4, 256, 768), (3, 77, 768), (2, 19, 36)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nviews", [1, 2])
+@pytest.mark.parametrize("shape", ADALN_SHAPES)
+def test_ln_modulate_kernels_match_plain(cuda, dtype, nviews, shape):
+    x, mods, gs = _adaln_inputs(cuda, shape, dtype, nviews)
+    pairs = tuple(zip(mods[0::2], mods[1::2]))
+    views, mean, rstd = ln_modulate_fwd(x, pairs, 1e-5)
+    ref_views, ref_mean, ref_rstd = ln_modulate_plain(x, pairs, 1e-5)
+    # f32 row sums in another order, then the same f32 math: a few ulps
+    for out, ref in zip(views, ref_views):
+        torch.testing.assert_close(out, ref, atol=1e-5 * float(ref.abs().max()), rtol=1e-5)
+    torch.testing.assert_close(mean, ref_mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, ref_rstd, atol=1e-5, rtol=1e-5)
+    scales = [s for s, _ in pairs]
+    dx, part = ln_modulate_bwd(x, scales, ref_mean, ref_rstd, gs)
+    dx_ref, part_ref = ln_modulate_bwd_plain(x, scales, ref_mean, ref_rstd, gs)
+    # the same f32 math, at most one output rounding apart
+    torch.testing.assert_close(dx.float(), dx_ref.float(),
+                               atol=1e-5 * float(dx_ref.float().abs().max()),
+                               rtol=TOL[dtype][1])
+    # f32 sums of 16 rows a block in another order
+    torch.testing.assert_close(part, part_ref, atol=1e-5 * float(part_ref.abs().max()), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ADALN_SHAPES)
+def test_gate_residual_kernels_match_plain(cuda, dtype, shape):
+    x = _randn(cuda, *shape, dtype=dtype, seed=1)
+    h = _randn(cuda, *shape, dtype=dtype, seed=2)
+    dout = _randn(cuda, *shape, dtype=dtype, seed=3)
+    # a [B, 1, C] chunk of a packed projection, as the DiT passes it
+    gate = _randn(cuda, shape[0], 1, 6 * shape[2], dtype=dtype, seed=4).chunk(6, dim=-1)[2]
+    # the product and the sum rounded apart, as torch does: bit-equal
+    assert torch.equal(gate_residual_fwd(x, gate, h), gate_residual_plain(x, gate, h))
+    dh, part = gate_residual_bwd(gate, h, dout)
+    dh_ref, part_ref = gate_residual_bwd_plain(gate, h, dout)
+    assert torch.equal(dh, dh_ref)
+    torch.testing.assert_close(part, part_ref, atol=1e-5 * float(part_ref.abs().max()), rtol=1e-5)
+
+
+def test_adaln_ops_card_match_cpu(cuda):
+    """Gradients through the two-view LayerNorm + modulate and the gated
+    residual, f32, card (kernels) against CPU (plain versions)."""
+    def run(dev):
+        gen = torch.Generator().manual_seed(5)
+        leaf = lambda *s: torch.randn(*s, generator=gen).to(dev).requires_grad_()
+        x, s1, b1, s2, b2, g = leaf(2, 40, 96), *(leaf(2, 1, 96) for _ in range(5))
+        a, m = fused_ln_modulate2(x, s1, b1, s2, b2)
+        y = fused_gate_residual(x, g, a * m)
+        loss = (y * y).sum()
+        return torch.autograd.grad(loss, (x, s1, b1, s2, b2, g))
+
+    for out, ref in zip(run(cuda), run("cpu")):
+        torch.testing.assert_close(out.cpu(), ref, atol=1e-4 * float(ref.abs().max()), rtol=1e-4)
+
+
+def test_tiny_dit_card_matches_cpu(cuda):
+    """The tiny DiT's forward, f32, and one train step's loss and gradients,
+    card against CPU with the same weights."""
+    from flaxdiff_tpu_torch.models import SimpleDiT
+    cfg = dict(output_channels=4, patch_size=2, emb_features=128, num_layers=2, num_heads=2,
+               in_channels=4, context_dim=32)
+    cpu = SimpleDiT(**cfg, device="cpu")
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn_like(p) * 0.2 if p.ndim < 2 else torch.randn_like(p) / p[0].numel() ** 0.5)
+    gpu = SimpleDiT(**cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(6)
+    x, c = torch.randn(2, 16, 16, 4, generator=gen), torch.randn(2, 7, 32, generator=gen)
+    t = torch.tensor([3.0, 700.0])
+    results = []
+    for model, dev in ((gpu, cuda), (cpu, "cpu")):
+        out = model(x.to(dev), t.to(dev), c.to(dev))
+        loss = out.square().mean()
+        results.append((out.detach().cpu(), loss, torch.autograd.grad(loss, list(model.parameters()))))
+    (out, loss, grads), (ref, ref_loss, ref_grads) = results
+    torch.testing.assert_close(out, ref, atol=1e-4 * float(ref.abs().max()), rtol=0)
+    torch.testing.assert_close(loss.cpu(), ref_loss, atol=0, rtol=1e-5)
+    gmax = max(float(r.abs().max()) for r in ref_grads)
+    for (name, _), g, r in zip(cpu.named_parameters(), grads, ref_grads):
+        if float(r.abs().max()) <= 1e-6 * gmax:
+            assert float(g.abs().max()) <= 1e-6 * gmax, name
             continue
         torch.testing.assert_close(g.cpu(), r, atol=1e-4 * float(r.abs().max()), rtol=0)

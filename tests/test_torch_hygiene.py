@@ -62,6 +62,11 @@ def test_entry_points_default_to_cuda():
         DiffusionSampler(lambda x, t, c: x, CosineNoiseSchedule(10),
                          EpsilonPredictionTransform(), DDIMSampler())
     assert Unet(feature_depths=(8,), norm_groups=2, device="cpu") is not None
+    from flaxdiff_tpu_torch.models import SimpleDiT
+    dit = dict(patch_size=2, emb_features=16, num_layers=1, num_heads=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SimpleDiT(**dit)
+    assert SimpleDiT(**dit, device="cpu") is not None
     from flaxdiff_tpu_torch.trainer import AdamW, DiffusionTrainer
     model = Unet(feature_depths=(8,), norm_groups=2, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -112,6 +117,10 @@ def _cpu_inputs(name):
         return (leaf(1, 8, 2, 32), leaf(1, 5, 2, 32), leaf(1, 5, 2, 32)), {}
     if name == "geglu":
         return (leaf(1, 8, 16),), {}
+    if name == "ln_mod":
+        return (leaf(1, 8, 16), leaf(1, 1, 16), leaf(1, 1, 16)), {}
+    if name == "gate_res":
+        return (leaf(1, 8, 16), leaf(1, 1, 16), leaf(1, 8, 16)), {}
     return (leaf(1, 8, 16), leaf(16), leaf(16)), {"groups": 4}
 
 
@@ -129,6 +138,8 @@ def test_differentiable_ops_record_their_function():
         "gn_stats": (ops.fused_groupnorm_silu, ops.GroupNormSiLUFn),
         "gn_norm": (ops.fused_groupnorm_silu, ops.GroupNormSiLUFn),
         "geglu": (ops.fused_geglu, ops.GEGLUFn),
+        "ln_mod": (ops.fused_ln_modulate, ops.LNModulateFn),
+        "gate_res": (ops.fused_gate_residual, ops.GateResidualFn),
     }
     assert set(differentiable) == {k for k in ops.KERNEL_WRAPPERS if "bwd" not in k}
     for name, (op, function) in differentiable.items():

@@ -103,7 +103,7 @@ def test_fourier_embedding_and_time_projection_match_flax():
     # only the libraries' sin/cos differ, by an ulp or so
     np.testing.assert_allclose(out_emb, ref_emb, atol=1e-5)
     jm = jcommon.TimeProjection(features=32)
-    tm = tcommon.TimeProjection(32, device="cpu")
+    tm = tcommon.TimeProjection(32, 32, device="cpu")
     out, ref = run_both(jm, tm, 3, ref_emb)
     np.testing.assert_allclose(out, ref, atol=MODULE_TOL, rtol=MODULE_TOL)
 
