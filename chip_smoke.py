@@ -5,7 +5,9 @@
 
 Phases; any failure exits non-zero and prints no result line.
   1. Print the card's name and power limit; build the CUDA kernels from
-     flaxdiff_tpu_torch/csrc with nvcc for sm_90a.
+     flaxdiff_tpu_torch/csrc with nvcc for sm_90a; print each kernel's
+     registers, the registers and spills of every wgmma instantiation and,
+     where cuobjdump exists, their HGMMA (wgmma) and HMMA (mma.sync) counts.
   2. Hold each of the thirteen kernels against its plain PyTorch version on
      the card: the forward kernels at the serving paths' shapes, the backward
      kernels at the training paths' (bf16, plus one f32 case each with TF32
@@ -13,7 +15,8 @@ Phases; any failure exits non-zero and prints no result line.
      version and, where one PyTorch call computes the same function (torch's
      scaled_dot_product_attention forward and backward, torch.addcmul; a
      yardstick the port never calls), that call, by their device time (CUDA
-     graph replays timed by CUDA events), beside the byte/flop bound.
+     graph replays timed by CUDA events), beside the byte/flop bound; the
+     flash cases also with their TFLOP/s and share of the bound.
   3. The full-width UNet at 64x64 in f32, on the card (kernels) and on the
      CPU (plain versions), with the same random weights: a forward, a short
      DDIM + CFG trajectory, and one training step's loss and gradients with
@@ -52,6 +55,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -145,8 +149,12 @@ REPLACES = {
     "gate_res_bwd": "flaxdiff_tpu/ops/fused_adaln.py:386",
 }
 # the __global__ functions each wrapper launches, as the profiler names them
-KERNEL_SYMBOLS = {name: name + "_kernel" for name in REPLACES}
-KERNEL_SYMBOLS.update(ln_mod="ln_mod_fwd_kernel", gate_res="gate_res_fwd_kernel")
+KERNEL_SYMBOLS = {name: (name + "_kernel",) for name in REPLACES}
+KERNEL_SYMBOLS.update(flash_fwd=("flash_fwd_wgmma_kernel", "flash_fwd_fma_kernel"),
+                      flash_bwd_dkv=("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_fma_kernel"),
+                      ln_mod=("ln_mod_fwd_kernel",), gate_res=("gate_res_fwd_kernel",))
+# the 16-bit paths that must run on wgmma (HGMMA in the built library)
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
 SOURCES = {
     "flash_fwd": "flaxdiff_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_dq": "flaxdiff_tpu_torch/csrc/flash_bwd.cu",
@@ -280,21 +288,72 @@ def passes(reading: dict) -> bool:
             and reading.get("lse_err", 0.0) <= reading.get("lse_atol", 0.0))
 
 
+def instantiation(mangled: str) -> str:
+    """'flash_fwd_wgmma_kernel bf16 D64 NC2' from a wgmma kernel's mangled
+    name (template arguments: dtype, head dim, consumer warpgroups)."""
+    m = re.search("(" + "|".join(WGMMA_KERNELS) + r")I(6__half|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                  mangled)
+    if not m:
+        return mangled
+    dtype = "f16" if m.group(2) == "6__half" else "bf16"
+    return f"{m.group(1)} {dtype} D{m.group(3)} NC{m.group(4)}"
+
+
 def log_registers(build_log: str) -> None:
-    """Each kernel's most registers over its instantiations, and every
-    instantiation that spills, from nvcc's -Xptxas -v output."""
-    regs, fn = {}, None
+    """Each kernel's most registers over its instantiations, every
+    instantiation that spills, and the registers and spills of every wgmma
+    instantiation, from nvcc's -Xptxas -v output."""
+    symbols = [frag for frags in KERNEL_SYMBOLS.values() for frag in frags]
+    regs, fn, inst, wgmma = {}, None, None, {}
     for line in build_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            fn = next((k for k in KERNEL_SYMBOLS.values() if k in m.group(1)), m.group(1))
-        elif fn and "spill stores" in line and not line.strip().startswith(
-                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
-            log(f"  {fn}: {line.strip()}")
+            fn = next((k for k in symbols if k in m.group(1)), m.group(1))
+            inst = instantiation(m.group(1)) if fn in WGMMA_KERNELS else None
+        elif fn and "spill stores" in line:
+            if inst:
+                wgmma[inst] = line.strip()
+            if not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+                log(f"  {fn}: {line.strip()}")
         elif fn and "Used" in line and "registers" in line:
             n = int(re.search(r"Used (\d+) registers", line).group(1))
             regs[fn] = max(regs.get(fn, 0), n)
+            if inst:
+                wgmma[inst] = f"{n} registers, {wgmma.get(inst, '')}"
     log("  registers: " + ", ".join(f"{k} {v}" for k, v in sorted(regs.items())))
+    for inst, text in sorted(wgmma.items()):
+        log(f"  {inst}: {text}")
+
+
+def log_hgmma(lib) -> dict:
+    """HGMMA (wgmma) and HMMA (mma.sync, what WMMA lowers to) instructions in
+    each wgmma kernel of the built library, from cuobjdump where the toolkit
+    has it: evidence that the 16-bit paths run on wgmma. Every instantiation
+    must hold HGMMA and no HMMA."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("  cuobjdump not found: HGMMA count not measured")
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = instantiation(m.group(1)) if any(k in m.group(1) for k in WGMMA_KERNELS) else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[fn][op] += 1
+    for inst, c in sorted(counts.items()):
+        log(f"  {inst}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA")
+    check(len(counts) > 0, "the wgmma kernels are in the library")
+    check(all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in counts.values()),
+          "every wgmma instantiation issues HGMMA and no HMMA")
+    return counts
 
 
 # --- phase 2: kernels against their plain versions --------------------------
@@ -336,8 +395,12 @@ def kernel_cases(dev, peak):
         case = dict(name=name, shape=list(shape), dtype=dname, outputs=readings,
                     max_abs_err=max(r["max_abs_err"] for r in readings.values()), ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+        rate_note = ""
+        if name.startswith("flash"):
+            case.update(tflops=flops / ms / 1e9, bound_share=b_ms / ms)
+            rate_note = f", {case['tflops']:.1f} TFLOP/s, {case['bound_share']:.1%} of bound"
         log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
-            + (f", library {library_ms:.4f} ms" if library_ms is not None else ""))
+            + (f", library {library_ms:.4f} ms" if library_ms is not None else "") + rate_note)
         cases.append(case)
 
     for b, lq, lk, heads, dtype in FLASH_FWD_CASES:
@@ -402,6 +465,9 @@ def kernel_cases(dev, peak):
                lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta),
                4 * 2.0 * bh * lq * lk * 64, bh * (esz * (qkvo + 2 * lk * 64) + 8 * lq),
                library=sdpa_bwd)
+        pair = cases[-2]["ms"] + cases[-1]["ms"]
+        log(f"    dq + dkv {pair:.4f} ms against SDPA's backward {cases[-1]['library_ms']:.4f} ms "
+            f"({pair / cases[-1]['library_ms']:.2f}x)")
         del q, k, v, do, out, dq, dk, dv, dq_ref, dk_ref, dv_ref, qg, kg, vg, sdpa_out
 
     for b, hw, c, dtype in GN_CASES:
@@ -970,7 +1036,7 @@ def dit_training_path(dev):
 
 
 # kernel-name fragments -> the layer they belong to, first match wins
-FAMILIES = list(KERNEL_SYMBOLS.items()) + [
+FAMILIES = [(fam, frag) for fam, frags in KERNEL_SYMBOLS.items() for frag in frags] + [
     ("conv", "conv"), ("conv", "fprop"), ("conv", "implicit"),
     ("gemm", "gemm"), ("gemm", "cutlass"), ("gemm", "nvjet"), ("gemm", "sm90_xmma")]
 
@@ -1048,6 +1114,7 @@ def main() -> int:
     _build.library()
     log(f"  built {lib.name} in {build_s:.1f} s")
     log_registers((lib.parent / "build.log").read_text())
+    hgmma = log_hgmma(lib)
 
     log("phase 2: kernels against their plain versions")
     cases = kernel_cases(dev, peaks(name))
@@ -1122,7 +1189,8 @@ def main() -> int:
         check(kernel["launches"] > 0, f"{kname} launched on a main path")
         summary.append(kernel)
         kernels.append({**kernel, "cases": mine})
-    record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "kernels": kernels,
+    record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "hgmma": hgmma,
+              "kernels": kernels,
               "model": model_res, "trajectory": traj, "training": train, "dit_model": dit_res,
               "dit_trajectory": dit_traj, "dit_training": dit_train,
               "total_s": time.perf_counter() - t0}

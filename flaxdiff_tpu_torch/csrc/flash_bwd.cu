@@ -13,27 +13,49 @@
 // Bound on the H100: operations. Per head the dq kernel does 3 products of
 // 2 Lq Lk D flops (q k^T, dO v^T, ds k) and the dk/dv kernel 4 (k q^T,
 // v dO^T, p^T dO, ds^T q), against 4-6 L D elements of traffic each: the
-// five products of the backward plus the two the split recomputes. The
-// design:
-//   * the JAX split, with no atomics, so the gradients are deterministic: a dq
-//     block per (64-row q tile, batch*head) looping over the kv tiles, and a
-//     dk/dv block per (64-row kv tile, batch*head) looping over the q tiles;
-//   * 4 warps of 16 rows, tiles staged through shared memory with 16-byte
-//     loads, products on the tensor cores through WMMA for bf16/f16 and in
-//     FMAs for f32, as in the forward (flash_common.cuh);
+// five products of the backward plus the two the split recomputes. Both
+// keep the JAX split, with no atomics, so the gradients are deterministic:
+// a dq block per (q tile, batch*head) looping over the kv tiles, a dk/dv
+// block per (kv tile, batch*head) looping over the q tiles in a fixed order.
+//
+// flash_bwd_dkv_wgmma_kernel (dk/dv, bf16 and f16):
+//   * one producer warp and NC consumer warpgroups of 64 kv rows each. The
+//     producer loads K and V once by TMA, then Q and dO tiles of 64 rows into
+//     a 2-stage ring (full and empty mbarriers), and with them lse (in log2
+//     units) and delta of the tile, read by its 32 lanes (the rows of a tile
+//     are not 16-byte aligned for every Lq, as a bulk copy would need);
+//   * NC = 2 (128-row kv tiles) when those tiles give every SM a block, for
+//     D <= 64; else NC = 1;
+//   * s^T = k q^T and dp^T = v dO^T are wgmma chains with both operands
+//     K-major in shared memory (128-byte swizzle, 64-byte for D = 32); p^T
+//     and ds^T are computed on the accumulator registers (exp2f with
+//     scale * log2(e) folded in), zeroed where the kv row >= kv_len or the q
+//     row >= lq, rounded to the input dtype in registers and fed as register-A
+//     operands of dv += p^T dO and dk += ds^T q, with dO and q the MN-major B
+//     operands through the transpose bit: scores, p and ds never touch shared
+//     memory; dk and dv stay in f32 registers across the loop;
+//   * the epilogue writes each warpgroup's dk and dv rows into its own rows
+//     of the K and V tiles and stores them with TMA, which skips rows at or
+//     past kv_len.
+//
+// flash_bwd_dq_kernel (all dtypes) and flash_bwd_dkv_fma_kernel (f32):
+//   * 64-row tiles, 4 warps of 16 rows, tiles staged through shared memory
+//     with 16-byte loads; dq's products on the tensor cores through WMMA for
+//     bf16/f16, f32 in FMA loops (f32-exact; the tensor cores would round to
+//     TF32), as in flash_common.cuh;
 //   * the dk/dv kernel computes its scores transposed, k q^T and v dO^T, so a
 //     warp's 16 kv rows of p^T and ds^T are the row-major A operands of
 //     p^T dO and ds^T q: no transpose anywhere;
-//   * scores and dP go through a per-warp f32 scratch (WMMA hides the row
-//     mapping), p and ds through a per-warp buffer in the input dtype; the
-//     16 x D gradient accumulators stay in registers across the loop;
+//   * scores and dP go through a per-warp f32 scratch, p and ds through a
+//     per-warp buffer in the input dtype; the 16 x D gradient accumulators
+//     stay in registers across the loop;
 //   * q rows at or past lq and kv rows at or past kv_len (the 77-token text
 //     context, ragged tiles) load as zeros and are masked out of p and ds,
-//     so they add exactly 0, and no gradient row past the end is written;
-//   * operands and gradients are addressed through explicit (batch, seq,
-//     head) strides, so the [B, L, H*D] projections need no transpose.
-// wgmma/TMA pipelining is later work; this version is right and simple first.
+//     so they add exactly 0, and no gradient row past the end is written.
+// Every kernel addresses operands and gradients through explicit (batch,
+// seq, head) strides, so the [B, L, H*D] projections need no transpose.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -180,7 +202,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const Params p) 
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const Params p) {
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_fma_kernel(const Params p) {
+  static_assert(kIsF32<T>, "the 16-bit types take flash_bwd_dkv_wgmma_kernel");
   using S = Smem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -246,26 +269,281 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const Params p)
   write_rows<T, D>(DV, p.g_sl, sm.s, kv_row0, p.lk, lane);
 }
 
+// --- dk/dv for bf16 / f16: wgmma fed by a TMA ring ----------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int STAGES = 2;  // Q/dO ring depth
+constexpr int BQ = 64;     // q rows per tile of the loop
+
+// The dk/dv block: K and V tiles of 64 NC rows (loaded once), STAGES (Q, dO)
+// tile pairs, STAGES rows of lse (log2 units) and delta, then the mbarriers.
+template <int D, int NC>
+struct DkvCfg {
+  static constexpr int BKV = 64 * NC;
+  static constexpr int THREADS = 128 * NC + 32;
+  static constexpr int MIN_BLOCKS = NC == 1 && D <= 64 ? 2 : 1;
+  static constexpr int KV_BYTES = BKV * D * 2;
+  static constexpr int QT_BYTES = BQ * D * 2;
+  static constexpr int OFF_RING = 2 * KV_BYTES;
+  static constexpr int OFF_ROWS = OFF_RING + STAGES * 2 * QT_BYTES;
+  static constexpr int OFF_BAR = OFF_ROWS + STAGES * 2 * BQ * 4;
+  static constexpr int BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // + base alignment
+  static_assert(KV_BYTES % 1024 == 0 && QT_BYTES % 1024 == 0, "tiles of whole swizzle atoms");
+};
+
+struct DkvArgs {
+  const float* lse;    // [B*H, Lq]
+  const float* delta;  // [B*H, Lq]
+  int heads, lq, lk;
+  float scale, scale_log2;
+};
+
+
+// A warpgroup's 64 x D f32 accumulator, rounded to T, into rows
+// row0 .. row0 + 63 of a chunked, swizzled tile of `rows` rows.
 template <typename T, int D>
-int launch(const Params& p, int batch, bool dq, cudaStream_t stream) {
+__device__ __forceinline__ void acc_to_tile(const float (&acc)[D / 2], unsigned char* tile,
+                                            int rows, int row0, int warp, int g, int tq) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t off =
+          hopper::swizzled_offset<D>(rows, row0 + 16 * warp + g + 8 * j, 8 * n + 2 * tq);
+      *reinterpret_cast<uint32_t*>(tile + off) =
+          hopper::pack2<T>(acc[4 * n + 2 * j], acc[4 * n + 2 * j + 1]);
+    }
+}
+
+template <typename T, int D, int NC>
+__global__ void __launch_bounds__(DkvCfg<D, NC>::THREADS, DkvCfg<D, NC>::MIN_BLOCKS)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                               const __grid_constant__ CUtensorMap mk,
+                               const __grid_constant__ CUtensorMap mv,
+                               const __grid_constant__ CUtensorMap mdo,
+                               const __grid_constant__ CUtensorMap mdk,
+                               const __grid_constant__ CUtensorMap mdv, const DkvArgs a) {
+  using C = DkvCfg<D, NC>;
+  using namespace hopper;
+  constexpr int BKV = C::BKV;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  unsigned char* sK = sm;
+  unsigned char* sV = sm + C::KV_BYTES;
+  float* rows = reinterpret_cast<float*>(sm + C::OFF_ROWS);  // per stage: lse2[BQ], delta[BQ]
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.heads, h = bh - b * a.heads;
+  const int k0 = blockIdx.x * BKV;
+  const int n_tiles = (a.lq + BQ - 1) / BQ;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  if (wg == NC) {
+    // the producer warp: lane 0 issues the TMA loads, every lane loads lse
+    // (in log2 units) and delta of the q tile, 0 past lq
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_kv, 2 * C::KV_BYTES);
+      tma_load_tile<D>(sK, &mk, bar_kv, BKV, h, k0, b);
+      tma_load_tile<D>(sV, &mv, bar_kv, BKV, h, k0, b);
+    }
+    const int64_t row_base = static_cast<int64_t>(bh) * a.lq;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % STAGES, use = t / STAGES;
+      if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+      float* r = rows + st * 2 * BQ;
+#pragma unroll
+      for (int i = lane; i < BQ; i += 32) {
+        const int row = t * BQ + i;
+        const bool ok = row < a.lq;
+        r[i] = ok ? a.lse[row_base + row] * LOG2E : 0.f;
+        r[BQ + i] = ok ? a.delta[row_base + row] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        unsigned char* sQ = sm + C::OFF_RING + st * 2 * C::QT_BYTES;
+        mbar_arrive_expect_tx(&full[st], 2 * C::QT_BYTES);
+        tma_load_tile<D>(sQ, &mq, &full[st], BQ, h, t * BQ, b);
+        tma_load_tile<D>(sQ + C::QT_BYTES, &mdo, &full[st], BQ, h, t * BQ, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: kv rows k0 + 64 wg .. + 63. Scores are transposed:
+  // accumulator row = kv row, column = q row of the tile.
+  const int tid = threadIdx.x % 128, warp = tid / 32;
+  const int g = lane / 4, tq = lane % 4;
+  bool kv_ok[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) kv_ok[j] = k0 + 64 * wg + 16 * warp + g + 8 * j < a.lk;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    const unsigned char* sQ = sm + C::OFF_RING + st * 2 * C::QT_BYTES;
+    const unsigned char* sDO = sQ + C::QT_BYTES;
+    const float* r = rows + st * 2 * BQ;
+    mbar_wait(&full[st], (t / STAGES) & 1);
+
+    // s^T = k q^T and dp^T = v dO^T, both K-major operands in shared memory
+    float s[BQ / 2], dp[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ, T>(s, desc_kmajor<D>(sK, BKV, 64 * wg, kk), desc_kmajor<D>(sQ, BQ, 0, kk),
+                      kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ, T>(dp, desc_kmajor<D>(sV, BKV, 64 * wg, kk), desc_kmajor<D>(sDO, BQ, 0, kk),
+                      kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p^T = exp2(s^T scale log2e - lse2), ds^T = p^T (dp^T - delta) scale;
+    // 0 where the kv row >= lk or the q row >= lq
+    const bool edge = (t + 1) * BQ > a.lq;
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * n + 2 * tq + c;
+        const float lse2 = r[col], delta = r[BQ + col];
+        const bool q_ok = !edge || t * BQ + col < a.lq;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int i = 4 * n + 2 * j + c;
+          float p = exp2f(fmaf(s[i], a.scale_log2, -lse2));
+          if (!(q_ok && kv_ok[j])) p = 0.f;
+          s[i] = p;
+          dp[i] = p * (dp[i] - delta) * a.scale;
+        }
+      }
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      acc_to_a<T>(s, kk, pa[kk]);
+      acc_to_a<T>(dp, kk, da[kk]);
+    }
+
+    // dv += p^T dO and dk += ds^T q: A from registers, B MN-major
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D, T>(dv, pa[kk], desc_mnmajor<D>(sDO, BQ, kk));
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D, T>(dk, da[kk], desc_mnmajor<D>(sQ, BQ, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // epilogue: dk and dv into this warpgroup's rows of the K and V tiles, then
+  // TMA stores, which skip rows at or past lk
+  named_barrier(1 + wg, 128);
+  acc_to_tile<T, D>(dk, sK, BKV, 64 * wg, warp, g, tq);
+  acc_to_tile<T, D>(dv, sV, BKV, 64 * wg, warp, g, tq);
+  fence_async_smem();
+  named_barrier(1 + wg, 128);
+  if (tid == 0) {
+    const int own = 64 * wg * chunk_row_bytes<D>();  // this warpgroup's rows in each chunk
+    tma_store_tile<D>(&mdk, sK + own, BKV, h, k0 + 64 * wg, b);
+    tma_store_tile<D>(&mdv, sV + own, BKV, h, k0 + 64 * wg, b);
+    tma_store_wait();
+  }
+}
+
+template <typename T, int D, int NC>
+int launch_dkv_wgmma_nc(const Params& p, int batch, int dtype, cudaStream_t stream) {
+  using C = DkvCfg<D, NC>;
+  using hopper::encode_bhld;
+  CUtensorMap mq, mk, mv, mdo, mdk, mdv;
+  int r = encode_bhld<D>(&mq, p.q, dtype, batch, p.lq, p.heads, p.q_sb, p.q_sl, p.q_sh, BQ);
+  if (r == 0) r = encode_bhld<D>(&mdo, p.dout, dtype, batch, p.lq, p.heads, p.do_sb, p.do_sl, p.do_sh, BQ);
+  if (r == 0) r = encode_bhld<D>(&mk, p.k, dtype, batch, p.lk, p.heads, p.k_sb, p.k_sl, p.k_sh, C::BKV);
+  if (r == 0) r = encode_bhld<D>(&mv, p.v, dtype, batch, p.lk, p.heads, p.v_sb, p.v_sl, p.v_sh, C::BKV);
+  if (r == 0) r = encode_bhld<D>(&mdk, p.g0, dtype, batch, p.lk, p.heads, p.g_sb, p.g_sl, p.g_sh, 64);
+  if (r == 0) r = encode_bhld<D>(&mdv, p.g1, dtype, batch, p.lk, p.heads, p.g_sb, p.g_sl, p.g_sh, 64);
+  if (r != 0) return hopper::kTensorMapError + r;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<T, D, NC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const DkvArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, p.scale, p.scale * LOG2E};
+  const dim3 grid((p.lk + C::BKV - 1) / C::BKV, batch * p.heads);
+  kernel<<<grid, C::THREADS, C::BYTES, stream>>>(mq, mk, mv, mdo, mdk, mdv, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two consumers (128-row kv tiles) when those tiles give every SM a block;
+// else one. D = 128 always takes one: its four accumulators need more than
+// the 224 registers a thread may hold in a block of two consumers.
+template <typename T, int D>
+int launch_dkv_wgmma(const Params& p, int batch, int dtype, cudaStream_t stream) {
+  if constexpr (D <= 64) {
+    const int64_t tiles128 = static_cast<int64_t>((p.lk + 127) / 128) * batch * p.heads;
+    if (tiles128 >= hopper::sm_count()) return launch_dkv_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
+  }
+  return launch_dkv_wgmma_nc<T, D, 1>(p, batch, dtype, stream);
+}
+
+template <typename T, int D>
+int launch_fma(void (*kernel)(const Params), const Params& p, int rows, int batch,
+               cudaStream_t stream) {
   using S = Smem<T, D>;
-  void (*kernel)(const Params) = flash_bwd_dkv_kernel<T, D>;
-  if (dq) kernel = flash_bwd_dq_kernel<T, D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = dq ? p.lq : p.lk;
   const dim3 grid((rows + TILE - 1) / TILE, batch * p.heads);
   kernel<<<grid, NTHREADS, S::BYTES, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// dq: one kernel for every dtype. dk/dv: f32 takes the FMA kernel, bf16 and
+// f16 the wgmma kernel, a dispatch on the dtype with no fallback between them.
+template <typename T, int D>
+int launch(const Params& p, int batch, int dtype, bool dq, cudaStream_t stream) {
+  if (dq) return launch_fma<T, D>(flash_bwd_dq_kernel<T, D>, p, p.lq, batch, stream);
+  if constexpr (kIsF32<T>) {
+    return launch_fma<T, D>(flash_bwd_dkv_fma_kernel<T, D>, p, p.lk, batch, stream);
+  } else {
+    return launch_dkv_wgmma<T, D>(p, batch, dtype, stream);
+  }
+}
+
 template <typename T>
-int dispatch_d(const Params& p, int batch, int d, bool dq, cudaStream_t stream) {
+int dispatch_d(const Params& p, int batch, int d, int dtype, bool dq, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(p, batch, dq, stream);
-    case 64: return launch<T, 64>(p, batch, dq, stream);
-    case 128: return launch<T, 128>(p, batch, dq, stream);
+    case 32: return launch<T, 32>(p, batch, dtype, dq, stream);
+    case 64: return launch<T, 64>(p, batch, dtype, dq, stream);
+    case 128: return launch<T, 128>(p, batch, dtype, dq, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -275,9 +553,9 @@ int dispatch(const Params& p, int batch, int d, int dtype, bool dq, void* stream
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return dispatch_d<float>(p, batch, d, dq, s);
-    case kBFloat16: return dispatch_d<__nv_bfloat16>(p, batch, d, dq, s);
-    case kFloat16: return dispatch_d<__half>(p, batch, d, dq, s);
+    case kFloat32: return dispatch_d<float>(p, batch, d, dtype, dq, s);
+    case kBFloat16: return dispatch_d<__nv_bfloat16>(p, batch, d, dtype, dq, s);
+    case kFloat16: return dispatch_d<__half>(p, batch, d, dtype, dq, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

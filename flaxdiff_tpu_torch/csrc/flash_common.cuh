@@ -1,12 +1,14 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// 64-row tiles staged in shared memory, 4 warps of 16 rows each, and the
+// Shared pieces of the flash-attention kernels that stage tiles through
+// shared memory (flash_fwd.cu's and flash_bwd.cu's f32 kernels, and the dq
+// kernel for every dtype): 64-row tiles, 4 warps of 16 rows each, and the
 // products one warp computes on its 16 rows.
 //
-// bf16/f16 products run on the tensor cores through WMMA (f32 accumulation).
-// f32 inputs take plain FMA loops, so f32 results stay f32-exact (the tensor
-// cores would round them to TF32). WMMA hides which lane holds which element,
-// so scores and probabilities go through shared memory, where every lane can
-// read whole rows.
+// bf16/f16 products (the dq kernel's) run on the tensor cores through WMMA
+// (f32 accumulation). f32 inputs take plain FMA loops, so f32 results stay
+// f32-exact (the tensor cores would round them to TF32). WMMA hides which
+// lane holds which element, so scores and probabilities go through shared
+// memory, where every lane can read whole rows. The 16-bit forward and dk/dv
+// kernels do not use these pieces: they run on wgmma (hopper.cuh).
 #pragma once
 
 #include <mma.h>

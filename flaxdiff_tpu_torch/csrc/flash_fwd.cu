@@ -6,28 +6,48 @@
 //
 // Bound on the H100: operations for self-attention (4 * L^2 * D flops per
 // head against 8 * L * D bytes: at L = 4096 the tensor cores are the limit),
-// bytes for the 77-token cross-attention. The design:
-//   * one block of 4 warps per (64-row q tile, batch*head); each warp owns 16
-//     q rows, so softmax state and the output accumulator never leave the warp;
-//   * K/V tiles of 64 rows are staged through shared memory with 16-byte loads
-//     and shared by the 4 warps;
-//   * q k^T and p v run on the tensor cores through WMMA (bf16/f16 inputs,
-//     f32 accumulation); f32 inputs take a plain FMA path so that f32 results
-//     stay f32-exact (the tensor cores would round them to TF32);
-//   * the online softmax is f32; columns at or past kv_len score -1e30, as at
-//     flash_attention.py:39,104, which covers the 77-token context and ragged
-//     tiles. p is rounded to the input dtype before p v, as the TPU kernel does;
-//   * operands are addressed through explicit (batch, seq, head) strides, so a
-//     [B, L, H*D] projection reaches the kernel as a view with no transpose;
-//   * lse is stored as [B*H, Lq] f32 (the TPU's 128-lane replication is gone).
-// wgmma/TMA pipelining is later work; this version is right and simple first.
+// bytes for the 77-token cross-attention. Two kernels, chosen by dtype:
+//
+// flash_fwd_wgmma_kernel (bf16, f16) is built for those bounds:
+//   * a block per (q tile, batch*head): one producer warp and NC consumer
+//     warpgroups of 64 q rows each. The producer issues TMA: the q tile once,
+//     then K and V tiles of BN rows into a 2-stage ring, each stage guarded by
+//     a full and an empty mbarrier, so loads overlap the math. Operands are
+//     4-D tensor maps over (D, H, L, B) with the caller's strides, so a
+//     [B, L, H*D] projection needs no copy and rows past lq / kv_len load as
+//     zeros. BN = 128 for D <= 64 and 64 for D = 128 (the registers of the
+//     score, probability and output tiles then fit with no spill);
+//   * NC = 2 (128-row q tiles) when those tiles alone give every SM a block;
+//     else NC = 1, whose smaller blocks (two per SM) fill the card at the
+//     DiT's 256 tokens and at 1024 tokens with batch 2;
+//   * s = q k^T is one wgmma chain (A = q, B = k, both K-major in shared
+//     memory under the 128-byte swizzle, 64-byte for D = 32). The online
+//     softmax runs on the accumulator registers: a thread holds two rows, the
+//     row max and sum take two quad shuffles, scale * log2(e) is folded into
+//     exp2f, and columns at or past kv_len score -1e30 (flash_attention.py:
+//     39,104) on the last kv tile only;
+//   * p is rounded to the input dtype in registers, against the running max
+//     as the TPU kernel does, and is the register-A operand of p v (the
+//     accumulator layout of s is the A-fragment layout for 16-bit types); v
+//     is the MN-major B operand through the transpose bit. The output is
+//     rescaled and l accumulated in registers: scores and probabilities never
+//     touch shared memory;
+//   * the epilogue divides by l, writes the warpgroup's rows into its own
+//     (consumed) q tile in the swizzled layout and stores them with TMA,
+//     which skips rows at or past lq; lse = (m2 + log2 l) ln 2, natural-log
+//     units, as [B*H, Lq] f32.
+//
+// flash_fwd_fma_kernel (f32) keeps f32 results f32-exact (the tensor cores
+// would round them to TF32): 64-row tiles, 4 warps of 16 rows, FMA loops,
+// scores through a per-warp shared scratch.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
-constexpr int BM = TILE;  // q rows per block
-constexpr int BN = TILE;  // kv rows per tile
+constexpr int BM = TILE;  // q rows per block of the f32 kernel
+constexpr int BN = TILE;  // kv rows per tile of the f32 kernel
 
 struct Params {
   const void* q;
@@ -42,6 +62,8 @@ struct Params {
   int heads, lq, lk;
   float scale;
 };
+
+// --- f32: FMA loops ------------------------------------------------------------
 
 // Shared-memory layout (leading dimensions from flash_common.cuh).
 template <typename T, int D>
@@ -74,7 +96,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
+__global__ void __launch_bounds__(NTHREADS) flash_fwd_fma_kernel(const Params p) {
+  static_assert(kIsF32<T>, "the 16-bit types take flash_fwd_wgmma_kernel");
   using S = Smem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + S::OFF_Q);
@@ -182,10 +205,237 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
   }
 }
 
+// --- bf16 / f16: wgmma fed by a TMA ring ------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int STAGES = 2;  // K/V ring depth
+
+// Tile sizes and the shared-memory layout of the wgmma kernel: the q tile,
+// then STAGES (K, V) tile pairs, then the mbarriers. Every tile is a whole
+// number of 1024-byte swizzle atoms.
+template <int D, int NC>
+struct FwdCfg {
+  static constexpr int BM = 64 * NC;           // q rows per block
+  static constexpr int BN = D <= 64 ? 128 : 64;  // kv rows per tile
+  static constexpr int THREADS = 128 * NC + 32;  // consumers, then the producer warp
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr int OFF_KV = Q_BYTES;
+  static constexpr int OFF_BAR = OFF_KV + STAGES * 2 * KV_BYTES;
+  static constexpr int BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // + base alignment
+  static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "tiles of whole swizzle atoms");
+};
+
+struct FwdArgs {
+  float* lse;  // [B*H, Lq] or nullptr
+  int heads, lq, lk;
+  float scale_log2;  // scale * log2(e)
+};
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <typename T, int D, int NC>
+__global__ void __launch_bounds__(FwdCfg<D, NC>::THREADS, NC == 1 ? 2 : 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mo, const FwdArgs a) {
+  using C = FwdCfg<D, NC>;
+  using namespace hopper;
+  constexpr int BM = C::BM, BN = C::BN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  unsigned char* sQ = sm;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.heads, h = bh - b * a.heads;
+  const int q0 = blockIdx.x * BM;
+  const int n_tiles = (a.lk + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NC) {
+    // the producer warp: one lane issues every load
+    if (threadIdx.x % 32 == 0) {
+      mbar_arrive_expect_tx(bar_q, C::Q_BYTES);
+      tma_load_tile<D>(sQ, &mq, bar_q, BM, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % STAGES, use = t / STAGES;
+        if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+        unsigned char* sK = sm + C::OFF_KV + st * 2 * C::KV_BYTES;
+        mbar_arrive_expect_tx(&full[st], 2 * C::KV_BYTES);
+        tma_load_tile<D>(sK, &mk, &full[st], BN, h, t * BN, b);
+        tma_load_tile<D>(sK + C::KV_BYTES, &mv, &full[st], BN, h, t * BN, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: q rows q0 + 64 wg .. + 63 of the block
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // m in log2 units
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    const unsigned char* sK = sm + C::OFF_KV + st * 2 * C::KV_BYTES;
+    const unsigned char* sV = sK + C::KV_BYTES;
+    mbar_wait(&full[st], (t / STAGES) & 1);
+
+    float s[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BN, T>(s, desc_kmajor<D>(sQ, BM, 64 * wg, kk), desc_kmajor<D>(sK, BN, 0, kk),
+                      kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // scores in log2 units; columns at or past kv_len on the last tile only
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] *= a.scale_log2;
+    if ((t + 1) * BN > a.lk) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int col = t * BN + 8 * (i / 4) + 2 * tq + (i % 2);
+        if (col >= a.lk) s[i] = NEG_INF;
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float mx = m[j];
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) mx = fmaxf(mx, fmaxf(s[4 * n + 2 * j], s[4 * n + 2 * j + 1]));
+      mx = quad_max(mx);
+      alpha[j] = exp2f(m[j] - mx);
+      m[j] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+        s[4 * n + 2 * j] = exp2f(s[4 * n + 2 * j] - mx);
+        s[4 * n + 2 * j + 1] = exp2f(s[4 * n + 2 * j + 1] - mx);
+        sum += s[4 * n + 2 * j] + s[4 * n + 2 * j + 1];
+      }
+      l[j] = l[j] * alpha[j] + sum;  // this thread's columns; the quad's sum at the end
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n + 0] *= alpha[0];
+      o[4 * n + 1] *= alpha[0];
+      o[4 * n + 2] *= alpha[1];
+      o[4 * n + 3] *= alpha[1];
+    }
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) acc_to_a<T>(s, kk, pa[kk]);
+
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<D, T>(o, pa[kk], desc_mnmajor<D>(sV, BN, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // epilogue: O / l into this warpgroup's rows of the consumed q tile, then TMA
+  float inv[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] = fmaxf(quad_sum(l[j]), 1e-30f);
+    inv[j] = 1.0f / l[j];
+  }
+  const int row_in_tile = 64 * wg + 16 * warp + g;
+  if (a.lse != nullptr && tq == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = q0 + row_in_tile + 8 * j;
+      if (row < a.lq) a.lse[static_cast<int64_t>(bh) * a.lq + row] = (m[j] + log2f(l[j])) * LN2;
+    }
+  }
+  named_barrier(1 + wg, 128);  // every warp of the group is done reading its q rows
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t off = swizzled_offset<D>(BM, row_in_tile + 8 * j, 8 * n + 2 * tq);
+      *reinterpret_cast<uint32_t*>(sQ + off) =
+          pack2<T>(o[4 * n + 2 * j] * inv[j], o[4 * n + 2 * j + 1] * inv[j]);
+    }
+  fence_async_smem();
+  named_barrier(1 + wg, 128);
+  if (tid == 0) {
+    tma_store_tile<D>(&mo, sQ + 64 * wg * chunk_row_bytes<D>(), BM, h, q0 + 64 * wg, b);
+    tma_store_wait();
+  }
+}
+
+template <typename T, int D, int NC>
+int launch_wgmma_nc(const Params& p, int batch, int dtype, cudaStream_t stream) {
+  using C = FwdCfg<D, NC>;
+  using hopper::encode_bhld;
+  CUtensorMap mq, mk, mv, mo;
+  int r = encode_bhld<D>(&mq, p.q, dtype, batch, p.lq, p.heads, p.q_sb, p.q_sl, p.q_sh, C::BM);
+  if (r == 0) r = encode_bhld<D>(&mk, p.k, dtype, batch, p.lk, p.heads, p.k_sb, p.k_sl, p.k_sh, C::BN);
+  if (r == 0) r = encode_bhld<D>(&mv, p.v, dtype, batch, p.lk, p.heads, p.v_sb, p.v_sl, p.v_sh, C::BN);
+  if (r == 0) r = encode_bhld<D>(&mo, p.o, dtype, batch, p.lq, p.heads, p.o_sb, p.o_sl, p.o_sh, 64);
+  if (r != 0) return hopper::kTensorMapError + r;
+  auto kernel = flash_fwd_wgmma_kernel<T, D, NC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const FwdArgs args{p.lse, p.heads, p.lq, p.lk, p.scale * LOG2E};
+  const dim3 grid((p.lq + C::BM - 1) / C::BM, batch * p.heads);
+  kernel<<<grid, C::THREADS, C::BYTES, stream>>>(mq, mk, mv, mo, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two consumers (128-row q tiles) when those tiles give every SM a block;
+// else one, whose blocks are half the size and twice as many.
 template <typename T, int D>
-int launch(const Params& p, int batch, cudaStream_t stream) {
-  using S = Smem<T, D>;
-  auto kernel = flash_fwd_kernel<T, D>;
+int launch_wgmma(const Params& p, int batch, int dtype, cudaStream_t stream) {
+  const int64_t tiles128 = static_cast<int64_t>((p.lq + 127) / 128) * batch * p.heads;
+  if (tiles128 >= hopper::sm_count()) return launch_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
+  return launch_wgmma_nc<T, D, 1>(p, batch, dtype, stream);
+}
+
+template <int D>
+int launch_fma(const Params& p, int batch, cudaStream_t stream) {
+  using S = Smem<float, D>;
+  auto kernel = flash_fwd_fma_kernel<float, D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -194,12 +444,14 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const Params& p, int batch, int d, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(p, batch, stream);
-    case 64: return launch<T, 64>(p, batch, stream);
-    case 128: return launch<T, 128>(p, batch, stream);
+// f32 takes the FMA kernel, bf16 and f16 the wgmma kernel: a dispatch on the
+// dtype, with no fallback from one to the other.
+template <int D>
+int dispatch_dtype(const Params& p, int batch, int dtype, cudaStream_t s) {
+  switch (dtype) {
+    case kFloat32: return launch_fma<D>(p, batch, s);
+    case kBFloat16: return launch_wgmma<__nv_bfloat16, D>(p, batch, dtype, s);
+    case kFloat16: return launch_wgmma<__half, D>(p, batch, dtype, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -215,10 +467,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, f
   const Params p{q,    k,    v,    o,    lse,  q_sb,  q_sl, q_sh, k_sb, k_sl,  k_sh,
                  v_sb, v_sl, v_sh, o_sb, o_sl, o_sh, heads, lq,   lk,   scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32: return dispatch_d<float>(p, batch, d, s);
-    case kBFloat16: return dispatch_d<__nv_bfloat16>(p, batch, d, s);
-    case kFloat16: return dispatch_d<__half>(p, batch, d, s);
+  switch (d) {
+    case 32: return dispatch_dtype<32>(p, batch, dtype, s);
+    case 64: return dispatch_dtype<64>(p, batch, dtype, s);
+    case 128: return dispatch_dtype<128>(p, batch, dtype, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,7 +2,8 @@
 
 Each source is compiled by its own ``nvcc`` process for ``sm_90a``, all
 started together, and the objects are linked into one shared library with a
-plain C interface, loaded with ``ctypes`` (no PyTorch headers: a build takes
+plain C interface (and the CUDA driver library, ``-lcuda``, for the TMA
+tensor maps), loaded with ``ctypes`` (no PyTorch headers: a build takes
 seconds, not minutes). The library lands in ``build/kernels/`` beside the
 package, named by a hash of the sources, so an edited source rebuilds and an
 unchanged one loads the existing library.
@@ -27,6 +28,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the driver API, for the TMA tensor maps (cuTensorMapEncodeTiled)
+LINK_FLAGS = ["-lcuda"]
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -54,7 +57,7 @@ def _sources() -> list[Path]:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -96,7 +99,7 @@ def build() -> Path:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
         staged = Path(tmp) / lib.name
         subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(staged),
-                        *map(str, objs)], check=True)
+                        *map(str, objs), *LINK_FLAGS], check=True)
         os.replace(staged, lib)
     return lib
 

@@ -15,6 +15,7 @@ from flaxdiff_tpu.ops.flash_attention import _fwd_impl
 from flaxdiff_tpu.ops.fused_adaln import fused_geglu as jax_geglu
 from flaxdiff_tpu.ops.fused_norm import fused_groupnorm_silu as jax_gn
 
+from flaxdiff_tpu_torch.ops import _build
 from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, dot_product_attention, flash_attention,
                                     fused_geglu, fused_groupnorm_silu, groupnorm_normalize,
                                     groupnorm_stats, launch_counts, reset_launch_counts)
@@ -163,3 +164,40 @@ def test_groupnorm_wrappers_reject_what_the_kernels_cannot_take(shape, transpose
     with pytest.raises(ValueError, match=match):
         groupnorm_normalize(x, stats, stats + 1.0, torch.ones(c), torch.zeros(c), True)
 
+
+
+# --- the C interface of the kernel library against its ctypes bindings --------
+
+def _extern_c_signatures():
+    """{name: [parameter type, ...]} of every extern "C" function in the port's
+    CUDA sources, read from the text (nothing is compiled here)."""
+    import re
+
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for name, params in re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', text):
+            # each parameter's type: the declaration without its name
+            found[name] = [re.sub(r"\s*\b\w+\s*$", "", p.strip()) for p in params.split(",")]
+    return found
+
+
+def _ctype_of(c_type: str):
+    import ctypes
+    if "*" in c_type:
+        return ctypes.c_void_p
+    kinds = {"int64_t": ctypes.c_int64, "int": ctypes.c_int, "float": ctypes.c_float}
+    return kinds[c_type.replace("const", "").strip()]
+
+
+def test_every_extern_c_kernel_entry_is_bound():
+    assert set(_extern_c_signatures()) == set(_build._SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_ctypes_signature_matches_the_c_declaration(name):
+    """Argument by argument: a pointer is c_void_p, int64_t c_int64, int
+    c_int, float c_float. A parameter added or moved in a source but not in
+    _SIGNATURES would otherwise pass a pointer as a 32-bit int."""
+    declared = [_ctype_of(t) for t in _extern_c_signatures()[name]]
+    assert declared == _build._SIGNATURES[name]
