@@ -8,6 +8,8 @@ Phases; any failure exits non-zero and prints no result line.
      flaxdiff_tpu_torch/csrc with nvcc for sm_90a; print each kernel's
      registers, the registers and spills of every wgmma instantiation and,
      where cuobjdump exists, their HGMMA (wgmma) and HMMA (mma.sync) counts.
+     Fails if a wgmma instantiation spills, if ptxas serialised its wgmma
+     (warning C7520), or if one holds no HGMMA or any HMMA.
   2. Hold each of the thirteen kernels against its plain PyTorch version on
      the card: the forward kernels at the serving paths' shapes, the backward
      kernels at the training paths' (bf16, plus one f32 case each with TF32
@@ -112,8 +114,10 @@ FLASH_BWD_CASES = [(TRAIN_BATCH, 1024, 1024, 8, BF16), (TRAIN_BATCH, 1024, TEXT_
                    (2, 1024, 1024, 8, F32),
                    (DIT_TRAIN_BATCH, DIT_TOKENS, DIT_TOKENS, DIT_HEADS, BF16)]
 # GroupNorm (batch, HW, C, dtype), 8 groups: forward cases at SERVE_BATCH
+# (four shapes the UNet's forward at 256^2 normalizes, then f32)
 GN_CASES = [(SERVE_BATCH, 256 * 256, 64, BF16), (SERVE_BATCH, 64 * 64, 256, BF16),
-            (SERVE_BATCH, 32 * 32, 1024, BF16), (SERVE_BATCH, 64 * 64, 256, F32),
+            (SERVE_BATCH, 32 * 32, 1024, BF16), (SERVE_BATCH, 128 * 128, 128, BF16),
+            (SERVE_BATCH, 64 * 64, 256, F32),
             (TRAIN_BATCH, 128 * 128, 64, BF16), (TRAIN_BATCH, 32 * 32, 256, BF16),
             (TRAIN_BATCH, 16 * 16, 1024, BF16), (TRAIN_BATCH, 32 * 32, 256, F32)]
 # GEGLU (batch, rows, 2F, dtype): forward cases at SERVE_BATCH
@@ -151,10 +155,12 @@ REPLACES = {
 # the __global__ functions each wrapper launches, as the profiler names them
 KERNEL_SYMBOLS = {name: (name + "_kernel",) for name in REPLACES}
 KERNEL_SYMBOLS.update(flash_fwd=("flash_fwd_wgmma_kernel", "flash_fwd_fma_kernel"),
+                      flash_bwd_dq=("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_fma_kernel"),
                       flash_bwd_dkv=("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_fma_kernel"),
                       ln_mod=("ln_mod_fwd_kernel",), gate_res=("gate_res_fwd_kernel",))
 # the 16-bit paths that must run on wgmma (HGMMA in the built library)
-WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma_kernel")
 SOURCES = {
     "flash_fwd": "flaxdiff_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_dq": "flaxdiff_tpu_torch/csrc/flash_bwd.cu",
@@ -299,10 +305,12 @@ def instantiation(mangled: str) -> str:
     return f"{m.group(1)} {dtype} D{m.group(3)} NC{m.group(4)}"
 
 
-def log_registers(build_log: str) -> None:
+def log_registers(build_log: str) -> dict:
     """Each kernel's most registers over its instantiations, every
     instantiation that spills, and the registers and spills of every wgmma
-    instantiation, from nvcc's -Xptxas -v output."""
+    instantiation, from nvcc's -Xptxas -v output. Fails if a wgmma
+    instantiation spills or ptxas serialised any wgmma (C7520: a warpgroup
+    arrive on a branch costs every product its overlap)."""
     symbols = [frag for frags in KERNEL_SYMBOLS.values() for frag in frags]
     regs, fn, inst, wgmma = {}, None, None, {}
     for line in build_log.splitlines():
@@ -324,6 +332,14 @@ def log_registers(build_log: str) -> None:
     log("  registers: " + ", ".join(f"{k} {v}" for k, v in sorted(regs.items())))
     for inst, text in sorted(wgmma.items()):
         log(f"  {inst}: {text}")
+    serialised = [line.strip() for line in build_log.splitlines() if "C7520" in line]
+    for line in serialised:
+        log(f"  {line}")
+    check(len(wgmma) > 0, "the wgmma instantiations are in the build log")
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in t for t in wgmma.values()),
+          "no wgmma instantiation spills")
+    check(not serialised, "ptxas serialised no wgmma (C7520)")
+    return wgmma
 
 
 def log_hgmma(lib) -> dict:
@@ -1113,7 +1129,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     _build.library()
     log(f"  built {lib.name} in {build_s:.1f} s")
-    log_registers((lib.parent / "build.log").read_text())
+    ptxas = log_registers((lib.parent / "build.log").read_text())
     hgmma = log_hgmma(lib)
 
     log("phase 2: kernels against their plain versions")
@@ -1189,7 +1205,8 @@ def main() -> int:
         check(kernel["launches"] > 0, f"{kname} launched on a main path")
         summary.append(kernel)
         kernels.append({**kernel, "cases": mine})
-    record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "hgmma": hgmma,
+    record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "ptxas": ptxas,
+              "hgmma": hgmma,
               "kernels": kernels,
               "model": model_res, "trajectory": traj, "training": train, "dit_model": dit_res,
               "dit_trajectory": dit_traj, "dit_training": dit_train,

@@ -47,6 +47,17 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
 
+// Streaming multiprocessors of device 0, read once.
+inline int sm_count() {
+  static int n = [] {
+    int v = 0;
+    if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, 0) != cudaSuccess || v <= 0)
+      v = 132;
+    return v;
+  }();
+  return n;
+}
+
 // Grid size for a grid-stride loop over `work` items: enough blocks to fill
 // every SM several times over, never more than the work needs.
 inline int grid_for(int64_t work, int threads) {

@@ -18,37 +18,55 @@
 // a dq block per (q tile, batch*head) looping over the kv tiles, a dk/dv
 // block per (kv tile, batch*head) looping over the q tiles in a fixed order.
 //
-// flash_bwd_dkv_wgmma_kernel (dk/dv, bf16 and f16):
-//   * one producer warp and NC consumer warpgroups of 64 kv rows each. The
-//     producer loads K and V once by TMA, then Q and dO tiles of 64 rows into
-//     a 2-stage ring (full and empty mbarriers), and with them lse (in log2
-//     units) and delta of the tile, read by its 32 lanes (the rows of a tile
-//     are not 16-byte aligned for every Lq, as a bulk copy would need);
-//   * NC = 2 (128-row kv tiles) when those tiles give every SM a block, for
-//     D <= 64; else NC = 1;
-//   * s^T = k q^T and dp^T = v dO^T are wgmma chains with both operands
-//     K-major in shared memory (128-byte swizzle, 64-byte for D = 32); p^T
-//     and ds^T are computed on the accumulator registers (exp2f with
-//     scale * log2(e) folded in), zeroed where the kv row >= kv_len or the q
-//     row >= lq, rounded to the input dtype in registers and fed as register-A
-//     operands of dv += p^T dO and dk += ds^T q, with dO and q the MN-major B
-//     operands through the transpose bit: scores, p and ds never touch shared
-//     memory; dk and dv stay in f32 registers across the loop;
-//   * the epilogue writes each warpgroup's dk and dv rows into its own rows
-//     of the K and V tiles and stores them with TMA, which skips rows at or
-//     past kv_len.
+// The 16-bit kernels (bf16, f16) share one design, built on hopper.cuh:
+//   * one TMA producer warp and NC consumer warpgroups of 64 rows each. The
+//     producer loads the block's own tiles once, then streams the other
+//     side's tiles of 64 rows through a 2-stage ring (full and empty
+//     mbarriers), so loads overlap the math. Operands are 4-D tensor maps
+//     over (D, H, L, B) with the caller's strides, so q/k/v views of one
+//     projection need no copy, and rows past lq / kv_len load as zeros;
+//   * NC = 2 (128-row tiles) when those tiles give every SM a block; else
+//     NC = 1, whose smaller blocks (two per SM where registers allow) fill
+//     the card;
+//   * the two score products are wgmma chains with both operands K-major in
+//     shared memory (128-byte swizzle, 64-byte for D = 32); p and ds are
+//     computed on the accumulator registers (exp2f with scale * log2(e)
+//     folded in, lse in log2 units), zeroed past kv_len, rounded to the
+//     input dtype in registers and fed as register-A operands of the
+//     gradient products, whose B operand is read MN-major through the
+//     transpose bit: scores, p and ds never touch shared memory; the
+//     gradients stay in f32 registers across the loop;
+//   * the epilogue writes each warpgroup's gradient rows into its own rows
+//     of a consumed tile and stores them with TMA, which skips rows past
+//     the end.
 //
-// flash_bwd_dq_kernel (all dtypes) and flash_bwd_dkv_fma_kernel (f32):
+// flash_bwd_dq_wgmma_kernel (dq): a block per (q tile, batch*head). Q and dO
+//   arrive once; K and V tiles stream through the ring. s = q k^T and
+//   dp = dO v^T, then dq += ds k with k the B operand. A q row's lse and
+//   delta are fixed for the whole loop: each consumer thread reads its two
+//   rows' values once into registers (the rows are not 16-byte aligned for
+//   every Lq, as a bulk copy would need), 0 past lq.
+//
+// flash_bwd_dkv_wgmma_kernel (dk/dv): a block per (kv tile, batch*head). K
+//   and V arrive once; Q and dO tiles stream through the ring, and with
+//   them lse (log2 units) and delta of the tile, read by the producer's 32
+//   lanes. The scores are transposed, s^T = k q^T and dp^T = v dO^T, so
+//   p^T and ds^T are the A operands of dv += p^T dO and dk += ds^T q; zeroed
+//   where the kv row >= kv_len or the q row >= lq. D = 128 takes one
+//   consumer (its four accumulators need more registers than a block of
+//   two consumers gives a thread).
+//
+// flash_bwd_dq_fma_kernel and flash_bwd_dkv_fma_kernel (f32), chosen by an
+// explicit dispatch on the dtype, keep f32 results f32-exact (the tensor
+// cores would round them to TF32):
 //   * 64-row tiles, 4 warps of 16 rows, tiles staged through shared memory
-//     with 16-byte loads; dq's products on the tensor cores through WMMA for
-//     bf16/f16, f32 in FMA loops (f32-exact; the tensor cores would round to
-//     TF32), as in flash_common.cuh;
+//     with 16-byte loads, products in FMA loops (flash_common.cuh);
 //   * the dk/dv kernel computes its scores transposed, k q^T and v dO^T, so a
 //     warp's 16 kv rows of p^T and ds^T are the row-major A operands of
 //     p^T dO and ds^T q: no transpose anywhere;
 //   * scores and dP go through a per-warp f32 scratch, p and ds through a
-//     per-warp buffer in the input dtype; the 16 x D gradient accumulators
-//     stay in registers across the loop;
+//     per-warp buffer; the 16 x D gradient accumulators stay in registers
+//     across the loop;
 //   * q rows at or past lq and kv rows at or past kv_len (the 77-token text
 //     context, ragged tiles) load as zeros and are masked out of p and ds,
 //     so they add exactly 0, and no gradient row past the end is written.
@@ -145,7 +163,8 @@ __device__ __forceinline__ void write_rows(T* out, int64_t stride_l, const float
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const Params p) {
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_fma_kernel(const Params p) {
+  static_assert(kIsF32<T>, "the 16-bit types take flash_bwd_dq_wgmma_kernel");
   using S = Smem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -269,11 +288,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_fma_kernel(const Param
   write_rows<T, D>(DV, p.g_sl, sm.s, kv_row0, p.lk, lane);
 }
 
-// --- dk/dv for bf16 / f16: wgmma fed by a TMA ring ----------------------------
+// --- bf16 / f16: wgmma fed by a TMA ring -------------------------------------
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int STAGES = 2;  // Q/dO ring depth
-constexpr int BQ = 64;     // q rows per tile of the loop
+constexpr int STAGES = 2;  // ring depth
+constexpr int BQ = 64;     // q rows per tile of the dk/dv loop
+constexpr int BK = 64;     // kv rows per tile of the dq loop
 
 // The dk/dv block: K and V tiles of 64 NC rows (loaded once), STAGES (Q, dO)
 // tile pairs, STAGES rows of lse (log2 units) and delta, then the mbarriers.
@@ -291,13 +311,29 @@ struct DkvCfg {
   static_assert(KV_BYTES % 1024 == 0 && QT_BYTES % 1024 == 0, "tiles of whole swizzle atoms");
 };
 
-struct DkvArgs {
+// The dq block: Q and dO tiles of 64 NC rows (loaded once), STAGES (K, V)
+// tile pairs, then the mbarriers. 64-row kv tiles keep s, dp and dq (plus
+// ds's A fragments) within the registers a thread has at every D.
+template <int D, int NC>
+struct DqCfg {
+  static constexpr int BM = 64 * NC;
+  static constexpr int THREADS = 128 * NC + 32;
+  static constexpr int MIN_BLOCKS = NC == 1 ? 2 : 1;
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int OFF_DO = Q_BYTES;
+  static constexpr int OFF_RING = 2 * Q_BYTES;
+  static constexpr int OFF_BAR = OFF_RING + STAGES * 2 * KV_BYTES;
+  static constexpr int BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // + base alignment
+  static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "tiles of whole swizzle atoms");
+};
+
+struct BwdArgs {
   const float* lse;    // [B*H, Lq]
   const float* delta;  // [B*H, Lq]
   int heads, lq, lk;
   float scale, scale_log2;
 };
-
 
 // A warpgroup's 64 x D f32 accumulator, rounded to T, into rows
 // row0 .. row0 + 63 of a chunked, swizzled tile of `rows` rows.
@@ -322,7 +358,7 @@ __global__ void __launch_bounds__(DkvCfg<D, NC>::THREADS, DkvCfg<D, NC>::MIN_BLO
                                const __grid_constant__ CUtensorMap mv,
                                const __grid_constant__ CUtensorMap mdo,
                                const __grid_constant__ CUtensorMap mdk,
-                               const __grid_constant__ CUtensorMap mdv, const DkvArgs a) {
+                               const __grid_constant__ CUtensorMap mdv, const BwdArgs a) {
   using C = DkvCfg<D, NC>;
   using namespace hopper;
   constexpr int BKV = C::BKV;
@@ -496,7 +532,7 @@ int launch_dkv_wgmma_nc(const Params& p, int batch, int dtype, cudaStream_t stre
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const DkvArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, p.scale, p.scale * LOG2E};
+  const BwdArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, p.scale, p.scale * LOG2E};
   const dim3 grid((p.lk + C::BKV - 1) / C::BKV, batch * p.heads);
   kernel<<<grid, C::THREADS, C::BYTES, stream>>>(mq, mk, mv, mdo, mdk, mdv, args);
   return static_cast<int>(cudaGetLastError());
@@ -509,9 +545,181 @@ template <typename T, int D>
 int launch_dkv_wgmma(const Params& p, int batch, int dtype, cudaStream_t stream) {
   if constexpr (D <= 64) {
     const int64_t tiles128 = static_cast<int64_t>((p.lk + 127) / 128) * batch * p.heads;
-    if (tiles128 >= hopper::sm_count()) return launch_dkv_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
+    if (tiles128 >= sm_count()) return launch_dkv_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
   }
   return launch_dkv_wgmma_nc<T, D, 1>(p, batch, dtype, stream);
+}
+
+template <typename T, int D, int NC>
+__global__ void __launch_bounds__(DqCfg<D, NC>::THREADS, DqCfg<D, NC>::MIN_BLOCKS)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                              const __grid_constant__ CUtensorMap mk,
+                              const __grid_constant__ CUtensorMap mv,
+                              const __grid_constant__ CUtensorMap mdo,
+                              const __grid_constant__ CUtensorMap mdq, const BwdArgs a) {
+  using C = DqCfg<D, NC>;
+  using namespace hopper;
+  constexpr int BM = C::BM;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  unsigned char* sQ = sm;
+  unsigned char* sDO = sm + C::OFF_DO;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.heads, h = bh - b * a.heads;
+  const int q0 = blockIdx.x * BM;
+  const int n_tiles = (a.lk + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  if (wg == NC) {
+    // the producer warp: one lane issues every load
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_q, 2 * C::Q_BYTES);
+      tma_load_tile<D>(sQ, &mq, bar_q, BM, h, q0, b);
+      tma_load_tile<D>(sDO, &mdo, bar_q, BM, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % STAGES, use = t / STAGES;
+        if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+        unsigned char* sK = sm + C::OFF_RING + st * 2 * C::KV_BYTES;
+        mbar_arrive_expect_tx(&full[st], 2 * C::KV_BYTES);
+        tma_load_tile<D>(sK, &mk, &full[st], BK, h, t * BK, b);
+        tma_load_tile<D>(sK + C::KV_BYTES, &mv, &full[st], BK, h, t * BK, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: q rows q0 + 64 wg .. + 63; a thread holds rows
+  // 16 warp + g and 16 warp + g + 8 of them, whose lse (log2 units) and
+  // delta it reads once
+  const int tid = threadIdx.x % 128, warp = tid / 32;
+  const int g = lane / 4, tq = lane % 4;
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + 64 * wg + 16 * warp + g + 8 * j;
+    const bool ok = row < a.lq;
+    const int64_t at = static_cast<int64_t>(bh) * a.lq + row;
+    lse2[j] = ok ? a.lse[at] * LOG2E : 0.f;
+    delta[j] = ok ? a.delta[at] : 0.f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    const unsigned char* sK = sm + C::OFF_RING + st * 2 * C::KV_BYTES;
+    const unsigned char* sV = sK + C::KV_BYTES;
+    mbar_wait(&full[st], (t / STAGES) & 1);
+
+    // s = q k^T and dp = dO v^T, both K-major operands in shared memory
+    float s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK, T>(s, desc_kmajor<D>(sQ, BM, 64 * wg, kk), desc_kmajor<D>(sK, BK, 0, kk),
+                      kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK, T>(dp, desc_kmajor<D>(sDO, BM, 64 * wg, kk), desc_kmajor<D>(sV, BK, 0, kk),
+                      kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p = exp2(s scale log2e - lse2), 0 where the key >= kv_len (the zero
+    // rows TMA loads there would give exp2(-lse2)); ds = p (dp - delta) scale
+    const bool edge = (t + 1) * BK > a.lk;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const bool kv_ok = !edge || t * BK + 8 * n + 2 * tq + c < a.lk;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int i = 4 * n + 2 * j + c;
+          float p = exp2f(fmaf(s[i], a.scale_log2, -lse2[j]));
+          if (!kv_ok) p = 0.f;
+          dp[i] = p * (dp[i] - delta[j]) * a.scale;
+        }
+      }
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<T>(dp, kk, da[kk]);
+
+    // dq += ds k: A from registers, k the MN-major B operand
+    fence_regs(dq);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D, T>(dq, da[kk], desc_mnmajor<D>(sK, BK, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // epilogue: dq into this warpgroup's rows of the consumed Q tile, then a
+  // TMA store, which skips rows at or past lq
+  named_barrier(1 + wg, 128);
+  acc_to_tile<T, D>(dq, sQ, BM, 64 * wg, warp, g, tq);
+  fence_async_smem();
+  named_barrier(1 + wg, 128);
+  if (tid == 0) {
+    tma_store_tile<D>(&mdq, sQ + 64 * wg * chunk_row_bytes<D>(), BM, h, q0 + 64 * wg, b);
+    tma_store_wait();
+  }
+}
+
+template <typename T, int D, int NC>
+int launch_dq_wgmma_nc(const Params& p, int batch, int dtype, cudaStream_t stream) {
+  using C = DqCfg<D, NC>;
+  using hopper::encode_bhld;
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  int r = encode_bhld<D>(&mq, p.q, dtype, batch, p.lq, p.heads, p.q_sb, p.q_sl, p.q_sh, C::BM);
+  if (r == 0) r = encode_bhld<D>(&mdo, p.dout, dtype, batch, p.lq, p.heads, p.do_sb, p.do_sl, p.do_sh, C::BM);
+  if (r == 0) r = encode_bhld<D>(&mk, p.k, dtype, batch, p.lk, p.heads, p.k_sb, p.k_sl, p.k_sh, BK);
+  if (r == 0) r = encode_bhld<D>(&mv, p.v, dtype, batch, p.lk, p.heads, p.v_sb, p.v_sl, p.v_sh, BK);
+  if (r == 0) r = encode_bhld<D>(&mdq, p.g0, dtype, batch, p.lq, p.heads, p.g_sb, p.g_sl, p.g_sh, 64);
+  if (r != 0) return hopper::kTensorMapError + r;
+  auto kernel = flash_bwd_dq_wgmma_kernel<T, D, NC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const BwdArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, p.scale, p.scale * LOG2E};
+  const dim3 grid((p.lq + C::BM - 1) / C::BM, batch * p.heads);
+  kernel<<<grid, C::THREADS, C::BYTES, stream>>>(mq, mk, mv, mdo, mdq, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two consumers (128-row q tiles) when those tiles give every SM a block;
+// else one, whose blocks are half the size and twice as many.
+template <typename T, int D>
+int launch_dq_wgmma(const Params& p, int batch, int dtype, cudaStream_t stream) {
+  const int64_t tiles128 = static_cast<int64_t>((p.lq + 127) / 128) * batch * p.heads;
+  if (tiles128 >= sm_count()) return launch_dq_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
+  return launch_dq_wgmma_nc<T, D, 1>(p, batch, dtype, stream);
 }
 
 template <typename T, int D>
@@ -526,14 +734,15 @@ int launch_fma(void (*kernel)(const Params), const Params& p, int rows, int batc
   return static_cast<int>(cudaGetLastError());
 }
 
-// dq: one kernel for every dtype. dk/dv: f32 takes the FMA kernel, bf16 and
-// f16 the wgmma kernel, a dispatch on the dtype with no fallback between them.
+// f32 takes the FMA kernels, bf16 and f16 the wgmma kernels: a dispatch on
+// the dtype, with no fallback from one to the other.
 template <typename T, int D>
 int launch(const Params& p, int batch, int dtype, bool dq, cudaStream_t stream) {
-  if (dq) return launch_fma<T, D>(flash_bwd_dq_kernel<T, D>, p, p.lq, batch, stream);
   if constexpr (kIsF32<T>) {
+    if (dq) return launch_fma<T, D>(flash_bwd_dq_fma_kernel<T, D>, p, p.lq, batch, stream);
     return launch_fma<T, D>(flash_bwd_dkv_fma_kernel<T, D>, p, p.lk, batch, stream);
   } else {
+    if (dq) return launch_dq_wgmma<T, D>(p, batch, dtype, stream);
     return launch_dkv_wgmma<T, D>(p, batch, dtype, stream);
   }
 }

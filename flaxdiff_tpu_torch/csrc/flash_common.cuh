@@ -1,17 +1,12 @@
-// Shared pieces of the flash-attention kernels that stage tiles through
-// shared memory (flash_fwd.cu's and flash_bwd.cu's f32 kernels, and the dq
-// kernel for every dtype): 64-row tiles, 4 warps of 16 rows each, and the
-// products one warp computes on its 16 rows.
-//
-// bf16/f16 products (the dq kernel's) run on the tensor cores through WMMA
-// (f32 accumulation). f32 inputs take plain FMA loops, so f32 results stay
-// f32-exact (the tensor cores would round them to TF32). WMMA hides which
-// lane holds which element, so scores and probabilities go through shared
-// memory, where every lane can read whole rows. The 16-bit forward and dk/dv
+// Shared pieces of the f32 flash-attention kernels (flash_fwd.cu's and
+// flash_bwd.cu's FMA kernels), which stage tiles through shared memory:
+// 64-row tiles, 4 warps of 16 rows each, and the products one warp computes
+// on its 16 rows in plain FMA loops, so f32 results stay f32-exact (the
+// tensor cores would round them to TF32). Scores and probabilities go
+// through shared memory, where every lane can read whole rows. The 16-bit
 // kernels do not use these pieces: they run on wgmma (hopper.cuh).
 #pragma once
 
-#include <mma.h>
 #include <type_traits>
 
 #include "common.cuh"
@@ -27,8 +22,8 @@ constexpr int LD_S = TILE + 4;  // leading dimension of f32 16 x TILE scores
 constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
 
 // Leading dimension of a [TILE, D] tile of T in shared memory: padded by one
-// 16-byte vector, so rows stay 16-byte aligned (and WMMA fragment starts
-// 32-byte aligned) while consecutive rows fall on different banks.
+// 16-byte vector, so rows stay 16-byte aligned while consecutive rows fall
+// on different banks.
 template <typename T, int D>
 __host__ __device__ constexpr int ld_tile() { return D + vec16<T>(); }
 
@@ -63,86 +58,30 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride_l
 
 // s[16 x TILE] = a[16 x D] . b[TILE x D]^T for one warp: a is the warp's 16
 // rows of a tile, b a whole tile (both row-major, leading dimension
-// ld_tile), s f32 with leading dimension LD_S.
+// ld_tile), s with leading dimension LD_S.
 template <typename T, int D>
 __device__ __forceinline__ void scores(const T* a, const T* b, float* s, int lane) {
+  static_assert(kIsF32<T>, "the 16-bit types run on wgmma");
   constexpr int LD = ld_tile<T, D>();
-  if constexpr (kIsF32<T>) {
-    for (int rr = 0; rr < 16; ++rr) {
-      const float* arow = a + rr * LD;
+  for (int rr = 0; rr < 16; ++rr) {
+    const float* arow = a + rr * LD;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float* brow = b + (lane + 32 * half) * LD;
-        float acc = 0.f;
+    for (int half = 0; half < 2; ++half) {
+      const float* brow = b + (lane + 32 * half) * LD;
+      float acc = 0.f;
 #pragma unroll 16
-        for (int d = 0; d < D; ++d) acc = fmaf(arow[d], brow[d], acc);
-        s[rr * LD_S + lane + 32 * half] = acc;
-      }
+      for (int d = 0; d < D; ++d) acc = fmaf(arow[d], brow[d], acc);
+      s[rr * LD_S + lane + 32 * half] = acc;
     }
-  } else {
-    using namespace nvcuda;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TILE / 16];
-#pragma unroll
-    for (int j = 0; j < TILE / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> af;
-      wmma::load_matrix_sync(af, a + kk, LD);
-#pragma unroll
-      for (int j = 0; j < TILE / 16; ++j) {
-        // B(k, n) = b[n][k]: the row-major tile read as a column-major B
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bf;
-        wmma::load_matrix_sync(bf, b + j * 16 * LD + kk, LD);
-        wmma::mma_sync(acc[j], af, bf, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < TILE / 16; ++j)
-      wmma::store_matrix_sync(s + j * 16, acc[j], LD_S, wmma::mem_row_major);
   }
 }
 
-// A warp's 16 x D f32 accumulator of products p[16 x TILE] . b[TILE x D],
-// p in T (leading dimension ld_p), b a row-major tile. In WMMA fragments for
-// bf16/f16; for f32, lane owns elements e = lane + 32 i of the block.
-template <typename T, int D, bool F32 = kIsF32<T>>
-struct WarpAcc;
-
+// A warp's 16 x D f32 accumulator of products p[16 x TILE] . b[TILE x D], p
+// with leading dimension ld_p, b a row-major tile; lane owns elements
+// e = lane + 32 i of the block.
 template <typename T, int D>
-struct WarpAcc<T, D, false> {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[D / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) nvcuda::wmma::fill_fragment(f[j], 0.f);
-  }
-
-  __device__ __forceinline__ void add_product(const T* p, const T* b, int /*lane*/) {
-    using namespace nvcuda;
-    constexpr int LD = ld_tile<T, D>();
-#pragma unroll
-    for (int kk = 0; kk < TILE; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> af;
-      wmma::load_matrix_sync(af, p + kk, ld_p<T>());
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, b + kk * LD + j * 16, LD);
-        wmma::mma_sync(f[j], af, bf, f[j]);
-      }
-    }
-  }
-
-  // the block, f32 row-major with leading dimension ldo, into shared memory
-  __device__ __forceinline__ void store(float* out, int ldo, int /*lane*/) const {
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      nvcuda::wmma::store_matrix_sync(out + j * 16, f[j], ldo, nvcuda::wmma::mem_row_major);
-  }
-};
-
-template <typename T, int D>
-struct WarpAcc<T, D, true> {
+struct WarpAcc {
+  static_assert(kIsF32<T>, "the 16-bit types run on wgmma");
   static constexpr int PER_LANE = 16 * D / 32;
   float v[PER_LANE];
 
@@ -151,8 +90,7 @@ struct WarpAcc<T, D, true> {
     for (int i = 0; i < PER_LANE; ++i) v[i] = 0.f;
   }
 
-  // each tile's product is summed in full, then added, as the tensor-core
-  // path and the TPU kernels do
+  // each tile's product is summed in full, then added, as the TPU kernels do
   __device__ __forceinline__ void add_product(const float* p, const float* b, int lane) {
     constexpr int LD = ld_tile<float, D>();
 #pragma unroll
@@ -167,6 +105,7 @@ struct WarpAcc<T, D, true> {
     }
   }
 
+  // the block, row-major with leading dimension ldo, into shared memory
   __device__ __forceinline__ void store(float* out, int ldo, int lane) const {
 #pragma unroll
     for (int i = 0; i < PER_LANE; ++i) {

@@ -428,7 +428,7 @@ int launch_wgmma_nc(const Params& p, int batch, int dtype, cudaStream_t stream) 
 template <typename T, int D>
 int launch_wgmma(const Params& p, int batch, int dtype, cudaStream_t stream) {
   const int64_t tiles128 = static_cast<int64_t>((p.lq + 127) / 128) * batch * p.heads;
-  if (tiles128 >= hopper::sm_count()) return launch_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
+  if (tiles128 >= sm_count()) return launch_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
   return launch_wgmma_nc<T, D, 1>(p, batch, dtype, stream);
 }
 

@@ -22,8 +22,18 @@
 // large mean never cancels against E[x^2]. The block reads its rows twice;
 // the second read comes from L2.
 //
-// Pass 2 (gn_norm): a grid-stride elementwise pass computing
-// silu((x - mean) * rstd * scale + bias) in f32 and storing the input dtype.
+// Pass 2 (gn_norm): silu((x - mean) * rstd * scale + bias) in f32, stored in
+// the input dtype, in the reference's order of operations. Its bound is
+// bytes, so the loop holds nothing but the 16-byte loads, the math and the
+// 16-byte stores: grid (row blocks, B, channel slices of up to 256 vectors),
+// one wave of as many blocks as the card holds at once, each block walking
+// its sample's rows with a stride of the whole grid. A thread owns one
+// channel vector for every row it visits, so it loads its VEC channels'
+// mean, rstd, scale and bias into registers once, before the loop (walking
+// the groups channel by channel: a vector may straddle two), and keeps 4
+// rows' loads in flight. 16-bit outputs take the SiLU's exp and reciprocal
+// from the approximate hardware units, whose error is far below one output
+// rounding; f32 keeps expf and an IEEE divide.
 //
 // Backward pass 1 (gn_bwd_stats): the grid of gn_stats. From the forward's
 // saved [B, G] mean and rstd, each block recomputes x-hat and dy (the SiLU
@@ -35,6 +45,9 @@
 // dx = rstd (dxhat - mean(dxhat) - x-hat mean(dxhat x-hat)) with the group
 // means the wrapper finalizes. Both passes recompute through one device
 // function, gn_bwd_dy, as the TPU kernels share `_bwd_dy` (:97-109).
+#include <algorithm>
+#include <type_traits>
+
 #include "common.cuh"
 
 // Sums per-thread channel partials (`acc`, VEC channels per thread) into
@@ -114,30 +127,66 @@ __global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ par
   }
 }
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(256)
+constexpr int NORM_THREADS = 256;
+constexpr int NORM_UNROLL = 4;  // rows in flight per thread
+
+template <typename T>
+__device__ __forceinline__ float silu(float y) {
+  if constexpr (std::is_same<T, float>::value) return y * (1.0f / (1.0f + expf(-y)));
+  else return y * __fdividef(1.0f, 1.0f + __expf(-y));
+}
+
+// Thread t of a block owns channel vector blockIdx.z * vpb + t % vpb of
+// sample blockIdx.y, and rows blockIdx.x * R + t / vpb + k * gridDim.x * R,
+// R = blockDim.x / vpb rows a block step.
+template <typename T, int VEC, bool SILU>
+__global__ void __launch_bounds__(NORM_THREADS)
 gn_norm_kernel(const T* __restrict__ x, const float* __restrict__ mean,
                const float* __restrict__ rstd, const float* __restrict__ scale,
-               const float* __restrict__ bias, T* __restrict__ out, int64_t hw, int c,
-               int groups, int apply_silu, int64_t total_vecs) {
-  const int nvec = c / VEC;
-  const int cg = c / groups;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < total_vecs;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t b = i / (hw * nvec);
-    const int c0 = static_cast<int>(i % nvec) * VEC;
-    const Vec<T, VEC> v = load_vec<T, VEC>(x + i * VEC);
-    Vec<T, VEC> o;
+               const float* __restrict__ bias, T* __restrict__ out, int hw, int c, int groups,
+               int vpb) {
+  const int cv = blockIdx.z * vpb + threadIdx.x % vpb;
+  if (cv >= c / VEC) return;
+  const int b = blockIdx.y, cg = c / groups;
+  float m[VEC], rs[VEC], sc[VEC], bi[VEC];
+  int grp = cv * VEC / cg, next = (grp + 1) * cg;  // next: the next group's first channel
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const int ch = c0 + k;
-      const int64_t bg = b * groups + ch / cg;
-      float y = (to_f32(v.v[k]) - mean[bg]) * rstd[bg];
-      y = y * scale[ch] + bias[ch];
-      if (apply_silu) y = y * (1.0f / (1.0f + expf(-y)));
-      o.v[k] = from_f32<T>(y);
+  for (int k = 0; k < VEC; ++k) {
+    const int ch = cv * VEC + k;
+    if (ch == next) {
+      ++grp;
+      next += cg;
     }
-    store_vec<T, VEC>(out + i * VEC, o);
+    m[k] = mean[b * groups + grp];
+    rs[k] = rstd[b * groups + grp];
+    sc[k] = scale[ch];
+    bi[k] = bias[ch];
+  }
+  const int rows_per_iter = blockDim.x / vpb;
+  const int step = gridDim.x * rows_per_iter;  // rows between a thread's consecutive rows
+  const int64_t stride = static_cast<int64_t>(step) * c;
+  int r = blockIdx.x * rows_per_iter + threadIdx.x / vpb;
+  const int64_t at = (static_cast<int64_t>(b) * hw + r) * c + cv * VEC;
+  const T* xp = x + at;
+  T* op = out + at;
+  for (; r < hw; r += NORM_UNROLL * step, xp += NORM_UNROLL * stride, op += NORM_UNROLL * stride) {
+    Vec<T, VEC> v[NORM_UNROLL];
+#pragma unroll
+    for (int u = 0; u < NORM_UNROLL; ++u)
+      if (r + u * step < hw) v[u] = load_vec<T, VEC>(xp + u * stride);
+#pragma unroll
+    for (int u = 0; u < NORM_UNROLL; ++u) {
+      if (r + u * step >= hw) break;
+      Vec<T, VEC> o;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        float y = (to_f32(v[u].v[k]) - m[k]) * rs[k];
+        y = y * sc[k] + bi[k];
+        if (SILU) y = silu<T>(y);
+        o.v[k] = from_f32<T>(y);
+      }
+      store_vec<T, VEC>(op + u * stride, o);
+    }
   }
 }
 
@@ -282,23 +331,55 @@ static int stats_dispatch(const void* x, float* partial, int batch, int hw, int 
   return launch_stats<T, 1>(x, partial, batch, hw, c, groups, rows_per_block, stream);
 }
 
+// Channel vectors per block row: up to NORM_THREADS, the rest in further
+// slices (gridDim.z). Blocks: as many as the card holds at once (from the
+// occupancy calculator, read once per instantiation), no more than the rows
+// need.
+template <typename T, int VEC, bool SILU>
+static int launch_norm(const void* x, const float* mean, const float* rstd, const float* scale,
+                       const float* bias, void* out, int batch, int hw, int c, int groups,
+                       cudaStream_t stream) {
+  static const int64_t resident = [] {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gn_norm_kernel<T, VEC, SILU>,
+                                                      NORM_THREADS, 0) != cudaSuccess || n < 1)
+      n = 1;
+    return static_cast<int64_t>(n) * sm_count();
+  }();
+  const int nvec = c / VEC;
+  const int vpb = nvec < NORM_THREADS ? nvec : NORM_THREADS;
+  const int rows_per_iter = NORM_THREADS / vpb;
+  const int slices = (nvec + vpb - 1) / vpb;
+  const int64_t row_blocks = (hw + rows_per_iter - 1) / rows_per_iter;
+  const int64_t per_sample = resident / (static_cast<int64_t>(batch) * slices);
+  const dim3 grid(static_cast<unsigned>(per_sample < 1 ? 1 : std::min(per_sample, row_blocks)),
+                  batch, slices);
+  gn_norm_kernel<T, VEC, SILU><<<grid, rows_per_iter * vpb, 0, stream>>>(
+      static_cast<const T*>(x), mean, rstd, scale, bias, static_cast<T*>(out), hw, c, groups,
+      vpb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC>
+static int launch_norm(const void* x, const float* mean, const float* rstd, const float* scale,
+                       const float* bias, void* out, int batch, int hw, int c, int groups,
+                       int apply_silu, cudaStream_t stream) {
+  if (apply_silu)
+    return launch_norm<T, VEC, true>(x, mean, rstd, scale, bias, out, batch, hw, c, groups,
+                                     stream);
+  return launch_norm<T, VEC, false>(x, mean, rstd, scale, bias, out, batch, hw, c, groups, stream);
+}
+
 template <typename T>
 static int norm_dispatch(const void* x, const float* mean, const float* rstd, const float* scale,
                          const float* bias, void* out, int batch, int hw, int c, int groups,
                          int apply_silu, cudaStream_t stream) {
   constexpr int V = vec16<T>();
-  const int threads = 256;
-  const int64_t elems = static_cast<int64_t>(batch) * hw * c;
-  const T* xi = static_cast<const T*>(x);
-  T* o = static_cast<T*>(out);
-  if (c % V == 0 && aligned16(x) && aligned16(out)) {
-    gn_norm_kernel<T, V><<<grid_for(elems / V, threads), threads, 0, stream>>>(
-        xi, mean, rstd, scale, bias, o, hw, c, groups, apply_silu, elems / V);
-  } else {
-    gn_norm_kernel<T, 1><<<grid_for(elems, threads), threads, 0, stream>>>(
-        xi, mean, rstd, scale, bias, o, hw, c, groups, apply_silu, elems);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (c % V == 0 && aligned16(x) && aligned16(out))
+    return launch_norm<T, V>(x, mean, rstd, scale, bias, out, batch, hw, c, groups, apply_silu,
+                             stream);
+  return launch_norm<T, 1>(x, mean, rstd, scale, bias, out, batch, hw, c, groups, apply_silu,
+                           stream);
 }
 
 template <typename T, int VEC>

@@ -377,15 +377,4 @@ inline int encode_bhld(CUtensorMap* map, const void* ptr, int dtype, int batch, 
 // every cudaError_t, with the driver's CUresult added.
 constexpr int kTensorMapError = 100000;
 
-// Streaming multiprocessors of device 0, read once.
-inline int sm_count() {
-  static int n = [] {
-    int v = 0;
-    if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, 0) != cudaSuccess || v <= 0)
-      v = 132;
-    return v;
-  }();
-  return n;
-}
-
 }  // namespace hopper

@@ -144,8 +144,8 @@ def _check_bwd(q, k, v, do, lse, delta):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale: Optional[float] = None) -> torch.Tensor:
-    """The dq kernel (B2): one block per (64-row q tile, batch*head), looping
-    over the kv tiles. lse and delta are [B, H, Lq] f32."""
+    """The dq kernel (B2): one block per (q tile, batch*head), looping over
+    the kv tiles. lse and delta are [B, H, Lq] f32."""
     _check_bwd(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale)
@@ -171,8 +171,8 @@ flash_bwd_dq.launches = 0
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: Optional[float] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dk/dv kernel (B3): one block per (64-row kv tile, batch*head),
-    looping over the q tiles. lse and delta are [B, H, Lq] f32."""
+    """The dk/dv kernel (B3): one block per (kv tile, batch*head), looping
+    over the q tiles. lse and delta are [B, H, Lq] f32."""
     _check_bwd(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale)

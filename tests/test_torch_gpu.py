@@ -81,11 +81,23 @@ def test_flash_kernel_takes_strided_projection_views(cuda):
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,groups", [((2, 300, 128), 8), ((1, 7, 9, 48), 4),
-                                          ((2, 16, 1024), 32)])
-def test_groupnorm_silu_kernels_match_plain(cuda, dtype, shape, groups):
-    x = _randn(cuda, *shape, dtype=dtype) * 3.0 + 1.0
+# (shape, groups, storage offset): a bf16 vector straddling two groups
+# (C 48, 4 groups), hw = 1, C % 8 != 0 (C 36), an x one element past a
+# 16-byte boundary (a contiguous view at a storage offset: the scalar path),
+# and the UNet's top level, whose row blocks run up to the batch boundary
+GN_FWD_CASES = [((2, 300, 128), 8, 0), ((1, 7, 9, 48), 4, 0), ((2, 16, 1024), 32, 0),
+                ((3, 1, 64), 8, 0), ((2, 50, 36), 4, 0), ((2, 300, 128), 8, 1),
+                ((2, 65536, 64), 8, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,groups,offset", GN_FWD_CASES)
+def test_groupnorm_silu_kernels_match_plain(cuda, dtype, shape, groups, offset):
+    n = 1
+    for size in shape:
+        n *= size
+    x = (_randn(cuda, n + offset, dtype=dtype) * 3.0 + 1.0)[offset:].view(shape)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (offset != 0)
     c = shape[-1]
     w = _randn(cuda, c, seed=4) * 0.1 + 1.0
     b = _randn(cuda, c, seed=5) * 0.1
@@ -223,39 +235,46 @@ def test_flash_bwd_takes_strided_projection_views(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [32, 64, 128])
-def test_flash_bwd_dkv_is_deterministic(cuda, dtype, d):
-    """No atomics, a fixed order over the q tiles: two runs give bit-equal
-    dk and dv."""
+def test_flash_bwd_is_deterministic(cuda, dtype, d, kernel):
+    """No atomics, a fixed order over the kv tiles (dq) or the q tiles
+    (dk/dv): two runs give bit-equal gradients."""
     q, k, v, do = (_randn(cuda, 4, 300, 40, d, dtype=dtype, seed=s) for s in range(4))
     out, lse = flash_fwd(q, k, v)
     delta = flash_delta(out, do)
-    first = flash_bwd_dkv(q, k, v, do, lse, delta)
-    second = flash_bwd_dkv(q, k, v, do, lse, delta)
-    for a, b in zip(first, second):
+    if kernel == "dq":
+        run = lambda: (flash_bwd_dq(q, k, v, do, lse, delta),)
+    else:
+        run = lambda: flash_bwd_dkv(q, k, v, do, lse, delta)
+    for a, b in zip(run(), run()):
         assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernels_replay_in_cuda_graph(cuda, dtype):
-    """The forward and dk/dv kernels captured in a CUDA graph and replayed
-    give what eager calls give: the tensor maps travel with the graph."""
+    """The forward, dq and dk/dv kernels captured in a CUDA graph and
+    replayed give what eager calls give: the tensor maps travel with the
+    graph."""
     q, k, v, do = (_randn(cuda, 2, 200, 6, 64, dtype=dtype, seed=s) for s in range(4))
     eager_out, eager_lse = flash_fwd(q, k, v)
     delta = flash_delta(eager_out, do)
+    eager_dq = flash_bwd_dq(q, k, v, do, eager_lse, delta)
     eager_dk, eager_dv = flash_bwd_dkv(q, k, v, do, eager_lse, delta)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         out, lse = flash_fwd(q, k, v)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
-    for t in (out, lse, dk, dv):
+    for t in (out, lse, dq, dk, dv):
         t.zero_()
     graph.replay()
     torch.cuda.synchronize()
-    for got, want in ((out, eager_out), (lse, eager_lse), (dk, eager_dk), (dv, eager_dv)):
+    for got, want in ((out, eager_out), (lse, eager_lse), (dq, eager_dq), (dk, eager_dk),
+                      (dv, eager_dv)):
         assert torch.equal(got, want)
 
 

@@ -6,6 +6,10 @@ does. Inputs are made with numpy from a seed and handed to both sides.
 The CUDA kernels themselves are held against the plain versions in
 tests/test_torch_gpu.py and chip_smoke.py.
 """
+import ast
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -75,21 +79,26 @@ def test_flash_plain_takes_strided_projection_views():
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("shape,apply_silu,mean", [
-    ((2, 100, 256), True, 0.0),       # HW not a multiple of the port's 32-row block
-    ((2, 10, 10, 256), False, 0.0),   # NHWC input, normalize + affine only
-    ((2, 64, 128), True, 100.0),      # mean ~100, std ~1: the shifted moment
+@pytest.mark.parametrize("shape,groups,apply_silu,mean", [
+    # HW not a multiple of the port's 32-row block
+    pytest.param((2, 100, 256), 8, True, 0.0, id="shape0-True-0.0"),
+    # NHWC input, normalize + affine only
+    pytest.param((2, 10, 10, 256), 8, False, 0.0, id="shape1-False-0.0"),
+    # mean ~100, std ~1: the shifted moment
+    pytest.param((2, 64, 128), 8, True, 100.0, id="shape2-True-100.0"),
+    # 12 channels a group: a bf16 vector of 8 channels straddles two groups
+    pytest.param((2, 9, 48), 4, True, 0.0, id="c48-groups4"),
 ])
-def test_groupnorm_silu_plain_matches_pallas_kernel(shape, apply_silu, mean):
+def test_groupnorm_silu_plain_matches_pallas_kernel(shape, groups, apply_silu, mean):
     rng = np.random.default_rng(int(mean) + shape[-1])
     c = shape[-1]
     x = (mean + rng.standard_normal(shape)).astype(np.float32)
     scale = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
     bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
-    ref = np.asarray(jax_gn(x, scale, bias, groups=8, eps=1e-6, apply_silu=apply_silu,
+    ref = np.asarray(jax_gn(x, scale, bias, groups=groups, eps=1e-6, apply_silu=apply_silu,
                             interpret=True, force_pallas=True))
     out = fused_groupnorm_silu(torch.from_numpy(x), torch.from_numpy(scale),
-                               torch.from_numpy(bias), groups=8, eps=1e-6,
+                               torch.from_numpy(bias), groups=groups, eps=1e-6,
                                apply_silu=apply_silu)
     # the mean-100 case normalizes values whose f32 ulp is ~8e-6: allow
     # that much more there
@@ -201,3 +210,31 @@ def test_ctypes_signature_matches_the_c_declaration(name):
     _SIGNATURES would otherwise pass a pointer as a 32-bit int."""
     declared = [_ctype_of(t) for t in _extern_c_signatures()[name]]
     assert declared == _build._SIGNATURES[name]
+
+
+def _global_kernels(source: str) -> list:
+    """The names of the __global__ functions a CUDA source defines."""
+    names = []
+    for chunk in source.split("__global__")[1:]:
+        m = re.search(r"\b(?!__launch_bounds__\b)(\w+)\s*\(", chunk)
+        if m:
+            names.append(m.group(1))
+    return names
+
+
+def test_every_wgmma_kernel_is_checked_on_the_card_and_no_wmma_remains():
+    """chip_smoke.py's phase 1 holds every instantiation of the kernels that
+    WGMMA_KERNELS names to no spill, no serialised wgmma, HGMMA and no HMMA:
+    each wgmma kernel in csrc must be named there. And the 16-bit paths all
+    run on wgmma now, so no WMMA code remains."""
+    sources = {p.name: p.read_text() for p in sorted(_build.CSRC.glob("*.cu*"))}
+    wgmma = {name for text in sources.values() for name in _global_kernels(text)
+             if name.endswith("_wgmma_kernel")}
+    smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    named = ast.literal_eval(re.search(r"^WGMMA_KERNELS = (\(.*?\))", smoke,
+                                       re.M | re.S).group(1))
+    assert {"flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+            "flash_bwd_dkv_wgmma_kernel"} <= wgmma
+    assert wgmma <= set(named)
+    for name, text in sources.items():
+        assert "wmma::" not in text and "<mma.h>" not in text, name

@@ -63,6 +63,7 @@ def torch_vjp(fn, args, cotangent):
     (48, 77, 64),    # cross-attention to the 77-token text context, 16-row kv tiles
     (40, 24, 32),    # Lq != Lk, neither a tile multiple, head dim 32
     (33, 33, 64),    # ragged self-attention
+    (1, 77, 128),    # one q row against the text context, head dim 128
 ])
 def test_flash_backward_matches_pallas_kernels(lq, lk, d):
     rng = np.random.default_rng(lq + lk + d)
