@@ -8,7 +8,7 @@ Phases; any failure exits non-zero and prints no result line.
      flaxdiff_tpu_torch/csrc with nvcc for sm_90a; print each kernel's
      registers, the registers and spills of every wgmma instantiation and,
      where cuobjdump exists, their HGMMA (wgmma) and HMMA (mma.sync) counts.
-     Fails if a wgmma instantiation spills, if ptxas serialised its wgmma
+     Fails if any kernel instantiation spills, if ptxas serialised a wgmma
      (warning C7520), or if one holds no HGMMA or any HMMA.
   2. Hold each of the thirteen kernels against its plain PyTorch version on
      the card: the forward kernels at the serving paths' shapes, the backward
@@ -18,7 +18,9 @@ Phases; any failure exits non-zero and prints no result line.
      scaled_dot_product_attention forward and backward, torch.addcmul; a
      yardstick the port never calls), that call, by their device time (CUDA
      graph replays timed by CUDA events), beside the byte/flop bound; the
-     flash cases also with their TFLOP/s and share of the bound.
+     flash cases also with their TFLOP/s and share of the bound. GroupNorm's
+     backward pair is also timed beside torch's native_group_norm_backward
+     (no SiLU, NCHW) at the training path's top-level shape.
   3. The full-width UNet at 64x64 in f32, on the card (kernels) and on the
      CPU (plain versions), with the same random weights: a forward, a short
      DDIM + CFG trajectory, and one training step's loss and gradients with
@@ -114,12 +116,17 @@ FLASH_BWD_CASES = [(TRAIN_BATCH, 1024, 1024, 8, BF16), (TRAIN_BATCH, 1024, TEXT_
                    (2, 1024, 1024, 8, F32),
                    (DIT_TRAIN_BATCH, DIT_TOKENS, DIT_TOKENS, DIT_HEADS, BF16)]
 # GroupNorm (batch, HW, C, dtype), 8 groups: forward cases at SERVE_BATCH
-# (four shapes the UNet's forward at 256^2 normalizes, then f32)
+# (four shapes the UNet's forward at 256^2 normalizes, f32, then the two
+# other shapes it normalizes most often), backward cases at TRAIN_BATCH (the
+# same at 128^2). With them phase 2 measures 31 (serving) and 28 (training)
+# of the 38 GroupNorm calls of a forward (scripts/queue_score.py's census)
 GN_CASES = [(SERVE_BATCH, 256 * 256, 64, BF16), (SERVE_BATCH, 64 * 64, 256, BF16),
             (SERVE_BATCH, 32 * 32, 1024, BF16), (SERVE_BATCH, 128 * 128, 128, BF16),
-            (SERVE_BATCH, 64 * 64, 256, F32),
+            (SERVE_BATCH, 64 * 64, 256, F32), (SERVE_BATCH, 32 * 32, 512, BF16),
+            (SERVE_BATCH, 256 * 256, 128, BF16),
             (TRAIN_BATCH, 128 * 128, 64, BF16), (TRAIN_BATCH, 32 * 32, 256, BF16),
-            (TRAIN_BATCH, 16 * 16, 1024, BF16), (TRAIN_BATCH, 32 * 32, 256, F32)]
+            (TRAIN_BATCH, 16 * 16, 1024, BF16), (TRAIN_BATCH, 32 * 32, 256, F32),
+            (TRAIN_BATCH, 16 * 16, 512, BF16), (TRAIN_BATCH, 64 * 64, 128, BF16)]
 # GEGLU (batch, rows, 2F, dtype): forward cases at SERVE_BATCH
 GEGLU_CASES = [(SERVE_BATCH, 4096, 2048, BF16), (SERVE_BATCH, 1024, 4096, BF16),
                (SERVE_BATCH, 1024, 4096, F32), (TRAIN_BATCH, 1024, 2048, BF16),
@@ -308,22 +315,25 @@ def instantiation(mangled: str) -> str:
 def log_registers(build_log: str) -> dict:
     """Each kernel's most registers over its instantiations, every
     instantiation that spills, and the registers and spills of every wgmma
-    instantiation, from nvcc's -Xptxas -v output. Fails if a wgmma
+    instantiation, from nvcc's -Xptxas -v output. Fails if any kernel
     instantiation spills or ptxas serialised any wgmma (C7520: a warpgroup
     arrive on a branch costs every product its overlap)."""
     symbols = [frag for frags in KERNEL_SYMBOLS.values() for frag in frags]
-    regs, fn, inst, wgmma = {}, None, None, {}
+    regs, fn, inst, wgmma, spilled = {}, None, None, {}, []
     for line in build_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             fn = next((k for k in symbols if k in m.group(1)), m.group(1))
             inst = instantiation(m.group(1)) if fn in WGMMA_KERNELS else None
+            mangled = m.group(1)
         elif fn and "spill stores" in line:
             if inst:
                 wgmma[inst] = line.strip()
             if not line.strip().startswith(
                     "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
                 log(f"  {fn}: {line.strip()}")
+            if " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                spilled.append(mangled)
         elif fn and "Used" in line and "registers" in line:
             n = int(re.search(r"Used (\d+) registers", line).group(1))
             regs[fn] = max(regs.get(fn, 0), n)
@@ -338,6 +348,7 @@ def log_registers(build_log: str) -> dict:
     check(len(wgmma) > 0, "the wgmma instantiations are in the build log")
     check(all(" 0 bytes spill stores, 0 bytes spill loads" in t for t in wgmma.values()),
           "no wgmma instantiation spills")
+    check(not spilled, f"no kernel instantiation spills: {spilled}")
     check(not serialised, "ptxas serialised no wgmma (C7520)")
     return wgmma
 
@@ -384,11 +395,11 @@ def kernel_cases(dev, peak):
                                                    groupnorm_bwd_stats_plain, groupnorm_finalize,
                                                    groupnorm_normalize, groupnorm_normalize_plain,
                                                    groupnorm_stats, groupnorm_stats_plain,
-                                                   rows_per_block)
+                                                   rows_per_block, bwd_rows_per_block)
     bf16_rate, f32_rate, byte_rate = peak
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *shape, dtype: torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
-    cases = []
+    cases, yardsticks = [], []
 
     def record(name, shape, dtype, readings, call, plain, flops, nbytes, library=None):
         """Print the readings (one per output) and check them, then time
@@ -519,11 +530,14 @@ def kernel_cases(dev, peak):
             del out, ref
             continue
         g = randn(b, hw, c, dtype=dtype)
+        rows = bwd_rows_per_block(b, hw, c)
+        nblk = -(-hw // rows)
         gs, cs = groupnorm_bwd_stats(x, g, mean, rstd, scale, bias, True)
         gs_ref, cs_ref = groupnorm_bwd_stats_plain(x, g, mean, rstd, scale, bias, True, rows)
         torch.cuda.synchronize()
-        # f32 sums of up to 8192 elements a block, in another order: up to
-        # 1.5e-7 of the largest sum per element and 2.4e-7 RMS on an H100
+        # f32 sums of up to 1024 rows a channel and block, in another order:
+        # up to 1.4e-7 of the largest sum per element and 1.8e-7 RMS on an
+        # H100
         read = lambda o, r: compare(o, r, atol=1e-6 * float(r.abs().max()), rtol=1e-5,
                                     rms_rel=1e-6)
         record("gn_bwd_stats", (b, hw, c), dtype,
@@ -542,6 +556,9 @@ def kernel_cases(dev, peak):
                lambda: groupnorm_bwd_dx_plain(x, g, mean, rstd, scale, bias, s, True),
                20.0 * n, 3 * esz * n + 16 * b * 8 + 8 * c)
         del x, g, dx, dx_ref
+        if (hw, c, dtype) == (128 * 128, 64, BF16):
+            yardsticks.append(gn_bwd_yardstick(b, hw, c, dtype, cases[-2]["ms"] + cases[-1]["ms"],
+                                               randn))
 
     for b, rows, f2, dtype in GEGLU_CASES:
         proj = randn(b, rows, f2, dtype=dtype) * 2.0
@@ -569,7 +586,25 @@ def kernel_cases(dev, peak):
                24.0 * n, esz * 5 * n)
         del proj, dout, out, ref
     adaln_cases(randn, gen, record)
-    return cases
+    return cases, yardsticks
+
+
+def gn_bwd_yardstick(b, hw, c, dtype, pair_ms, randn):
+    """torch's own GroupNorm backward (aten.native_group_norm_backward: dx,
+    dscale and dbias, with no SiLU) on a contiguous NCHW tensor of the same
+    size, timed beside the gn_bwd_stats + gn_bwd_dx pair. A yardstick only:
+    it computes less than the pair, and the port never calls it."""
+    side = math.isqrt(hw)
+    x = randn(b, c, side, side, dtype=dtype)
+    g = randn(b, c, side, side, dtype=dtype)
+    w = randn(c, dtype=dtype).abs() + 0.5
+    _, mean, rstd = torch.ops.aten.native_group_norm(x, w, torch.zeros_like(w), b, c, hw, 8, 1e-6)
+    ms = graph_ms(lambda: torch.ops.aten.native_group_norm_backward(
+        g, x, mean, rstd, w, b, c, hw, 8, [True, True, True]), 20)
+    log(f"  yardstick: aten.native_group_norm_backward (no SiLU, NCHW) [{b},{c},{side},{side}] "
+        f"{str(dtype)[6:]} {ms:.4f} ms; gn_bwd_stats + gn_bwd_dx at [{b},{hw},{c}] {pair_ms:.4f} ms")
+    return dict(call="aten.native_group_norm_backward", note="no SiLU, NCHW",
+                shape=[b, c, side, side], dtype=str(dtype)[6:], ms=ms, pair_ms=pair_ms)
 
 
 def adaln_cases(randn, gen, record):
@@ -1133,7 +1168,7 @@ def main() -> int:
     hgmma = log_hgmma(lib)
 
     log("phase 2: kernels against their plain versions")
-    cases = kernel_cases(dev, peaks(name))
+    cases, yardsticks = kernel_cases(dev, peaks(name))
     torch.cuda.empty_cache()
 
     from flaxdiff_tpu_torch.models import Unet
@@ -1207,7 +1242,7 @@ def main() -> int:
         kernels.append({**kernel, "cases": mine})
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "ptxas": ptxas,
               "hgmma": hgmma,
-              "kernels": kernels,
+              "kernels": kernels, "yardsticks": yardsticks,
               "model": model_res, "trajectory": traj, "training": train, "dit_model": dit_res,
               "dit_trajectory": dit_traj, "dit_training": dit_train,
               "total_s": time.perf_counter() - t0}

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Time and check one checkout's version of a kernel on the card.
 
-    python3 scripts/flash_ab.py CHECKOUT [--kernel fwd|dq|gn_norm] [--sass]
+    python3 scripts/flash_ab.py CHECKOUT [--kernel fwd|dq|gn_norm|gn_bwd_stats|gn_bwd_dx]
+                                [--sass]
 
 Builds CHECKOUT's CUDA kernels (into CHECKOUT/build/kernels), holds the
 chosen kernel against its plain version at chip_smoke.py's phase-2 shapes
 (plus two larger ones for the forward) under phase 2's limits, and prints
 each case's device time per call (CUDA graph replays, chip_smoke.graph_ms)
 beside its readings. ``fwd`` is the flash forward (B1), ``dq`` the flash dq
-backward (B2), ``gn_norm`` GroupNorm's normalize + SiLU pass (B5). With
+backward (B2), ``gn_norm`` GroupNorm's normalize + SiLU pass (B5),
+``gn_bwd_stats`` and ``gn_bwd_dx`` its backward statistics (B6) and dx
+(B7) passes at the UNet train step's shapes. With
 ``--sass``, also prints each instantiation of the kernel in the built
 library (cuobjdump -sass): its instruction count and the instructions of
 each loop body (from a backward branch's target to the branch). To compare
@@ -35,7 +38,12 @@ DQ_CASES = [(16, 1024, 1024, 8, BF16), (16, 1024, 77, 8, BF16), (16, 256, 256, 8
 # (batch, HW, C, dtype), 8 groups: shapes one CFG call of the UNet at 256^2 normalizes
 GN_CASES = [(2, 65536, 64, BF16), (2, 16384, 128, BF16), (2, 4096, 256, BF16),
             (2, 1024, 1024, BF16), (2, 4096, 256, F32)]
-SYMBOLS = {"fwd": "flash_fwd_", "dq": "flash_bwd_dq_", "gn_norm": "gn_norm_kernel"}
+# (batch, HW, C, dtype), 8 groups: shapes one UNet train step at batch 16, 128^2
+# differentiates
+GN_BWD_CASES = [(16, 16384, 64, BF16), (16, 4096, 128, BF16), (16, 1024, 256, BF16),
+                (16, 256, 1024, BF16), (16, 1024, 256, F32)]
+SYMBOLS = {"fwd": "flash_fwd_", "dq": "flash_bwd_dq_", "gn_norm": "gn_norm_kernel",
+           "gn_bwd_stats": "gn_bwd_stats_kernel", "gn_bwd_dx": "gn_bwd_dx_kernel"}
 
 
 def flash_fwd_cases(cs, randn):
@@ -91,7 +99,47 @@ def gn_norm_cases(cs, randn):
         yield (b, hw, c, str(dtype)[6:]), ms, r, f", {nbytes / ms / 1e6:.0f} GB/s"
 
 
-CASES = {"fwd": flash_fwd_cases, "dq": flash_dq_cases, "gn_norm": gn_norm_cases}
+def gn_bwd_cases(kernel):
+    """The backward statistics (B6) or dx (B7) cases, under chip_smoke.py's
+    phase-2 limits."""
+    def cases(cs, randn):
+        from flaxdiff_tpu_torch.ops import fused_norm as fn
+        for b, hw, c, dtype in GN_BWD_CASES:
+            x = randn(b, hw, c, dtype=dtype) * 2.0 + 0.5
+            g = randn(b, hw, c, dtype=dtype)
+            scale = randn(c, dtype=F32).abs() + 0.5
+            bias = randn(c, dtype=F32) * 0.1
+            mean, rstd = fn.groupnorm_finalize(
+                fn.groupnorm_stats_plain(x, 8, fn.rows_per_block(hw, c)), hw, c, 1e-6)
+            # the checkout's backward blocks (older checkouts use the forward's)
+            rule = getattr(fn, "bwd_rows_per_block", None)
+            rows = rule(b, hw, c) if rule else fn.rows_per_block(hw, c)
+            args = (x, g, mean, rstd, scale, bias)
+            gs_ref, cs_ref = fn.groupnorm_bwd_stats_plain(*args, True, rows)
+            esz, n = x.element_size(), b * hw * c
+            if kernel == "gn_bwd_stats":
+                gs, csum = fn.groupnorm_bwd_stats(*args, True)
+                torch.cuda.synchronize()
+                read = [cs.compare(o, r, 1e-6 * float(r.abs().max()), 1e-5, 1e-6)
+                        for o, r in ((gs, gs_ref), (csum, cs_ref))]
+                # the reading nearer its limit, passing only if both do
+                r = dict(max(read, key=lambda d: d["least_atol"] / d["atol"]),
+                         ok=all(cs.passes(d) for d in read))
+                ms = cs.graph_ms(lambda: fn.groupnorm_bwd_stats(*args, True), 20)
+            else:
+                s, _, _ = fn.groupnorm_bwd_finalize(gs_ref, cs_ref, hw)
+                dx = fn.groupnorm_bwd_dx(*args, s, True)
+                ref = fn.groupnorm_bwd_dx_plain(*args, s, True)
+                torch.cuda.synchronize()
+                r = cs.compare(dx, ref, 1e-5, cs.BF16_RTOL if dtype == BF16 else 1e-5, 1e-3)
+                ms = cs.graph_ms(lambda: fn.groupnorm_bwd_dx(*args, s, True), 20)
+            nbytes = (2 if kernel == "gn_bwd_stats" else 3) * esz * n
+            yield (b, hw, c, str(dtype)[6:]), ms, r, f", {nbytes / ms / 1e6:.0f} GB/s"
+    return cases
+
+
+CASES = {"fwd": flash_fwd_cases, "dq": flash_dq_cases, "gn_norm": gn_norm_cases,
+         "gn_bwd_stats": gn_bwd_cases("gn_bwd_stats"), "gn_bwd_dx": gn_bwd_cases("gn_bwd_dx")}
 
 
 def sass_loops(lib: str, symbol: str) -> list:
@@ -164,7 +212,7 @@ def main() -> int:
     lines = []
     for shape, ms, r, note in CASES[args.kernel](cs, randn):
         lines.append(f"{args.kernel} {shape}: {ms:.4f} ms, least atol {r['least_atol']:.3g}, "
-                     f"rms {r['rms_rel']:.3g}{note}, ok {cs.passes(r)}")
+                     f"rms {r['rms_rel']:.3g}{note}, ok {r.get('ok', cs.passes(r))}")
     print(f"== {root} (build {build_s:.1f} s)")
     print("\n".join(lines), flush=True)
     if args.sass:

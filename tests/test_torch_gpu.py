@@ -8,8 +8,9 @@ JAX, so it also runs where JAX is not installed:
 import pytest
 import torch
 
-from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, flash_attention, flash_bwd_dkv,
-                                    flash_bwd_dq, flash_fwd, fused_gate_residual, fused_geglu,
+from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, dot_product_attention, flash_attention,
+                                    flash_bwd_dkv, flash_bwd_dq, flash_fwd, fused_gate_residual,
+                                    fused_geglu,
                                     fused_groupnorm_silu, fused_ln_modulate, fused_ln_modulate2,
                                     gate_residual_bwd, gate_residual_fwd, geglu_bwd,
                                     groupnorm_bwd_dx, groupnorm_bwd_stats, groupnorm_normalize,
@@ -20,9 +21,9 @@ from flaxdiff_tpu_torch.ops.flash_attention import (flash_bwd_dkv_plain, flash_b
 from flaxdiff_tpu_torch.ops.fused_adaln import (gate_residual_bwd_plain, gate_residual_plain,
                                                 geglu_bwd_plain, geglu_plain,
                                                 ln_modulate_bwd_plain, ln_modulate_plain)
-from flaxdiff_tpu_torch.ops.fused_norm import (groupnorm_bwd_dx_plain, groupnorm_bwd_finalize,
-                                               groupnorm_bwd_stats_plain, groupnorm_finalize,
-                                               groupnorm_stats_plain, rows_per_block)
+from flaxdiff_tpu_torch.ops.fused_norm import (bwd_rows_per_block, groupnorm_bwd_dx_plain,
+                                               groupnorm_bwd_finalize, groupnorm_bwd_stats_plain,
+                                               groupnorm_finalize, groupnorm_stats_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -219,6 +220,33 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, lq, lk, d, b, h):
     _close(dk, dk_ref, dtype)
 
 
+@pytest.mark.parametrize("d", [40, 72, 80, 96])
+def test_attention_dispatch_pads_odd_head_dims(cuda, d):
+    """The dispatch zero-pads a head dim outside (32, 64, 128) to the next of
+    them: forward and dq, dk, dv in bf16 against the plain versions at the
+    true head dim, within the flash bf16 limits."""
+    q = _randn(cuda, 2, 130, 4, d, dtype=torch.bfloat16, seed=1).requires_grad_()
+    k = _randn(cuda, 2, 77, 4, d, dtype=torch.bfloat16, seed=2).requires_grad_()
+    v = _randn(cuda, 2, 77, 4, d, dtype=torch.bfloat16, seed=3).requires_grad_()
+    do = _randn(cuda, 2, 130, 4, d, dtype=torch.bfloat16, seed=4)
+    reset_launch_counts()
+    out = dot_product_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["flash_fwd"], counts["flash_bwd_dq"], counts["flash_bwd_dkv"]) == (1, 1, 1)
+    with torch.no_grad():
+        ref, lse = flash_fwd_plain(q, k, v)
+        delta = flash_delta(ref, do)
+        refs = (flash_bwd_dq_plain(q, k, v, do, lse, delta),
+                *flash_bwd_dkv_plain(q, k, v, do, lse, delta))
+    atol, rtol = TOL[torch.bfloat16]
+    assert out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    for grad, grad_ref in zip(grads, refs):
+        _close(grad, grad_ref, torch.bfloat16)
+
+
 def test_flash_bwd_takes_strided_projection_views(cuda):
     """q/k/v as views of one [B, L, 3*H*D] projection, as the attention
     layers pass them: the same gradients as contiguous copies."""
@@ -278,21 +306,33 @@ def test_flash_kernels_replay_in_cuda_graph(cuda, dtype):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("apply_silu", [True, False])
-@pytest.mark.parametrize("shape,groups", [((2, 300, 128), 8), ((1, 63, 48), 4),
-                                          ((2, 16, 1024), 32)])
-def test_groupnorm_bwd_kernels_match_plain(cuda, dtype, apply_silu, shape, groups):
+# (shape, groups): a bf16 vector straddling two groups (C 48, 4 groups), the
+# UNet's top level at batch 2 (one wave of dx blocks strides over many rows;
+# 128 stats blocks), a row count that leaves every kernel a partial last step
+# (stats blocks of 143 rows, the last 142), and C 1024 in 32 groups
+GN_BWD_CASES = [((2, 300, 128), 8), ((1, 63, 48), 4), ((2, 16, 1024), 32),
+                ((2, 16384, 64), 8), ((3, 1000, 64), 8)]
+
+
+def _gn_bwd_inputs(cuda, shape, groups, dtype):
     x = _randn(cuda, *shape, dtype=dtype) * 3.0 + 1.0
     g = _randn(cuda, *shape, dtype=dtype, seed=6)
     c = shape[-1]
     w = _randn(cuda, c, seed=4) * 0.1 + 1.0
     b = _randn(cuda, c, seed=5) * 0.1
     mean, rstd = groupnorm_finalize(groupnorm_stats(x, groups), shape[1], c, 1e-6)
+    return x, g, mean, rstd, w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("apply_silu", [True, False])
+@pytest.mark.parametrize("shape,groups", GN_BWD_CASES)
+def test_groupnorm_bwd_kernels_match_plain(cuda, dtype, apply_silu, shape, groups):
+    x, g, mean, rstd, w, b = _gn_bwd_inputs(cuda, shape, groups, dtype)
     gs, cs = groupnorm_bwd_stats(x, g, mean, rstd, w, b, apply_silu)
     gs_ref, cs_ref = groupnorm_bwd_stats_plain(x, g, mean, rstd, w, b, apply_silu,
-                                               rows_per_block(shape[1], c))
-    # f32 sums of up to 8192 elements in another order
+                                               bwd_rows_per_block(*shape))
+    # f32 sums of up to 1024 rows a block in another order
     torch.testing.assert_close(gs, gs_ref, atol=1e-5 * float(gs_ref.abs().max()), rtol=1e-5)
     torch.testing.assert_close(cs, cs_ref, atol=1e-5 * float(cs_ref.abs().max()), rtol=1e-5)
     s, _, _ = groupnorm_bwd_finalize(gs_ref, cs_ref, shape[1])
@@ -300,6 +340,18 @@ def test_groupnorm_bwd_kernels_match_plain(cuda, dtype, apply_silu, shape, group
     ref = groupnorm_bwd_dx_plain(x, g, mean, rstd, w, b, s, apply_silu)
     # the same f32 math, at most one output rounding apart
     torch.testing.assert_close(dx.float(), ref.float(), atol=1e-5, rtol=TOL[dtype][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [((2, 16384, 64), 8), ((2, 50, 36), 4)])
+def test_groupnorm_bwd_stats_is_deterministic(cuda, dtype, shape, groups):
+    """No atomics, a fixed reduction order: two launches give bit-equal sums
+    (16-byte and scalar paths)."""
+    x, g, mean, rstd, w, b = _gn_bwd_inputs(cuda, shape, groups, dtype)
+    first = groupnorm_bwd_stats(x, g, mean, rstd, w, b, True)
+    second = groupnorm_bwd_stats(x, g, mean, rstd, w, b, True)
+    for a, b2 in zip(first, second):
+        assert torch.equal(a, b2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -23,6 +23,9 @@ from flaxdiff_tpu_torch.ops import _build
 from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, dot_product_attention, flash_attention,
                                     fused_geglu, fused_groupnorm_silu, groupnorm_normalize,
                                     groupnorm_stats, launch_counts, reset_launch_counts)
+from flaxdiff_tpu_torch.ops.attention import eager_attention
+from flaxdiff_tpu_torch.ops.flash_attention import flash_fwd_plain
+from flaxdiff_tpu_torch.ops.fused_norm import bwd_rows_per_block
 
 # f32 on both sides: the two differ only in summation order and in the
 # libraries' exp/tanh/rsqrt, a few ulps each, far below 1e-5 at these sizes
@@ -54,16 +57,51 @@ def test_flash_plain_matches_pallas_kernel(lq, lk, d):
     np.testing.assert_allclose(lse_t[:, 0].numpy(), lse_j, atol=TOL, rtol=TOL)
 
 
+# 32 is native to the flash kernels; 40, 72 (DiT-XL/2: 1152 / 16), 80 and 96
+# are zero-padded to the next of 64 and 128 by the dispatch
+ODD_HEAD_DIMS = [40, 72, 80, 96]
+
+
+@pytest.mark.parametrize("d", [32] + ODD_HEAD_DIMS)
 @pytest.mark.parametrize("backend", ["auto", "xla"])
-def test_attention_dispatch_matches_jax_eager_attention(backend):
-    """Both backends compute the JAX package's explicit attention math."""
-    rng = np.random.default_rng(11)
-    q = rng.standard_normal((2, 30, 2, 32)).astype(np.float32)
-    k = rng.standard_normal((2, 77, 2, 32)).astype(np.float32)
-    v = rng.standard_normal((2, 77, 2, 32)).astype(np.float32)
+def test_attention_dispatch_matches_jax_eager_attention(backend, d):
+    """Both backends compute the JAX package's explicit attention math, at
+    every head dim up to 128."""
+    rng = np.random.default_rng(11 + d)
+    q = rng.standard_normal((2, 30, 2, d)).astype(np.float32)
+    k = rng.standard_normal((2, 77, 2, d)).astype(np.float32)
+    v = rng.standard_normal((2, 77, 2, d)).astype(np.float32)
     ref = np.asarray(_xla_attention(q, k, v))
     out = dot_product_attention(*map(torch.from_numpy, (q, k, v)), backend=backend)
+    assert out.shape == q.shape
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("scale", [None, 0.3])
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS)
+def test_padded_dispatch_equals_unpadded_math(d, scale):
+    """The zero-padded flash path gives what the unpadded math gives, with
+    the true head dim's scale (or the caller's), and gradients of the
+    unpadded shape."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, n, 3, d)).astype(np.float32))
+               .requires_grad_() for n in (20, 33, 33))
+    out = dot_product_attention(q, k, v, backend="flash", scale=scale)
+    torch.testing.assert_close(out, eager_attention(q, k, v, scale), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(out, flash_fwd_plain(q, k, v, scale)[0], atol=TOL, rtol=TOL)
+    out.sum().backward()
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape and v.grad.shape == v.shape
+
+
+@pytest.mark.parametrize("backend", ["auto", "flash"])
+def test_attention_dispatch_raises_above_head_dim_128(backend):
+    """Head dims above 128 need another instantiation of the flash kernels:
+    the dispatch names the limit instead of padding to 256."""
+    q = torch.randn(1, 8, 2, 160)
+    with pytest.raises(ValueError, match="above 128.*C1"):
+        dot_product_attention(q, q, q, backend=backend)
+    # the explicit math takes any head dim
+    assert dot_product_attention(q, q, q, backend="xla").shape == q.shape
 
 
 def test_flash_plain_takes_strided_projection_views():
@@ -124,6 +162,19 @@ def test_groupnorm_silu_shifted_moment_beats_naive_variance():
     xf = torch.from_numpy(x).view(1, 256, 8, 8)
     naive = (xf * xf).mean(dim=(1, 3)) - xf.mean(dim=(1, 3)) ** 2
     assert (naive - 1.0).abs().max() > 0.5
+
+
+@pytest.mark.parametrize("shape", [(16, 16384, 64), (16, 4096, 128), (16, 1024, 256),
+                                   (16, 1024, 384), (16, 256, 512), (16, 256, 1024)])
+def test_groupnorm_bwd_blocks_fill_the_card(shape):
+    """At the UNet train step's shapes (batch 16 at 128^2), the backward
+    statistics' blocks fill the H100's 132 SMs about two deep, no more than
+    the kernel holds at once, each block a whole number of rows."""
+    b, hw, c = shape
+    rows = bwd_rows_per_block(b, hw, c)
+    nblk = -(-hw // rows)
+    assert 132 < b * nblk <= 2 * 132
+    assert rows * c >= 8192 and (nblk - 1) * rows < hw
 
 
 @pytest.mark.parametrize("shape", [(2, 37, 96), (1, 8, 2 * 128)])

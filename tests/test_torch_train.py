@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from flaxdiff_tpu.models.unet import Unet as JaxUnet
+from flaxdiff_tpu.ops.attention import _maybe_pad_head_dim as jax_pad_head_dim
 from flaxdiff_tpu.ops.flash_attention import flash_attention as jax_flash
 from flaxdiff_tpu.ops.fused_adaln import fused_geglu as jax_geglu
 from flaxdiff_tpu.ops.fused_norm import fused_groupnorm_silu as jax_gn
@@ -33,6 +34,9 @@ from flaxdiff_tpu_torch.models.common import fourier_freqs
 from flaxdiff_tpu_torch.ops import fused_geglu, fused_groupnorm_silu
 from flaxdiff_tpu_torch.ops.attention import dot_product_attention, eager_attention
 from flaxdiff_tpu_torch.ops.fused_adaln import gelu_tanh
+from flaxdiff_tpu_torch.ops.fused_norm import (bwd_rows_per_block, groupnorm_bwd_dx,
+                                               groupnorm_bwd_finalize, groupnorm_bwd_stats,
+                                               groupnorm_finalize, groupnorm_stats)
 from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
 from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
 from flaxdiff_tpu_torch.trainer import AdamW, TrainStepConfig, make_loss_builder, make_train_step
@@ -84,6 +88,34 @@ def test_flash_backward_matches_pallas_kernels(lq, lk, d):
         assert_close_to_max(out, second, KERNEL_TOL, f"d{name} vs autograd of eager")
 
 
+@pytest.mark.parametrize("d", [40, 72, 80, 96])
+def test_attention_dispatch_pads_odd_head_dims_through_autograd(d):
+    """dq, dk, dv through the dispatch's zero-padded flash path against
+    ``jax.vjp`` of the reference's TPU path for the same head dim: pad to
+    128 lanes (``_maybe_pad_head_dim``), the Pallas kernels interpreted with
+    the true head dim's scale, the slice; and against autograd of the eager
+    math."""
+    rng = np.random.default_rng(d)
+    q = rng.standard_normal((2, 30, 2, d)).astype(np.float32)
+    k = rng.standard_normal((2, 77, 2, d)).astype(np.float32)
+    v = rng.standard_normal((2, 77, 2, d)).astype(np.float32)
+    g = rng.standard_normal((2, 30, 2, d)).astype(np.float32)
+
+    def reference(a, b, c):
+        a, b, c, pad = jax_pad_head_dim(a, b, c, native=False)
+        assert pad
+        return jax_flash(a, b, c, 1.0 / np.sqrt(d), 16, 16, True)[..., :d]
+
+    _, vjp = jax.vjp(reference, *map(jnp.asarray, (q, k, v)))
+    refs = vjp(g)
+    outs = torch_vjp(lambda a, b, c: dot_product_attention(a, b, c, backend="auto"), (q, k, v), g)
+    eager = torch_vjp(eager_attention, (q, k, v), g)
+    for name, out, ref, second in zip("qkv", outs, refs, eager):
+        assert out.shape == ref.shape
+        assert_close_to_max(out, ref, KERNEL_TOL, f"d{name} vs Pallas")
+        assert_close_to_max(out, second, KERNEL_TOL, f"d{name} vs autograd of eager")
+
+
 def _eager_groupnorm_silu(x, scale, bias, groups, apply_silu, eps=1e-6):
     xg = x.view(x.shape[0], -1, groups, x.shape[-1] // groups)
     mean = xg.mean(dim=(1, 3), keepdim=True)
@@ -118,6 +150,36 @@ def test_groupnorm_backward_matches_pallas_kernels(shape, apply_silu, mean):
     for name, out, ref, second in zip(("dx", "dscale", "dbias"), outs, refs, eager):
         assert_close_to_max(out, ref, KERNEL_TOL, f"{name} vs Pallas")
         assert_close_to_max(out, second, KERNEL_TOL, f"{name} vs autograd of eager")
+
+
+@pytest.mark.parametrize("shape,groups", [
+    ((3, 1000, 64), 8),    # 7 blocks of 143 rows, the last 142
+    ((2, 701, 48), 4),     # 4 blocks of 176 rows, the last 173; 12 channels a group
+])
+def test_groupnorm_backward_blocks_match_pallas_kernels(shape, groups):
+    """The backward statistics in ``bwd_rows_per_block``'s blocks (several,
+    the last ragged), their finalize and the dx pass give the reference's
+    dx, dscale and dbias."""
+    b, hw, c = shape
+    rows = bwd_rows_per_block(b, hw, c)
+    nblk = -(-hw // rows)
+    assert nblk > 1 and hw % rows
+    rng = np.random.default_rng(hw)
+    x = (0.5 + rng.standard_normal(shape)).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, s, b: jax_gn(a, s, b, groups=groups, eps=1e-6, apply_silu=True,
+                                            interpret=True, force_pallas=True), x, scale, bias)
+    refs = vjp(g)
+    xt, gt, st, bt = map(torch.from_numpy, (x, g, scale, bias))
+    mean, rstd = groupnorm_finalize(groupnorm_stats(xt, groups), hw, c, 1e-6)
+    gsums, csums = groupnorm_bwd_stats(xt, gt, mean, rstd, st, bt, True)
+    assert gsums.shape == (b, nblk, 2, groups) and csums.shape == (b, nblk, 2, c)
+    s, dscale, dbias = groupnorm_bwd_finalize(gsums, csums, hw)
+    dx = groupnorm_bwd_dx(xt, gt, mean, rstd, st, bt, s, True)
+    for name, out, ref in zip(("dx", "dscale", "dbias"), (dx, dscale, dbias), refs):
+        assert_close_to_max(out.numpy(), ref, KERNEL_TOL, f"{name} vs Pallas")
 
 
 def test_geglu_backward_matches_pallas_kernel():
