@@ -13,18 +13,25 @@ Phases; any failure exits non-zero and prints no result line.
   2. Hold each of the thirteen kernels against its plain PyTorch version on
      the card: the forward kernels at the serving paths' shapes, the backward
      kernels at the training paths' (bf16, plus one f32 case each with TF32
-     off, and a ragged case for the AdaLN kernels). Time kernel, plain
-     version and, where one PyTorch call computes the same function (torch's
-     scaled_dot_product_attention forward and backward, torch.addcmul; a
-     yardstick the port never calls), that call, by their device time (CUDA
-     graph replays timed by CUDA events), beside the byte/flop bound; the
-     flash cases also with their TFLOP/s and share of the bound. GroupNorm's
-     backward pair is also timed beside torch's native_group_norm_backward
-     (no SiLU, NCHW) at the training path's top-level shape.
+     off, and a ragged case for the AdaLN kernels); the flash kernels also at
+     head dim 256, GroupNorm's forward kernels also at the training paths'
+     shapes. Time kernel, plain version and, where one PyTorch call computes
+     the same function (torch's scaled_dot_product_attention forward and
+     backward, torch.var_mean over the groups, torch.addcmul; a yardstick
+     the port never calls), that call, by their device time (CUDA graph
+     replays timed by CUDA events), beside the byte/flop bound; the flash
+     cases also with their TFLOP/s and share of the bound. GroupNorm's
+     forward and backward pairs are also timed beside torch's group_norm and
+     native_group_norm_backward (no SiLU, NCHW) at the top-level shapes. The
+     statistics kernels' partials must be bit-equal from launch to launch,
+     and the attention dispatch at head dim 160 (padded to 256) within the
+     flash limits, forward and backward, in bf16.
   3. The full-width UNet at 64x64 in f32, on the card (kernels) and on the
      CPU (plain versions), with the same random weights: a forward, a short
      DDIM + CFG trajectory, and one training step's loss and gradients with
-     the same draws.
+     the same draws; then one transformer block at SD's widest level (1280
+     channels, 8 heads of 160, 16x16 tokens, cross to the text): its forward
+     and every gradient.
   4. The serving path: DDIM-50 with classifier-free guidance (scale 3.0) at
      256x256, batch 1, bf16, full width. The launch counters, zeroed just
      before, must show every attention, GEGLU and GroupNorm call went through
@@ -102,24 +109,38 @@ DIT_PER_BACKWARD = {"ln_mod_bwd": 24, "gate_res_bwd": 24, "flash_bwd_dq": 12, "f
 # SERVE_BATCH), the backward kernels at the training path's (batch
 # TRAIN_BATCH); bf16 plus one f32 case each (TF32 off)
 BF16, F32 = torch.bfloat16, torch.float32
-# flash (batch, lq, lk, heads, dtype), heads of 64: the UNet's self at 64^2
-# and 32^2 tokens and cross to the text (8 heads), then the DiT's self over
-# 256 tokens (12 heads)
-FLASH_FWD_CASES = [(SERVE_BATCH, 4096, 4096, 8, BF16), (SERVE_BATCH, 4096, TEXT_LEN, 8, BF16),
-                   (SERVE_BATCH, 1024, 1024, 8, BF16), (SERVE_BATCH, 1024, TEXT_LEN, 8, BF16),
-                   (SERVE_BATCH, 1024, 1024, 8, F32),
-                   (2 * DIT_SERVE_BATCH, DIT_TOKENS, DIT_TOKENS, DIT_HEADS, BF16)]
+# flash (batch, lq, lk, heads, head dim, dtype): the UNet's self at 64^2 and
+# 32^2 tokens and cross to the text (8 heads of 64), the DiT's self over 256
+# tokens (12 heads); then head dim 256, where the dispatch pads the 8 heads
+# of 160 of an SD-style level of 1280 channels: self and cross at 32^2
+# tokens, self at 16^2 in f32
+FLASH_FWD_CASES = [(SERVE_BATCH, 4096, 4096, 8, 64, BF16),
+                   (SERVE_BATCH, 4096, TEXT_LEN, 8, 64, BF16),
+                   (SERVE_BATCH, 1024, 1024, 8, 64, BF16),
+                   (SERVE_BATCH, 1024, TEXT_LEN, 8, 64, BF16),
+                   (SERVE_BATCH, 1024, 1024, 8, 64, F32),
+                   (2 * DIT_SERVE_BATCH, DIT_TOKENS, DIT_TOKENS, DIT_HEADS, 64, BF16),
+                   (SERVE_BATCH, 1024, 1024, 8, 256, BF16),
+                   (SERVE_BATCH, 1024, TEXT_LEN, 8, 256, BF16),
+                   (SERVE_BATCH, 256, 256, 8, 256, F32)]
 # flash backward: the UNet's self at 32^2 and 16^2 tokens and cross to the
-# text, then the DiT's self at its training batch
-FLASH_BWD_CASES = [(TRAIN_BATCH, 1024, 1024, 8, BF16), (TRAIN_BATCH, 1024, TEXT_LEN, 8, BF16),
-                   (TRAIN_BATCH, 256, 256, 8, BF16), (TRAIN_BATCH, 256, TEXT_LEN, 8, BF16),
-                   (2, 1024, 1024, 8, F32),
-                   (DIT_TRAIN_BATCH, DIT_TOKENS, DIT_TOKENS, DIT_HEADS, BF16)]
-# GroupNorm (batch, HW, C, dtype), 8 groups: forward cases at SERVE_BATCH
-# (four shapes the UNet's forward at 256^2 normalizes, f32, then the two
-# other shapes it normalizes most often), backward cases at TRAIN_BATCH (the
-# same at 128^2). With them phase 2 measures 31 (serving) and 28 (training)
-# of the 38 GroupNorm calls of a forward (scripts/queue_score.py's census)
+# text, the DiT's self at its training batch; then head dim 256 at 16^2
+# tokens, self and cross, and f32
+FLASH_BWD_CASES = [(TRAIN_BATCH, 1024, 1024, 8, 64, BF16),
+                   (TRAIN_BATCH, 1024, TEXT_LEN, 8, 64, BF16),
+                   (TRAIN_BATCH, 256, 256, 8, 64, BF16), (TRAIN_BATCH, 256, TEXT_LEN, 8, 64, BF16),
+                   (2, 1024, 1024, 8, 64, F32),
+                   (DIT_TRAIN_BATCH, DIT_TOKENS, DIT_TOKENS, DIT_HEADS, 64, BF16),
+                   (TRAIN_BATCH, 256, 256, 8, 256, BF16),
+                   (TRAIN_BATCH, 256, TEXT_LEN, 8, 256, BF16), (2, 256, 256, 8, 256, F32)]
+# SD's widest UNet level: 1280 channels in 8 heads of 160 at 16x16 tokens
+WIDE_LEVEL = dict(dim=1280, heads=8, dim_head=160, side=16)
+# GroupNorm (batch, HW, C, dtype), 8 groups: cases at SERVE_BATCH (four
+# shapes the UNet's forward at 256^2 normalizes, f32, then the two other
+# shapes it normalizes most often) time the forward kernels, cases at
+# TRAIN_BATCH (the same at 128^2) the forward and backward kernels. With them
+# phase 2 measures 31 (serving) and 28 (training) of the 38 GroupNorm calls
+# of a forward (scripts/queue_score.py's census)
 GN_CASES = [(SERVE_BATCH, 256 * 256, 64, BF16), (SERVE_BATCH, 64 * 64, 256, BF16),
             (SERVE_BATCH, 32 * 32, 1024, BF16), (SERVE_BATCH, 128 * 128, 128, BF16),
             (SERVE_BATCH, 64 * 64, 256, F32), (SERVE_BATCH, 32 * 32, 512, BF16),
@@ -163,11 +184,12 @@ REPLACES = {
 KERNEL_SYMBOLS = {name: (name + "_kernel",) for name in REPLACES}
 KERNEL_SYMBOLS.update(flash_fwd=("flash_fwd_wgmma_kernel", "flash_fwd_fma_kernel"),
                       flash_bwd_dq=("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_fma_kernel"),
-                      flash_bwd_dkv=("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_fma_kernel"),
+                      flash_bwd_dkv=("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_split_wgmma_kernel",
+                                     "flash_bwd_dkv_fma_kernel"),
                       ln_mod=("ln_mod_fwd_kernel",), gate_res=("gate_res_fwd_kernel",))
 # the 16-bit paths that must run on wgmma (HGMMA in the built library)
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                 "flash_bwd_dkv_wgmma_kernel")
+                 "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_split_wgmma_kernel")
 SOURCES = {
     "flash_fwd": "flaxdiff_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_dq": "flaxdiff_tpu_torch/csrc/flash_bwd.cu",
@@ -303,13 +325,15 @@ def passes(reading: dict) -> bool:
 
 def instantiation(mangled: str) -> str:
     """'flash_fwd_wgmma_kernel bf16 D64 NC2' from a wgmma kernel's mangled
-    name (template arguments: dtype, head dim, consumer warpgroups)."""
-    m = re.search("(" + "|".join(WGMMA_KERNELS) + r")I(6__half|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+    name (template arguments: dtype, head dim and, where the kernel has it,
+    consumer warpgroups)."""
+    m = re.search("(" + "|".join(WGMMA_KERNELS) + r")I(6__half|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?",
                   mangled)
     if not m:
         return mangled
     dtype = "f16" if m.group(2) == "6__half" else "bf16"
-    return f"{m.group(1)} {dtype} D{m.group(3)} NC{m.group(4)}"
+    nc = f" NC{m.group(4)}" if m.group(4) else ""
+    return f"{m.group(1)} {dtype} D{m.group(3)}{nc}"
 
 
 def log_registers(build_log: str) -> dict:
@@ -395,7 +419,7 @@ def kernel_cases(dev, peak):
                                                    groupnorm_bwd_stats_plain, groupnorm_finalize,
                                                    groupnorm_normalize, groupnorm_normalize_plain,
                                                    groupnorm_stats, groupnorm_stats_plain,
-                                                   rows_per_block, bwd_rows_per_block)
+                                                   rows_per_block)
     bf16_rate, f32_rate, byte_rate = peak
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *shape, dtype: torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
@@ -430,8 +454,8 @@ def kernel_cases(dev, peak):
             + (f", library {library_ms:.4f} ms" if library_ms is not None else "") + rate_note)
         cases.append(case)
 
-    for b, lq, lk, heads, dtype in FLASH_FWD_CASES:
-        q, k, v = (randn(b, n, heads, 64, dtype=dtype) for n in (lq, lk, lk))
+    for b, lq, lk, heads, d, dtype in FLASH_FWD_CASES:
+        q, k, v = (randn(b, n, heads, d, dtype=dtype) for n in (lq, lk, lk))
         out, lse = flash_fwd(q, k, v)
         ref, ref_lse = flash_fwd_plain(q, k, v)
         torch.cuda.synchronize()
@@ -449,15 +473,15 @@ def kernel_cases(dev, peak):
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
         esz = q.element_size()
         bh = b * heads
-        record("flash_fwd", (b, lq, lk, heads, 64), dtype, {"out": reading},
+        record("flash_fwd", (b, lq, lk, heads, d), dtype, {"out": reading},
                lambda: flash_fwd(q, k, v), lambda: flash_fwd_plain(q, k, v),
-               4.0 * bh * lq * lk * 64, bh * (esz * 64 * (2 * lq + 2 * lk) + 4 * lq),
+               4.0 * bh * lq * lk * d, bh * (esz * d * (2 * lq + 2 * lk) + 4 * lq),
                library=sdpa)
         del q, k, v, out, ref
 
-    for b, lq, lk, heads, dtype in FLASH_BWD_CASES:
-        q, k, v = (randn(b, n, heads, 64, dtype=dtype) for n in (lq, lk, lk))
-        do = randn(b, lq, heads, 64, dtype=dtype)
+    for b, lq, lk, heads, d, dtype in FLASH_BWD_CASES:
+        q, k, v = (randn(b, n, heads, d, dtype=dtype) for n in (lq, lk, lk))
+        do = randn(b, lq, heads, d, dtype=dtype)
         out, lse = flash_fwd(q, k, v)
         delta = flash_delta(out, do)
         dq, (dk, dv) = flash_bwd_dq(q, k, v, do, lse, delta), flash_bwd_dkv(q, k, v, do, lse, delta)
@@ -480,58 +504,67 @@ def kernel_cases(dev, peak):
         torch.cuda.current_stream().wait_stream(side_stream())
         sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do.transpose(1, 2),
                                                retain_graph=True)
-        esz, bh, qkvo = q.element_size(), b * heads, (2 * lq + 2 * lk) * 64
-        shape = (b, lq, lk, heads, 64)
+        esz, bh, qkvo = q.element_size(), b * heads, (2 * lq + 2 * lk) * d
+        shape = (b, lq, lk, heads, d)
         record("flash_bwd_dq", shape, dtype, {"dq": read(dq, dq_ref)},
                lambda: flash_bwd_dq(q, k, v, do, lse, delta),
                lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta),
-               3 * 2.0 * bh * lq * lk * 64, bh * (esz * (qkvo + lq * 64) + 8 * lq),
+               3 * 2.0 * bh * lq * lk * d, bh * (esz * (qkvo + lq * d) + 8 * lq),
                library=sdpa_bwd)
+        # the function's 4 products; at d = 256 the 16-bit kernel computes
+        # the two score products in both of its warpgroups (6 in all)
         record("flash_bwd_dkv", shape, dtype, {"dk": read(dk, dk_ref), "dv": read(dv, dv_ref)},
                lambda: flash_bwd_dkv(q, k, v, do, lse, delta),
                lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta),
-               4 * 2.0 * bh * lq * lk * 64, bh * (esz * (qkvo + 2 * lk * 64) + 8 * lq),
+               4 * 2.0 * bh * lq * lk * d, bh * (esz * (qkvo + 2 * lk * d) + 8 * lq),
                library=sdpa_bwd)
         pair = cases[-2]["ms"] + cases[-1]["ms"]
         log(f"    dq + dkv {pair:.4f} ms against SDPA's backward {cases[-1]['library_ms']:.4f} ms "
             f"({pair / cases[-1]['library_ms']:.2f}x)")
         del q, k, v, do, out, dq, dk, dv, dq_ref, dk_ref, dv_ref, qg, kg, vg, sdpa_out
+    dispatch_check(randn)
 
     for b, hw, c, dtype in GN_CASES:
         x = randn(b, hw, c, dtype=dtype) * 2.0 + 0.5
         scale = torch.rand(c, generator=gen, device=dev) + 0.5
         bias = randn(c, dtype=torch.float32) * 0.1
-        rows = rows_per_block(hw, c)
+        rows = rows_per_block(b, hw, c)
         nblk = -(-hw // rows)
         esz, n = x.element_size(), b * hw * c
         rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-5
         ref_part = groupnorm_stats_plain(x, 8, rows)
         mean, rstd = groupnorm_finalize(ref_part, hw, c, 1e-6)
-        if b == SERVE_BATCH:
-            part = groupnorm_stats(x, 8)
-            torch.cuda.synchronize()
-            # f32 sums of 1024 elements a group and block, in another order; the
-            # sums are ~500 and the moments ~4000, so one missed row moves them
-            # by 1% or more
-            reading = compare(part, ref_part, atol=1e-3, rtol=1e-5, rms_rel=1e-5)
-            record("gn_stats", (b, hw, c), dtype, {"partials": reading},
-                   lambda: groupnorm_stats(x, 8), lambda: groupnorm_stats_plain(x, 8, rows),
-                   3.0 * n, esz * n + 4 * b * nblk * 2 * 8)
-            out = groupnorm_normalize(x, mean, rstd, scale, bias, True)
-            ref = groupnorm_normalize_plain(x, mean, rstd, scale, bias, True)
-            torch.cuda.synchronize()
-            # the same f32 math up to FMA contraction and expf against torch's
-            # sigmoid: a few f32 ulps, then at most one bf16 rounding apart
-            reading = compare(out, ref, atol=1e-5, rtol=rtol, rms_rel=1e-3)
-            record("gn_norm", (b, hw, c), dtype, {"out": reading},
-                   lambda: groupnorm_normalize(x, mean, rstd, scale, bias, True),
-                   lambda: groupnorm_normalize_plain(x, mean, rstd, scale, bias, True),
-                   8.0 * n, 2 * esz * n + 8 * c + 8 * b * 8)
-            del out, ref
+        part = groupnorm_stats(x, 8)
+        again = groupnorm_stats(x, 8)
+        torch.cuda.synchronize()
+        check(torch.equal(part, again), f"gn_stats {(b, hw, c)}: partials bit-equal run to run")
+        # f32 sums of up to 8192 elements a group and block, in another order
+        # and shifted by the block's first row; the sums are ~2000-4000 and
+        # the moments ~16000-33000, so one missed row moves them by 0.1% or
+        # more
+        reading = compare(part, ref_part, atol=1e-3, rtol=1e-5, rms_rel=1e-5)
+        grouped = x.view(b, hw, 8, c // 8)
+        record("gn_stats", (b, hw, c), dtype, {"partials": reading},
+               lambda: groupnorm_stats(x, 8), lambda: groupnorm_stats_plain(x, 8, rows),
+               3.0 * n, esz * n + 4 * b * nblk * 2 * 8,
+               library=lambda: torch.var_mean(grouped, dim=(1, 3), correction=0))
+        out = groupnorm_normalize(x, mean, rstd, scale, bias, True)
+        ref = groupnorm_normalize_plain(x, mean, rstd, scale, bias, True)
+        torch.cuda.synchronize()
+        # the same f32 math up to FMA contraction and expf against torch's
+        # sigmoid: a few f32 ulps, then at most one bf16 rounding apart
+        reading = compare(out, ref, atol=1e-5, rtol=rtol, rms_rel=1e-3)
+        record("gn_norm", (b, hw, c), dtype, {"out": reading},
+               lambda: groupnorm_normalize(x, mean, rstd, scale, bias, True),
+               lambda: groupnorm_normalize_plain(x, mean, rstd, scale, bias, True),
+               8.0 * n, 2 * esz * n + 8 * c + 8 * b * 8)
+        del out, ref
+        if (hw, c, dtype) == (256 * 256, 64, BF16):
+            yardsticks.append(gn_yardstick(b, hw, c, dtype, cases[-2]["ms"] + cases[-1]["ms"],
+                                           randn, backward=False))
+        if b != TRAIN_BATCH:
             continue
         g = randn(b, hw, c, dtype=dtype)
-        rows = bwd_rows_per_block(b, hw, c)
-        nblk = -(-hw // rows)
         gs, cs = groupnorm_bwd_stats(x, g, mean, rstd, scale, bias, True)
         gs_ref, cs_ref = groupnorm_bwd_stats_plain(x, g, mean, rstd, scale, bias, True, rows)
         torch.cuda.synchronize()
@@ -557,8 +590,8 @@ def kernel_cases(dev, peak):
                20.0 * n, 3 * esz * n + 16 * b * 8 + 8 * c)
         del x, g, dx, dx_ref
         if (hw, c, dtype) == (128 * 128, 64, BF16):
-            yardsticks.append(gn_bwd_yardstick(b, hw, c, dtype, cases[-2]["ms"] + cases[-1]["ms"],
-                                               randn))
+            yardsticks.append(gn_yardstick(b, hw, c, dtype, cases[-2]["ms"] + cases[-1]["ms"],
+                                           randn, backward=True))
 
     for b, rows, f2, dtype in GEGLU_CASES:
         proj = randn(b, rows, f2, dtype=dtype) * 2.0
@@ -589,22 +622,68 @@ def kernel_cases(dev, peak):
     return cases, yardsticks
 
 
-def gn_bwd_yardstick(b, hw, c, dtype, pair_ms, randn):
-    """torch's own GroupNorm backward (aten.native_group_norm_backward: dx,
-    dscale and dbias, with no SiLU) on a contiguous NCHW tensor of the same
-    size, timed beside the gn_bwd_stats + gn_bwd_dx pair. A yardstick only:
+def dispatch_check(randn) -> None:
+    """The attention dispatch at WIDE_LEVEL's head dim (160, padded to 256),
+    cross-attention to the text in bf16: forward and dq, dk, dv against the
+    plain versions at the true head dim, under the flash bf16 limits, with
+    one launch of each flash kernel."""
+    from flaxdiff_tpu_torch.ops import dot_product_attention, launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops.flash_attention import (flash_bwd_dkv_plain, flash_bwd_dq_plain,
+                                                        flash_delta, flash_fwd_plain)
+    b, heads, d, lq = SERVE_BATCH, WIDE_LEVEL["heads"], WIDE_LEVEL["dim_head"], WIDE_LEVEL["side"] ** 2
+    q = randn(b, lq, heads, d, dtype=BF16).requires_grad_()
+    k, v = (randn(b, TEXT_LEN, heads, d, dtype=BF16).requires_grad_() for _ in range(2))
+    do = randn(b, lq, heads, d, dtype=BF16)
+    reset_launch_counts()
+    out = dot_product_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check([counts[name] for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")] == [1, 1, 1],
+          f"the dispatch at head dim {d} launched each flash kernel once: {counts}")
+    with torch.no_grad():
+        # the plain backward from the delta of the kernel's own output, as
+        # phase 2 feeds both sides one lse and delta (the zero columns add
+        # nothing to it): the limits hold the backward kernels, not the two
+        # forwards' different bf16 roundings of out
+        ref, lse = flash_fwd_plain(q, k, v)
+        delta = flash_delta(out, do)
+        refs = (flash_bwd_dq_plain(q, k, v, do, lse, delta),
+                *flash_bwd_dkv_plain(q, k, v, do, lse, delta))
+    readings = {"out": compare(out, ref, atol=4e-3, rtol=BF16_RTOL, rms_rel=1e-2)}
+    for name, grad, grad_ref in zip(("dq", "dk", "dv"), grads, refs):
+        readings[name] = compare(grad, grad_ref, atol=4e-3 * float(grad_ref.float().abs().max()),
+                                 rtol=BF16_RTOL, rms_rel=1e-3)
+    for name, r in readings.items():
+        log(f"  dispatch head dim {d} ({b}, {lq}, {TEXT_LEN}, {heads}) bf16 {name}: least atol "
+            f"{r['least_atol']:.3g} (atol {r['atol']:.3g}), rms rel {r['rms_rel']:.3g}")
+        check(passes(r), f"dispatch at head dim {d}, {name}: {r}")
+
+
+def gn_yardstick(b, hw, c, dtype, pair_ms, randn, backward: bool):
+    """torch's own GroupNorm, forward (F.group_norm) or backward
+    (aten.native_group_norm_backward: dx, dscale and dbias), with no SiLU,
+    on a contiguous NCHW tensor of the same size, timed beside the
+    gn_stats + gn_norm or gn_bwd_stats + gn_bwd_dx pair. A yardstick only:
     it computes less than the pair, and the port never calls it."""
     side = math.isqrt(hw)
     x = randn(b, c, side, side, dtype=dtype)
-    g = randn(b, c, side, side, dtype=dtype)
     w = randn(c, dtype=dtype).abs() + 0.5
-    _, mean, rstd = torch.ops.aten.native_group_norm(x, w, torch.zeros_like(w), b, c, hw, 8, 1e-6)
-    ms = graph_ms(lambda: torch.ops.aten.native_group_norm_backward(
-        g, x, mean, rstd, w, b, c, hw, 8, [True, True, True]), 20)
-    log(f"  yardstick: aten.native_group_norm_backward (no SiLU, NCHW) [{b},{c},{side},{side}] "
-        f"{str(dtype)[6:]} {ms:.4f} ms; gn_bwd_stats + gn_bwd_dx at [{b},{hw},{c}] {pair_ms:.4f} ms")
-    return dict(call="aten.native_group_norm_backward", note="no SiLU, NCHW",
-                shape=[b, c, side, side], dtype=str(dtype)[6:], ms=ms, pair_ms=pair_ms)
+    if backward:
+        g = randn(b, c, side, side, dtype=dtype)
+        _, mean, rstd = torch.ops.aten.native_group_norm(x, w, torch.zeros_like(w), b, c, hw, 8,
+                                                         1e-6)
+        call, what = (lambda: torch.ops.aten.native_group_norm_backward(
+            g, x, mean, rstd, w, b, c, hw, 8, [True, True, True])), "aten.native_group_norm_backward"
+        pair = "gn_bwd_stats + gn_bwd_dx"
+    else:
+        call, what = (lambda: torch.nn.functional.group_norm(x, 8, w, w, 1e-6)), "F.group_norm"
+        pair = "gn_stats + gn_norm"
+    ms = graph_ms(call, 20)
+    log(f"  yardstick: {what} (no SiLU, NCHW) [{b},{c},{side},{side}] {str(dtype)[6:]} "
+        f"{ms:.4f} ms; {pair} at [{b},{hw},{c}] {pair_ms:.4f} ms")
+    return dict(call=what, note="no SiLU, NCHW", shape=[b, c, side, side], dtype=str(dtype)[6:],
+                ms=ms, pair=pair, pair_ms=pair_ms)
 
 
 def adaln_cases(randn, gen, record):
@@ -774,6 +853,57 @@ def model_checks(dev, state):
     del models, gpu, cpu
     return {"forward_64_f32_err": err, "forward_64_f32_scale": scale,
             "ddim3_cfg_32_f32_err": err_traj, "ddim3_clipped_share": saturated, **step}
+
+
+def wide_block_check(dev) -> dict:
+    """One UNet transformer block at SD's widest level (WIDE_LEVEL: 1280
+    channels in 8 heads of 160, which the dispatch pads to 256; 16x16 tokens
+    with self-attention, cross to the 77x768 text, GEGLU) in f32, card
+    (kernels) against CPU (plain versions), the same random weights and
+    inputs: the forward within 1e-3 x max(1, max|ref|), every gradient (the
+    weights', the tokens' and the text's) within 1e-3 of its max|g|, the key
+    biases' (zero by the math) below 1e-6 of the largest."""
+    from flaxdiff_tpu_torch.models.attention import TransformerBlock
+
+    w = WIDE_LEVEL
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, w["side"], w["side"], w["dim"])).astype(np.float32)
+    ctx = rng.standard_normal((2, TEXT_LEN, TEXT_DIM)).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    state, results = None, []
+    for where in (dev, "cpu"):
+        block = TransformerBlock(w["dim"], TEXT_DIM, heads=w["heads"], dim_head=w["dim_head"],
+                                 device=where)
+        state = random_state(block, 6) if state is None else state
+        block.load_state_dict(state)
+        xs, cs = (torch.from_numpy(a).to(where).requires_grad_() for a in (x, ctx))
+        out = block(xs, cs)
+        named = list(block.named_parameters())
+        grads = torch.autograd.grad(out, [t for _, t in named] + [xs, cs],
+                                    torch.from_numpy(g).to(where))
+        names = [name for name, _ in named] + ["tokens", "context"]
+        results.append((out.detach().cpu(), [t.cpu() for t in grads], names))
+    (out, grads, names), (ref, ref_grads, _) = results
+    scale = max(1.0, float(ref.abs().max()))
+    err = max_err(out, ref)
+    gmax = max(float(r.abs().max()) for r in ref_grads)
+    worst, worst_name = 0.0, None
+    for name, grad, r in zip(names, grads, ref_grads):
+        if name.endswith("to_k.bias"):
+            check(max(float(grad.abs().max()), float(r.abs().max())) <= 1e-6 * gmax,
+                  f"{name}: a gradient zero by the math is not ~0")
+            continue
+        rel = max_err(grad, r) / max(float(r.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"  transformer block {w['dim']} ch, {w['heads']} heads of {w['dim_head']}, "
+        f"{w['side']}x{w['side']} tokens, f32: forward max err {err:.3g} (max|ref| {scale:.3g}); "
+        f"worst gradient error {worst:.3g} of its max|g| ({worst_name})")
+    check(bool(torch.isfinite(out).all()), "wide block output finite")
+    check(err <= 1e-3 * scale, f"wide block forward: error {err} above {1e-3 * scale}")
+    check(worst <= 1e-3, f"wide block gradient {worst_name}: error {worst} of its max|g|")
+    return {"forward_err": err, "forward_scale": scale, "worst_grad_rel_err": worst,
+            "worst_grad": worst_name}
 
 
 def train_step_check(dev, gpu, cpu, rng):
@@ -1175,6 +1305,7 @@ def main() -> int:
     state = random_state(Unet(**UNET, device="cpu"), 0)
     log("phase 3: full-width UNet, card against CPU")
     model_res = model_checks(dev, state)
+    model_res["wide_block"] = wide_block_check(dev)
     torch.cuda.empty_cache()
 
     log(f"phase 4: DDIM-{STEPS} + CFG {GUIDANCE} at {RESOLUTION}x{RESOLUTION}, bf16")

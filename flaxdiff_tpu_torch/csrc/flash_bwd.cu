@@ -45,7 +45,8 @@
 //   dp = dO v^T, then dq += ds k with k the B operand. A q row's lse and
 //   delta are fixed for the whole loop: each consumer thread reads its two
 //   rows' values once into registers (the rows are not 16-byte aligned for
-//   every Lq, as a bulk copy would need), 0 past lq.
+//   every Lq, as a bulk copy would need), 0 past lq. D = 256 streams 32-row
+//   kv tiles (DqCfg) and takes dq += ds k as two wgmma of N = 128.
 //
 // flash_bwd_dkv_wgmma_kernel (dk/dv): a block per (kv tile, batch*head). K
 //   and V arrive once; Q and dO tiles stream through the ring, and with
@@ -56,17 +57,23 @@
 //   consumer (its four accumulators need more registers than a block of
 //   two consumers gives a thread).
 //
+// flash_bwd_dkv_split_wgmma_kernel (dk/dv at D = 256): two warpgroups on
+//   the same 64 kv rows, each holding one column half of dk and dv and
+//   computing the whole score tiles itself; no producer warp, warp 0 issues
+//   the loads (DkvSplitCfg).
+//
 // flash_bwd_dq_fma_kernel and flash_bwd_dkv_fma_kernel (f32), chosen by an
 // explicit dispatch on the dtype, keep f32 results f32-exact (the tensor
 // cores would round them to TF32):
-//   * 64-row tiles, 4 warps of 16 rows, tiles staged through shared memory
-//     with 16-byte loads, products in FMA loops (flash_common.cuh);
+//   * the block's own tile of 4 warps x 16 rows (8 at D = 256), 64-row
+//     streamed tiles, all staged through shared memory with 16-byte loads,
+//     products in FMA loops (flash_common.cuh);
 //   * the dk/dv kernel computes its scores transposed, k q^T and v dO^T, so a
-//     warp's 16 kv rows of p^T and ds^T are the row-major A operands of
+//     warp's kv rows of p^T and ds^T are the row-major A operands of
 //     p^T dO and ds^T q: no transpose anywhere;
-//   * scores and dP go through a per-warp f32 scratch, p and ds through a
-//     per-warp buffer; the 16 x D gradient accumulators stay in registers
-//     across the loop;
+//   * scores and dP go through a per-warp f32 scratch, where p and ds
+//     overwrite them; the gradient accumulators stay in registers across
+//     the loop and are written from there;
 //   * q rows at or past lq and kv rows at or past kv_len (the 77-token text
 //     context, ragged tiles) load as zeros and are masked out of p and ds,
 //     so they add exactly 0, and no gradient row past the end is written.
@@ -97,41 +104,44 @@ struct Params {
   float scale;
 };
 
-// Shared-memory layout: four tiles, then per warp two f32 score blocks
-// (which hold the warp's 16 x D result at the end) and two blocks of p / ds
-// in T, then lse and delta of the current q tile.
+// Shared-memory layout: the block's two own tiles of BR = 4 RW rows (q and
+// dO for dq, k and v for dk/dv), the two streamed tiles of TILE rows, then
+// per warp two f32 blocks of RW x TILE (s and dP; p and ds overwrite them in
+// place, element by element, in the lane that read them), then lse and delta
+// of the current q tile.
 template <typename T, int D>
 struct Smem {
+  static_assert(kIsF32<T>, "p and ds overwrite the f32 scores in place");
+  static constexpr int RW = warp_rows<D>();
+  static constexpr int BR = NWARPS * RW;
   static constexpr int LD_T = ld_tile<T, D>();
-  static constexpr int LD_P = ld_p<T>();
-  static constexpr int LD_O = D + 4;
-  static constexpr int WARP_F32 = 2 * 16 * LD_S;
-  static_assert(16 * LD_O <= WARP_F32, "a warp's result fits its score blocks");
+  static_assert(ld_p<T>() == LD_S, "p and ds share the scores' leading dimension");
+  static constexpr int WARP_F32 = 2 * RW * LD_S;
+  static constexpr int OWN_BYTES = align128(BR * LD_T * static_cast<int>(sizeof(T)));
   static constexpr int TILE_BYTES = align128(TILE * LD_T * static_cast<int>(sizeof(T)));
-  static constexpr int OFF_F32 = 4 * TILE_BYTES;
-  static constexpr int OFF_P = OFF_F32 + align128(NWARPS * WARP_F32 * 4);
-  static constexpr int OFF_ROWS =
-      OFF_P + align128(NWARPS * 2 * 16 * LD_P * static_cast<int>(sizeof(T)));
+  static constexpr int OFF_STREAM = 2 * OWN_BYTES;
+  static constexpr int OFF_F32 = OFF_STREAM + 2 * TILE_BYTES;
+  static constexpr int OFF_ROWS = OFF_F32 + align128(NWARPS * WARP_F32 * 4);
   static constexpr int BYTES = OFF_ROWS + 2 * TILE * 4;
 };
 
 template <typename T, int D>
 struct Views {
-  T* tile[4];
-  float* s;      // this warp's 16 x TILE scores
-  float* dp;     // this warp's 16 x TILE dP
-  T* p;          // this warp's 16 x TILE p, in T
-  T* ds;         // this warp's 16 x TILE ds, in T
+  T* own[2];     // the block's own tiles
+  T* stream[2];  // the streamed tiles
+  float* s;      // this warp's RW x TILE scores, then p
+  float* dp;     // this warp's RW x TILE dP, then ds
   float* lse;    // [TILE] of the current q tile
   float* delta;  // [TILE]
 
   __device__ __forceinline__ Views(unsigned char* smem, int warp) {
     using S = Smem<T, D>;
-    for (int i = 0; i < 4; ++i) tile[i] = reinterpret_cast<T*>(smem + i * S::TILE_BYTES);
+    for (int i = 0; i < 2; ++i) {
+      own[i] = reinterpret_cast<T*>(smem + i * S::OWN_BYTES);
+      stream[i] = reinterpret_cast<T*>(smem + S::OFF_STREAM + i * S::TILE_BYTES);
+    }
     s = reinterpret_cast<float*>(smem + S::OFF_F32) + warp * S::WARP_F32;
-    dp = s + 16 * LD_S;
-    p = reinterpret_cast<T*>(smem + S::OFF_P) + warp * 2 * 16 * S::LD_P;
-    ds = p + 16 * S::LD_P;
+    dp = s + S::RW * LD_S;
     lse = reinterpret_cast<float*>(smem + S::OFF_ROWS);
     delta = lse + TILE;
   }
@@ -150,38 +160,27 @@ __device__ __forceinline__ void load_rows(float* lse, float* delta, const Params
   }
 }
 
-// The warp's 16 x D result (in its f32 blocks, leading dimension LD_O) to
-// rows row0 .. row0 + 15 of out, those below rows_total.
-template <typename T, int D>
-__device__ __forceinline__ void write_rows(T* out, int64_t stride_l, const float* res, int row0,
-                                           int rows_total, int lane) {
-  constexpr int LD_O = Smem<T, D>::LD_O;
-  for (int e = lane; e < 16 * D; e += 32) {
-    const int rr = e / D, col = e - rr * D;
-    if (row0 + rr < rows_total) out[(row0 + rr) * stride_l + col] = from_f32<T>(res[rr * LD_O + col]);
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_fma_kernel(const Params p) {
   static_assert(kIsF32<T>, "the 16-bit types take flash_bwd_dq_wgmma_kernel");
   using S = Smem<T, D>;
+  constexpr int RW = S::RW, BR = S::BR;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   Views<T, D> sm(smem, warp);
-  T *sQ = sm.tile[0], *sDO = sm.tile[1], *sK = sm.tile[2], *sV = sm.tile[3];
+  T *sQ = sm.own[0], *sDO = sm.own[1], *sK = sm.stream[0], *sV = sm.stream[1];
 
   const int bh = blockIdx.y;
   const int b = bh / p.heads, h = bh - b * p.heads;
-  const int q0 = blockIdx.x * TILE;
+  const int q0 = blockIdx.x * BR;
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* DO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   T* DQ = static_cast<T*>(p.g0) + b * p.g_sb + h * p.g_sh;
 
-  load_tile<T, D>(sQ, Q, p.q_sl, q0, p.lq);
-  load_tile<T, D>(sDO, DO, p.do_sl, q0, p.lq);
+  load_tile<T, D, BR>(sQ, Q, p.q_sl, q0, p.lq);
+  load_tile<T, D, BR>(sDO, DO, p.do_sl, q0, p.lq);
   load_rows(sm.lse, sm.delta, p, bh, q0);
 
   WarpAcc<T, D> dq;
@@ -194,44 +193,42 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_fma_kernel(const Params
     load_tile<T, D>(sV, V, p.v_sl, k0, p.lk);
     __syncthreads();
 
-    scores<T, D>(sQ + warp * 16 * S::LD_T, sK, sm.s, lane);
-    scores<T, D>(sDO + warp * 16 * S::LD_T, sV, sm.dp, lane);
+    scores<T, D>(sQ + warp * RW * S::LD_T, sK, sm.s, lane);
+    scores<T, D>(sDO + warp * RW * S::LD_T, sV, sm.dp, lane);
     __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const float lse = sm.lse[warp * 16 + rr], delta = sm.delta[warp * 16 + rr];
+    for (int rr = 0; rr < RW; ++rr) {
+      const float lse = sm.lse[warp * RW + rr], delta = sm.delta[warp * RW + rr];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
+        const int at = rr * LD_S + lane + 32 * half;
         float ds = 0.f;
-        if (k0 + c < p.lk) {
-          const float pr = expf(sm.s[rr * LD_S + c] * p.scale - lse);
-          ds = pr * (sm.dp[rr * LD_S + c] - delta) * p.scale;
+        if (k0 + lane + 32 * half < p.lk) {
+          const float pr = expf(sm.s[at] * p.scale - lse);
+          ds = pr * (sm.dp[at] - delta) * p.scale;
         }
-        sm.ds[rr * S::LD_P + c] = from_f32<T>(ds);
+        sm.dp[at] = ds;
       }
     }
     __syncwarp();
-    dq.add_product(sm.ds, sK, lane);
+    dq.add_product(sm.dp, sK, lane);
     __syncwarp();
   }
-
-  dq.store(sm.s, S::LD_O, lane);
-  __syncwarp();
-  write_rows<T, D>(DQ, p.g_sl, sm.s, q0 + warp * 16, p.lq, lane);
+  dq.write_rows(DQ, p.g_sl, q0 + warp * RW, p.lq, lane);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_fma_kernel(const Params p) {
   static_assert(kIsF32<T>, "the 16-bit types take flash_bwd_dkv_wgmma_kernel");
   using S = Smem<T, D>;
+  constexpr int RW = S::RW, BR = S::BR;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   Views<T, D> sm(smem, warp);
-  T *sK = sm.tile[0], *sV = sm.tile[1], *sQ = sm.tile[2], *sDO = sm.tile[3];
+  T *sK = sm.own[0], *sV = sm.own[1], *sQ = sm.stream[0], *sDO = sm.stream[1];
 
   const int bh = blockIdx.y;
   const int b = bh / p.heads, h = bh - b * p.heads;
-  const int k0 = blockIdx.x * TILE;
+  const int k0 = blockIdx.x * BR;
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -239,13 +236,13 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_fma_kernel(const Param
   T* DK = static_cast<T*>(p.g0) + b * p.g_sb + h * p.g_sh;
   T* DV = static_cast<T*>(p.g1) + b * p.g_sb + h * p.g_sh;
 
-  load_tile<T, D>(sK, K, p.k_sl, k0, p.lk);
-  load_tile<T, D>(sV, V, p.v_sl, k0, p.lk);
+  load_tile<T, D, BR>(sK, K, p.k_sl, k0, p.lk);
+  load_tile<T, D, BR>(sV, V, p.v_sl, k0, p.lk);
 
   WarpAcc<T, D> dk, dv;
   dk.zero();
   dv.zero();
-  const int kv_row0 = k0 + warp * 16;
+  const int kv_row0 = k0 + warp * RW;
   const int n_tiles = (p.lq + TILE - 1) / TILE;
   for (int t = 0; t < n_tiles; ++t) {
     const int q0 = t * TILE;
@@ -256,44 +253,37 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_fma_kernel(const Param
     __syncthreads();
 
     // transposed: row rr is kv row kv_row0 + rr, column c is q row q0 + c
-    scores<T, D>(sK + warp * 16 * S::LD_T, sQ, sm.s, lane);
-    scores<T, D>(sV + warp * 16 * S::LD_T, sDO, sm.dp, lane);
+    scores<T, D>(sK + warp * RW * S::LD_T, sQ, sm.s, lane);
+    scores<T, D>(sV + warp * RW * S::LD_T, sDO, sm.dp, lane);
     __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
+    for (int rr = 0; rr < RW; ++rr) {
       const bool kv_ok = kv_row0 + rr < p.lk;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
+        const int c = lane + 32 * half, at = rr * LD_S + c;
         float pr = 0.f, ds = 0.f;
         if (kv_ok && q0 + c < p.lq) {
-          pr = expf(sm.s[rr * LD_S + c] * p.scale - sm.lse[c]);
-          ds = pr * (sm.dp[rr * LD_S + c] - sm.delta[c]) * p.scale;
+          pr = expf(sm.s[at] * p.scale - sm.lse[c]);
+          ds = pr * (sm.dp[at] - sm.delta[c]) * p.scale;
         }
-        sm.p[rr * S::LD_P + c] = from_f32<T>(pr);
-        sm.ds[rr * S::LD_P + c] = from_f32<T>(ds);
+        sm.s[at] = pr;
+        sm.dp[at] = ds;
       }
     }
     __syncwarp();
-    dv.add_product(sm.p, sDO, lane);
-    dk.add_product(sm.ds, sQ, lane);
+    dv.add_product(sm.s, sDO, lane);
+    dk.add_product(sm.dp, sQ, lane);
     __syncwarp();
   }
-
-  dk.store(sm.s, S::LD_O, lane);
-  __syncwarp();
-  write_rows<T, D>(DK, p.g_sl, sm.s, kv_row0, p.lk, lane);
-  __syncwarp();
-  dv.store(sm.s, S::LD_O, lane);
-  __syncwarp();
-  write_rows<T, D>(DV, p.g_sl, sm.s, kv_row0, p.lk, lane);
+  dk.write_rows(DK, p.g_sl, kv_row0, p.lk, lane);
+  dv.write_rows(DV, p.g_sl, kv_row0, p.lk, lane);
 }
 
 // --- bf16 / f16: wgmma fed by a TMA ring -------------------------------------
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int STAGES = 2;  // ring depth
-constexpr int BQ = 64;     // q rows per tile of the dk/dv loop
-constexpr int BK = 64;     // kv rows per tile of the dq loop
+constexpr int BQ = 64;     // q rows per tile of the dk/dv loop (D <= 128)
 
 // The dk/dv block: K and V tiles of 64 NC rows (loaded once), STAGES (Q, dO)
 // tile pairs, STAGES rows of lse (log2 units) and delta, then the mbarriers.
@@ -312,13 +302,17 @@ struct DkvCfg {
 };
 
 // The dq block: Q and dO tiles of 64 NC rows (loaded once), STAGES (K, V)
-// tile pairs, then the mbarriers. 64-row kv tiles keep s, dp and dq (plus
-// ds's A fragments) within the registers a thread has at every D.
+// tile pairs of BK rows, then the mbarriers. 64-row kv tiles keep s, dp and
+// dq (plus ds's A fragments) within the registers a thread has up to
+// D = 128; at D = 256, where dq alone is 128 registers a thread, 32-row kv
+// tiles halve s and dp (16 registers each). D = 256 runs one consumer
+// warpgroup (launch_dq_wgmma), one block an SM (128 KB of tiles).
 template <int D, int NC>
 struct DqCfg {
   static constexpr int BM = 64 * NC;
+  static constexpr int BK = D == 256 ? 32 : 64;
   static constexpr int THREADS = 128 * NC + 32;
-  static constexpr int MIN_BLOCKS = NC == 1 ? 2 : 1;
+  static constexpr int MIN_BLOCKS = NC == 1 && D <= 128 ? 2 : 1;
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;
   static constexpr int OFF_DO = Q_BYTES;
@@ -335,17 +329,19 @@ struct BwdArgs {
   float scale, scale_log2;
 };
 
-// A warpgroup's 64 x D f32 accumulator, rounded to T, into rows
-// row0 .. row0 + 63 of a chunked, swizzled tile of `rows` rows.
-template <typename T, int D>
-__device__ __forceinline__ void acc_to_tile(const float (&acc)[D / 2], unsigned char* tile,
-                                            int rows, int row0, int warp, int g, int tq) {
+// A warpgroup's 64 x N f32 accumulator, rounded to T, into rows
+// row0 .. row0 + 63 and columns col0 .. col0 + N - 1 of a chunked, swizzled
+// tile of `rows` rows and D columns.
+template <typename T, int D, int N = D>
+__device__ __forceinline__ void acc_to_tile(const float (&acc)[N / 2], unsigned char* tile,
+                                            int rows, int row0, int warp, int g, int tq,
+                                            int col0 = 0) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < N / 8; ++n)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const uint32_t off =
-          hopper::swizzled_offset<D>(rows, row0 + 16 * warp + g + 8 * j, 8 * n + 2 * tq);
+      const uint32_t off = hopper::swizzled_offset<D>(rows, row0 + 16 * warp + g + 8 * j,
+                                                      col0 + 8 * n + 2 * tq);
       *reinterpret_cast<uint32_t*>(tile + off) =
           hopper::pack2<T>(acc[4 * n + 2 * j], acc[4 * n + 2 * j + 1]);
     }
@@ -538,16 +534,236 @@ int launch_dkv_wgmma_nc(const Params& p, int batch, int dtype, cudaStream_t stre
   return static_cast<int>(cudaGetLastError());
 }
 
+// The dk/dv block at D = 256: 64 kv rows, whose dK and dV (64 x 256 each, in
+// f32) would be 256 registers a thread in one warpgroup. Two consumer
+// warpgroups split the head dim instead: warpgroup w holds dK and dV of
+// columns 128 w .. 128 w + 127 (128 registers). Each computes the whole
+// s^T = k q^T and dp^T = v dO^T tiles it needs over the full head dim (the
+// two score products run in both warpgroups: 1.5x the block's tensor work,
+// and no exchange of p or ds through shared memory or barrier inside the
+// loop), on 32-row q tiles, so the scores (16 + 16 registers) fit beside the
+// gradients. K and V (64 KB) arrive once; Q and dO tiles with their lse and
+// delta stream through the ring. The block has no producer warp: a ninth
+// warp would put three warps on one of the SM's four register files (16K
+// registers each) and cap a thread at 168 registers, and the two
+// accumulators alone take 128. Warp 0 issues the loads instead: the first
+// two tiles before the loop, and tile t + 2 once every warp has released
+// tile t's stage, so one tile is always in flight behind the math.
+template <int D>
+struct DkvSplitCfg {
+  static constexpr int BKV = 64, BQ = 32, HALF = D / 2;
+  static constexpr int THREADS = 2 * 128;
+  static constexpr int KV_BYTES = BKV * D * 2;
+  static constexpr int QT_BYTES = BQ * D * 2;
+  static constexpr int OFF_RING = 2 * KV_BYTES;
+  static constexpr int OFF_ROWS = OFF_RING + STAGES * 2 * QT_BYTES;
+  static constexpr int OFF_BAR = OFF_ROWS + STAGES * 2 * BQ * 4;
+  static constexpr int BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // + base alignment
+  static_assert(HALF == 128, "two column halves of one wgmma each (N = 128)");
+  static_assert(KV_BYTES % 1024 == 0 && QT_BYTES % 1024 == 0, "tiles of whole swizzle atoms");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DkvSplitCfg<D>::THREADS, 1)
+    flash_bwd_dkv_split_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                                     const __grid_constant__ CUtensorMap mk,
+                                     const __grid_constant__ CUtensorMap mv,
+                                     const __grid_constant__ CUtensorMap mdo,
+                                     const __grid_constant__ CUtensorMap mdk,
+                                     const __grid_constant__ CUtensorMap mdv, const BwdArgs a) {
+  using C = DkvSplitCfg<D>;
+  using namespace hopper;
+  constexpr int BKV = C::BKV, BQT = C::BQ, HALF = C::HALF;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  unsigned char* sK = sm;
+  unsigned char* sV = sm + C::KV_BYTES;
+  float* rows = reinterpret_cast<float*>(sm + C::OFF_ROWS);  // per stage: lse2[BQT], delta[BQT]
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.heads, h = bh - b * a.heads;
+  const int k0 = blockIdx.x * BKV;
+  const int n_tiles = (a.lq + BQT - 1) / BQT;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const bool loader = threadIdx.x < 32;  // warp 0 issues every load
+  const int64_t row_base = static_cast<int64_t>(bh) * a.lq;
+  // tile u into its stage: its lse (log2 units) and delta, 0 past lq, from
+  // the warp's 32 lanes, then Q and dO by TMA
+  auto issue = [&](int u) {
+    const int st = u % STAGES;
+    float* r = rows + st * 2 * BQT;
+    const int row = u * BQT + lane;
+    const bool ok = row < a.lq;
+    r[lane] = ok ? a.lse[row_base + row] * LOG2E : 0.f;
+    r[BQT + lane] = ok ? a.delta[row_base + row] : 0.f;
+    __syncwarp();
+    if (lane == 0) {
+      unsigned char* sQ = sm + C::OFF_RING + st * 2 * C::QT_BYTES;
+      mbar_arrive_expect_tx(&full[st], 2 * C::QT_BYTES);
+      tma_load_tile<D>(sQ, &mq, &full[st], BQT, h, u * BQT, b);
+      tma_load_tile<D>(sQ + C::QT_BYTES, &mdo, &full[st], BQT, h, u * BQT, b);
+    }
+  };
+  if (loader) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_kv, 2 * C::KV_BYTES);
+      tma_load_tile<D>(sK, &mk, bar_kv, BKV, h, k0, b);
+      tma_load_tile<D>(sV, &mv, bar_kv, BKV, h, k0, b);
+    }
+    for (int u = 0; u < STAGES && u < n_tiles; ++u) issue(u);
+  }
+
+  // a consumer warpgroup: all 64 kv rows, gradient columns col0 .. col0 + 127
+  const int tid = threadIdx.x % 128, warp = tid / 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int col0 = HALF * wg;
+  bool kv_ok[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) kv_ok[j] = k0 + 16 * warp + g + 8 * j < a.lk;
+  float dk[HALF / 2], dv[HALF / 2];
+#pragma unroll
+  for (int i = 0; i < HALF / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    const unsigned char* sQ = sm + C::OFF_RING + st * 2 * C::QT_BYTES;
+    const unsigned char* sDO = sQ + C::QT_BYTES;
+    const float* r = rows + st * 2 * BQT;
+    mbar_wait(&full[st], (t / STAGES) & 1);
+
+    float s[BQT / 2], dp[BQT / 2];
+#pragma unroll
+    for (int i = 0; i < BQT / 2; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQT, T>(s, desc_kmajor<D>(sK, BKV, 0, kk), desc_kmajor<D>(sQ, BQT, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQT, T>(dp, desc_kmajor<D>(sV, BKV, 0, kk), desc_kmajor<D>(sDO, BQT, 0, kk),
+                       kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool edge = (t + 1) * BQT > a.lq;
+#pragma unroll
+    for (int n = 0; n < BQT / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * n + 2 * tq + c;
+        const float lse2 = r[col], delta = r[BQT + col];
+        const bool q_ok = !edge || t * BQT + col < a.lq;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int i = 4 * n + 2 * j + c;
+          float p = exp2f(fmaf(s[i], a.scale_log2, -lse2));
+          if (!(q_ok && kv_ok[j])) p = 0.f;
+          s[i] = p;
+          dp[i] = p * (dp[i] - delta) * a.scale;
+        }
+      }
+    uint32_t pa[BQT / 16][4], da[BQT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk) {
+      acc_to_a<T>(s, kk, pa[kk]);
+      acc_to_a<T>(dp, kk, da[kk]);
+    }
+
+    // this warpgroup's columns: dv += p^T dO[:, col0 ..], dk += ds^T q[:, col0 ..]
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk)
+      wgmma_rs_n128<T>(dv, pa[kk], desc_mnmajor<D>(sDO, BQT, kk, col0));
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk)
+      wgmma_rs_n128<T>(dk, da[kk], desc_mnmajor<D>(sQ, BQT, kk, col0));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+    if (loader && t + STAGES < n_tiles) {
+      mbar_wait(&empty[st], (t / STAGES) & 1);  // every warp is done with this stage
+      issue(t + STAGES);
+    }
+  }
+
+  // epilogue: once both warpgroups are done reading K and V, each writes its
+  // column halves of dk and dv into them; then one thread stores both tiles
+  named_barrier(1, 256);
+  acc_to_tile<T, D, HALF>(dk, sK, BKV, 0, warp, g, tq, col0);
+  acc_to_tile<T, D, HALF>(dv, sV, BKV, 0, warp, g, tq, col0);
+  fence_async_smem();
+  named_barrier(1, 256);
+  if (threadIdx.x == 0) {
+    tma_store_tile<D>(&mdk, sK, BKV, h, k0, b);
+    tma_store_tile<D>(&mdv, sV, BKV, h, k0, b);
+    tma_store_wait();
+  }
+}
+
+template <typename T, int D>
+int launch_dkv_split(const Params& p, int batch, int dtype, cudaStream_t stream) {
+  using C = DkvSplitCfg<D>;
+  using hopper::encode_bhld;
+  CUtensorMap mq, mk, mv, mdo, mdk, mdv;
+  int r = encode_bhld<D>(&mq, p.q, dtype, batch, p.lq, p.heads, p.q_sb, p.q_sl, p.q_sh, C::BQ);
+  if (r == 0) r = encode_bhld<D>(&mdo, p.dout, dtype, batch, p.lq, p.heads, p.do_sb, p.do_sl, p.do_sh, C::BQ);
+  if (r == 0) r = encode_bhld<D>(&mk, p.k, dtype, batch, p.lk, p.heads, p.k_sb, p.k_sl, p.k_sh, C::BKV);
+  if (r == 0) r = encode_bhld<D>(&mv, p.v, dtype, batch, p.lk, p.heads, p.v_sb, p.v_sl, p.v_sh, C::BKV);
+  if (r == 0) r = encode_bhld<D>(&mdk, p.g0, dtype, batch, p.lk, p.heads, p.g_sb, p.g_sl, p.g_sh, C::BKV);
+  if (r == 0) r = encode_bhld<D>(&mdv, p.g1, dtype, batch, p.lk, p.heads, p.g_sb, p.g_sl, p.g_sh, C::BKV);
+  if (r != 0) return hopper::kTensorMapError + r;
+  auto kernel = flash_bwd_dkv_split_wgmma_kernel<T, D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const BwdArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, p.scale, p.scale * LOG2E};
+  const dim3 grid((p.lk + C::BKV - 1) / C::BKV, batch * p.heads);
+  kernel<<<grid, C::THREADS, C::BYTES, stream>>>(mq, mk, mv, mdo, mdk, mdv, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Two consumers (128-row kv tiles) when those tiles give every SM a block;
 // else one. D = 128 always takes one: its four accumulators need more than
-// the 224 registers a thread may hold in a block of two consumers.
+// the 168 registers a thread may hold in a block of two consumers and the
+// producer warp (nine warps, three on one of the SM's four register files).
+// D = 256 takes the split kernel.
 template <typename T, int D>
 int launch_dkv_wgmma(const Params& p, int batch, int dtype, cudaStream_t stream) {
-  if constexpr (D <= 64) {
-    const int64_t tiles128 = static_cast<int64_t>((p.lk + 127) / 128) * batch * p.heads;
-    if (tiles128 >= sm_count()) return launch_dkv_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
+  if constexpr (D == 256) {
+    return launch_dkv_split<T, D>(p, batch, dtype, stream);
+  } else {
+    if constexpr (D <= 64) {
+      const int64_t tiles128 = static_cast<int64_t>((p.lk + 127) / 128) * batch * p.heads;
+      if (tiles128 >= sm_count()) return launch_dkv_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
+    }
+    return launch_dkv_wgmma_nc<T, D, 1>(p, batch, dtype, stream);
   }
-  return launch_dkv_wgmma_nc<T, D, 1>(p, batch, dtype, stream);
 }
 
 template <typename T, int D, int NC>
@@ -559,7 +775,7 @@ __global__ void __launch_bounds__(DqCfg<D, NC>::THREADS, DqCfg<D, NC>::MIN_BLOCK
                               const __grid_constant__ CUtensorMap mdq, const BwdArgs a) {
   using C = DqCfg<D, NC>;
   using namespace hopper;
-  constexpr int BM = C::BM;
+  constexpr int BM = C::BM, BK = C::BK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   unsigned char* sQ = sm;
@@ -672,7 +888,7 @@ __global__ void __launch_bounds__(DqCfg<D, NC>::THREADS, DqCfg<D, NC>::MIN_BLOCK
     fence_regs(da);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D, T>(dq, da[kk], desc_mnmajor<D>(sK, BK, kk));
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_cols<D, T>(dq, da[kk], sK, BK, kk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
@@ -699,8 +915,8 @@ int launch_dq_wgmma_nc(const Params& p, int batch, int dtype, cudaStream_t strea
   CUtensorMap mq, mk, mv, mdo, mdq;
   int r = encode_bhld<D>(&mq, p.q, dtype, batch, p.lq, p.heads, p.q_sb, p.q_sl, p.q_sh, C::BM);
   if (r == 0) r = encode_bhld<D>(&mdo, p.dout, dtype, batch, p.lq, p.heads, p.do_sb, p.do_sl, p.do_sh, C::BM);
-  if (r == 0) r = encode_bhld<D>(&mk, p.k, dtype, batch, p.lk, p.heads, p.k_sb, p.k_sl, p.k_sh, BK);
-  if (r == 0) r = encode_bhld<D>(&mv, p.v, dtype, batch, p.lk, p.heads, p.v_sb, p.v_sl, p.v_sh, BK);
+  if (r == 0) r = encode_bhld<D>(&mk, p.k, dtype, batch, p.lk, p.heads, p.k_sb, p.k_sl, p.k_sh, C::BK);
+  if (r == 0) r = encode_bhld<D>(&mv, p.v, dtype, batch, p.lk, p.heads, p.v_sb, p.v_sl, p.v_sh, C::BK);
   if (r == 0) r = encode_bhld<D>(&mdq, p.g0, dtype, batch, p.lq, p.heads, p.g_sb, p.g_sl, p.g_sh, 64);
   if (r != 0) return hopper::kTensorMapError + r;
   auto kernel = flash_bwd_dq_wgmma_kernel<T, D, NC>;
@@ -714,11 +930,16 @@ int launch_dq_wgmma_nc(const Params& p, int batch, int dtype, cudaStream_t strea
 }
 
 // Two consumers (128-row q tiles) when those tiles give every SM a block;
-// else one, whose blocks are half the size and twice as many.
+// else one, whose blocks are half the size and twice as many. D = 256 always
+// takes one: a block of two consumers and the producer warp is nine warps,
+// three of them on one of the SM's four register files, which caps a thread
+// at 168 registers; dq alone is 128 there.
 template <typename T, int D>
 int launch_dq_wgmma(const Params& p, int batch, int dtype, cudaStream_t stream) {
-  const int64_t tiles128 = static_cast<int64_t>((p.lq + 127) / 128) * batch * p.heads;
-  if (tiles128 >= sm_count()) return launch_dq_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
+  if constexpr (D <= 128) {
+    const int64_t tiles128 = static_cast<int64_t>((p.lq + 127) / 128) * batch * p.heads;
+    if (tiles128 >= sm_count()) return launch_dq_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
+  }
   return launch_dq_wgmma_nc<T, D, 1>(p, batch, dtype, stream);
 }
 
@@ -729,7 +950,7 @@ int launch_fma(void (*kernel)(const Params), const Params& p, int rows, int batc
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((rows + TILE - 1) / TILE, batch * p.heads);
+  const dim3 grid((rows + S::BR - 1) / S::BR, batch * p.heads);
   kernel<<<grid, NTHREADS, S::BYTES, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -753,6 +974,7 @@ int dispatch_d(const Params& p, int batch, int d, int dtype, bool dq, cudaStream
     case 32: return launch<T, 32>(p, batch, dtype, dq, stream);
     case 64: return launch<T, 64>(p, batch, dtype, dq, stream);
     case 128: return launch<T, 128>(p, batch, dtype, dq, stream);
+    case 256: return launch<T, 256>(p, batch, dtype, dq, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

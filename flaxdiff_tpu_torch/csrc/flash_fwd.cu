@@ -15,11 +15,13 @@
 //     a full and an empty mbarrier, so loads overlap the math. Operands are
 //     4-D tensor maps over (D, H, L, B) with the caller's strides, so a
 //     [B, L, H*D] projection needs no copy and rows past lq / kv_len load as
-//     zeros. BN = 128 for D <= 64 and 64 for D = 128 (the registers of the
-//     score, probability and output tiles then fit with no spill);
+//     zeros. BN = 128 for D <= 64 and 64 for D = 128 and 256 (the registers
+//     of the score, probability and output tiles then fit with no spill: at
+//     D = 256 the output alone is 128 registers a thread);
 //   * NC = 2 (128-row q tiles) when those tiles alone give every SM a block;
 //     else NC = 1, whose smaller blocks (two per SM) fill the card at the
-//     DiT's 256 tokens and at 1024 tokens with batch 2;
+//     DiT's 256 tokens and at 1024 tokens with batch 2. D = 256 always runs
+//     NC = 1, one block an SM (160 KB of tiles; launch_wgmma says why);
 //   * s = q k^T is one wgmma chain (A = q, B = k, both K-major in shared
 //     memory under the 128-byte swizzle, 64-byte for D = 32). The online
 //     softmax runs on the accumulator registers: a thread holds two rows, the
@@ -29,24 +31,25 @@
 //   * p is rounded to the input dtype in registers, against the running max
 //     as the TPU kernel does, and is the register-A operand of p v (the
 //     accumulator layout of s is the A-fragment layout for 16-bit types); v
-//     is the MN-major B operand through the transpose bit. The output is
-//     rescaled and l accumulated in registers: scores and probabilities never
-//     touch shared memory;
+//     is the MN-major B operand through the transpose bit (two wgmma of
+//     N = 128 at D = 256, one on each column half). The output is rescaled
+//     and l accumulated in registers: scores and probabilities never touch
+//     shared memory;
 //   * the epilogue divides by l, writes the warpgroup's rows into its own
 //     (consumed) q tile in the swizzled layout and stores them with TMA,
 //     which skips rows at or past lq; lse = (m2 + log2 l) ln 2, natural-log
 //     units, as [B*H, Lq] f32.
 //
 // flash_fwd_fma_kernel (f32) keeps f32 results f32-exact (the tensor cores
-// would round them to TF32): 64-row tiles, 4 warps of 16 rows, FMA loops,
-// scores through a per-warp shared scratch.
+// would round them to TF32): 64-row kv tiles, 4 warps of 16 q rows (8 at
+// D = 256, where three padded 64-row tiles and the warps' accumulators
+// would not fit), FMA loops, scores through a per-warp shared scratch.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
-constexpr int BM = TILE;  // q rows per block of the f32 kernel
 constexpr int BN = TILE;  // kv rows per tile of the f32 kernel
 
 struct Params {
@@ -65,17 +68,21 @@ struct Params {
 
 // --- f32: FMA loops ------------------------------------------------------------
 
-// Shared-memory layout (leading dimensions from flash_common.cuh).
+// Shared-memory layout (leading dimensions from flash_common.cuh): the q
+// tile of BM = 4 RW rows, the K and V tiles of BN rows, probabilities, the
+// per-warp scratch, the row statistics.
 template <typename T, int D>
 struct Smem {
+  static constexpr int RW = warp_rows<D>();
+  static constexpr int BM = NWARPS * RW;        // q rows per block
   static constexpr int LD_T = ld_tile<T, D>();  // q, k, v tiles
   static constexpr int LD_P = ld_p<T>();        // probabilities in T
   static constexpr int LD_O = D + 4;            // f32 p v product
-  // per-warp scratch: scores of its 16 rows, later reused for their p v
-  static constexpr int WARP_SCRATCH = (16 * LD_S > 16 * LD_O ? 16 * LD_S : 16 * LD_O);
-  static constexpr int TILE_BYTES = align128(BM * LD_T * static_cast<int>(sizeof(T)));
+  // per-warp scratch: scores of its RW rows, later reused for their p v
+  static constexpr int WARP_SCRATCH = (RW * LD_S > RW * LD_O ? RW * LD_S : RW * LD_O);
+  static constexpr int TILE_BYTES = align128(BN * LD_T * static_cast<int>(sizeof(T)));
   static constexpr int OFF_Q = 0;
-  static constexpr int OFF_K = OFF_Q + TILE_BYTES;
+  static constexpr int OFF_K = OFF_Q + align128(BM * LD_T * static_cast<int>(sizeof(T)));
   static constexpr int OFF_V = OFF_K + TILE_BYTES;
   static constexpr int OFF_P = OFF_V + TILE_BYTES;
   static constexpr int OFF_W = OFF_P + align128(BM * LD_P * static_cast<int>(sizeof(T)));
@@ -99,6 +106,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_fma_kernel(const Params p) {
   static_assert(kIsF32<T>, "the 16-bit types take flash_fwd_wgmma_kernel");
   using S = Smem<T, D>;
+  constexpr int RW = S::RW, BM = S::BM;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + S::OFF_Q);
   T* sK = reinterpret_cast<T*>(smem + S::OFF_K);
@@ -120,14 +128,14 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_fma_kernel(const Params p)
   T* O = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   // q rows past lq load as zeros, so their (discarded) softmax stays finite
-  load_tile<T, D>(sQ, Q, p.q_sl, q0, p.lq);
+  load_tile<T, D, BM>(sQ, Q, p.q_sl, q0, p.lq);
   if (threadIdx.x < BM) {
     sM[threadIdx.x] = NEG_INF;
     sL[threadIdx.x] = 0.f;
   }
 
-  // lane owns elements e = lane + 32 * i of its warp's 16 x D output rows
-  constexpr int OPL = 16 * D / 32;
+  // lane owns elements e = lane + 32 * i of its warp's RW x D output rows
+  constexpr int OPL = RW * D / 32;
   float acc[OPL];
 #pragma unroll
   for (int i = 0; i < OPL; ++i) acc[i] = 0.f;
@@ -140,12 +148,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_fma_kernel(const Params p)
     load_tile<T, D>(sV, V, p.v_sl, k0, p.lk);
     __syncthreads();
 
-    scores<T, D>(sQ + warp * 16 * S::LD_T, sK, sW, lane);
+    scores<T, D>(sQ + warp * RW * S::LD_T, sK, sW, lane);
     __syncwarp();
 
-    // online softmax over this warp's 16 rows; each lane holds 2 of 64 columns
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
+    // online softmax over this warp's RW rows; each lane holds 2 of 64 columns
+    for (int rr = 0; rr < RW; ++rr) {
+      const int r = warp * RW + rr;
       const float* srow = sW + rr * LD_S;
       float s0 = srow[lane] * p.scale;
       float s1 = srow[lane + 32] * p.scale;
@@ -172,7 +180,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_fma_kernel(const Params p)
     {
       WarpAcc<T, D> pv;
       pv.zero();
-      pv.add_product(sP + warp * 16 * S::LD_P, sV, lane);
+      pv.add_product(sP + warp * RW * S::LD_P, sV, lane);
       pv.store(sW, S::LD_O, lane);
     }
     __syncwarp();
@@ -181,7 +189,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_fma_kernel(const Params p)
     for (int i = 0; i < OPL; ++i) {
       const int e = lane + 32 * i;
       const int rr = e / D, col = e - rr * D;
-      acc[i] = acc[i] * sA[warp * 16 + rr] + sW[rr * S::LD_O + col];
+      acc[i] = acc[i] * sA[warp * RW + rr] + sW[rr * S::LD_O + col];
     }
     __syncwarp();
   }
@@ -190,15 +198,15 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_fma_kernel(const Params p)
   for (int i = 0; i < OPL; ++i) {
     const int e = lane + 32 * i;
     const int rr = e / D, col = e - rr * D;
-    const int r = warp * 16 + rr;
+    const int r = warp * RW + rr;
     const int row = q0 + r;
     if (row < p.lq) {
       const float inv_l = 1.0f / fmaxf(sL[r], 1e-30f);
       O[row * p.o_sl + col] = from_f32<T>(acc[i] * inv_l);
     }
   }
-  if (p.lse != nullptr && lane < 16) {
-    const int r = warp * 16 + lane;
+  if (p.lse != nullptr && lane < RW) {
+    const int r = warp * RW + lane;
     const int row = q0 + r;
     if (row < p.lq)
       p.lse[static_cast<int64_t>(bh) * p.lq + row] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
@@ -244,7 +252,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 template <typename T, int D, int NC>
-__global__ void __launch_bounds__(FwdCfg<D, NC>::THREADS, NC == 1 ? 2 : 1)
+__global__ void __launch_bounds__(FwdCfg<D, NC>::THREADS, NC == 1 && D <= 128 ? 2 : 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                            const __grid_constant__ CUtensorMap mk,
                            const __grid_constant__ CUtensorMap mv,
@@ -363,7 +371,7 @@ __global__ void __launch_bounds__(FwdCfg<D, NC>::THREADS, NC == 1 ? 2 : 1)
     fence_regs(pa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<D, T>(o, pa[kk], desc_mnmajor<D>(sV, BN, kk));
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_cols<D, T>(o, pa[kk], sV, BN, kk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -424,11 +432,16 @@ int launch_wgmma_nc(const Params& p, int batch, int dtype, cudaStream_t stream) 
 }
 
 // Two consumers (128-row q tiles) when those tiles give every SM a block;
-// else one, whose blocks are half the size and twice as many.
+// else one, whose blocks are half the size and twice as many. D = 256 always
+// takes one: a block of two consumers and the producer warp is nine warps,
+// three of them on one of the SM's four register files, which caps a thread
+// at 168 registers; the output alone is 128 there.
 template <typename T, int D>
 int launch_wgmma(const Params& p, int batch, int dtype, cudaStream_t stream) {
-  const int64_t tiles128 = static_cast<int64_t>((p.lq + 127) / 128) * batch * p.heads;
-  if (tiles128 >= sm_count()) return launch_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
+  if constexpr (D <= 128) {
+    const int64_t tiles128 = static_cast<int64_t>((p.lq + 127) / 128) * batch * p.heads;
+    if (tiles128 >= sm_count()) return launch_wgmma_nc<T, D, 2>(p, batch, dtype, stream);
+  }
   return launch_wgmma_nc<T, D, 1>(p, batch, dtype, stream);
 }
 
@@ -439,7 +452,7 @@ int launch_fma(const Params& p, int batch, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.lq + BM - 1) / BM, batch * p.heads);
+  const dim3 grid((p.lq + S::BM - 1) / S::BM, batch * p.heads);
   kernel<<<grid, NTHREADS, S::BYTES, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -471,6 +484,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, f
     case 32: return dispatch_dtype<32>(p, batch, dtype, s);
     case 64: return dispatch_dtype<64>(p, batch, dtype, s);
     case 128: return dispatch_dtype<128>(p, batch, dtype, s);
+    case 256: return dispatch_dtype<256>(p, batch, dtype, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

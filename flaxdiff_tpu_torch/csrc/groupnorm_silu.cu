@@ -19,8 +19,12 @@
 // one sample and writes, per group, the sum and the second moment shifted
 // around the block's own group mean, as fused_norm.py:74-81 does. The wrapper
 // merges the blocks with the Welford/Chan rule (fused_norm.py:295-311), so a
-// large mean never cancels against E[x^2]. The block reads its rows twice;
-// the second read comes from L2.
+// large mean never cancels against E[x^2]. Its bound is bytes (one read of
+// x), so it reads x once: few long blocks (about two a SM, as the backward
+// statistics), one channel vector a thread, sums shifted by each channel's
+// value in the block's first row, from which the block's mean-centred
+// second moment follows exactly; the channel sums run in the backward
+// statistics' fixed order, so the partials are the same from run to run.
 //
 // Pass 2 (gn_norm): silu((x - mean) * rstd * scale + bias) in f32, stored in
 // the input dtype, in the reference's order of operations. Its bound is
@@ -41,7 +45,7 @@
 // [B, nblk, 2, C] (dbias and dscale after the wrapper sums the blocks), and
 // their group sums weighted by scale, [B, nblk, 2, G], which are the group
 // sums of dxhat = dy * scale and dxhat * x-hat. Its blocks are few and long
-// (fused_norm.py's bwd_rows_per_block: about two a SM), so each thread sums
+// (fused_norm.py's rows_per_block: about two a SM), so each thread sums
 // tens of rows with its channels' parameters in registers before the
 // reduction, which runs in a fixed order (a warp shuffle tree, one
 // shared-memory pass, one warp a group): the sums are the same from run to
@@ -57,80 +61,162 @@
 
 #include "common.cuh"
 
-// Sums per-thread channel partials (`acc`, VEC channels per thread) into
-// csum[c] in a fixed order, so the result does not depend on scheduling.
-// Thread t owns channel vector t % nvec; threads t and t + nvec share it.
+// Threads of a statistics block (gn_stats, gn_bwd_stats).
+constexpr int STATS_THREADS = 256;
+// rows in flight per thread in gn_stats, which loads x alone
+constexpr int STATS_UNROLL = 4;
+
+// The statistics kernels' split of a block: thread t owns channel vector
+// slice + t % vpb of each slice of vpb = min(C / VEC, 256) vectors (one slice
+// unless C is wide) and rows t / vpb + k R, R = 256 / vpb. The lanes of a
+// warp that share a channel vector are reduced by a shuffle tree when vpb is
+// a power of two below 32; then `nparts` partial rows a channel (the warps,
+// or the block's row offsets) go through shared memory.
+struct StatsSplit {
+  int nvec, vpb, rows_per_iter, nparts, width;
+  bool tree;
+  __host__ __device__ StatsSplit(int c, int vec) {
+    nvec = c / vec;
+    vpb = nvec < STATS_THREADS ? nvec : STATS_THREADS;
+    rows_per_iter = STATS_THREADS / vpb;
+    tree = vpb < 32 && (vpb & (vpb - 1)) == 0;
+    nparts = tree ? STATS_THREADS / 32 : rows_per_iter;
+    width = vpb * vec;
+  }
+  // floats of shared memory: the partial rows of two sums, and both sums
+  // for every channel
+  __host__ __device__ int smem_floats(int c) const { return 2 * nparts * width + 2 * c; }
+};
+
+// Two per-thread partial sums of one slice's channel vector (a0, a1: its VEC
+// channels; `active` if the thread summed any rows of a channel it owns)
+// into the block's channel sums csum[ch] and csum[c + ch], in a fixed order
+// (a shuffle tree, one shared-memory pass a channel): the sums do not depend
+// on scheduling, so they are the same from run to run.
 template <int VEC>
-__device__ __forceinline__ void reduce_channels(const float (&acc)[VEC], float* part,
-                                                float* csum, int c, int nvec, int rows_per_iter) {
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void slice_channel_sums(float (&a0)[VEC], float (&a1)[VEC],
+                                                   bool active, const StatsSplit& sp, int slice,
+                                                   int c, float* part, float* csum) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int p = active ? tid / sp.vpb : -1;  // this thread's partial row, or -1 for none
+  if (sp.tree) {
+    // lanes l and l ^ vpb, l ^ 2 vpb, ... share a channel vector
+    for (int off = sp.vpb; off < 32; off <<= 1) {
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) part[tid * VEC + k] = acc[k];
+      for (int k = 0; k < VEC; ++k) {
+        a0[k] += __shfl_xor_sync(0xffffffffu, a0[k], off);
+        a1[k] += __shfl_xor_sync(0xffffffffu, a1[k], off);
+      }
+    }
+    p = lane < sp.vpb ? warp : -1;
+  }
+  if (p >= 0) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      part[p * sp.width + (tid % sp.vpb) * VEC + k] = a0[k];
+      part[(sp.nparts + p) * sp.width + (tid % sp.vpb) * VEC + k] = a1[k];
+    }
+  }
   __syncthreads();
-  for (int ch = tid; ch < c; ch += blockDim.x) {
-    const int cv = ch / VEC, k = ch - cv * VEC;
-    float s = 0.f;
-    for (int j = 0; j < rows_per_iter; ++j) s += part[(j * nvec + cv) * VEC + k];
-    csum[ch] = s;
+  const int nch = min(sp.vpb, sp.nvec - slice) * VEC;
+  for (int i = tid; i < 2 * nch; i += STATS_THREADS) {
+    const int q = i >= nch, col = i - q * nch;
+    const float* src = part + q * sp.nparts * sp.width + col;
+    float sum = 0.f;
+    for (int j = 0; j < sp.nparts; ++j) sum += src[j * sp.width];
+    csum[q * c + slice * VEC + col] = sum;
   }
   __syncthreads();
 }
 
+// Forward statistics. Grid (nblk, B): block blk owns rows
+// [blk * rows_per_block, ...) of sample blockIdx.y (fused_norm.py's
+// rows_per_block: few, long blocks, about two a SM) over every channel, split
+// as StatsSplit says. x is read once. Each channel's values are summed
+// shifted by that channel's value in the block's first row, k_c (a thread
+// loads its vector's shifts before the loop): S1 = sum(x - k_c) and
+// S2 = sum((x - k_c)^2), a subtraction, an add and an FMA an element, with
+// STATS_UNROLL rows' loads in flight. The block's channel sums follow in a
+// fixed order (slice_channel_sums), then one warp a group writes, over the
+// block's n rows and the group's channels,
+//   gsum = sum_c (S1_c + n k_c)                  (mean m = gsum / (n cg))
+//   M2   = sum_c (S2_c + (k_c - m) (2 S1_c + n (k_c - m)))
+// which is sum((x - m)^2) expanded around the shifts: the second moment
+// around the block's own group mean, as the TPU kernel's second pass
+// computes it, with no second read. The shift is a value of the channel, so
+// a large mean does not cancel in S2.
 template <typename T, int VEC>
-__global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial, int hw,
-                                int c, int groups, int rows_per_block) {
+__global__ void __launch_bounds__(STATS_THREADS, 2)
+gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial, int hw, int c, int groups,
+                int rows_per_block) {
   extern __shared__ float smem[];
-  const int nvec = c / VEC;
-  const int rows_per_iter = blockDim.x / nvec;
-  float* part = smem;                        // [blockDim.x * VEC]
-  float* csum = part + blockDim.x * VEC;     // [c]
-  float* gsum = csum + c;                    // [groups]
-  float* gmean = gsum + groups;              // [groups]
+  const StatsSplit sp(c, VEC);
+  float* part = smem;                             // [2][nparts][width]
+  float* csum = part + 2 * sp.nparts * sp.width;  // [2][c]: S1 and S2 of each channel
 
-  const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
-  const int tid = threadIdx.x;
-  const int cv = tid % nvec, r_off = tid / nvec;
+  const int b = blockIdx.y, blk = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r_off = tid / sp.vpb;
   const int row_begin = blk * rows_per_block;
   const int row_end = min(row_begin + rows_per_block, hw);
-  const int cg = c / groups;
-  const T* xb = x + static_cast<int64_t>(b) * hw * c + cv * VEC;
-
-  float acc[VEC];
+  const T* xs = x + static_cast<int64_t>(b) * hw * c;  // this sample
+  const T* first = xs + static_cast<int64_t>(row_begin) * c;
+  for (int slice = 0; slice < sp.nvec; slice += sp.vpb) {
+    const int cv = slice + tid % sp.vpb;
+    float s1[VEC], s2[VEC];
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-  for (int r = row_begin + r_off; r < row_end; r += rows_per_iter) {
-    const Vec<T, VEC> v = load_vec<T, VEC>(xb + static_cast<int64_t>(r) * c);
+    for (int k = 0; k < VEC; ++k) s1[k] = s2[k] = 0.f;
+    const bool active = r_off < sp.rows_per_iter && cv < sp.nvec;
+    if (active) {
+      float shift[VEC];
+      const Vec<T, VEC> kv = load_vec<T, VEC>(first + cv * VEC);
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] += to_f32(v.v[k]);
-  }
-  reduce_channels<VEC>(acc, part, csum, c, nvec, rows_per_iter);
-  const float count = static_cast<float>((row_end - row_begin) * cg);
-  if (tid < groups) {
-    float s = 0.f;
-    for (int j = 0; j < cg; ++j) s += csum[tid * cg + j];
-    gsum[tid] = s;
-    gmean[tid] = s / count;
-  }
-  __syncthreads();
-
-  // shifted second moment around this block's group means
+      for (int k = 0; k < VEC; ++k) shift[k] = to_f32(kv.v[k]);
+      const int64_t stride = static_cast<int64_t>(sp.rows_per_iter) * c;
+      int r = row_begin + r_off;
+      const T* xp = xs + static_cast<int64_t>(r) * c + cv * VEC;
+      for (; r < row_end; r += STATS_UNROLL * sp.rows_per_iter, xp += STATS_UNROLL * stride) {
+        Vec<T, VEC> v[STATS_UNROLL];
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-  for (int r = row_begin + r_off; r < row_end; r += rows_per_iter) {
-    const Vec<T, VEC> v = load_vec<T, VEC>(xb + static_cast<int64_t>(r) * c);
+        for (int u = 0; u < STATS_UNROLL; ++u)
+          if (r + u * sp.rows_per_iter < row_end) v[u] = load_vec<T, VEC>(xp + u * stride);
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const float d = to_f32(v.v[k]) - gmean[(cv * VEC + k) / cg];
-      acc[k] += d * d;
+        for (int u = 0; u < STATS_UNROLL; ++u) {
+          if (r + u * sp.rows_per_iter >= row_end) break;
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            const float d = to_f32(v[u].v[k]) - shift[k];
+            s1[k] += d;
+            s2[k] = fmaf(d, d, s2[k]);
+          }
+        }
+      }
     }
+    slice_channel_sums<VEC>(s1, s2, active, sp, slice, c, part, csum);
   }
-  reduce_channels<VEC>(acc, part, csum, c, nvec, rows_per_iter);
-  if (tid < groups) {
-    float s = 0.f;
-    for (int j = 0; j < cg; ++j) s += csum[tid * cg + j];
-    float* out = partial + (static_cast<int64_t>(b) * nblk + blk) * 2 * groups;
-    out[tid] = gsum[tid];
-    out[groups + tid] = s;
+
+  const int cg = c / groups;
+  const float n = static_cast<float>(row_end - row_begin);
+  float* out = partial + (static_cast<int64_t>(b) * gridDim.x + blk) * 2 * groups;
+  for (int grp = warp; grp < groups; grp += STATS_THREADS / 32) {
+    float gsum = 0.f;
+    for (int j = lane; j < cg; j += 32) {
+      const int ch = grp * cg + j;
+      gsum += fmaf(n, to_f32(first[ch]), csum[ch]);
+    }
+    for (int off = 16; off > 0; off >>= 1) gsum += __shfl_xor_sync(0xffffffffu, gsum, off);
+    const float m = gsum / (n * static_cast<float>(cg));
+    float m2 = 0.f;
+    for (int j = lane; j < cg; j += 32) {
+      const int ch = grp * cg + j;
+      const float d = to_f32(first[ch]) - m;
+      m2 += csum[c + ch] + d * fmaf(n, d, 2.0f * csum[ch]);
+    }
+    for (int off = 16; off > 0; off >>= 1) m2 += __shfl_xor_sync(0xffffffffu, m2, off);
+    if (lane == 0) {
+      out[grp] = gsum;
+      out[groups + grp] = m2;
+    }
   }
 }
 
@@ -245,7 +331,6 @@ __device__ __forceinline__ void gn_bwd_dy(float x, float g, float mean, float rs
   }
 }
 
-constexpr int BWD_THREADS = 256;
 // rows in flight per thread in the backward kernels, which load x and the
 // cotangent: 2 keeps gn_bwd_dx under 128 registers (two blocks a SM) and
 // neither kernel spills
@@ -253,41 +338,34 @@ constexpr int BWD_UNROLL = 2;
 
 // Backward statistics. Grid (nblk, B): block blk sums rows
 // [blk * rows_per_block, ...) of sample blockIdx.y over every channel, so
-// its group sums need no other block. Thread t owns channel vector t % vpb
-// of each slice of vpb = min(C / VEC, 256) vectors (one slice unless C is
-// wide) and rows t / vpb + k R, R = 256 / vpb, of the block: tens of rows
-// with their parameters in registers before any reduction. The sums then
-// run in a fixed order: a shuffle tree over the lanes of a warp that share
-// a channel vector (when vpb divides 32), one shared-memory pass over the
-// warps (or rows) for each channel, and one warp per group over its
-// channels, weighted by scale.
+// its group sums need no other block, split as StatsSplit says: tens of
+// rows a thread with their parameters in registers before any reduction.
+// The sums then run in a fixed order (slice_channel_sums, then one warp per
+// group over its channels, weighted by scale).
 template <typename T, int VEC, bool SILU>
-__global__ void __launch_bounds__(BWD_THREADS, 2)
+__global__ void __launch_bounds__(STATS_THREADS, 2)
 gn_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
                     const float* __restrict__ mean, const float* __restrict__ rstd,
                     const float* __restrict__ scale, const float* __restrict__ bias,
                     float* __restrict__ gsums, float* __restrict__ csums, int hw, int c,
                     int groups, int rows_per_block) {
   extern __shared__ float smem[];
-  const int nvec = c / VEC;
-  const int vpb = min(nvec, BWD_THREADS);
-  const int rows_per_iter = BWD_THREADS / vpb;
-  const bool tree = vpb < 32 && (vpb & (vpb - 1)) == 0;
-  const int nparts = tree ? BWD_THREADS / 32 : rows_per_iter;
-  const int width = vpb * VEC;                   // channels of one slice
-  float* part = smem;                            // [2][nparts][width]
-  float* csum = part + 2 * nparts * width;       // [2][c]: the block's channel sums
+  const StatsSplit sp(c, VEC);
+  const int rows_per_iter = sp.rows_per_iter;
+  float* part = smem;                             // [2][nparts][width]
+  float* csum = part + 2 * sp.nparts * sp.width;  // [2][c]: the block's channel sums
 
   const int b = blockIdx.y, blk = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r_off = tid / vpb;
+  const int r_off = tid / sp.vpb;
   const int row_end = min((blk + 1) * rows_per_block, hw);
-  for (int slice = 0; slice < nvec; slice += vpb) {
-    const int cv = slice + tid % vpb;
+  for (int slice = 0; slice < sp.nvec; slice += sp.vpb) {
+    const int cv = slice + tid % sp.vpb;
     float a_dy[VEC], a_dyx[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) a_dy[k] = a_dyx[k] = 0.f;
-    if (r_off < rows_per_iter && cv < nvec) {
+    const bool active = r_off < rows_per_iter && cv < sp.nvec;
+    if (active) {
       float m[VEC], rs[VEC], sc[VEC], bi[VEC];
       int grp[VEC];
       channel_params<VEC>(b, cv, c, groups, mean, rstd, scale, bias, m, rs, sc, bi, grp);
@@ -319,45 +397,15 @@ gn_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
         }
       }
     }
-    int p = r_off;  // this thread's partial row, or -1 for none
-    if (tree) {
-      // lanes l and l ^ vpb, l ^ 2 vpb, ... share a channel vector
-      for (int off = vpb; off < 32; off <<= 1) {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) {
-          a_dy[k] += __shfl_xor_sync(0xffffffffu, a_dy[k], off);
-          a_dyx[k] += __shfl_xor_sync(0xffffffffu, a_dyx[k], off);
-        }
-      }
-      p = lane < vpb ? warp : -1;
-    } else if (r_off >= rows_per_iter || cv >= nvec) {
-      p = -1;
-    }
-    if (p >= 0) {
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        part[p * width + (tid % vpb) * VEC + k] = a_dy[k];
-        part[(nparts + p) * width + (tid % vpb) * VEC + k] = a_dyx[k];
-      }
-    }
-    __syncthreads();
-    const int nch = min(vpb, nvec - slice) * VEC;
-    for (int i = tid; i < 2 * nch; i += BWD_THREADS) {
-      const int q = i >= nch, col = i - q * nch;
-      const float* src = part + q * nparts * width + col;
-      float s = 0.f;
-      for (int j = 0; j < nparts; ++j) s += src[j * width];
-      csum[q * c + slice * VEC + col] = s;
-    }
-    __syncthreads();
+    slice_channel_sums<VEC>(a_dy, a_dyx, active, sp, slice, c, part, csum);
   }
 
   const int64_t out_at = static_cast<int64_t>(b) * gridDim.x + blk;
   float* cs = csums + out_at * 2 * c;
-  for (int i = tid; i < 2 * c; i += BWD_THREADS) cs[i] = csum[i];
+  for (int i = tid; i < 2 * c; i += STATS_THREADS) cs[i] = csum[i];
   const int cg = c / groups;
   float* gs = gsums + out_at * 2 * groups;
-  for (int grp = warp; grp < groups; grp += BWD_THREADS / 32) {
+  for (int grp = warp; grp < groups; grp += STATS_THREADS / 32) {
     float s1 = 0.f, s2 = 0.f;
     for (int j = lane; j < cg; j += 32) {
       const int ch = grp * cg + j;
@@ -430,23 +478,13 @@ gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* 
   }
 }
 
-// Threads per stats block: a whole number of rows of channel vectors.
-static int stats_threads(int nvec) {
-  if (nvec > 1024) return 0;
-  if (nvec >= 256) return nvec;
-  return (256 / nvec) * nvec;
-}
-
 template <typename T, int VEC>
 static int launch_stats(const void* x, float* partial, int batch, int hw, int c, int groups,
                         int rows_per_block, cudaStream_t stream) {
-  const int nvec = c / VEC;
-  const int threads = stats_threads(nvec);
-  if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int nblk = (hw + rows_per_block - 1) / rows_per_block;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(threads) * VEC + c + 2 * groups);
+  const size_t smem = sizeof(float) * StatsSplit(c, VEC).smem_floats(c);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  gn_stats_kernel<T, VEC><<<dim3(nblk, batch), threads, smem, stream>>>(
+  const int nblk = (hw + rows_per_block - 1) / rows_per_block;
+  gn_stats_kernel<T, VEC><<<dim3(nblk, batch), STATS_THREADS, smem, stream>>>(
       static_cast<const T*>(x), partial, hw, c, groups, rows_per_block);
   return static_cast<int>(cudaGetLastError());
 }
@@ -526,14 +564,10 @@ static int launch_bwd_stats(const void* x, const void* g, const float* mean, con
                             const float* scale, const float* bias, float* gsums, float* csums,
                             int batch, int hw, int c, int groups, int rows_per_block,
                             cudaStream_t stream) {
-  const int nvec = c / VEC;
-  const int vpb = nvec < BWD_THREADS ? nvec : BWD_THREADS;
-  const bool tree = vpb < 32 && (vpb & (vpb - 1)) == 0;
-  const int nparts = tree ? BWD_THREADS / 32 : BWD_THREADS / vpb;
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(nparts) * vpb * VEC + 2 * c);
+  const size_t smem = sizeof(float) * StatsSplit(c, VEC).smem_floats(c);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const int nblk = (hw + rows_per_block - 1) / rows_per_block;
-  gn_bwd_stats_kernel<T, VEC, SILU><<<dim3(nblk, batch), BWD_THREADS, smem, stream>>>(
+  gn_bwd_stats_kernel<T, VEC, SILU><<<dim3(nblk, batch), STATS_THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), mean, rstd, scale, bias, gsums, csums,
       hw, c, groups, rows_per_block);
   return static_cast<int>(cudaGetLastError());

@@ -10,7 +10,7 @@
 //     no copy and rows past L load as zeros (L is a dimension of its own);
 //   * a tile of R rows is stored as D / CW column chunks of [R x CW], CW =
 //     min(D, 64) elements: 128-byte rows under the 128-byte swizzle for
-//     D = 64 and 128, 64-byte rows under the 64-byte swizzle for D = 32;
+//     D = 64, 128 and 256, 64-byte rows under the 64-byte swizzle for D = 32;
 //     the chunk bases are 1024-byte aligned, as the swizzle atoms need;
 //   * wgmma's f32 accumulator of a 64 x N tile: thread i of the warpgroup
 //     (warp w = i / 32, g = (i % 32) / 4, t = i % 4) holds rows 16 w + g
@@ -93,13 +93,14 @@ __device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int rows, int 
   return make_desc(addr, 16, 8 * RB, desc_layout<D>());
 }
 
-// MN-major operand (a [K rows x D] tile read as B with N = D contiguous),
-// slice kk of 16 rows: LBO steps between column chunks, SBO between 8-row
-// groups.
+// MN-major operand (a [K rows x D] tile read as B with N contiguous), slice
+// kk of 16 rows, from column col0 (a multiple of the chunk width) on: LBO
+// steps between column chunks, SBO between 8-row groups.
 template <int D>
-__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int rows, int kk) {
-  constexpr int RB = chunk_row_bytes<D>();
-  const uint32_t addr = smem_u32(tile) + kk * 16 * RB;
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int rows, int kk,
+                                                 int col0 = 0) {
+  constexpr int CW = chunk_cols<D>(), RB = chunk_row_bytes<D>();
+  const uint32_t addr = smem_u32(tile) + (col0 / CW) * rows * RB + kk * 16 * RB;
   return make_desc(addr, rows * RB, 8 * RB, desc_layout<D>());
 }
 
@@ -151,6 +152,22 @@ __device__ __forceinline__ void acc_to_a(const float (&s)[R], int kk, uint32_t (
   a[1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
   a[2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
   a[3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A and B K-major in shared memory
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+#define FLAXDIFF_WGMMA(TY)                                                       \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "  \
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+  if constexpr (std::is_same<T, __half>::value) FLAXDIFF_WGMMA("f16");
+  else FLAXDIFF_WGMMA("bf16");
+#undef FLAXDIFF_WGMMA
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory
@@ -238,7 +255,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 
 template <int N, typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64<T>(d, da, db, scale_d);
+  if constexpr (N == 32) wgmma_ss_n32<T>(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64<T>(d, da, db, scale_d);
   else wgmma_ss_n128<T>(d, da, db, scale_d);
 }
 
@@ -247,6 +265,31 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 32) wgmma_rs_n32<T>(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64<T>(d, a, db);
   else wgmma_rs_n128<T>(d, a, db);
+}
+
+// Columns col0 .. col0 + 127 of a 64 x N accumulator (N = 2 * the register
+// count) as an accumulator of its own: register 4 n + i of the N = 128 layout
+// is register 4 (n + col0 / 8) + i of the wider one.
+template <int R>
+__device__ __forceinline__ float (&acc_cols128(float (&d)[R], int col0))[64] {
+  return *reinterpret_cast<float(*)[64]>(&d[col0 / 2]);
+}
+
+// D[64 x D] += A[64 x 16] . B[16 x D] over a whole head dim: B is rows of the
+// MN-major tile `tile` (`rows` rows), slice kk. One wgmma up to D = 128; at
+// D = 256 two of N = 128, one on each column half (the accumulator holds the
+// same 128 registers a thread as one N = 256 wgmma's, and the two reuse the
+// N = 128 instruction).
+template <int D, typename T>
+__device__ __forceinline__ void wgmma_rs_cols(float (&d)[D / 2], const uint32_t (&a)[4],
+                                              const void* tile, int rows, int kk) {
+  if constexpr (D <= 128) {
+    wgmma_rs<D, T>(d, a, desc_mnmajor<D>(tile, rows, kk));
+  } else {
+    static_assert(D == 256, "head dims 32, 64, 128 and 256");
+    wgmma_rs_n128<T>(acc_cols128(d, 0), a, desc_mnmajor<D>(tile, rows, kk, 0));
+    wgmma_rs_n128<T>(acc_cols128(d, 128), a, desc_mnmajor<D>(tile, rows, kk, 128));
+  }
 }
 
 // --- mbarriers ---------------------------------------------------------------

@@ -2,10 +2,12 @@
 
 Counterpart of ``flaxdiff_tpu/ops/attention.py`` ``dot_product_attention``.
 The Hopper kernel takes any sequence length, so there is no ``seq >= 128``
-threshold. It takes head dims of 32, 64 and 128; any other head dim up to
-128 is zero-padded to the next of them, as the reference pads to 128 lanes
-(``_maybe_pad_head_dim``): the zero channels add exactly 0 to every logit
-and to the output channels sliced away.
+threshold. It takes head dims of 32, 64, 128 and 256; any other head dim up
+to 256 is zero-padded to the next of them, as the reference pads to a
+multiple of 128 lanes (``_maybe_pad_head_dim``): the zero channels add
+exactly 0 to every logit and to the output channels sliced away. The
+reference pads head dims above 256 too; no published diffusion model uses
+one, and the port raises there (ROADMAP item C1).
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention(q, k, v, scale=scale)
     if d > HEAD_DIMS[-1]:
         raise ValueError(f"head dim {d} above {HEAD_DIMS[-1]}: the flash kernels take head dims "
-                         f"up to {HEAD_DIMS[-1]} (ROADMAP item C1); use backend='xla'")
+                         f"up to {HEAD_DIMS[-1]} (ROADMAP item C1's tail); use backend='xla'")
     width = next(w for w in HEAD_DIMS if w > d)
     # the true head dim's scale; F.pad and the slice carry dq, dk, dv back
     scale = 1.0 / math.sqrt(d) if scale is None else scale

@@ -21,7 +21,7 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _scale(d: int, scale: Optional[float]) -> float:

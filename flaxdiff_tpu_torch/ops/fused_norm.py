@@ -20,26 +20,20 @@ import torch
 
 from . import _build
 
-# elements of one stats block: B x (HW / rows) blocks must fill the card
-_BLOCK_ELEMS = 8192
 _MAX_CHANNELS = 4096
-# the backward statistics' blocks: up to two for each of the H100's 132 SMs
-# (the kernel holds two at once), each of at least the forward's 8192
-# elements. At [16, 16384, 64] a thread then sums 32 rows before the block
-# reduces them
-_BWD_BLOCKS = 2 * 132
-_BWD_MIN_ELEMS = 8192
+# the statistics kernels' blocks, forward (B4) and backward (B6): up to two
+# for each of the H100's 132 SMs (each kernel holds two at once), each of at
+# least 8192 elements. At [16, 16384, 64] a thread then sums 32 rows, at
+# [2, 65536, 64] 16, before the block reduces them
+_STATS_BLOCKS = 2 * 132
+_STATS_MIN_ELEMS = 8192
 
 
-def rows_per_block(hw: int, c: int) -> int:
-    """Rows of one block of the forward statistics (B4)."""
-    return max(1, min(hw, _BLOCK_ELEMS // c))
-
-
-def bwd_rows_per_block(b: int, hw: int, c: int) -> int:
-    """Rows of one block of the backward statistics (B6), from the shape
-    alone, so the plain version on the CPU sums the same blocks."""
-    nblk = max(1, min(_BWD_BLOCKS // b, hw * c // _BWD_MIN_ELEMS))
+def rows_per_block(b: int, hw: int, c: int) -> int:
+    """Rows of one block of the statistics kernels, forward (B4) and
+    backward (B6), from the shape alone, so the plain versions on the CPU
+    sum the same blocks."""
+    nblk = max(1, min(_STATS_BLOCKS // b, hw * c // _STATS_MIN_ELEMS))
     return max(1, -(-hw // nblk))
 
 
@@ -79,10 +73,11 @@ def _check_x(x: torch.Tensor, groups: int) -> None:
 
 
 def groupnorm_stats(x: torch.Tensor, groups: int) -> torch.Tensor:
-    """Per-block partial statistics of a contiguous [B, HW, C] tensor."""
+    """The statistics kernel (B4): per block of ``rows_per_block`` rows of
+    a contiguous [B, HW, C] tensor, [B, nblk, 2, G] f32 partials."""
     _check_x(x, groups)
     b, hw, c = x.shape
-    rows = rows_per_block(hw, c)
+    rows = rows_per_block(b, hw, c)
     if x.device.type == "cpu":
         return groupnorm_stats_plain(x, groups, rows)
     _build.require_cuda(x)
@@ -103,9 +98,8 @@ def groupnorm_finalize(partial: torch.Tensor, hw: int, c: int, eps: float
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Welford/Chan merge of the block partials -> (mean, rstd), [B, G] f32
     (flaxdiff_tpu/ops/fused_norm.py:295-311)."""
-    groups = partial.shape[-1]
-    nblk = partial.shape[1]
-    rows = rows_per_block(hw, c)
+    b, nblk, _, groups = partial.shape
+    rows = rows_per_block(b, hw, c)
     cg = c // groups
     n_rows = torch.clamp(
         hw - rows * torch.arange(nblk, device=partial.device, dtype=torch.float32),
@@ -212,13 +206,13 @@ def groupnorm_bwd_stats(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
                         rstd: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                         apply_silu: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward statistics kernel (B6) over contiguous [B, HW, C] x and
-    cotangent g, in blocks of ``bwd_rows_per_block`` rows: (gsums
+    cotangent g, in blocks of ``rows_per_block`` rows: (gsums
     [B, nblk, 2, G], csums [B, nblk, 2, C]), f32."""
     _check_x(x, mean.shape[-1])
     _check_grad(x, g)
     b, hw, c = x.shape
     groups = mean.shape[-1]
-    rows = bwd_rows_per_block(b, hw, c)
+    rows = rows_per_block(b, hw, c)
     if x.device.type == "cpu":
         return groupnorm_bwd_stats_plain(x, g, mean, rstd, scale, bias, apply_silu, rows)
     _build.require_cuda(x, g, mean, rstd, scale, bias)

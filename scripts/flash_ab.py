@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Time and check one checkout's version of a kernel on the card.
 
-    python3 scripts/flash_ab.py CHECKOUT [--kernel fwd|dq|gn_norm|gn_bwd_stats|gn_bwd_dx]
-                                [--sass]
+    python3 scripts/flash_ab.py CHECKOUT
+        [--kernel fwd|dq|gn_stats|gn_norm|gn_bwd_stats|gn_bwd_dx] [--sass]
 
 Builds CHECKOUT's CUDA kernels (into CHECKOUT/build/kernels), holds the
 chosen kernel against its plain version at chip_smoke.py's phase-2 shapes
 (plus two larger ones for the forward) under phase 2's limits, and prints
 each case's device time per call (CUDA graph replays, chip_smoke.graph_ms)
 beside its readings. ``fwd`` is the flash forward (B1), ``dq`` the flash dq
-backward (B2), ``gn_norm`` GroupNorm's normalize + SiLU pass (B5),
+backward (B2), ``gn_stats`` GroupNorm's statistics (B4) at the UNet's
+serving and training shapes, ``gn_norm`` its normalize + SiLU pass (B5),
 ``gn_bwd_stats`` and ``gn_bwd_dx`` its backward statistics (B6) and dx
 (B7) passes at the UNet train step's shapes. With
 ``--sass``, also prints each instantiation of the kernel in the built
@@ -19,6 +20,7 @@ two versions on one card, run them in one command in the order old, new,
 new, old.
 """
 import argparse
+import inspect
 import os
 import re
 import shutil
@@ -42,8 +44,20 @@ GN_CASES = [(2, 65536, 64, BF16), (2, 16384, 128, BF16), (2, 4096, 256, BF16),
 # differentiates
 GN_BWD_CASES = [(16, 16384, 64, BF16), (16, 4096, 128, BF16), (16, 1024, 256, BF16),
                 (16, 256, 1024, BF16), (16, 1024, 256, F32)]
-SYMBOLS = {"fwd": "flash_fwd_", "dq": "flash_bwd_dq_", "gn_norm": "gn_norm_kernel",
-           "gn_bwd_stats": "gn_bwd_stats_kernel", "gn_bwd_dx": "gn_bwd_dx_kernel"}
+SYMBOLS = {"fwd": "flash_fwd_", "dq": "flash_bwd_dq_", "gn_stats": "gn_stats_kernel",
+           "gn_norm": "gn_norm_kernel", "gn_bwd_stats": "gn_bwd_stats_kernel",
+           "gn_bwd_dx": "gn_bwd_dx_kernel"}
+
+
+def stats_rows(fn, b, hw, c, backward: bool) -> int:
+    """The checkout's rows of a statistics block: rows_per_block(b, hw, c)
+    for both passes; older checkouts have rows_per_block(hw, c) for the
+    forward and bwd_rows_per_block(b, hw, c), or the forward's, for the
+    backward."""
+    if len(inspect.signature(fn.rows_per_block).parameters) == 3:
+        return fn.rows_per_block(b, hw, c)
+    rule = getattr(fn, "bwd_rows_per_block", None)
+    return rule(b, hw, c) if backward and rule else fn.rows_per_block(hw, c)
 
 
 def flash_fwd_cases(cs, randn):
@@ -80,16 +94,31 @@ def flash_dq_cases(cs, randn):
         yield (b, lq, lk, h, str(dtype)[6:]), ms, r, f", {flops / ms / 1e9:.1f} TFLOP/s"
 
 
+def gn_stats_cases(cs, randn):
+    """The statistics kernel (B4) under chip_smoke.py's phase-2 limits."""
+    from flaxdiff_tpu_torch.ops import fused_norm as fn
+    for b, hw, c, dtype in GN_CASES + GN_BWD_CASES:
+        x = randn(b, hw, c, dtype=dtype) * 2.0 + 0.5
+        part = fn.groupnorm_stats(x, 8)
+        ref = fn.groupnorm_stats_plain(x, 8, stats_rows(fn, b, hw, c, backward=False))
+        torch.cuda.synchronize()
+        r = cs.compare(part, ref, 1e-3, 1e-5, 1e-5)
+        ms = cs.graph_ms(lambda: fn.groupnorm_stats(x, 8), 20)
+        nbytes = x.element_size() * x.numel()
+        yield (b, hw, c, str(dtype)[6:]), ms, r, f", {nbytes / ms / 1e6:.0f} GB/s"
+
+
 def gn_norm_cases(cs, randn):
+    from flaxdiff_tpu_torch.ops import fused_norm as fn
     from flaxdiff_tpu_torch.ops.fused_norm import (groupnorm_finalize, groupnorm_normalize,
                                                    groupnorm_normalize_plain,
-                                                   groupnorm_stats_plain, rows_per_block)
+                                                   groupnorm_stats_plain)
     for b, hw, c, dtype in GN_CASES:
         x = randn(b, hw, c, dtype=dtype) * 2.0 + 0.5
         scale = randn(c, dtype=F32).abs() + 0.5
         bias = randn(c, dtype=F32) * 0.1
-        mean, rstd = groupnorm_finalize(groupnorm_stats_plain(x, 8, rows_per_block(hw, c)),
-                                        hw, c, 1e-6)
+        rows = stats_rows(fn, b, hw, c, backward=False)
+        mean, rstd = groupnorm_finalize(groupnorm_stats_plain(x, 8, rows), hw, c, 1e-6)
         out = groupnorm_normalize(x, mean, rstd, scale, bias, True)
         ref = groupnorm_normalize_plain(x, mean, rstd, scale, bias, True)
         torch.cuda.synchronize()
@@ -110,10 +139,9 @@ def gn_bwd_cases(kernel):
             scale = randn(c, dtype=F32).abs() + 0.5
             bias = randn(c, dtype=F32) * 0.1
             mean, rstd = fn.groupnorm_finalize(
-                fn.groupnorm_stats_plain(x, 8, fn.rows_per_block(hw, c)), hw, c, 1e-6)
-            # the checkout's backward blocks (older checkouts use the forward's)
-            rule = getattr(fn, "bwd_rows_per_block", None)
-            rows = rule(b, hw, c) if rule else fn.rows_per_block(hw, c)
+                fn.groupnorm_stats_plain(x, 8, stats_rows(fn, b, hw, c, backward=False)), hw, c,
+                1e-6)
+            rows = stats_rows(fn, b, hw, c, backward=True)
             args = (x, g, mean, rstd, scale, bias)
             gs_ref, cs_ref = fn.groupnorm_bwd_stats_plain(*args, True, rows)
             esz, n = x.element_size(), b * hw * c
@@ -138,7 +166,8 @@ def gn_bwd_cases(kernel):
     return cases
 
 
-CASES = {"fwd": flash_fwd_cases, "dq": flash_dq_cases, "gn_norm": gn_norm_cases,
+CASES = {"fwd": flash_fwd_cases, "dq": flash_dq_cases, "gn_stats": gn_stats_cases,
+         "gn_norm": gn_norm_cases,
          "gn_bwd_stats": gn_bwd_cases("gn_bwd_stats"), "gn_bwd_dx": gn_bwd_cases("gn_bwd_dx")}
 
 

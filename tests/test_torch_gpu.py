@@ -21,9 +21,9 @@ from flaxdiff_tpu_torch.ops.flash_attention import (flash_bwd_dkv_plain, flash_b
 from flaxdiff_tpu_torch.ops.fused_adaln import (gate_residual_bwd_plain, gate_residual_plain,
                                                 geglu_bwd_plain, geglu_plain,
                                                 ln_modulate_bwd_plain, ln_modulate_plain)
-from flaxdiff_tpu_torch.ops.fused_norm import (bwd_rows_per_block, groupnorm_bwd_dx_plain,
-                                               groupnorm_bwd_finalize, groupnorm_bwd_stats_plain,
-                                               groupnorm_finalize, groupnorm_stats_plain)
+from flaxdiff_tpu_torch.ops.fused_norm import (groupnorm_bwd_dx_plain, groupnorm_bwd_finalize,
+                                               groupnorm_bwd_stats_plain, groupnorm_finalize,
+                                               groupnorm_stats_plain, rows_per_block)
 
 pytestmark = pytest.mark.gpu
 
@@ -48,18 +48,20 @@ def _randn(dev, *shape, dtype=torch.float32, seed=0):
     return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
 
 
-# the edges of the kernels' tiling: q tiles of 64 and 128 rows (1, 65, 130,
-# 200 rows leave them ragged), kv tiles of 64 and 128 rows (77, 127, 129,
-# 190, 257 keys, and a single key); head dims 32 (64-byte swizzle), 64 and
-# 128 (two column chunks). Batch x heads 6 gives fewer blocks than SMs (one
-# consumer warpgroup a block), 160 more (two).
+# the edges of the kernels' tiling: q tiles of 32 (the f32 kernels at head
+# dim 256), 64 and 128 rows (1, 65, 130, 200 rows leave them ragged), kv
+# tiles of 32 (the 16-bit backward at 256), 64 and 128 rows (77, 127, 129,
+# 190, 257 keys, and a single key); head dims 32 (64-byte swizzle), 64, 128
+# (two column chunks) and 256 (four; two N = 128 halves of the output, the
+# dk/dv kernel's two warpgroups split them). Batch x heads 6 gives fewer
+# blocks than SMs (one consumer warpgroup a block), 160 more (two).
 FLASH_LQ = [1, 64, 65, 130, 200]
 FLASH_LK = [1, 64, 77, 127, 128, 129, 190, 257]
 FLASH_BH = [(2, 3), (4, 40)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("lk", FLASH_LK)
 @pytest.mark.parametrize("lq", FLASH_LQ)
 @pytest.mark.parametrize("b,h", FLASH_BH)
@@ -107,6 +109,38 @@ def test_groupnorm_silu_kernels_match_plain(cuda, dtype, shape, groups, offset):
     # the statistics are summed in another order on the CPU; then the same
     # f32 math, at most one output rounding apart
     torch.testing.assert_close(out.float().cpu(), ref.float(), atol=1e-5, rtol=TOL[dtype][1])
+
+
+# (shape, groups, mean): the UNet's top level at its serving batch (264
+# blocks of 497 rows, the last 429), a ragged last block (7 of 143 rows, the
+# last 142), a bf16 vector straddling two groups (C 48), C 4096 (two slices
+# of channel vectors in bf16), C % 8 != 0 (the scalar path), mean 100 (the
+# shifted sums)
+GN_STATS_CASES = [((2, 65536, 64), 8, 0.5), ((2, 1000, 64), 8, 0.5), ((1, 701, 48), 4, 0.5),
+                  ((2, 64, 4096), 32, 0.5), ((2, 50, 36), 4, 0.5), ((2, 300, 128), 8, 100.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,mean", GN_STATS_CASES)
+def test_groupnorm_stats_kernel_matches_plain(cuda, dtype, shape, groups, mean):
+    """The statistics kernel's partials against its plain version over the
+    same blocks: f32 sums in another order, the kernel's shifted by each
+    block's first row. chip_smoke.py's limits: per element atol 1e-3,
+    rtol 1e-5, and 1e-5 on the relative RMS."""
+    x = _randn(cuda, *shape, dtype=dtype) * 2.0 + mean
+    part = groupnorm_stats(x, groups)
+    ref = groupnorm_stats_plain(x, groups, rows_per_block(*shape))
+    torch.testing.assert_close(part, ref, atol=1e-3, rtol=1e-5)
+    assert float((part - ref).norm() / ref.norm()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [((2, 65536, 64), 8), ((2, 50, 36), 4)])
+def test_groupnorm_stats_is_deterministic(cuda, dtype, shape, groups):
+    """No atomics, a fixed reduction order: two launches give bit-equal
+    partials (16-byte and scalar paths)."""
+    x = _randn(cuda, *shape, dtype=dtype) * 3.0 + 1.0
+    assert torch.equal(groupnorm_stats(x, groups), groupnorm_stats(x, groups))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -192,7 +226,7 @@ def _close(out, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("lk", FLASH_LK)
 @pytest.mark.parametrize("lq", FLASH_LQ)
 @pytest.mark.parametrize("b,h", FLASH_BH)
@@ -220,11 +254,11 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, lq, lk, d, b, h):
     _close(dk, dk_ref, dtype)
 
 
-@pytest.mark.parametrize("d", [40, 72, 80, 96])
+@pytest.mark.parametrize("d", [40, 72, 80, 96, 160, 192])
 def test_attention_dispatch_pads_odd_head_dims(cuda, d):
-    """The dispatch zero-pads a head dim outside (32, 64, 128) to the next of
-    them: forward and dq, dk, dv in bf16 against the plain versions at the
-    true head dim, within the flash bf16 limits."""
+    """The dispatch zero-pads a head dim outside (32, 64, 128, 256) to the
+    next of them: forward and dq, dk, dv in bf16 against the plain versions
+    at the true head dim, within the flash bf16 limits."""
     q = _randn(cuda, 2, 130, 4, d, dtype=torch.bfloat16, seed=1).requires_grad_()
     k = _randn(cuda, 2, 77, 4, d, dtype=torch.bfloat16, seed=2).requires_grad_()
     v = _randn(cuda, 2, 77, 4, d, dtype=torch.bfloat16, seed=3).requires_grad_()
@@ -265,7 +299,7 @@ def test_flash_bwd_takes_strided_projection_views(cuda):
 
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_flash_bwd_is_deterministic(cuda, dtype, d, kernel):
     """No atomics, a fixed order over the kv tiles (dq) or the q tiles
     (dk/dv): two runs give bit-equal gradients."""
@@ -280,12 +314,13 @@ def test_flash_bwd_is_deterministic(cuda, dtype, d, kernel):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("d", [64, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_kernels_replay_in_cuda_graph(cuda, dtype):
+def test_flash_kernels_replay_in_cuda_graph(cuda, dtype, d):
     """The forward, dq and dk/dv kernels captured in a CUDA graph and
     replayed give what eager calls give: the tensor maps travel with the
     graph."""
-    q, k, v, do = (_randn(cuda, 2, 200, 6, 64, dtype=dtype, seed=s) for s in range(4))
+    q, k, v, do = (_randn(cuda, 2, 200, 6, d, dtype=dtype, seed=s) for s in range(4))
     eager_out, eager_lse = flash_fwd(q, k, v)
     delta = flash_delta(eager_out, do)
     eager_dq = flash_bwd_dq(q, k, v, do, eager_lse, delta)
@@ -331,7 +366,7 @@ def test_groupnorm_bwd_kernels_match_plain(cuda, dtype, apply_silu, shape, group
     x, g, mean, rstd, w, b = _gn_bwd_inputs(cuda, shape, groups, dtype)
     gs, cs = groupnorm_bwd_stats(x, g, mean, rstd, w, b, apply_silu)
     gs_ref, cs_ref = groupnorm_bwd_stats_plain(x, g, mean, rstd, w, b, apply_silu,
-                                               bwd_rows_per_block(*shape))
+                                               rows_per_block(*shape))
     # f32 sums of up to 1024 rows a block in another order
     torch.testing.assert_close(gs, gs_ref, atol=1e-5 * float(gs_ref.abs().max()), rtol=1e-5)
     torch.testing.assert_close(cs, cs_ref, atol=1e-5 * float(cs_ref.abs().max()), rtol=1e-5)

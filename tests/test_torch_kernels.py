@@ -7,16 +7,21 @@ The CUDA kernels themselves are held against the plain versions in
 tests/test_torch_gpu.py and chip_smoke.py.
 """
 import ast
+import functools
 import re
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from flaxdiff_tpu.ops.attention import _xla_attention
 from flaxdiff_tpu.ops.flash_attention import _fwd_impl
 from flaxdiff_tpu.ops.fused_adaln import fused_geglu as jax_geglu
+from flaxdiff_tpu.ops.fused_norm import _gn_stats_kernel
 from flaxdiff_tpu.ops.fused_norm import fused_groupnorm_silu as jax_gn
 
 from flaxdiff_tpu_torch.ops import _build
@@ -25,7 +30,7 @@ from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, dot_product_attention, flas
                                     groupnorm_stats, launch_counts, reset_launch_counts)
 from flaxdiff_tpu_torch.ops.attention import eager_attention
 from flaxdiff_tpu_torch.ops.flash_attention import flash_fwd_plain
-from flaxdiff_tpu_torch.ops.fused_norm import bwd_rows_per_block
+from flaxdiff_tpu_torch.ops.fused_norm import rows_per_block
 
 # f32 on both sides: the two differ only in summation order and in the
 # libraries' exp/tanh/rsqrt, a few ulps each, far below 1e-5 at these sizes
@@ -57,16 +62,17 @@ def test_flash_plain_matches_pallas_kernel(lq, lk, d):
     np.testing.assert_allclose(lse_t[:, 0].numpy(), lse_j, atol=TOL, rtol=TOL)
 
 
-# 32 is native to the flash kernels; 40, 72 (DiT-XL/2: 1152 / 16), 80 and 96
-# are zero-padded to the next of 64 and 128 by the dispatch
-ODD_HEAD_DIMS = [40, 72, 80, 96]
+# 32 and 256 are native to the flash kernels; 40, 72 (DiT-XL/2: 1152 / 16),
+# 80 and 96 are zero-padded to the next of 64 and 128 by the dispatch, 160
+# (an SD-style UNet level of 1280 channels in 8 heads) and 192 to 256
+ODD_HEAD_DIMS = [40, 72, 80, 96, 160, 192]
 
 
-@pytest.mark.parametrize("d", [32] + ODD_HEAD_DIMS)
+@pytest.mark.parametrize("d", [32] + ODD_HEAD_DIMS + [256])
 @pytest.mark.parametrize("backend", ["auto", "xla"])
 def test_attention_dispatch_matches_jax_eager_attention(backend, d):
     """Both backends compute the JAX package's explicit attention math, at
-    every head dim up to 128."""
+    every head dim up to 256."""
     rng = np.random.default_rng(11 + d)
     q = rng.standard_normal((2, 30, 2, d)).astype(np.float32)
     k = rng.standard_normal((2, 77, 2, d)).astype(np.float32)
@@ -95,10 +101,11 @@ def test_padded_dispatch_equals_unpadded_math(d, scale):
 
 @pytest.mark.parametrize("backend", ["auto", "flash"])
 def test_attention_dispatch_raises_above_head_dim_128(backend):
-    """Head dims above 128 need another instantiation of the flash kernels:
-    the dispatch names the limit instead of padding to 256."""
-    q = torch.randn(1, 8, 2, 160)
-    with pytest.raises(ValueError, match="above 128.*C1"):
+    """The flash kernels stop at head dim 256 (padding 160 and 192 up to
+    it); above that the dispatch names the limit instead of padding to 384,
+    as the reference would."""
+    q = torch.randn(1, 8, 2, 288)
+    with pytest.raises(ValueError, match="above 256.*C1"):
         dot_product_attention(q, q, q, backend=backend)
     # the explicit math takes any head dim
     assert dot_product_attention(q, q, q, backend="xla").shape == q.shape
@@ -144,6 +151,39 @@ def test_groupnorm_silu_plain_matches_pallas_kernel(shape, groups, apply_silu, m
     np.testing.assert_allclose(out.numpy(), ref, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("shape,groups,mean", [
+    ((2, 1000, 64), 8, 0.0),     # 7 blocks of 143 rows, the last 142
+    ((2, 701, 48), 4, 0.0),      # 4 blocks of 176 rows, the last 173; 12 channels a group
+    ((1, 301, 128), 8, 100.0),   # mean 100, 4 blocks of 76 rows: moments around block means
+])
+def test_groupnorm_stats_plain_matches_pallas_kernel(shape, groups, mean):
+    """The statistics kernel's plain version (B4's blocks of
+    ``rows_per_block`` rows) against the TPU kernel ``_gn_stats_kernel``,
+    interpreted over the same blocks: per block, the group sums and second
+    moments around the block's group mean."""
+    b, hw, c = shape
+    rows = rows_per_block(b, hw, c)
+    nblk = -(-hw // rows)
+    assert nblk > 1 and hw % rows
+    rng = np.random.default_rng(hw + c)
+    x = (mean + rng.standard_normal(shape)).astype(np.float32)
+    ref = pl.pallas_call(
+        functools.partial(_gn_stats_kernel, groups=groups, hw=hw, block_hw=rows),
+        grid=(b, nblk),
+        in_specs=[pl.BlockSpec((1, rows, c), lambda i, j: (i, j, 0))],
+        out_specs=pl.BlockSpec((1, 1, 2, groups), lambda i, j: (i, j, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((b, nblk, 2, groups), jnp.float32),
+        interpret=True)(jnp.asarray(x))
+    ref = np.asarray(ref)
+    out = groupnorm_stats(torch.from_numpy(x), groups).numpy()
+    assert out.shape == ref.shape
+    # f32 sums of up to 176 x 16 elements in another order: a few ulps of
+    # the largest sum (~3e4 at mean 100) or moment
+    for k in range(2):
+        np.testing.assert_allclose(out[:, :, k], ref[:, :, k], rtol=TOL,
+                                   atol=TOL * np.abs(ref[:, :, k]).max())
+
+
 def test_groupnorm_silu_shifted_moment_beats_naive_variance():
     """At mean 1e4 the E[x^2] - E[x]^2 form in f32 loses the variance
     entirely; the block-shifted Welford merge keeps it."""
@@ -171,7 +211,7 @@ def test_groupnorm_bwd_blocks_fill_the_card(shape):
     statistics' blocks fill the H100's 132 SMs about two deep, no more than
     the kernel holds at once, each block a whole number of rows."""
     b, hw, c = shape
-    rows = bwd_rows_per_block(b, hw, c)
+    rows = rows_per_block(b, hw, c)
     nblk = -(-hw // rows)
     assert 132 < b * nblk <= 2 * 132
     assert rows * c >= 8192 and (nblk - 1) * rows < hw

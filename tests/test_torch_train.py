@@ -34,9 +34,9 @@ from flaxdiff_tpu_torch.models.common import fourier_freqs
 from flaxdiff_tpu_torch.ops import fused_geglu, fused_groupnorm_silu
 from flaxdiff_tpu_torch.ops.attention import dot_product_attention, eager_attention
 from flaxdiff_tpu_torch.ops.fused_adaln import gelu_tanh
-from flaxdiff_tpu_torch.ops.fused_norm import (bwd_rows_per_block, groupnorm_bwd_dx,
-                                               groupnorm_bwd_finalize, groupnorm_bwd_stats,
-                                               groupnorm_finalize, groupnorm_stats)
+from flaxdiff_tpu_torch.ops.fused_norm import (groupnorm_bwd_dx, groupnorm_bwd_finalize,
+                                               groupnorm_bwd_stats, groupnorm_finalize,
+                                               groupnorm_stats, rows_per_block)
 from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
 from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
 from flaxdiff_tpu_torch.trainer import AdamW, TrainStepConfig, make_loss_builder, make_train_step
@@ -88,12 +88,13 @@ def test_flash_backward_matches_pallas_kernels(lq, lk, d):
         assert_close_to_max(out, second, KERNEL_TOL, f"d{name} vs autograd of eager")
 
 
-@pytest.mark.parametrize("d", [40, 72, 80, 96])
+@pytest.mark.parametrize("d", [40, 72, 80, 96, 160, 256])
 def test_attention_dispatch_pads_odd_head_dims_through_autograd(d):
-    """dq, dk, dv through the dispatch's zero-padded flash path against
-    ``jax.vjp`` of the reference's TPU path for the same head dim: pad to
-    128 lanes (``_maybe_pad_head_dim``), the Pallas kernels interpreted with
-    the true head dim's scale, the slice; and against autograd of the eager
+    """dq, dk, dv through the dispatch's flash path (zero-padded to the next
+    of 32, 64, 128 and 256; 256 is native) against ``jax.vjp`` of the
+    reference's TPU path for the same head dim: pad to a multiple of 128
+    lanes (``_maybe_pad_head_dim``), the Pallas kernels interpreted with the
+    true head dim's scale, the slice; and against autograd of the eager
     math."""
     rng = np.random.default_rng(d)
     q = rng.standard_normal((2, 30, 2, d)).astype(np.float32)
@@ -103,7 +104,7 @@ def test_attention_dispatch_pads_odd_head_dims_through_autograd(d):
 
     def reference(a, b, c):
         a, b, c, pad = jax_pad_head_dim(a, b, c, native=False)
-        assert pad
+        assert pad == (-d) % 128
         return jax_flash(a, b, c, 1.0 / np.sqrt(d), 16, 16, True)[..., :d]
 
     _, vjp = jax.vjp(reference, *map(jnp.asarray, (q, k, v)))
@@ -157,11 +158,11 @@ def test_groupnorm_backward_matches_pallas_kernels(shape, apply_silu, mean):
     ((2, 701, 48), 4),     # 4 blocks of 176 rows, the last 173; 12 channels a group
 ])
 def test_groupnorm_backward_blocks_match_pallas_kernels(shape, groups):
-    """The backward statistics in ``bwd_rows_per_block``'s blocks (several,
+    """The backward statistics in ``rows_per_block``'s blocks (several,
     the last ragged), their finalize and the dx pass give the reference's
     dx, dscale and dbias."""
     b, hw, c = shape
-    rows = bwd_rows_per_block(b, hw, c)
+    rows = rows_per_block(b, hw, c)
     nblk = -(-hw // rows)
     assert nblk > 1 and hw % rows
     rng = np.random.default_rng(hw)
