@@ -10,12 +10,14 @@ Phases; any failure exits non-zero and prints no result line.
      where cuobjdump exists, their HGMMA (wgmma) and HMMA (mma.sync) counts.
      Fails if any kernel instantiation spills, if ptxas serialised a wgmma
      (warning C7520), or if one holds no HGMMA or any HMMA.
-  2. Hold each of the thirteen kernels against its plain PyTorch version on
+  2. Hold each of the sixteen kernels against its plain PyTorch version on
      the card: the forward kernels at the serving paths' shapes, the backward
      kernels at the training paths' (bf16, plus one f32 case each with TF32
      off, and a ragged case for the AdaLN kernels); the flash kernels also at
-     head dim 256, GroupNorm's forward kernels also at the training paths'
-     shapes. Time kernel, plain version and, where one PyTorch call computes
+     head dim 256, the wide flash kernels (head dims above 256) at 320 and
+     384, GroupNorm's forward kernels also at the training paths' shapes,
+     LayerNorm + modulate at every width its row kernel is compiled for and
+     one it is not. Time kernel, plain version and, where one PyTorch call computes
      the same function (torch's scaled_dot_product_attention forward and
      backward, torch.var_mean over the groups, torch.addcmul; a yardstick
      the port never calls), that call, by their device time (CUDA graph
@@ -24,14 +26,16 @@ Phases; any failure exits non-zero and prints no result line.
      forward and backward pairs are also timed beside torch's group_norm and
      native_group_norm_backward (no SiLU, NCHW) at the top-level shapes. The
      statistics kernels' partials must be bit-equal from launch to launch,
-     and the attention dispatch at head dim 160 (padded to 256) within the
-     flash limits, forward and backward, in bf16.
+     the wide forward's lse bit-equal across its column chunks, and the
+     attention dispatch at head dim 160 (padded to 256) within the flash
+     limits, forward and backward, in bf16.
   3. The full-width UNet at 64x64 in f32, on the card (kernels) and on the
      CPU (plain versions), with the same random weights: a forward, a short
      DDIM + CFG trajectory, and one training step's loss and gradients with
-     the same draws; then one transformer block at SD's widest level (1280
-     channels, 8 heads of 160, 16x16 tokens, cross to the text): its forward
-     and every gradient.
+     the same draws; then one transformer block of 1280 channels (16x16
+     tokens, cross to the text) at SD's 8 heads of 160 and at UNet3D's 4
+     heads of 320 (the wide kernels, the launch counters zeroed just
+     before): its forward and every gradient.
   4. The serving path: DDIM-50 with classifier-free guidance (scale 3.0) at
      256x256, batch 1, bf16, full width. The launch counters, zeroed just
      before, must show every attention, GEGLU and GroupNorm call went through
@@ -133,8 +137,22 @@ FLASH_BWD_CASES = [(TRAIN_BATCH, 1024, 1024, 8, 64, BF16),
                    (DIT_TRAIN_BATCH, DIT_TOKENS, DIT_TOKENS, DIT_HEADS, 64, BF16),
                    (TRAIN_BATCH, 256, 256, 8, 256, BF16),
                    (TRAIN_BATCH, 256, TEXT_LEN, 8, 256, BF16), (2, 256, 256, 8, 256, F32)]
-# SD's widest UNet level: 1280 channels in 8 heads of 160 at 16x16 tokens
+# the wide kernels (head dims above 256): UNet3D_LEVEL's 4 heads of 320 at
+# 32^2 tokens (serving) and 16^2 (training), self and cross; 384; f32
+WIDE_FWD_CASES = [(SERVE_BATCH, 1024, 1024, 4, 320, BF16),
+                  (SERVE_BATCH, 1024, TEXT_LEN, 4, 320, BF16),
+                  (SERVE_BATCH, 1024, 1024, 4, 384, BF16), (SERVE_BATCH, 256, 256, 4, 320, F32)]
+WIDE_BWD_CASES = [(TRAIN_BATCH, 256, 256, 4, 320, BF16), (TRAIN_BATCH, 256, TEXT_LEN, 4, 320, BF16),
+                  (TRAIN_BATCH, 256, 256, 4, 384, BF16), (2, 256, 256, 4, 320, F32)]
+# SD's widest UNet level: 1280 channels in 8 heads of 160 at 16x16 tokens;
+# the same width in UNet3D's 4 heads (dim_head = channels // 4,
+# flaxdiff_tpu/models/unet3d.py:92) runs the wide flash kernels at 320
 WIDE_LEVEL = dict(dim=1280, heads=8, dim_head=160, side=16)
+UNET3D_LEVEL = dict(WIDE_LEVEL, heads=4, dim_head=320)
+# launches of one forward and backward of that block: self and cross
+# attention, each through the three wide kernels, and the GEGLU
+UNET3D_BLOCK = {"flash_fwd_wide": 2, "flash_bwd_dq_wide": 2, "flash_bwd_dkv_wide": 2,
+                "geglu": 1, "geglu_bwd": 1}
 # GroupNorm (batch, HW, C, dtype), 8 groups: cases at SERVE_BATCH (four
 # shapes the UNet's forward at 256^2 normalizes, f32, then the two other
 # shapes it normalizes most often) time the forward kernels, cases at
@@ -158,6 +176,9 @@ _SB, _TB = 2 * DIT_SERVE_BATCH, DIT_TRAIN_BATCH
 LN_MOD_CASES = [(_SB, DIT_TOKENS, DIT_WIDTH, BF16, 1), (_SB, DIT_TOKENS, DIT_WIDTH, BF16, 2),
                 (_TB, DIT_TOKENS, DIT_WIDTH, BF16, 1), (_TB, DIT_TOKENS, DIT_WIDTH, BF16, 2),
                 (_SB, DIT_TOKENS, DIT_WIDTH, F32, 1), (3, TEXT_LEN, DIT_WIDTH, BF16, 2)]
+# and the other widths B10's row kernel is compiled for (DiT-S, -L, -XL),
+# one it is not (1280, the generic kernel), at the serving batch
+LN_MOD_CASES += [(_SB, DIT_TOKENS, c, BF16, 2) for c in (384, 1024, 1152, 1280)]
 LN_MOD_BWD_CASES = [(_TB, DIT_TOKENS, DIT_WIDTH, BF16, 1), (_TB, DIT_TOKENS, DIT_WIDTH, BF16, 2),
                     (_SB, DIT_TOKENS, DIT_WIDTH, F32, 2), (3, TEXT_LEN, DIT_WIDTH, BF16, 2)]
 GATE_RES_CASES = [(_SB, DIT_TOKENS, DIT_WIDTH, BF16), (_TB, DIT_TOKENS, DIT_WIDTH, BF16),
@@ -169,6 +190,9 @@ REPLACES = {
     "flash_fwd": "flaxdiff_tpu/ops/flash_attention.py:78",
     "flash_bwd_dq": "flaxdiff_tpu/ops/flash_attention.py:132",
     "flash_bwd_dkv": "flaxdiff_tpu/ops/flash_attention.py:171",
+    "flash_fwd_wide": "flaxdiff_tpu/ops/flash_attention.py:78",
+    "flash_bwd_dq_wide": "flaxdiff_tpu/ops/flash_attention.py:132",
+    "flash_bwd_dkv_wide": "flaxdiff_tpu/ops/flash_attention.py:171",
     "gn_stats": "flaxdiff_tpu/ops/fused_norm.py:58",
     "gn_norm": "flaxdiff_tpu/ops/fused_norm.py:85",
     "gn_bwd_stats": "flaxdiff_tpu/ops/fused_norm.py:112",
@@ -186,14 +210,25 @@ KERNEL_SYMBOLS.update(flash_fwd=("flash_fwd_wgmma_kernel", "flash_fwd_fma_kernel
                       flash_bwd_dq=("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_fma_kernel"),
                       flash_bwd_dkv=("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_split_wgmma_kernel",
                                      "flash_bwd_dkv_fma_kernel"),
-                      ln_mod=("ln_mod_fwd_kernel",), gate_res=("gate_res_fwd_kernel",))
+                      flash_fwd_wide=("flash_fwd_wide_wgmma_kernel", "flash_fwd_wide_fma_kernel"),
+                      flash_bwd_dq_wide=("flash_bwd_dq_wide_wgmma_kernel",
+                                         "flash_bwd_dq_wide_fma_kernel"),
+                      flash_bwd_dkv_wide=("flash_bwd_dkv_wide_wgmma_kernel",
+                                          "flash_bwd_dkv_wide_fma_kernel"),
+                      ln_mod=("ln_mod_fwd_kernel", "ln_mod_fwd_rows_kernel"),
+                      gate_res=("gate_res_fwd_kernel",))
 # the 16-bit paths that must run on wgmma (HGMMA in the built library)
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                 "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_split_wgmma_kernel")
+                 "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_split_wgmma_kernel",
+                 "flash_fwd_wide_wgmma_kernel", "flash_bwd_dq_wide_wgmma_kernel",
+                 "flash_bwd_dkv_wide_wgmma_kernel")
 SOURCES = {
     "flash_fwd": "flaxdiff_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_dq": "flaxdiff_tpu_torch/csrc/flash_bwd.cu",
     "flash_bwd_dkv": "flaxdiff_tpu_torch/csrc/flash_bwd.cu",
+    "flash_fwd_wide": "flaxdiff_tpu_torch/csrc/flash_fwd.cu",
+    "flash_bwd_dq_wide": "flaxdiff_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dkv_wide": "flaxdiff_tpu_torch/csrc/flash_bwd.cu",
     "gn_stats": "flaxdiff_tpu_torch/csrc/groupnorm_silu.cu",
     "gn_norm": "flaxdiff_tpu_torch/csrc/groupnorm_silu.cu",
     "gn_bwd_stats": "flaxdiff_tpu_torch/csrc/groupnorm_silu.cu",
@@ -325,15 +360,16 @@ def passes(reading: dict) -> bool:
 
 def instantiation(mangled: str) -> str:
     """'flash_fwd_wgmma_kernel bf16 D64 NC2' from a wgmma kernel's mangled
-    name (template arguments: dtype, head dim and, where the kernel has it,
-    consumer warpgroups)."""
-    m = re.search("(" + "|".join(WGMMA_KERNELS) + r")I(6__half|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?",
-                  mangled)
+    name (template arguments: dtype and, where the kernel has them, head dim
+    and consumer warpgroups; the wide kernels take the dtype only)."""
+    m = re.search("(" + "|".join(WGMMA_KERNELS) + r")I(6__half|13__nv_bfloat16)(?:Li(\d+)E)?"
+                  r"(?:Li(\d+)E)?", mangled)
     if not m:
         return mangled
     dtype = "f16" if m.group(2) == "6__half" else "bf16"
+    d = f" D{m.group(3)}" if m.group(3) else ""
     nc = f" NC{m.group(4)}" if m.group(4) else ""
-    return f"{m.group(1)} {dtype} D{m.group(3)}{nc}"
+    return f"{m.group(1)} {dtype}{d}{nc}"
 
 
 def log_registers(build_log: str) -> dict:
@@ -410,7 +446,8 @@ def log_hgmma(lib) -> dict:
 # --- phase 2: kernels against their plain versions --------------------------
 
 def kernel_cases(dev, peak):
-    from flaxdiff_tpu_torch.ops import (flash_bwd_dkv, flash_bwd_dq, flash_fwd, geglu_bwd,
+    from flaxdiff_tpu_torch.ops import (flash_bwd_dkv, flash_bwd_dkv_wide, flash_bwd_dq,
+                                        flash_bwd_dq_wide, flash_fwd, flash_fwd_wide, geglu_bwd,
                                         geglu_fwd, groupnorm_bwd_dx, groupnorm_bwd_stats)
     from flaxdiff_tpu_torch.ops.flash_attention import (flash_bwd_dkv_plain, flash_bwd_dq_plain,
                                                         flash_delta, flash_fwd_plain)
@@ -454,10 +491,20 @@ def kernel_cases(dev, peak):
             + (f", library {library_ms:.4f} ms" if library_ms is not None else "") + rate_note)
         cases.append(case)
 
-    for b, lq, lk, heads, d, dtype in FLASH_FWD_CASES:
+    for b, lq, lk, heads, d, dtype in FLASH_FWD_CASES + WIDE_FWD_CASES:
+        # head dims above 256 take the wide kernels (their own rows)
+        fwd, name = (flash_fwd_wide, "flash_fwd_wide") if d > 256 else (flash_fwd, "flash_fwd")
         q, k, v = (randn(b, n, heads, d, dtype=dtype) for n in (lq, lk, lk))
-        out, lse = flash_fwd(q, k, v)
+        out, lse = fwd(q, k, v)
         ref, ref_lse = flash_fwd_plain(q, k, v)
+        if d > 256:
+            # every column chunk sums the same scores in the same order
+            chunk_lse = fwd(q, k, v, chunk_lse=True)[1]
+            torch.cuda.synchronize()
+            check(all(torch.equal(c, lse) for c in chunk_lse),
+                  f"{name} {(b, lq, lk, heads, d)}: lse bit-equal across "
+                  f"{chunk_lse.shape[0]} column chunks")
+            del chunk_lse
         torch.cuda.synchronize()
         # bf16: p is rounded to bf16 against a running (kernel) or final
         # (plain) row max, which atol covers (up to 1.7e-3 on an H100 for
@@ -473,18 +520,21 @@ def kernel_cases(dev, peak):
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
         esz = q.element_size()
         bh = b * heads
-        record("flash_fwd", (b, lq, lk, heads, d), dtype, {"out": reading},
-               lambda: flash_fwd(q, k, v), lambda: flash_fwd_plain(q, k, v),
+        record(name, (b, lq, lk, heads, d), dtype, {"out": reading},
+               lambda: fwd(q, k, v), lambda: flash_fwd_plain(q, k, v),
                4.0 * bh * lq * lk * d, bh * (esz * d * (2 * lq + 2 * lk) + 4 * lq),
                library=sdpa)
         del q, k, v, out, ref
 
-    for b, lq, lk, heads, d, dtype in FLASH_BWD_CASES:
+    for b, lq, lk, heads, d, dtype in FLASH_BWD_CASES + WIDE_BWD_CASES:
+        wide = "_wide" if d > 256 else ""
+        fwd, bwd_dq, bwd_dkv = ((flash_fwd_wide, flash_bwd_dq_wide, flash_bwd_dkv_wide) if wide
+                                else (flash_fwd, flash_bwd_dq, flash_bwd_dkv))
         q, k, v = (randn(b, n, heads, d, dtype=dtype) for n in (lq, lk, lk))
         do = randn(b, lq, heads, d, dtype=dtype)
-        out, lse = flash_fwd(q, k, v)
+        out, lse = fwd(q, k, v)
         delta = flash_delta(out, do)
-        dq, (dk, dv) = flash_bwd_dq(q, k, v, do, lse, delta), flash_bwd_dkv(q, k, v, do, lse, delta)
+        dq, (dk, dv) = bwd_dq(q, k, v, do, lse, delta), bwd_dkv(q, k, v, do, lse, delta)
         dq_ref = flash_bwd_dq_plain(q, k, v, do, lse, delta)
         dk_ref, dv_ref = flash_bwd_dkv_plain(q, k, v, do, lse, delta)
         torch.cuda.synchronize()
@@ -506,15 +556,17 @@ def kernel_cases(dev, peak):
                                                retain_graph=True)
         esz, bh, qkvo = q.element_size(), b * heads, (2 * lq + 2 * lk) * d
         shape = (b, lq, lk, heads, d)
-        record("flash_bwd_dq", shape, dtype, {"dq": read(dq, dq_ref)},
-               lambda: flash_bwd_dq(q, k, v, do, lse, delta),
+        record("flash_bwd_dq" + wide, shape, dtype, {"dq": read(dq, dq_ref)},
+               lambda: bwd_dq(q, k, v, do, lse, delta),
                lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta),
                3 * 2.0 * bh * lq * lk * d, bh * (esz * (qkvo + lq * d) + 8 * lq),
                library=sdpa_bwd)
         # the function's 4 products; at d = 256 the 16-bit kernel computes
-        # the two score products in both of its warpgroups (6 in all)
-        record("flash_bwd_dkv", shape, dtype, {"dk": read(dk, dk_ref), "dv": read(dv, dv_ref)},
-               lambda: flash_bwd_dkv(q, k, v, do, lse, delta),
+        # the two score products in both of its warpgroups (6 in all), and
+        # the wide kernels in every column chunk's block
+        record("flash_bwd_dkv" + wide, shape, dtype,
+               {"dk": read(dk, dk_ref), "dv": read(dv, dv_ref)},
+               lambda: bwd_dkv(q, k, v, do, lse, delta),
                lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta),
                4 * 2.0 * bh * lq * lk * d, bh * (esz * (qkvo + 2 * lk * d) + 8 * lq),
                library=sdpa_bwd)
@@ -855,17 +907,19 @@ def model_checks(dev, state):
             "ddim3_cfg_32_f32_err": err_traj, "ddim3_clipped_share": saturated, **step}
 
 
-def wide_block_check(dev) -> dict:
-    """One UNet transformer block at SD's widest level (WIDE_LEVEL: 1280
-    channels in 8 heads of 160, which the dispatch pads to 256; 16x16 tokens
-    with self-attention, cross to the 77x768 text, GEGLU) in f32, card
-    (kernels) against CPU (plain versions), the same random weights and
-    inputs: the forward within 1e-3 x max(1, max|ref|), every gradient (the
-    weights', the tokens' and the text's) within 1e-3 of its max|g|, the key
-    biases' (zero by the math) below 1e-6 of the largest."""
+def wide_block_check(dev, w: dict, expected_launches=None) -> dict:
+    """One UNet transformer block of a wide level (WIDE_LEVEL: 1280 channels
+    in 8 heads of 160, which the dispatch pads to 256; UNET3D_LEVEL: 4 heads
+    of 320, the wide kernels; 16x16 tokens with self-attention, cross to the
+    77x768 text, GEGLU) in f32, card (kernels) against CPU (plain versions),
+    the same random weights and inputs: the forward within 1e-3 x max(1,
+    max|ref|), every gradient (the weights', the tokens' and the text's)
+    within 1e-3 of its max|g|, the key biases' (zero by the math) below 1e-6
+    of the largest. With `expected_launches`, the launch counters, zeroed
+    just before the card's forward and backward, must read those launches."""
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
     from flaxdiff_tpu_torch.models.attention import TransformerBlock
 
-    w = WIDE_LEVEL
     rng = np.random.default_rng(6)
     x = rng.standard_normal((2, w["side"], w["side"], w["dim"])).astype(np.float32)
     ctx = rng.standard_normal((2, TEXT_LEN, TEXT_DIM)).astype(np.float32)
@@ -877,10 +931,14 @@ def wide_block_check(dev) -> dict:
         state = random_state(block, 6) if state is None else state
         block.load_state_dict(state)
         xs, cs = (torch.from_numpy(a).to(where).requires_grad_() for a in (x, ctx))
+        reset_launch_counts()
         out = block(xs, cs)
         named = list(block.named_parameters())
         grads = torch.autograd.grad(out, [t for _, t in named] + [xs, cs],
                                     torch.from_numpy(g).to(where))
+        if where == dev:
+            torch.cuda.synchronize()
+            counts = launch_counts()
         names = [name for name, _ in named] + ["tokens", "context"]
         results.append((out.detach().cpu(), [t.cpu() for t in grads], names))
     (out, grads, names), (ref, ref_grads, _) = results
@@ -902,8 +960,13 @@ def wide_block_check(dev) -> dict:
     check(bool(torch.isfinite(out).all()), "wide block output finite")
     check(err <= 1e-3 * scale, f"wide block forward: error {err} above {1e-3 * scale}")
     check(worst <= 1e-3, f"wide block gradient {worst_name}: error {worst} of its max|g|")
-    return {"forward_err": err, "forward_scale": scale, "worst_grad_rel_err": worst,
-            "worst_grad": worst_name}
+    res = {"forward_err": err, "forward_scale": scale, "worst_grad_rel_err": worst,
+           "worst_grad": worst_name, "launches": counts}
+    if expected_launches is not None:
+        expected = {k: expected_launches.get(k, 0) for k in counts}
+        log(f"  launches {counts}, expected {expected}")
+        check(counts == expected, f"the {w['heads']} x {w['dim_head']} block ran its kernels")
+    return res
 
 
 def train_step_check(dev, gpu, cpu, rng):
@@ -1305,7 +1368,9 @@ def main() -> int:
     state = random_state(Unet(**UNET, device="cpu"), 0)
     log("phase 3: full-width UNet, card against CPU")
     model_res = model_checks(dev, state)
-    model_res["wide_block"] = wide_block_check(dev)
+    model_res["wide_block"] = wide_block_check(dev, WIDE_LEVEL)
+    # the wide kernels' path: UNET3D_LEVEL's block, its launches counted
+    model_res["unet3d_block"] = wide_block_check(dev, UNET3D_LEVEL, UNET3D_BLOCK)
     torch.cuda.empty_cache()
 
     log(f"phase 4: DDIM-{STEPS} + CFG {GUIDANCE} at {RESOLUTION}x{RESOLUTION}, bf16")
@@ -1355,7 +1420,7 @@ def main() -> int:
         f"({dit_train.get('idle_share', float('nan')):.0%} idle) on {smi}")
 
     paths = {"unet_serving": traj, "unet_training": train, "dit_serving": dit_traj,
-             "dit_training": dit_train}
+             "dit_training": dit_train, "unet3d_block_320": model_res["unet3d_block"]}
     kernels, summary = [], []
     for kname in REPLACES:
         mine = [c for c in cases if c["name"] == kname]

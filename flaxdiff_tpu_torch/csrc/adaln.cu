@@ -82,7 +82,7 @@ __device__ __forceinline__ void modulate_store(float* out, const float (&xh)[V],
 }
 
 // ---------------------------------------------------------------------------
-// B10: LayerNorm + modulate, one warp a row
+// B10: LayerNorm + modulate, one warp a row (the generic path: any C)
 // ---------------------------------------------------------------------------
 
 template <typename T, int V, int NV>
@@ -117,6 +117,83 @@ ln_mod_fwd_kernel(const T* __restrict__ x, const T* __restrict__ s0, const T* __
     xhat_of<T, V>(xr + c, mu, rstd, xh);
     modulate_store<T, V>(v0 + row * C + c, xh, s0 + m + c, b0 + m + c);
     if constexpr (NV == 2) modulate_store<T, V>(v1 + row * C + c, xh, s1 + m + c, b1 + m + c);
+  }
+  if (lane == 0) {
+    mean_out[row] = mu;
+    rstd_out[row] = rstd;
+  }
+}
+
+// The same pass at the DiT family's widths (C = 384, 768, 1024, 1152), C a
+// template parameter: a lane's share of the row (NPL 16-byte vectors, 3 for
+// bf16 at C = 768) is known at compile time, so the lane issues every load
+// of its row before the reduction, x and the modulators of both views, and
+// keeps them in registers: one read of x, no loop-carried load chain. The
+// generic kernel above loops over a runtime C, reading a vector after the
+// last one's sum, reads x again after the reduction and the modulators only
+// then. Loading the modulators after the reduction instead (they are per
+// sample, cache-resident) freed registers but lengthened each warp's chain:
+// 0.0354 against 0.0296 ms at [32, 256, 768] with two views on an NVIDIA
+// H100 80GB HBM3 at 700 W (scripts/flash_ab.py, PERF.md).
+template <typename T, int C, int NV>
+__global__ void __launch_bounds__(kRowWarps * 32)
+ln_mod_fwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ s0,
+                       const T* __restrict__ b0, const T* __restrict__ s1,
+                       const T* __restrict__ b1, float* __restrict__ v0, float* __restrict__ v1,
+                       float* __restrict__ mean_out, float* __restrict__ rstd_out, int64_t rows,
+                       int L, int64_t mod_stride, float eps) {
+  constexpr int V = vec16<T>();
+  constexpr int NVEC = C / V, NPL = (NVEC + 31) / 32;
+  static_assert(C % V == 0, "whole 16-byte vectors");
+  const int lane = threadIdx.x & 31;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  // vector lane + 32 k of the row; only the last k can fall past C
+  const bool tail = NVEC % 32 == 0 || lane + 32 * (NPL - 1) < NVEC;
+  const T* xr = x + row * C;
+  const int64_t m = (row / L) * mod_stride;
+  Vec<T, V> xv[NPL], sv[NV][NPL], bv[NV][NPL];
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) {
+    if (k == NPL - 1 && !tail) continue;
+    const int c = (lane + 32 * k) * V;
+    xv[k] = load_vec<T, V>(xr + c);
+    sv[0][k] = load_vec<T, V>(s0 + m + c);
+    bv[0][k] = load_vec<T, V>(b0 + m + c);
+    if constexpr (NV == 2) {
+      sv[1][k] = load_vec<T, V>(s1 + m + c);
+      bv[1][k] = load_vec<T, V>(b1 + m + c);
+    }
+  }
+  float sum = 0.0f, sq = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) {
+    if (k == NPL - 1 && !tail) continue;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float f = to_f32(xv[k].v[e]);
+      sum += f;
+      sq += f * f;
+    }
+  }
+  const float mu = warp_total(sum) / C;
+  const float var = fmaxf(warp_total(sq) / C - mu * mu, 0.0f);
+  const float rstd = rsqrtf(var + eps);
+  // a view at a time (the loop the other way round spilled 12 bytes at C =
+  // 1024 with two views)
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float* out = (i == 0 ? v0 : v1) + row * C;
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) {
+      if (k == NPL - 1 && !tail) continue;
+      float o[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        o[e] = (to_f32(xv[k].v[e]) - mu) * rstd * (1.0f + to_f32(sv[i][k].v[e])) +
+               to_f32(bv[i][k].v[e]);
+      store_f32<V>(out + (lane + 32 * k) * V, o);
+    }
   }
   if (lane == 0) {
     mean_out[row] = mu;
@@ -313,6 +390,20 @@ int launch_ln_fwd(const void* x, const void* s0, const void* b0, const void* s1,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int C>
+int launch_ln_fwd_rows(const void* x, const void* s0, const void* b0, const void* s1,
+                       const void* b1, void* v0, void* v1, void* mean, void* rstd, int64_t rows,
+                       int L, int64_t mod_stride, int nviews, float eps, cudaStream_t stream) {
+  const int64_t blocks = (rows + kRowWarps - 1) / kRowWarps;
+  auto kernel = nviews == 2 ? ln_mod_fwd_rows_kernel<T, C, 2> : ln_mod_fwd_rows_kernel<T, C, 1>;
+  kernel<<<blocks, kRowWarps * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(s0), static_cast<const T*>(b0),
+      static_cast<const T*>(s1), static_cast<const T*>(b1), static_cast<float*>(v0),
+      static_cast<float*>(v1), static_cast<float*>(mean), static_cast<float*>(rstd), rows, L,
+      mod_stride, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int ln_fwd_typed(const void* x, const void* s0, const void* b0, const void* s1, const void* b1,
                  void* v0, void* v1, void* mean, void* rstd, int64_t rows, int L, int C,
@@ -321,6 +412,21 @@ int ln_fwd_typed(const void* x, const void* s0, const void* b0, const void* s1, 
   const bool vec = C % V == 0 && mod_stride % V == 0 && aligned16(x) && aligned16(s0) &&
                    aligned16(b0) && aligned16(s1) && aligned16(b1) && aligned16(v0) &&
                    aligned16(v1);
+  // the DiT family's widths (DiT-S, -B, -L, -XL) take the compile-time rows
+#define FLAXDIFF_LN_ROWS(WIDTH)                                                               \
+  case WIDTH:                                                                                 \
+    return launch_ln_fwd_rows<T, WIDTH>(x, s0, b0, s1, b1, v0, v1, mean, rstd, rows, L,       \
+                                        mod_stride, nviews, eps, stream);
+  if (vec) {
+    switch (C) {
+      FLAXDIFF_LN_ROWS(384)
+      FLAXDIFF_LN_ROWS(768)
+      FLAXDIFF_LN_ROWS(1024)
+      FLAXDIFF_LN_ROWS(1152)
+      default: break;
+    }
+  }
+#undef FLAXDIFF_LN_ROWS
   if (vec) {
     return launch_ln_fwd<T, V>(x, s0, b0, s1, b1, v0, v1, mean, rstd, rows, L, C, mod_stride,
                                nviews, eps, stream);

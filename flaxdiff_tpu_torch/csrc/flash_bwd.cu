@@ -991,6 +991,558 @@ int dispatch(const Params& p, int batch, int d, int dtype, bool dq, void* stream
   }
 }
 
+// --- head dims above 256: the column-chunked (wide) kernels -------------------
+//
+// Also replace `_bwd_dq_kernel` (flash_attention.py:132) and
+// `_bwd_dkv_kernel` (:171) at head dims the reference pads to a multiple of
+// 128. As in flash_fwd.cu's wide forward, a 64-row f32 gradient of D > 256
+// columns does not fit one warpgroup, so the grid gets a third dimension
+// over column chunks of the gradients (WIDE_COLS_16 = 128 columns for
+// bf16/f16, WIDE_COLS_F32 = 64 for f32). Every block recomputes both score
+// tiles, s = q k^T and dp = dO v^T (transposed for dk/dv), over the full head
+// dim, summed WIDE_CHUNK = 64 columns at a time through shared memory, then
+// p and ds as the D <= 256 kernels do, and keeps only its own columns of dq,
+// or of dk and dv. Nothing in shared memory has the head dim as a dimension.
+// The same split as there (a dq block per q tile, a dk/dv block per kv tile,
+// fixed loop orders, no atomics): the gradients are deterministic.
+//
+// flash_bwd_dq_wide_wgmma_kernel / flash_bwd_dkv_wide_wgmma_kernel (bf16,
+// f16): one warpgroup; q, k, dO and v chunks stream through a 2-stage TMA
+// ring, thread 0 issuing chunk u + 2 once every warp has read chunk u; the
+// tile the gradient product reads (k's columns for dq; q's and dO's for
+// dk/dv) arrives on its own barrier. dk/dv takes 32-row q tiles, so its
+// scores (16 + 16 registers) fit beside dk and dv (64 + 64).
+//
+// flash_bwd_dq_wide_fma_kernel / flash_bwd_dkv_wide_fma_kernel (f32): the
+// D = 64 FMA kernels with their tiles loaded 64 columns at a time, the
+// scores summed across them, and the gradient product's tile the block's 64
+// columns.
+
+struct WideBwdCfg {
+  static constexpr int B_OWN = 64;   // rows of the block's own tile (q for dq, kv for dk/dv)
+  static constexpr int BK_DQ = 64;   // kv rows a tile of the dq loop
+  static constexpr int BQ_DKV = 32;  // q rows a tile of the dk/dv loop
+  static constexpr int W = WIDE_COLS_16, CH = WIDE_CHUNK;
+  static constexpr int THREADS = 128;
+  static constexpr int ROW_BYTES = CH * 2;  // one row of a 64-column chunk
+};
+
+struct WideBwdArgs {
+  const float* lse;    // [B*H, Lq]
+  const float* delta;  // [B*H, Lq]
+  int heads, lq, lk, d;
+  float scale, scale_log2;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(WideBwdCfg::THREADS)
+    flash_bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                                   const __grid_constant__ CUtensorMap mk,
+                                   const __grid_constant__ CUtensorMap mv,
+                                   const __grid_constant__ CUtensorMap mdo,
+                                   const __grid_constant__ CUtensorMap mdq, const WideBwdArgs a) {
+  using C = WideBwdCfg;
+  using namespace hopper;
+  constexpr int BM = C::B_OWN, BK = C::BK_DQ, W = C::W, CH = C::CH;
+  // a stage: chunks of q [BM], k [BK], dO [BM], v [BK]; then k's W columns [BK]
+  constexpr int Q_BYTES = BM * C::ROW_BYTES, K_BYTES = BK * C::ROW_BYTES;
+  constexpr int STAGE_BYTES = 2 * Q_BYTES + 2 * K_BYTES;
+  constexpr int OFF_KW = STAGES * STAGE_BYTES;
+  constexpr int OFF_BAR = OFF_KW + BK * W * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  unsigned char* sKw = sm + OFF_KW;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + OFF_BAR);
+  uint64_t* bar_w = full + STAGES;
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.heads, h = bh - b * a.heads;
+  const int q0 = blockIdx.x * BM, col0 = blockIdx.z * W;
+  const int nd = a.d / CH;
+  const int n_tiles = (a.lk + BK - 1) / BK;
+  const int total = n_tiles * nd;
+  const int wboxes = col0 + CH < a.d ? 2 : 1;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init(bar_w, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto issue = [&](int u) {
+    const int st = u % STAGES, t = u / nd, c = (u - t * nd) * CH;
+    unsigned char* s = sm + st * STAGE_BYTES;
+    mbar_arrive_expect_tx(&full[st], STAGE_BYTES);
+    tma_load_4d(s, &mq, &full[st], c, h, q0, b);
+    tma_load_4d(s + Q_BYTES, &mk, &full[st], c, h, t * BK, b);
+    tma_load_4d(s + Q_BYTES + K_BYTES, &mdo, &full[st], c, h, q0, b);
+    tma_load_4d(s + 2 * Q_BYTES + K_BYTES, &mv, &full[st], c, h, t * BK, b);
+  };
+  auto issue_w = [&](int t) {
+    mbar_arrive_expect_tx(bar_w, wboxes * K_BYTES);
+    for (int j = 0; j < wboxes; ++j)
+      tma_load_4d(sKw + j * K_BYTES, &mk, bar_w, col0 + j * CH, h, t * BK, b);
+  };
+  if (tid == 0) {
+    for (int u = 0; u < STAGES && u < total; ++u) issue(u);
+    issue_w(0);
+  }
+
+  // a thread holds rows 16 warp + g and 16 warp + g + 8 of the q tile
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + 16 * warp + g + 8 * j;
+    const bool ok = row < a.lq;
+    const int64_t at = static_cast<int64_t>(bh) * a.lq + row;
+    lse2[j] = ok ? a.lse[at] * LOG2E : 0.f;
+    delta[j] = ok ? a.delta[at] : 0.f;
+  }
+  float dq[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) dq[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    float s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+    for (int c = 0; c < nd; ++c) {
+      const int u = t * nd + c, st = u % STAGES;
+      const unsigned char* sQ = sm + st * STAGE_BYTES;
+      const unsigned char* sK = sQ + Q_BYTES;
+      const unsigned char* sDO = sK + K_BYTES;
+      const unsigned char* sV = sDO + Q_BYTES;
+      mbar_wait(&full[st], (u / STAGES) & 1);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CH / 16; ++kk)
+        wgmma_ss<BK, T>(s, desc_kmajor<CH>(sQ, BM, 0, kk), desc_kmajor<CH>(sK, BK, 0, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < CH / 16; ++kk)
+        wgmma_ss<BK, T>(dp, desc_kmajor<CH>(sDO, BM, 0, kk), desc_kmajor<CH>(sV, BK, 0, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      __syncthreads();  // every warp is done reading stage st
+      if (tid == 0 && u + STAGES < total) issue(u + STAGES);
+    }
+
+    // p and ds as the D <= 256 kernel computes them
+    const bool edge = (t + 1) * BK > a.lk;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const bool kv_ok = !edge || t * BK + 8 * n + 2 * tq + cc < a.lk;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int i = 4 * n + 2 * j + cc;
+          float p = exp2f(fmaf(s[i], a.scale_log2, -lse2[j]));
+          if (!kv_ok) p = 0.f;
+          dp[i] = p * (dp[i] - delta[j]) * a.scale;
+        }
+      }
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<T>(dp, kk, da[kk]);
+
+    // dq += ds k[:, col0 ..]: A from registers, k's columns MN-major
+    mbar_wait(bar_w, t & 1);
+    fence_regs(dq);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<W, T>(dq, da[kk], desc_mnmajor<W>(sKw, BK, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    __syncthreads();  // every warp is done reading k's columns
+    if (tid == 0 && t + 1 < n_tiles) issue_w(t + 1);
+  }
+
+  // epilogue: dq into the consumed column tile, then TMA stores of the
+  // block's boxes, which skip rows at or past lq
+  acc_to_tile<T, W>(dq, sKw, BM, 0, warp, g, tq);
+  fence_async_smem();
+  __syncthreads();
+  if (tid == 0) {
+    for (int j = 0; j < wboxes; ++j)
+      tma_store_4d(&mdq, sKw + j * BM * C::ROW_BYTES, col0 + j * CH, h, q0, b);
+    tma_store_wait();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WideBwdCfg::THREADS)
+    flash_bwd_dkv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                                    const __grid_constant__ CUtensorMap mk,
+                                    const __grid_constant__ CUtensorMap mv,
+                                    const __grid_constant__ CUtensorMap mdo,
+                                    const __grid_constant__ CUtensorMap mdk,
+                                    const __grid_constant__ CUtensorMap mdv, const WideBwdArgs a) {
+  using C = WideBwdCfg;
+  using namespace hopper;
+  constexpr int BKV = C::B_OWN, BQT = C::BQ_DKV, W = C::W, CH = C::CH;
+  // a stage: chunks of k [BKV], v [BKV], q [BQT], dO [BQT]; then q's and dO's
+  // W columns [BQT]
+  constexpr int KV_BYTES = BKV * C::ROW_BYTES, QT_BYTES = BQT * C::ROW_BYTES;
+  constexpr int STAGE_BYTES = 2 * KV_BYTES + 2 * QT_BYTES;
+  constexpr int OFF_QW = STAGES * STAGE_BYTES;
+  constexpr int OFF_DOW = OFF_QW + BQT * W * 2;
+  constexpr int OFF_BAR = OFF_DOW + BQT * W * 2;
+  static_assert(OFF_QW >= 2 * BKV * W * 2, "the ring holds the dk and dv tiles of the epilogue");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  unsigned char* sQw = sm + OFF_QW;
+  unsigned char* sDOw = sm + OFF_DOW;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + OFF_BAR);
+  uint64_t* bar_w = full + STAGES;
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.heads, h = bh - b * a.heads;
+  const int k0 = blockIdx.x * BKV, col0 = blockIdx.z * W;
+  const int nd = a.d / CH;
+  const int n_tiles = (a.lq + BQT - 1) / BQT;
+  const int total = n_tiles * nd;
+  const int wboxes = col0 + CH < a.d ? 2 : 1;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init(bar_w, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto issue = [&](int u) {
+    const int st = u % STAGES, t = u / nd, c = (u - t * nd) * CH;
+    unsigned char* s = sm + st * STAGE_BYTES;
+    mbar_arrive_expect_tx(&full[st], STAGE_BYTES);
+    tma_load_4d(s, &mk, &full[st], c, h, k0, b);
+    tma_load_4d(s + KV_BYTES, &mv, &full[st], c, h, k0, b);
+    tma_load_4d(s + 2 * KV_BYTES, &mq, &full[st], c, h, t * BQT, b);
+    tma_load_4d(s + 2 * KV_BYTES + QT_BYTES, &mdo, &full[st], c, h, t * BQT, b);
+  };
+  auto issue_w = [&](int t) {
+    mbar_arrive_expect_tx(bar_w, 2 * wboxes * QT_BYTES);
+    for (int j = 0; j < wboxes; ++j) {
+      tma_load_4d(sQw + j * QT_BYTES, &mq, bar_w, col0 + j * CH, h, t * BQT, b);
+      tma_load_4d(sDOw + j * QT_BYTES, &mdo, bar_w, col0 + j * CH, h, t * BQT, b);
+    }
+  };
+  if (tid == 0) {
+    for (int u = 0; u < STAGES && u < total; ++u) issue(u);
+    issue_w(0);
+  }
+
+  // scores transposed: accumulator row = kv row, column = q row of the tile
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  bool kv_ok[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) kv_ok[j] = k0 + 16 * warp + g + 8 * j < a.lk;
+  float dk[W / 2], dv[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  const int64_t row_base = static_cast<int64_t>(bh) * a.lq;
+  for (int t = 0; t < n_tiles; ++t) {
+    // lse (log2 units) and delta of this thread's q columns, 0 past lq,
+    // read while the tile's score chunks arrive
+    float lse2[BQT / 4], dlt[BQT / 4];
+#pragma unroll
+    for (int n = 0; n < BQT / 8; ++n)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int row = t * BQT + 8 * n + 2 * tq + cc;
+        const bool ok = row < a.lq;
+        lse2[2 * n + cc] = ok ? a.lse[row_base + row] * LOG2E : 0.f;
+        dlt[2 * n + cc] = ok ? a.delta[row_base + row] : 0.f;
+      }
+    float s[BQT / 2], dp[BQT / 2];
+#pragma unroll
+    for (int i = 0; i < BQT / 2; ++i) s[i] = dp[i] = 0.f;
+    for (int c = 0; c < nd; ++c) {
+      const int u = t * nd + c, st = u % STAGES;
+      const unsigned char* sK = sm + st * STAGE_BYTES;
+      const unsigned char* sV = sK + KV_BYTES;
+      const unsigned char* sQ = sV + KV_BYTES;
+      const unsigned char* sDO = sQ + QT_BYTES;
+      mbar_wait(&full[st], (u / STAGES) & 1);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CH / 16; ++kk)
+        wgmma_ss<BQT, T>(s, desc_kmajor<CH>(sK, BKV, 0, kk), desc_kmajor<CH>(sQ, BQT, 0, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < CH / 16; ++kk)
+        wgmma_ss<BQT, T>(dp, desc_kmajor<CH>(sV, BKV, 0, kk), desc_kmajor<CH>(sDO, BQT, 0, kk),
+                         1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      __syncthreads();  // every warp is done reading stage st
+      if (tid == 0 && u + STAGES < total) issue(u + STAGES);
+    }
+
+    // p^T and ds^T as the D <= 256 kernel computes them
+    const bool edge = (t + 1) * BQT > a.lq;
+#pragma unroll
+    for (int n = 0; n < BQT / 8; ++n)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int col = 8 * n + 2 * tq + cc;
+        const bool q_ok = !edge || t * BQT + col < a.lq;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int i = 4 * n + 2 * j + cc;
+          float p = exp2f(fmaf(s[i], a.scale_log2, -lse2[2 * n + cc]));
+          if (!(q_ok && kv_ok[j])) p = 0.f;
+          s[i] = p;
+          dp[i] = p * (dp[i] - dlt[2 * n + cc]) * a.scale;
+        }
+      }
+    uint32_t pa[BQT / 16][4], da[BQT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk) {
+      acc_to_a<T>(s, kk, pa[kk]);
+      acc_to_a<T>(dp, kk, da[kk]);
+    }
+
+    // dv += p^T dO[:, col0 ..] and dk += ds^T q[:, col0 ..]
+    mbar_wait(bar_w, t & 1);
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk)
+      wgmma_rs<W, T>(dv, pa[kk], desc_mnmajor<W>(sDOw, BQT, kk));
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk)
+      wgmma_rs<W, T>(dk, da[kk], desc_mnmajor<W>(sQw, BQT, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncthreads();  // every warp is done reading the column tiles
+    if (tid == 0 && t + 1 < n_tiles) issue_w(t + 1);
+  }
+
+  // epilogue: dk and dv into the (idle) ring, then TMA stores of the block's
+  // boxes, which skip rows at or past lk
+  unsigned char* sDK = sm;
+  unsigned char* sDV = sm + BKV * W * 2;
+  acc_to_tile<T, W>(dk, sDK, BKV, 0, warp, g, tq);
+  acc_to_tile<T, W>(dv, sDV, BKV, 0, warp, g, tq);
+  fence_async_smem();
+  __syncthreads();
+  if (tid == 0) {
+    for (int j = 0; j < wboxes; ++j) {
+      tma_store_4d(&mdk, sDK + j * BKV * C::ROW_BYTES, col0 + j * CH, h, k0, b);
+      tma_store_4d(&mdv, sDV + j * BKV * C::ROW_BYTES, col0 + j * CH, h, k0, b);
+    }
+    tma_store_wait();
+  }
+}
+
+template <typename T>
+int launch_wide_wgmma(const Params& p, const WideBwdArgs& args, int batch, int dtype, bool dq,
+                      cudaStream_t stream) {
+  using C = WideBwdCfg;
+  using hopper::encode_bhld_wide;
+  const int d = args.d;
+  // q-side maps in boxes of the q rows a tile of the kernel takes
+  const int q_rows = dq ? C::B_OWN : C::BQ_DKV, kv_rows = dq ? C::BK_DQ : C::B_OWN;
+  CUtensorMap mq, mk, mv, mdo, mg0, mg1;
+  const int g_len = dq ? p.lq : p.lk, g_rows = C::B_OWN;
+  int r = encode_bhld_wide(&mq, p.q, dtype, batch, p.lq, p.heads, d, p.q_sb, p.q_sl, p.q_sh, q_rows);
+  if (r == 0) r = encode_bhld_wide(&mdo, p.dout, dtype, batch, p.lq, p.heads, d, p.do_sb, p.do_sl, p.do_sh, q_rows);
+  if (r == 0) r = encode_bhld_wide(&mk, p.k, dtype, batch, p.lk, p.heads, d, p.k_sb, p.k_sl, p.k_sh, kv_rows);
+  if (r == 0) r = encode_bhld_wide(&mv, p.v, dtype, batch, p.lk, p.heads, d, p.v_sb, p.v_sl, p.v_sh, kv_rows);
+  if (r == 0) r = encode_bhld_wide(&mg0, p.g0, dtype, batch, g_len, p.heads, d, p.g_sb, p.g_sl, p.g_sh, g_rows);
+  if (r == 0 && !dq) r = encode_bhld_wide(&mg1, p.g1, dtype, batch, g_len, p.heads, d, p.g_sb, p.g_sl, p.g_sh, g_rows);
+  if (r != 0) return hopper::kTensorMapError + r;
+  constexpr int RING_DQ = STAGES * (2 * C::B_OWN + 2 * C::BK_DQ) * C::ROW_BYTES;
+  constexpr int RING_DKV = STAGES * (2 * C::B_OWN + 2 * C::BQ_DKV) * C::ROW_BYTES;
+  const int bytes = dq ? RING_DQ + C::BK_DQ * C::W * 2 + 8 * (STAGES + 1) + 1024
+                       : RING_DKV + 2 * C::BQ_DKV * C::W * 2 + 8 * (STAGES + 1) + 1024;
+  const dim3 grid((g_len + C::B_OWN - 1) / C::B_OWN, batch * p.heads, (d + C::W - 1) / C::W);
+  cudaError_t err;
+  if (dq) {
+    auto kernel = flash_bwd_dq_wide_wgmma_kernel<T>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, C::THREADS, bytes, stream>>>(mq, mk, mv, mdo, mg0, args);
+  } else {
+    auto kernel = flash_bwd_dkv_wide_wgmma_kernel<T>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, C::THREADS, bytes, stream>>>(mq, mk, mv, mdo, mg0, mg1, args);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_wide_fma_kernel(const Params p, int d) {
+  static_assert(kIsF32<T>, "the 16-bit types take flash_bwd_dq_wide_wgmma_kernel");
+  constexpr int D = WIDE_CHUNK;  // the tiles' columns: a score chunk, or the block's dq
+  using S = Smem<T, D>;
+  constexpr int RW = S::RW, BR = S::BR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  Views<T, D> sm(smem, warp);
+  T *sQ = sm.own[0], *sDO = sm.own[1], *sK = sm.stream[0], *sV = sm.stream[1];
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads, h = bh - b * p.heads;
+  const int q0 = blockIdx.x * BR, col0 = blockIdx.z * WIDE_COLS_F32;
+  const int nd = d / D;
+  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* DO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  T* DQ = static_cast<T*>(p.g0) + b * p.g_sb + h * p.g_sh + col0;
+
+  load_rows(sm.lse, sm.delta, p, bh, q0);
+  WarpAcc<T, D> dq;
+  dq.zero();
+  const int n_tiles = (p.lk + TILE - 1) / TILE;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * TILE;
+    for (int c = 0; c < nd; ++c) {
+      __syncthreads();  // every warp is done with the previous tiles
+      load_tile<T, D, BR>(sQ, Q + c * D, p.q_sl, q0, p.lq);
+      load_tile<T, D, BR>(sDO, DO + c * D, p.do_sl, q0, p.lq);
+      load_tile<T, D>(sK, K + c * D, p.k_sl, k0, p.lk);
+      load_tile<T, D>(sV, V + c * D, p.v_sl, k0, p.lk);
+      __syncthreads();
+      scores<T, D>(sQ + warp * RW * S::LD_T, sK, sm.s, lane, c > 0);
+      scores<T, D>(sDO + warp * RW * S::LD_T, sV, sm.dp, lane, c > 0);
+    }
+    __syncwarp();
+    for (int rr = 0; rr < RW; ++rr) {
+      const float lse = sm.lse[warp * RW + rr], delta = sm.delta[warp * RW + rr];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int at = rr * LD_S + lane + 32 * half;
+        float ds = 0.f;
+        if (k0 + lane + 32 * half < p.lk) {
+          const float pr = expf(sm.s[at] * p.scale - lse);
+          ds = pr * (sm.dp[at] - delta) * p.scale;
+        }
+        sm.dp[at] = ds;
+      }
+    }
+    __syncthreads();  // every warp is done with the last k chunk
+    load_tile<T, D>(sK, K + col0, p.k_sl, k0, p.lk);
+    __syncthreads();
+    dq.add_product(sm.dp, sK, lane);
+  }
+  dq.write_rows(DQ, p.g_sl, q0 + warp * RW, p.lq, lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_wide_fma_kernel(const Params p, int d) {
+  static_assert(kIsF32<T>, "the 16-bit types take flash_bwd_dkv_wide_wgmma_kernel");
+  constexpr int D = WIDE_CHUNK;
+  using S = Smem<T, D>;
+  constexpr int RW = S::RW, BR = S::BR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  Views<T, D> sm(smem, warp);
+  T *sK = sm.own[0], *sV = sm.own[1], *sQ = sm.stream[0], *sDO = sm.stream[1];
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads, h = bh - b * p.heads;
+  const int k0 = blockIdx.x * BR, col0 = blockIdx.z * WIDE_COLS_F32;
+  const int nd = d / D;
+  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* DO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  T* DK = static_cast<T*>(p.g0) + b * p.g_sb + h * p.g_sh + col0;
+  T* DV = static_cast<T*>(p.g1) + b * p.g_sb + h * p.g_sh + col0;
+
+  WarpAcc<T, D> dk, dv;
+  dk.zero();
+  dv.zero();
+  const int kv_row0 = k0 + warp * RW;
+  const int n_tiles = (p.lq + TILE - 1) / TILE;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = t * TILE;
+    for (int c = 0; c < nd; ++c) {
+      __syncthreads();  // every warp is done with the previous tiles
+      load_tile<T, D, BR>(sK, K + c * D, p.k_sl, k0, p.lk);
+      load_tile<T, D, BR>(sV, V + c * D, p.v_sl, k0, p.lk);
+      load_tile<T, D>(sQ, Q + c * D, p.q_sl, q0, p.lq);
+      load_tile<T, D>(sDO, DO + c * D, p.do_sl, q0, p.lq);
+      if (c == 0) load_rows(sm.lse, sm.delta, p, bh, q0);
+      __syncthreads();
+      // transposed: row rr is kv row kv_row0 + rr, column is q row q0 + column
+      scores<T, D>(sK + warp * RW * S::LD_T, sQ, sm.s, lane, c > 0);
+      scores<T, D>(sV + warp * RW * S::LD_T, sDO, sm.dp, lane, c > 0);
+    }
+    __syncwarp();
+    for (int rr = 0; rr < RW; ++rr) {
+      const bool kv_ok = kv_row0 + rr < p.lk;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = lane + 32 * half, at = rr * LD_S + col;
+        float pr = 0.f, ds = 0.f;
+        if (kv_ok && q0 + col < p.lq) {
+          pr = expf(sm.s[at] * p.scale - sm.lse[col]);
+          ds = pr * (sm.dp[at] - sm.delta[col]) * p.scale;
+        }
+        sm.s[at] = pr;
+        sm.dp[at] = ds;
+      }
+    }
+    __syncthreads();  // every warp is done with the last q and dO chunks
+    load_tile<T, D>(sQ, Q + col0, p.q_sl, q0, p.lq);
+    load_tile<T, D>(sDO, DO + col0, p.do_sl, q0, p.lq);
+    __syncthreads();
+    dv.add_product(sm.s, sDO, lane);
+    dk.add_product(sm.dp, sQ, lane);
+  }
+  dk.write_rows(DK, p.g_sl, kv_row0, p.lk, lane);
+  dv.write_rows(DV, p.g_sl, kv_row0, p.lk, lane);
+}
+
+int dispatch_wide(const Params& p, int batch, int d, int dtype, bool dq, void* stream) {
+  if (p.lq <= 0 || p.lk <= 0 || batch <= 0 || p.heads <= 0 || d < WIDE_MIN_D ||
+      d % WIDE_CHUNK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const WideBwdArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, d, p.scale, p.scale * LOG2E};
+  switch (dtype) {
+    case kFloat32: {
+      using S = Smem<float, WIDE_CHUNK>;
+      auto kernel = dq ? flash_bwd_dq_wide_fma_kernel<float> : flash_bwd_dkv_wide_fma_kernel<float>;
+      cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const dim3 grid(((dq ? p.lq : p.lk) + S::BR - 1) / S::BR, batch * p.heads,
+                      d / WIDE_COLS_F32);
+      kernel<<<grid, NTHREADS, S::BYTES, s>>>(p, d);
+      return static_cast<int>(cudaGetLastError());
+    }
+    case kBFloat16: return launch_wide_wgmma<__nv_bfloat16>(p, args, batch, dtype, dq, s);
+    case kFloat16: return launch_wide_wgmma<__half>(p, args, batch, dtype, dq, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -1017,4 +1569,32 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                  q_sh, k_sb, k_sl, k_sh, v_sb,  v_sl,  v_sh, do_sb, do_sl, do_sh,
                  g_sb, g_sl, g_sh, heads, lq,   lk,    scale};
   return dispatch(p, batch, d, dtype, false, stream);
+}
+
+// Head dims above 256, a multiple of 64 (the wide kernels): the same
+// arguments as flash_bwd_dq and flash_bwd_dkv.
+extern "C" int flash_bwd_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                                 const float* lse, const float* delta, void* dq, int64_t q_sb,
+                                 int64_t q_sl, int64_t q_sh, int64_t k_sb, int64_t k_sl,
+                                 int64_t k_sh, int64_t v_sb, int64_t v_sl, int64_t v_sh,
+                                 int64_t do_sb, int64_t do_sl, int64_t do_sh, int64_t g_sb,
+                                 int64_t g_sl, int64_t g_sh, int batch, int heads, int lq, int lk,
+                                 int d, float scale, int dtype, void* stream) {
+  const Params p{q,    k,    v,    dout, lse,   delta, dq,   nullptr, q_sb,  q_sl,
+                 q_sh, k_sb, k_sl, k_sh, v_sb,  v_sl,  v_sh, do_sb,   do_sl, do_sh,
+                 g_sb, g_sl, g_sh, heads, lq,   lk,    scale};
+  return dispatch_wide(p, batch, d, dtype, true, stream);
+}
+
+extern "C" int flash_bwd_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                                  const float* lse, const float* delta, void* dk, void* dv,
+                                  int64_t q_sb, int64_t q_sl, int64_t q_sh, int64_t k_sb,
+                                  int64_t k_sl, int64_t k_sh, int64_t v_sb, int64_t v_sl,
+                                  int64_t v_sh, int64_t do_sb, int64_t do_sl, int64_t do_sh,
+                                  int64_t g_sb, int64_t g_sl, int64_t g_sh, int batch, int heads,
+                                  int lq, int lk, int d, float scale, int dtype, void* stream) {
+  const Params p{q,    k,    v,    dout, lse,   delta, dk,   dv,    q_sb,  q_sl,
+                 q_sh, k_sb, k_sl, k_sh, v_sb,  v_sl,  v_sh, do_sb, do_sl, do_sh,
+                 g_sb, g_sl, g_sh, heads, lq,   lk,    scale};
+  return dispatch_wide(p, batch, d, dtype, false, stream);
 }

@@ -24,6 +24,17 @@ constexpr int LD_S = TILE + 4;  // leading dimension of f32 RW x TILE scores
 
 constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
 
+// Head dims above 256 (any multiple of 64) take the wide kernels: the grid
+// has a third dimension over column chunks of the output, WIDE_COLS_16
+// columns a block for bf16/f16 (a 64 x 128 f32 accumulator, 64 registers a
+// thread) and WIDE_COLS_F32 for f32 (the FMA kernels' D = 64 tiles), and
+// every block sums its score tiles over the head dim WIDE_CHUNK columns at
+// a time (flaxdiff_tpu_torch/ops/flash_attention.py mirrors these).
+constexpr int WIDE_CHUNK = 64;
+constexpr int WIDE_COLS_16 = 128;
+constexpr int WIDE_COLS_F32 = 64;
+constexpr int WIDE_MIN_D = 320;
+
 // Rows a warp owns of the block's own tile (q rows, or kv rows for dk/dv).
 template <int D>
 __host__ __device__ constexpr int warp_rows() { return D == 256 ? 8 : 16; }
@@ -65,9 +76,11 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride_l
 
 // s[RW x TILE] = a[RW x D] . b[TILE x D]^T for one warp: a is the warp's RW
 // rows of a tile, b a whole tile (both row-major, leading dimension
-// ld_tile), s with leading dimension LD_S.
+// ld_tile), s with leading dimension LD_S. With `accumulate`, s += instead:
+// the wide kernels sum the scores over the head dim 64 columns at a time.
 template <typename T, int D>
-__device__ __forceinline__ void scores(const T* a, const T* b, float* s, int lane) {
+__device__ __forceinline__ void scores(const T* a, const T* b, float* s, int lane,
+                                       bool accumulate = false) {
   static_assert(kIsF32<T>, "the 16-bit types run on wgmma");
   constexpr int LD = ld_tile<T, D>();
   for (int rr = 0; rr < warp_rows<D>(); ++rr) {
@@ -75,7 +88,7 @@ __device__ __forceinline__ void scores(const T* a, const T* b, float* s, int lan
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const float* brow = b + (lane + 32 * half) * LD;
-      float acc = 0.f;
+      float acc = accumulate ? s[rr * LD_S + lane + 32 * half] : 0.f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d) acc = fmaf(arow[d], brow[d], acc);
       s[rr * LD_S + lane + 32 * half] = acc;

@@ -469,6 +469,361 @@ int dispatch_dtype(const Params& p, int batch, int dtype, cudaStream_t s) {
   }
 }
 
+// --- head dims above 256: the column-chunked (wide) kernels -------------------
+//
+// Also replace `_fwd_kernel` (flash_attention.py:78), which the reference
+// runs at any head dim padded to a multiple of 128. A 64-row f32 output of
+// D > 256 columns does not fit one warpgroup's registers, so the grid gets a
+// third dimension over column chunks of the output (WIDE_COLS_16 = 128
+// columns for bf16/f16, WIDE_COLS_F32 = 64 for f32; a last chunk of 64 where
+// D % 128 == 64). Every block recomputes the whole score tile over the full
+// head dim, summed WIDE_CHUNK = 64 columns at a time through shared memory:
+// nothing in shared memory has the head dim as a dimension, so every D fits.
+// It keeps only its own columns of the output. The blocks of one q tile do
+// the same arithmetic in the same order, so their row max, row sum and lse
+// are bit-equal: chunk 0 writes lse (with lse_chunk_stride != 0 every chunk
+// writes its own copy, for the test that holds them equal). Each block does
+// the whole score work, (D / W) x the forward's flops in all: a kernel that
+// is right before it is fast.
+//
+// flash_fwd_wide_wgmma_kernel (bf16, f16): one warpgroup of 64 q rows. The
+// score chunks (q and k, 64 columns each) stream through a 2-stage ring by
+// TMA, thread 0 issuing chunk u + 2 once every warp has read chunk u; the
+// V tile of the block's columns arrives on its own barrier while the next
+// tile's scores run. s = q k^T is D / 16 wgmma in chunks of four (D = 64's
+// K-major layout), the online softmax is the D <= 256 kernel's, and o += p v
+// is four wgmma of N = 128 with p from registers (D = 128's MN-major layout).
+//
+// flash_fwd_wide_fma_kernel (f32): the f32 kernel at D = 64 (4 warps of 16
+// q rows, FMA loops), its q and k tiles loaded 64 columns at a time with the
+// scores summed across them, and v's tile the block's 64 columns.
+
+struct WideArgs {
+  float* lse;  // [B*H, Lq] (x chunks with lse_chunk_stride) or nullptr
+  int64_t lse_chunk_stride;
+  int heads, lq, lk, d;
+  float scale_log2;
+};
+
+struct WideFwdCfg {
+  static constexpr int BM = 64, BN = 64, W = WIDE_COLS_16, CH = WIDE_CHUNK;
+  static constexpr int THREADS = 128;
+  static constexpr int CHUNK_BYTES = 64 * CH * 2;      // a 64-row, 64-column tile
+  static constexpr int STAGE_BYTES = 2 * CHUNK_BYTES;  // q and k
+  static constexpr int OFF_V = STAGES * STAGE_BYTES;
+  static constexpr int OFF_BAR = OFF_V + BN * W * 2;
+  static constexpr int BYTES = OFF_BAR + 8 * (STAGES + 1) + 1024;  // + base alignment
+};
+
+template <typename T>
+__global__ void __launch_bounds__(WideFwdCfg::THREADS)
+    flash_fwd_wide_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                                const __grid_constant__ CUtensorMap mk,
+                                const __grid_constant__ CUtensorMap mv,
+                                const __grid_constant__ CUtensorMap mo, const WideArgs a) {
+  using C = WideFwdCfg;
+  using namespace hopper;
+  constexpr int BM = C::BM, BN = C::BN, W = C::W, CH = C::CH;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  unsigned char* sV = sm + C::OFF_V;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* bar_v = full + STAGES;
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.heads, h = bh - b * a.heads;
+  const int q0 = blockIdx.x * BM, col0 = blockIdx.z * W;
+  const int nd = a.d / CH;
+  const int n_tiles = (a.lk + BN - 1) / BN;
+  const int total = n_tiles * nd;
+  // the block's output columns as 64-column boxes: one where they pass D
+  const int vboxes = col0 + CH < a.d ? 2 : 1;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init(bar_v, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // score chunk u: kv tile u / nd, head-dim columns 64 (u % nd) ..
+  auto issue = [&](int u) {
+    const int st = u % STAGES, t = u / nd, c = (u - t * nd) * CH;
+    unsigned char* s = sm + st * C::STAGE_BYTES;
+    mbar_arrive_expect_tx(&full[st], C::STAGE_BYTES);
+    tma_load_4d(s, &mq, &full[st], c, h, q0, b);
+    tma_load_4d(s + C::CHUNK_BYTES, &mk, &full[st], c, h, t * BN, b);
+  };
+  // kv tile t of V, the block's columns (a skipped box leaves columns that
+  // only feed output columns past D, which are never stored)
+  auto issue_v = [&](int t) {
+    mbar_arrive_expect_tx(bar_v, vboxes * BN * CH * 2);
+    for (int j = 0; j < vboxes; ++j)
+      tma_load_4d(sV + j * BN * CH * 2, &mv, bar_v, col0 + j * CH, h, t * BN, b);
+  };
+  if (tid == 0) {
+    for (int u = 0; u < STAGES && u < total; ++u) issue(u);
+    issue_v(0);
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  float o[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // m in log2 units
+
+  for (int t = 0; t < n_tiles; ++t) {
+    float s[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+    for (int c = 0; c < nd; ++c) {
+      const int u = t * nd + c, st = u % STAGES;
+      const unsigned char* sQ = sm + st * C::STAGE_BYTES;
+      const unsigned char* sK = sQ + C::CHUNK_BYTES;
+      mbar_wait(&full[st], (u / STAGES) & 1);
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CH / 16; ++kk)
+        wgmma_ss<BN, T>(s, desc_kmajor<CH>(sQ, BM, 0, kk), desc_kmajor<CH>(sK, BN, 0, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      __syncthreads();  // every warp is done reading stage st
+      if (tid == 0 && u + STAGES < total) issue(u + STAGES);
+    }
+
+    // the D <= 256 kernel's online softmax, in log2 units
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] *= a.scale_log2;
+    if ((t + 1) * BN > a.lk) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int col = t * BN + 8 * (i / 4) + 2 * tq + (i % 2);
+        if (col >= a.lk) s[i] = NEG_INF;
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float mx = m[j];
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) mx = fmaxf(mx, fmaxf(s[4 * n + 2 * j], s[4 * n + 2 * j + 1]));
+      mx = quad_max(mx);
+      alpha[j] = exp2f(m[j] - mx);
+      m[j] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+        s[4 * n + 2 * j] = exp2f(s[4 * n + 2 * j] - mx);
+        s[4 * n + 2 * j + 1] = exp2f(s[4 * n + 2 * j + 1] - mx);
+        sum += s[4 * n + 2 * j] + s[4 * n + 2 * j + 1];
+      }
+      l[j] = l[j] * alpha[j] + sum;
+    }
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n) {
+      o[4 * n + 0] *= alpha[0];
+      o[4 * n + 1] *= alpha[0];
+      o[4 * n + 2] *= alpha[1];
+      o[4 * n + 3] *= alpha[1];
+    }
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) acc_to_a<T>(s, kk, pa[kk]);
+
+    mbar_wait(bar_v, t & 1);
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<W, T>(o, pa[kk], desc_mnmajor<W>(sV, BN, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncthreads();  // every warp is done reading V
+    if (tid == 0 && t + 1 < n_tiles) issue_v(t + 1);
+  }
+
+  // epilogue: O / l into the (consumed) V tile, then TMA stores of the
+  // block's boxes, which skip rows at or past lq
+  float inv[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] = fmaxf(quad_sum(l[j]), 1e-30f);
+    inv[j] = 1.0f / l[j];
+  }
+  const int row_in_tile = 16 * warp + g;
+  if (a.lse != nullptr && tq == 0 && (blockIdx.z == 0 || a.lse_chunk_stride != 0)) {
+    float* lse = a.lse + blockIdx.z * a.lse_chunk_stride + static_cast<int64_t>(bh) * a.lq;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = q0 + row_in_tile + 8 * j;
+      if (row < a.lq) lse[row] = (m[j] + log2f(l[j])) * LN2;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t off = swizzled_offset<W>(BM, row_in_tile + 8 * j, 8 * n + 2 * tq);
+      *reinterpret_cast<uint32_t*>(sV + off) =
+          pack2<T>(o[4 * n + 2 * j] * inv[j], o[4 * n + 2 * j + 1] * inv[j]);
+    }
+  fence_async_smem();
+  __syncthreads();
+  if (tid == 0) {
+    for (int j = 0; j < vboxes; ++j)
+      tma_store_4d(&mo, sV + j * BM * CH * 2, col0 + j * CH, h, q0, b);
+    tma_store_wait();
+  }
+}
+
+template <typename T>
+int launch_wide_wgmma(const Params& p, const WideArgs& args, int batch, int dtype,
+                      cudaStream_t stream) {
+  using C = WideFwdCfg;
+  using hopper::encode_bhld_wide;
+  CUtensorMap mq, mk, mv, mo;
+  const int d = args.d;
+  int r = encode_bhld_wide(&mq, p.q, dtype, batch, p.lq, p.heads, d, p.q_sb, p.q_sl, p.q_sh, C::BM);
+  if (r == 0) r = encode_bhld_wide(&mk, p.k, dtype, batch, p.lk, p.heads, d, p.k_sb, p.k_sl, p.k_sh, C::BN);
+  if (r == 0) r = encode_bhld_wide(&mv, p.v, dtype, batch, p.lk, p.heads, d, p.v_sb, p.v_sl, p.v_sh, C::BN);
+  if (r == 0) r = encode_bhld_wide(&mo, p.o, dtype, batch, p.lq, p.heads, d, p.o_sb, p.o_sl, p.o_sh, C::BM);
+  if (r != 0) return hopper::kTensorMapError + r;
+  auto kernel = flash_fwd_wide_wgmma_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.lq + C::BM - 1) / C::BM, batch * p.heads, (d + C::W - 1) / C::W);
+  kernel<<<grid, C::THREADS, C::BYTES, stream>>>(mq, mk, mv, mo, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS) flash_fwd_wide_fma_kernel(const Params p,
+                                                                      const WideArgs a) {
+  static_assert(kIsF32<T>, "the 16-bit types take flash_fwd_wide_wgmma_kernel");
+  constexpr int D = WIDE_CHUNK;  // the tiles' columns: a score chunk, or the block's output
+  using S = Smem<T, D>;
+  constexpr int RW = S::RW, BM = S::BM;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem + S::OFF_Q);
+  T* sK = reinterpret_cast<T*>(smem + S::OFF_K);
+  T* sV = reinterpret_cast<T*>(smem + S::OFF_V);
+  T* sP = reinterpret_cast<T*>(smem + S::OFF_P);
+  float* sM = reinterpret_cast<float*>(smem + S::OFF_STATS);
+  float* sL = sM + BM;
+  float* sA = sL + BM;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* sW = reinterpret_cast<float*>(smem + S::OFF_W) + warp * S::WARP_SCRATCH;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads, h = bh - b * p.heads;
+  const int q0 = blockIdx.x * BM, col0 = blockIdx.z * WIDE_COLS_F32;
+  const int nd = a.d / D;
+  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh + col0;
+  T* O = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + col0;
+
+  if (threadIdx.x < BM) {
+    sM[threadIdx.x] = NEG_INF;
+    sL[threadIdx.x] = 0.f;
+  }
+  constexpr int OPL = RW * D / 32;
+  float acc[OPL];
+#pragma unroll
+  for (int i = 0; i < OPL; ++i) acc[i] = 0.f;
+
+  const int n_tiles = (p.lk + BN - 1) / BN;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BN;
+    for (int c = 0; c < nd; ++c) {
+      __syncthreads();  // every warp is done with the previous tiles
+      // q rows past lq load as zeros, so their (discarded) softmax stays finite
+      load_tile<T, D, BM>(sQ, Q + c * D, p.q_sl, q0, p.lq);
+      load_tile<T, D>(sK, K + c * D, p.k_sl, k0, p.lk);
+      if (c == 0) load_tile<T, D>(sV, V, p.v_sl, k0, p.lk);
+      __syncthreads();
+      scores<T, D>(sQ + warp * RW * S::LD_T, sK, sW, lane, c > 0);
+    }
+    __syncwarp();
+
+    // the D <= 256 kernel's online softmax over this warp's RW rows
+    for (int rr = 0; rr < RW; ++rr) {
+      const int r = warp * RW + rr;
+      const float* srow = sW + rr * LD_S;
+      float s0 = srow[lane] * p.scale;
+      float s1 = srow[lane + 32] * p.scale;
+      if (k0 + lane >= p.lk) s0 = NEG_INF;
+      if (k0 + lane + 32 >= p.lk) s1 = NEG_INF;
+      const float m_prev = sM[r];
+      const float m_next = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+      const float p0 = expf(s0 - m_next);
+      const float p1 = expf(s1 - m_next);
+      const float row_sum = warp_sum(p0 + p1);
+      T* prow = sP + r * S::LD_P;
+      prow[lane] = from_f32<T>(p0);
+      prow[lane + 32] = from_f32<T>(p1);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_next);
+        sA[r] = alpha;
+        sL[r] = alpha * sL[r] + row_sum;
+        sM[r] = m_next;
+      }
+    }
+    __syncwarp();
+    {
+      WarpAcc<T, D> pv;
+      pv.zero();
+      pv.add_product(sP + warp * RW * S::LD_P, sV, lane);
+      pv.store(sW, S::LD_O, lane);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < OPL; ++i) {
+      const int e = lane + 32 * i;
+      const int rr = e / D, col = e - rr * D;
+      acc[i] = acc[i] * sA[warp * RW + rr] + sW[rr * S::LD_O + col];
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int i = 0; i < OPL; ++i) {
+    const int e = lane + 32 * i;
+    const int rr = e / D, col = e - rr * D;
+    const int r = warp * RW + rr;
+    const int row = q0 + r;
+    if (row < p.lq) {
+      const float inv_l = 1.0f / fmaxf(sL[r], 1e-30f);
+      O[row * p.o_sl + col] = from_f32<T>(acc[i] * inv_l);
+    }
+  }
+  if (a.lse != nullptr && lane < RW && (blockIdx.z == 0 || a.lse_chunk_stride != 0)) {
+    const int r = warp * RW + lane;
+    const int row = q0 + r;
+    if (row < p.lq)
+      a.lse[blockIdx.z * a.lse_chunk_stride + static_cast<int64_t>(bh) * p.lq + row] =
+          sM[r] + logf(fmaxf(sL[r], 1e-30f));
+  }
+}
+
+int launch_wide_fma(const Params& p, const WideArgs& args, int batch, cudaStream_t stream) {
+  using S = Smem<float, WIDE_CHUNK>;
+  auto kernel = flash_fwd_wide_fma_kernel<float>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.lq + S::BM - 1) / S::BM, batch * p.heads, args.d / WIDE_COLS_F32);
+  kernel<<<grid, NTHREADS, S::BYTES, stream>>>(p, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -485,6 +840,29 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, f
     case 64: return dispatch_dtype<64>(p, batch, dtype, s);
     case 128: return dispatch_dtype<128>(p, batch, dtype, s);
     case 256: return dispatch_dtype<256>(p, batch, dtype, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Head dims above 256, a multiple of 64 (the wide kernels). lse_chunk_stride
+// 0 has column chunk 0 write lse; otherwise chunk c writes its own copy at
+// lse + c * lse_chunk_stride.
+extern "C" int flash_fwd_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                              int64_t q_sb, int64_t q_sl, int64_t q_sh, int64_t k_sb,
+                              int64_t k_sl, int64_t k_sh, int64_t v_sb, int64_t v_sl,
+                              int64_t v_sh, int64_t o_sb, int64_t o_sl, int64_t o_sh, int batch,
+                              int heads, int lq, int lk, int d, float scale, int dtype,
+                              int64_t lse_chunk_stride, void* stream) {
+  if (lq <= 0 || lk <= 0 || batch <= 0 || heads <= 0 || d < WIDE_MIN_D || d % WIDE_CHUNK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{q,    k,    v,    o,    lse,  q_sb,  q_sl, q_sh, k_sb, k_sl,  k_sh,
+                 v_sb, v_sl, v_sh, o_sb, o_sl, o_sh, heads, lq,   lk,   scale};
+  const WideArgs args{lse, lse_chunk_stride, heads, lq, lk, d, scale * LOG2E};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32: return launch_wide_fma(p, args, batch, s);
+    case kBFloat16: return launch_wide_wgmma<__nv_bfloat16>(p, args, batch, dtype, s);
+    case kFloat16: return launch_wide_wgmma<__half>(p, args, batch, dtype, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

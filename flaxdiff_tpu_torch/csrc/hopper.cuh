@@ -398,22 +398,38 @@ __device__ __forceinline__ void tma_load_tile(unsigned char* tile, const CUtenso
 // The tensor map of a [B, L, H, D] 16-bit operand with element strides
 // (sb, sl, sh) (the head dim contiguous), boxes of `box_rows` rows by one
 // column chunk. Returns the driver's CUresult (0 on success).
-template <int D>
-inline int encode_bhld(CUtensorMap* map, const void* ptr, int dtype, int batch, int len,
-                       int heads, int64_t sb, int64_t sl, int64_t sh, int box_rows) {
+inline int encode_bhld_map(CUtensorMap* map, const void* ptr, int dtype, int batch, int len,
+                           int heads, int d, int64_t sb, int64_t sl, int64_t sh, int box_rows,
+                           int box_cols, CUtensorMapSwizzle swizzle) {
   const CUtensorMapDataType type =
       dtype == kFloat16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(len), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh * 2), static_cast<cuuint64_t>(sl * 2),
                                  static_cast<cuuint64_t>(sb * 2)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(chunk_cols<D>()), 1u,
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1u,
                              static_cast<cuuint32_t>(box_rows), 1u};
   const cuuint32_t elem_strides[4] = {1u, 1u, 1u, 1u};
   return static_cast<int>(cuTensorMapEncodeTiled(
       map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, tma_swizzle<D>(), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+template <int D>
+inline int encode_bhld(CUtensorMap* map, const void* ptr, int dtype, int batch, int len,
+                       int heads, int64_t sb, int64_t sl, int64_t sh, int box_rows) {
+  return encode_bhld_map(map, ptr, dtype, batch, len, heads, D, sb, sl, sh, box_rows,
+                         chunk_cols<D>(), tma_swizzle<D>());
+}
+
+// The same for the wide kernels' operands: a head dim `d` above 256 (a
+// multiple of 64) known at run time, boxes of `box_rows` rows by one
+// 64-column chunk under the 128-byte swizzle (D = 64's chunk layout).
+inline int encode_bhld_wide(CUtensorMap* map, const void* ptr, int dtype, int batch, int len,
+                            int heads, int d, int64_t sb, int64_t sl, int64_t sh, int box_rows) {
+  return encode_bhld_map(map, ptr, dtype, batch, len, heads, d, sb, sl, sh, box_rows,
+                         chunk_cols<64>(), tma_swizzle<64>());
 }
 
 // Error code a launcher returns when a tensor map cannot be encoded: above

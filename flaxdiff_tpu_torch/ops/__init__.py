@@ -10,8 +10,9 @@ wrappers, whose backward runs the backward kernels.
 from __future__ import annotations
 
 from .attention import dot_product_attention
-from .flash_attention import (FlashAttentionFn, flash_attention, flash_bwd_dkv, flash_bwd_dq,
-                              flash_fwd)
+from .flash_attention import (FlashAttentionFn, flash_attention, flash_bwd_dkv,
+                              flash_bwd_dkv_wide, flash_bwd_dq, flash_bwd_dq_wide, flash_fwd,
+                              flash_fwd_wide)
 from .fused_adaln import (GateResidualFn, GEGLUFn, LNModulateFn, fused_gate_residual,
                           fused_geglu, fused_ln_modulate, fused_ln_modulate2, gate_residual_bwd,
                           gate_residual_fwd, geglu_bwd, geglu_fwd, ln_modulate_bwd,
@@ -24,6 +25,9 @@ KERNEL_WRAPPERS = {
     "flash_fwd": flash_fwd,
     "flash_bwd_dq": flash_bwd_dq,
     "flash_bwd_dkv": flash_bwd_dkv,
+    "flash_fwd_wide": flash_fwd_wide,
+    "flash_bwd_dq_wide": flash_bwd_dq_wide,
+    "flash_bwd_dkv_wide": flash_bwd_dkv_wide,
     "gn_stats": groupnorm_stats,
     "gn_norm": groupnorm_normalize,
     "gn_bwd_stats": groupnorm_bwd_stats,
@@ -46,8 +50,9 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["dot_product_attention", "flash_attention", "flash_bwd_dkv", "flash_bwd_dq",
-           "flash_fwd", "fused_gate_residual", "fused_geglu", "fused_groupnorm_silu",
+__all__ = ["dot_product_attention", "flash_attention", "flash_bwd_dkv", "flash_bwd_dkv_wide",
+           "flash_bwd_dq", "flash_bwd_dq_wide", "flash_fwd", "flash_fwd_wide",
+           "fused_gate_residual", "fused_geglu", "fused_groupnorm_silu",
            "fused_ln_modulate", "fused_ln_modulate2", "gate_residual_bwd", "gate_residual_fwd",
            "geglu_bwd", "geglu_fwd", "groupnorm_bwd_dx", "groupnorm_bwd_stats",
            "groupnorm_normalize", "groupnorm_stats", "ln_modulate_bwd", "ln_modulate_fwd",

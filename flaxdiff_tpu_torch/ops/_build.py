@@ -39,6 +39,9 @@ _SIGNATURES = {
     "flash_fwd": [_P] * 5 + [_I64] * 12 + [_I] * 5 + [_F, _I, _P],
     "flash_bwd_dq": [_P] * 7 + [_I64] * 15 + [_I] * 5 + [_F, _I, _P],
     "flash_bwd_dkv": [_P] * 8 + [_I64] * 15 + [_I] * 5 + [_F, _I, _P],
+    "flash_fwd_wide": [_P] * 5 + [_I64] * 12 + [_I] * 5 + [_F, _I, _I64, _P],
+    "flash_bwd_dq_wide": [_P] * 7 + [_I64] * 15 + [_I] * 5 + [_F, _I, _P],
+    "flash_bwd_dkv_wide": [_P] * 8 + [_I64] * 15 + [_I] * 5 + [_F, _I, _P],
     "gn_stats": [_P, _P] + [_I] * 6 + [_P],
     "gn_norm": [_P] * 6 + [_I] * 6 + [_P],
     "gn_bwd_stats": [_P] * 8 + [_I] * 7 + [_P],

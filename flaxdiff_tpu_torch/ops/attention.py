@@ -2,12 +2,12 @@
 
 Counterpart of ``flaxdiff_tpu/ops/attention.py`` ``dot_product_attention``.
 The Hopper kernel takes any sequence length, so there is no ``seq >= 128``
-threshold. It takes head dims of 32, 64, 128 and 256; any other head dim up
-to 256 is zero-padded to the next of them, as the reference pads to a
-multiple of 128 lanes (``_maybe_pad_head_dim``): the zero channels add
-exactly 0 to every logit and to the output channels sliced away. The
-reference pads head dims above 256 too; no published diffusion model uses
-one, and the port raises there (ROADMAP item C1).
+threshold. It takes head dims of 32, 64, 128 and 256, and any multiple of
+64 above 256 (the wide kernels); any other head dim is zero-padded to the
+next of them, as the reference pads to a multiple of 128 lanes
+(``_maybe_pad_head_dim``): the zero channels add exactly 0 to every logit
+and to the output channels sliced away. So every head dim runs, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import HEAD_DIMS, flash_attention
+from .flash_attention import flash_attention, padded_head_dim
 
 BACKENDS = ("auto", "flash", "xla")
 
@@ -40,20 +40,18 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           backend: str = "auto", scale: Optional[float] = None
                           ) -> torch.Tensor:
     """Multi-head attention. ``auto`` and ``flash`` run the flash kernel on
-    CUDA tensors (its plain version on the CPU), a head dim outside
-    ``HEAD_DIMS`` zero-padded to the next of them on every device; ``xla``
-    runs the explicit math. Both compute the softmax in f32."""
+    CUDA tensors (its plain version on the CPU), a head dim the kernels do
+    not take zero-padded to the next they do on every device
+    (``padded_head_dim``); ``xla`` runs the explicit math. Both compute the
+    softmax in f32."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; known: {BACKENDS}")
     if backend == "xla":
         return eager_attention(q, k, v, scale)
     d = q.shape[-1]
-    if d in HEAD_DIMS:
+    width = padded_head_dim(d)
+    if width == d:
         return flash_attention(q, k, v, scale=scale)
-    if d > HEAD_DIMS[-1]:
-        raise ValueError(f"head dim {d} above {HEAD_DIMS[-1]}: the flash kernels take head dims "
-                         f"up to {HEAD_DIMS[-1]} (ROADMAP item C1's tail); use backend='xla'")
-    width = next(w for w in HEAD_DIMS if w > d)
     # the true head dim's scale; F.pad and the slice carry dq, dk, dv back
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     q, k, v = (F.pad(t, (0, width - d)) for t in (q, k, v))

@@ -2,7 +2,7 @@
 """Time and check one checkout's version of a kernel on the card.
 
     python3 scripts/flash_ab.py CHECKOUT
-        [--kernel fwd|dq|gn_stats|gn_norm|gn_bwd_stats|gn_bwd_dx] [--sass]
+        [--kernel fwd|dq|gn_stats|gn_norm|gn_bwd_stats|gn_bwd_dx|geglu_bwd|ln_mod] [--sass]
 
 Builds CHECKOUT's CUDA kernels (into CHECKOUT/build/kernels), holds the
 chosen kernel against its plain version at chip_smoke.py's phase-2 shapes
@@ -12,7 +12,9 @@ beside its readings. ``fwd`` is the flash forward (B1), ``dq`` the flash dq
 backward (B2), ``gn_stats`` GroupNorm's statistics (B4) at the UNet's
 serving and training shapes, ``gn_norm`` its normalize + SiLU pass (B5),
 ``gn_bwd_stats`` and ``gn_bwd_dx`` its backward statistics (B6) and dx
-(B7) passes at the UNet train step's shapes. With
+(B7) passes at the UNet train step's shapes, ``geglu_bwd`` the GEGLU
+backward (B9) at the train step's shapes, ``ln_mod`` LayerNorm + modulate
+(B10) at the DiT's serving and training shapes and its other widths. With
 ``--sass``, also prints each instantiation of the kernel in the built
 library (cuobjdump -sass): its instruction count and the instructions of
 each loop body (from a backward branch's target to the branch). To compare
@@ -44,9 +46,18 @@ GN_CASES = [(2, 65536, 64, BF16), (2, 16384, 128, BF16), (2, 4096, 256, BF16),
 # differentiates
 GN_BWD_CASES = [(16, 16384, 64, BF16), (16, 4096, 128, BF16), (16, 1024, 256, BF16),
                 (16, 256, 1024, BF16), (16, 1024, 256, F32)]
+# (batch, rows, 2F, dtype): GEGLU's backward at the UNet train step's shapes
+GEGLU_BWD_CASES = [(16, 1024, 2048, BF16), (16, 256, 4096, BF16), (16, 256, 4096, F32)]
+# (batch, L, C, dtype, views): LayerNorm + modulate at the DiT-B/2 serving
+# (8 rows of 256 tokens) and training (32) batches, f32, the text's 77 rows,
+# and the other DiT widths (384, 1024, 1152) and one more (1280)
+LN_MOD_CASES = [(8, 256, 768, BF16, 1), (8, 256, 768, BF16, 2), (32, 256, 768, BF16, 1),
+                (32, 256, 768, BF16, 2), (8, 256, 768, F32, 1), (3, 77, 768, BF16, 2)]
+LN_MOD_CASES += [(8, 256, c, BF16, 2) for c in (384, 1024, 1152, 1280)]
 SYMBOLS = {"fwd": "flash_fwd_", "dq": "flash_bwd_dq_", "gn_stats": "gn_stats_kernel",
            "gn_norm": "gn_norm_kernel", "gn_bwd_stats": "gn_bwd_stats_kernel",
-           "gn_bwd_dx": "gn_bwd_dx_kernel"}
+           "gn_bwd_dx": "gn_bwd_dx_kernel", "geglu_bwd": "geglu_bwd_kernel",
+           "ln_mod": "ln_mod_fwd_"}
 
 
 def stats_rows(fn, b, hw, c, backward: bool) -> int:
@@ -166,9 +177,46 @@ def gn_bwd_cases(kernel):
     return cases
 
 
+def geglu_bwd_cases(cs, randn):
+    """The GEGLU backward (B9) under chip_smoke.py's phase-2 limits."""
+    from flaxdiff_tpu_torch.ops.fused_adaln import geglu_bwd, geglu_bwd_plain
+    for b, rows, f2, dtype in GEGLU_BWD_CASES:
+        proj = randn(b, rows, f2, dtype=dtype) * 2.0
+        dout = randn(b, rows, f2 // 2, dtype=dtype)
+        out, ref = geglu_bwd(proj, dout), geglu_bwd_plain(proj, dout)
+        torch.cuda.synchronize()
+        r = cs.compare(out, ref, 1e-6 * float(ref.float().abs().max()),
+                       cs.BF16_RTOL if dtype == BF16 else 1e-5, 1e-3)
+        ms = cs.graph_ms(lambda: geglu_bwd(proj, dout), 20)
+        nbytes = proj.element_size() * 5 * b * rows * f2 // 2
+        yield (b, rows, f2, str(dtype)[6:]), ms, r, f", {nbytes / ms / 1e6:.0f} GB/s"
+
+
+def ln_mod_cases(cs, randn):
+    """LayerNorm + modulate (B10) under chip_smoke.py's phase-2 limits; the
+    views, mean and rstd read as one (the nearest its limit)."""
+    from flaxdiff_tpu_torch.ops.fused_adaln import ln_modulate_fwd, ln_modulate_plain
+    for b, l, c, dtype, nv in LN_MOD_CASES:
+        x = randn(b, l, c, dtype=dtype) * 2.0 + 0.5
+        mods = (randn(b, 1, 6 * c, dtype=dtype) * 0.5).chunk(6, dim=-1)[:2 * nv]
+        pairs = tuple(zip(mods[0::2], mods[1::2]))
+        views, mean, rstd = ln_modulate_fwd(x, pairs, 1e-5)
+        ref_views, ref_mean, ref_rstd = ln_modulate_plain(x, pairs, 1e-5)
+        torch.cuda.synchronize()
+        read = [cs.compare(o, r, 1e-6 * float(r.abs().max()), 1e-5, 1e-6)
+                for o, r in zip((*views, mean, rstd), (*ref_views, ref_mean, ref_rstd))]
+        r = dict(max(read, key=lambda d: d["least_atol"] / d["atol"]),
+                 ok=all(cs.passes(d) for d in read))
+        ms = cs.graph_ms(lambda: ln_modulate_fwd(x, pairs, 1e-5), 20)
+        esz, n = x.element_size(), b * l * c
+        nbytes = esz * n + esz * 2 * nv * b * c + 4 * nv * n + 8 * b * l
+        yield (b, l, c, nv, str(dtype)[6:]), ms, r, f", {nbytes / ms / 1e6:.0f} GB/s"
+
+
 CASES = {"fwd": flash_fwd_cases, "dq": flash_dq_cases, "gn_stats": gn_stats_cases,
          "gn_norm": gn_norm_cases,
-         "gn_bwd_stats": gn_bwd_cases("gn_bwd_stats"), "gn_bwd_dx": gn_bwd_cases("gn_bwd_dx")}
+         "gn_bwd_stats": gn_bwd_cases("gn_bwd_stats"), "gn_bwd_dx": gn_bwd_cases("gn_bwd_dx"),
+         "geglu_bwd": geglu_bwd_cases, "ln_mod": ln_mod_cases}
 
 
 def sass_loops(lib: str, symbol: str) -> list:

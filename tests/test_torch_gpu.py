@@ -9,8 +9,9 @@ import pytest
 import torch
 
 from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, dot_product_attention, flash_attention,
-                                    flash_bwd_dkv, flash_bwd_dq, flash_fwd, fused_gate_residual,
-                                    fused_geglu,
+                                    flash_bwd_dkv, flash_bwd_dkv_wide, flash_bwd_dq,
+                                    flash_bwd_dq_wide, flash_fwd, flash_fwd_wide,
+                                    fused_gate_residual, fused_geglu,
                                     fused_groupnorm_silu, fused_ln_modulate, fused_ln_modulate2,
                                     gate_residual_bwd, gate_residual_fwd, geglu_bwd,
                                     groupnorm_bwd_dx, groupnorm_bwd_stats, groupnorm_normalize,
@@ -163,6 +164,8 @@ def test_each_wrapper_counts_its_launches(cuda):
     loss = loss + fused_geglu(torch.cat([x, x], dim=-1)).sum()
     m = _randn(cuda, 1, 1, 32, seed=2).requires_grad_()
     loss = loss + fused_gate_residual(x, m, fused_ln_modulate(x, m, m).to(x.dtype)).sum()
+    wide = _randn(cuda, 1, 64, 1, 320, seed=3).requires_grad_()
+    loss = loss + flash_attention(wide, wide, wide).sum()
     loss.backward()
     torch.cuda.synchronize()
     assert launch_counts() == {name: 1 for name in KERNEL_WRAPPERS}
@@ -172,6 +175,12 @@ def test_kernels_raise_on_what_they_cannot_take(cuda):
     q = _randn(cuda, 1, 16, 2, 48)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
+    # each forward wrapper takes its own head dims only: 288 no kernel, 256
+    # not the wide kernels', 320 not the D <= 256 kernels'
+    for fwd, d in ((flash_attention, 288), (flash_fwd_wide, 256), (flash_fwd, 320)):
+        q = _randn(cuda, 1, 16, 2, d)
+        with pytest.raises(ValueError, match="head dim"):
+            fwd(q, q, q)
     x = _randn(cuda, 1, 16, 2 * 64)[..., 1:65]      # one-element offset: misaligned
     with pytest.raises(ValueError, match="aligned"):
         flash_attention(x.view(1, 16, 1, 64), x.view(1, 16, 1, 64), x.view(1, 16, 1, 64))
@@ -254,11 +263,13 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, lq, lk, d, b, h):
     _close(dk, dk_ref, dtype)
 
 
-@pytest.mark.parametrize("d", [40, 72, 80, 96, 160, 192])
+@pytest.mark.parametrize("d", [40, 72, 80, 96, 160, 192, 288, 300])
 def test_attention_dispatch_pads_odd_head_dims(cuda, d):
-    """The dispatch zero-pads a head dim outside (32, 64, 128, 256) to the
-    next of them: forward and dq, dk, dv in bf16 against the plain versions
-    at the true head dim, within the flash bf16 limits."""
+    """The dispatch zero-pads a head dim the kernels do not take to the next
+    they do (up to 256 the next of 32, 64, 128 and 256; above, the next
+    multiple of 64, for the wide kernels): forward and dq, dk, dv in bf16
+    against the plain versions at the true head dim, within the flash bf16
+    limits."""
     q = _randn(cuda, 2, 130, 4, d, dtype=torch.bfloat16, seed=1).requires_grad_()
     k = _randn(cuda, 2, 77, 4, d, dtype=torch.bfloat16, seed=2).requires_grad_()
     v = _randn(cuda, 2, 77, 4, d, dtype=torch.bfloat16, seed=3).requires_grad_()
@@ -268,7 +279,8 @@ def test_attention_dispatch_pads_odd_head_dims(cuda, d):
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     counts = launch_counts()
-    assert (counts["flash_fwd"], counts["flash_bwd_dq"], counts["flash_bwd_dkv"]) == (1, 1, 1)
+    suffix = "_wide" if d > 256 else ""
+    assert [counts[n + suffix] for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")] == [1] * 3
     with torch.no_grad():
         ref, lse = flash_fwd_plain(q, k, v)
         delta = flash_delta(ref, do)
@@ -341,6 +353,96 @@ def test_flash_kernels_replay_in_cuda_graph(cuda, dtype, d):
         assert torch.equal(got, want)
 
 
+# --- head dims above 256: the column-chunked (wide) kernels ---------------------
+#
+# D 320 (UNet3D's 1280 channels in 4 heads: three 128-column chunks, the last
+# of 64, and five 64-column score chunks), 384 (whole 128-column chunks) and
+# 640; self-attention, cross to 77 keys and a ragged case (q and kv tiles of
+# 64 and 32 rows left partial)
+WIDE_LQ_LK = [(128, 128), (200, 77), (65, 190)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [320, 384, 640])
+@pytest.mark.parametrize("lq,lk", WIDE_LQ_LK)
+def test_flash_wide_kernels_match_plain(cuda, dtype, lq, lk, d):
+    """The wide forward, dq and dk/dv kernels against the plain versions,
+    under the limits of the D <= 256 kernels."""
+    q = _randn(cuda, 2, lq, 3, d, dtype=dtype, seed=1)
+    k = _randn(cuda, 2, lk, 3, d, dtype=dtype, seed=2)
+    v = _randn(cuda, 2, lk, 3, d, dtype=dtype, seed=3)
+    do = _randn(cuda, 2, lq, 3, d, dtype=dtype, seed=4)
+    out, lse = flash_fwd_wide(q, k, v)
+    ref, ref_lse = flash_fwd_plain(q, k, v)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    delta = flash_delta(out, do)
+    dq = flash_bwd_dq_wide(q, k, v, do, lse, delta)
+    dk, dv = flash_bwd_dkv_wide(q, k, v, do, lse, delta)
+    _close(dq, flash_bwd_dq_plain(q, k, v, do, lse, delta), dtype)
+    for got, want in zip((dk, dv), flash_bwd_dkv_plain(q, k, v, do, lse, delta)):
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [320, 384, 640])
+def test_flash_wide_lse_is_bit_equal_across_column_chunks(cuda, dtype, d):
+    """Every column chunk of a q tile sums the same scores in the same
+    order: each chunk's own lse is bit-equal to chunk 0's, which the kernel
+    returns."""
+    q, k, v = (_randn(cuda, 2, n, 3, d, dtype=dtype, seed=s) for s, n in ((1, 200), (2, 77), (3, 77)))
+    out, lse = flash_fwd_wide(q, k, v)
+    out_c, lse_c = flash_fwd_wide(q, k, v, chunk_lse=True)
+    assert lse_c.shape[0] == -(-d // (64 if dtype == torch.float32 else 128)) > 1
+    for c in range(lse_c.shape[0]):
+        assert torch.equal(lse_c[c], lse), c
+    assert torch.equal(out_c, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_kernels_are_deterministic(cuda, dtype):
+    """No atomics and a fixed loop order: two runs of each wide kernel give
+    bit-equal results."""
+    q, k, v, do = (_randn(cuda, 2, 300, 4, 320, dtype=dtype, seed=s) for s in range(4))
+    run = lambda: (*flash_fwd_wide(q, k, v),)
+    first, second = run(), run()
+    out, lse = first
+    delta = flash_delta(out, do)
+    first += (flash_bwd_dq_wide(q, k, v, do, lse, delta),
+              *flash_bwd_dkv_wide(q, k, v, do, lse, delta))
+    second += (flash_bwd_dq_wide(q, k, v, do, lse, delta),
+               *flash_bwd_dkv_wide(q, k, v, do, lse, delta))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [320, 384])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_wide_kernels_replay_in_cuda_graph(cuda, dtype, d):
+    """The wide kernels captured in a CUDA graph and replayed give what
+    eager calls give."""
+    q, k, v, do = (_randn(cuda, 2, 200, 3, d, dtype=dtype, seed=s) for s in range(4))
+    eager_out, eager_lse = flash_fwd_wide(q, k, v)
+    delta = flash_delta(eager_out, do)
+    eager_dq = flash_bwd_dq_wide(q, k, v, do, eager_lse, delta)
+    eager_dk, eager_dv = flash_bwd_dkv_wide(q, k, v, do, eager_lse, delta)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out, lse = flash_fwd_wide(q, k, v)
+        dq = flash_bwd_dq_wide(q, k, v, do, lse, delta)
+        dk, dv = flash_bwd_dkv_wide(q, k, v, do, lse, delta)
+    for t in (out, lse, dq, dk, dv):
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in ((out, eager_out), (lse, eager_lse), (dq, eager_dq), (dk, eager_dk),
+                      (dv, eager_dv)):
+        assert torch.equal(got, want)
+
+
 # (shape, groups): a bf16 vector straddling two groups (C 48, 4 groups), the
 # UNet's top level at batch 2 (one wave of dx blocks strides over many rows;
 # 128 stats blocks), a row count that leaves every kernel a partial last step
@@ -389,13 +491,23 @@ def test_groupnorm_bwd_stats_is_deterministic(cuda, dtype, shape, groups):
         assert torch.equal(a, b2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_geglu_bwd_kernel_matches_plain(cuda, dtype):
-    for shape in [(2, 50, 256), (3, 7, 2 * 13)]:   # 16-byte and scalar paths
-        p = _randn(cuda, *shape, dtype=dtype) * 2.0
-        d = _randn(cuda, *shape[:-1], shape[-1] // 2, dtype=dtype, seed=7)
-        torch.testing.assert_close(geglu_bwd(p, d).float(), geglu_bwd_plain(p, d).float(),
-                                   atol=1e-5, rtol=TOL[dtype][1])
+# (shape): 16-byte paths at F 128, 1024 (the UNet's GEGLU at 512 channels)
+# and 2048 with column blocks of 128 threads left partial (F 1280), row counts
+# not a multiple of the kernel's 4 rows a thread, and the scalar path
+GEGLU_BWD_SHAPES = [(2, 50, 256), (2, 1023, 2048), (1, 77, 4096), (3, 5, 2560), (3, 7, 2 * 13)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", GEGLU_BWD_SHAPES)
+def test_geglu_bwd_kernel_matches_plain(cuda, dtype, shape):
+    """atol 1e-5, rtol one output ulp (2^-7 bf16, 2^-10 f16: the 16-bit
+    path's tanh-free gelu is a few f32 ulps from tanhf) and 1e-5 in f32;
+    relative RMS 1e-3."""
+    p = _randn(cuda, *shape, dtype=dtype) * 2.0
+    d = _randn(cuda, *shape[:-1], shape[-1] // 2, dtype=dtype, seed=7)
+    out, ref = geglu_bwd(p, d).float(), geglu_bwd_plain(p, d).float()
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=TOL[dtype][1])
+    assert float((out - ref).norm() / ref.norm()) <= 1e-3
 
 
 def test_autograd_through_the_kernels_matches_cpu(cuda):
@@ -472,8 +584,12 @@ def _adaln_inputs(cuda, shape, dtype, nviews):
 
 
 # (shape): DiT-B at its training rows, a ragged L = 77, and a C that takes
-# the scalar path (not a multiple of the 16-byte vector)
-ADALN_SHAPES = [(4, 256, 768), (3, 77, 768), (2, 19, 36)]
+# the scalar path (not a multiple of the 16-byte vector); then the other
+# widths B10's row kernel is compiled for (DiT-S 384, -L 1024, -XL 1152), a
+# ragged row count (L = 77, odd batch) at one of them, and a 16-byte width
+# it is not compiled for (1280: the generic kernel)
+ADALN_SHAPES = [(4, 256, 768), (3, 77, 768), (2, 19, 36), (2, 64, 384), (3, 77, 1024),
+                (2, 40, 1152), (2, 33, 1280)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

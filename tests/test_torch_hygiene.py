@@ -113,8 +113,9 @@ def _cpu_inputs(name):
     """CPU inputs that require grad, at a small size, for each forward kernel."""
     gen = torch.Generator().manual_seed(0)
     leaf = lambda *s: torch.randn(*s, generator=gen).requires_grad_()
-    if name == "flash_fwd":
-        return (leaf(1, 8, 2, 32), leaf(1, 5, 2, 32), leaf(1, 5, 2, 32)), {}
+    if name.startswith("flash_fwd"):
+        d = 320 if name == "flash_fwd_wide" else 32   # head dims above 256: the wide kernels
+        return (leaf(1, 8, 2, d), leaf(1, 5, 2, d), leaf(1, 5, 2, d)), {}
     if name == "geglu":
         return (leaf(1, 8, 16),), {}
     if name == "ln_mod":
@@ -135,6 +136,7 @@ def test_differentiable_ops_record_their_function():
     # whose backward runs the backward kernels)
     differentiable = {
         "flash_fwd": (ops.flash_attention, ops.FlashAttentionFn),
+        "flash_fwd_wide": (ops.flash_attention, ops.FlashAttentionFn),
         "gn_stats": (ops.fused_groupnorm_silu, ops.GroupNormSiLUFn),
         "gn_norm": (ops.fused_groupnorm_silu, ops.GroupNormSiLUFn),
         "geglu": (ops.fused_geglu, ops.GEGLUFn),

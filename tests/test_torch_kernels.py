@@ -62,17 +62,19 @@ def test_flash_plain_matches_pallas_kernel(lq, lk, d):
     np.testing.assert_allclose(lse_t[:, 0].numpy(), lse_j, atol=TOL, rtol=TOL)
 
 
-# 32 and 256 are native to the flash kernels; 40, 72 (DiT-XL/2: 1152 / 16),
-# 80 and 96 are zero-padded to the next of 64 and 128 by the dispatch, 160
-# (an SD-style UNet level of 1280 channels in 8 heads) and 192 to 256
-ODD_HEAD_DIMS = [40, 72, 80, 96, 160, 192]
+# 32, 256, 320 and 384 are native to the flash kernels (above 256 the wide
+# kernels take multiples of 64); 40, 72 (DiT-XL/2: 1152 / 16), 80 and 96 are
+# zero-padded to the next of 64 and 128 by the dispatch, 160 (an SD-style
+# UNet level of 1280 channels in 8 heads) and 192 to 256, 288 to 320
+ODD_HEAD_DIMS = [40, 72, 80, 96, 160, 192, 288]
 
 
-@pytest.mark.parametrize("d", [32] + ODD_HEAD_DIMS + [256])
+@pytest.mark.parametrize("d", [32] + ODD_HEAD_DIMS + [256, 320, 384])
 @pytest.mark.parametrize("backend", ["auto", "xla"])
 def test_attention_dispatch_matches_jax_eager_attention(backend, d):
     """Both backends compute the JAX package's explicit attention math, at
-    every head dim up to 256."""
+    every head dim (above 256 too: UNet3D's 1280 channels in 4 heads give
+    320)."""
     rng = np.random.default_rng(11 + d)
     q = rng.standard_normal((2, 30, 2, d)).astype(np.float32)
     k = rng.standard_normal((2, 77, 2, d)).astype(np.float32)
@@ -99,16 +101,27 @@ def test_padded_dispatch_equals_unpadded_math(d, scale):
     assert q.grad.shape == q.shape and k.grad.shape == k.shape and v.grad.shape == v.shape
 
 
-@pytest.mark.parametrize("backend", ["auto", "flash"])
-def test_attention_dispatch_raises_above_head_dim_128(backend):
-    """The flash kernels stop at head dim 256 (padding 160 and 192 up to
-    it); above that the dispatch names the limit instead of padding to 384,
-    as the reference would."""
-    q = torch.randn(1, 8, 2, 288)
-    with pytest.raises(ValueError, match="above 256.*C1"):
-        dot_product_attention(q, q, q, backend=backend)
-    # the explicit math takes any head dim
-    assert dot_product_attention(q, q, q, backend="xla").shape == q.shape
+@pytest.mark.parametrize("backend", ["auto", "flash", "xla"])
+def test_attention_dispatch_takes_any_head_dim(backend):
+    """No head dim raises in the dispatch: the flash backends pad what the
+    kernels do not take (300 to 320, 65 to 128), and the explicit math takes
+    any head dim as it is."""
+    for d in (65, 300):
+        q = torch.randn(1, 8, 2, d, generator=torch.Generator().manual_seed(d))
+        out = dot_product_attention(q, q, q, backend=backend)
+        assert out.shape == q.shape
+        torch.testing.assert_close(out, eager_attention(q, q, q), atol=TOL, rtol=TOL)
+
+
+def test_flash_attention_raises_on_head_dims_no_kernel_takes():
+    """flash_attention itself takes only what some kernel takes: 32, 64,
+    128, 256 and multiples of 64 above 256, on every device."""
+    for d in (48, 288):
+        q = torch.randn(1, 8, 2, d)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(q, q, q)
+    q = torch.randn(1, 8, 2, 320)
+    assert flash_attention(q, q, q).shape == q.shape
 
 
 def test_flash_plain_takes_strided_projection_views():

@@ -88,14 +88,15 @@ def test_flash_backward_matches_pallas_kernels(lq, lk, d):
         assert_close_to_max(out, second, KERNEL_TOL, f"d{name} vs autograd of eager")
 
 
-@pytest.mark.parametrize("d", [40, 72, 80, 96, 160, 256])
+@pytest.mark.parametrize("d", [40, 72, 80, 96, 160, 256, 288, 384])
 def test_attention_dispatch_pads_odd_head_dims_through_autograd(d):
     """dq, dk, dv through the dispatch's flash path (zero-padded to the next
-    of 32, 64, 128 and 256; 256 is native) against ``jax.vjp`` of the
+    of 32, 64, 128 and 256, and above 256 to the next multiple of 64: 288
+    runs at 320; 256 and 384 are native) against ``jax.vjp`` of the
     reference's TPU path for the same head dim: pad to a multiple of 128
-    lanes (``_maybe_pad_head_dim``), the Pallas kernels interpreted with the
-    true head dim's scale, the slice; and against autograd of the eager
-    math."""
+    lanes (``_maybe_pad_head_dim``: 288 runs at 384 there), the Pallas
+    kernels interpreted with the true head dim's scale, the slice; and
+    against autograd of the eager math."""
     rng = np.random.default_rng(d)
     q = rng.standard_normal((2, 30, 2, d)).astype(np.float32)
     k = rng.standard_normal((2, 77, 2, d)).astype(np.float32)
