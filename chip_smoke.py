@@ -30,9 +30,12 @@ Phases; any failure exits non-zero and prints no result line.
      attention dispatch at head dim 160 (padded to 256) within the flash
      limits, forward and backward, in bf16.
   3. The full-width UNet at 64x64 in f32, on the card (kernels) and on the
-     CPU (plain versions), with the same random weights: a forward, a short
-     DDIM + CFG trajectory, and one training step's loss and gradients with
-     the same draws; then one transformer block of 1280 channels (16x16
+     CPU (plain versions), with the same random weights: a forward, short
+     CFG trajectories at 32x32 (DDIM-3 and euler_ancestral-4 on the cosine
+     schedule, the latter's noise drawn once on the CPU for both sides;
+     Heun-4 on the KarrasVE ramp with EDM preconditioning and karras
+     spacing), and one training step's loss and gradients with the same
+     draws (cosine/eps, then EDM); then one transformer block of 1280 channels (16x16
      tokens, cross to the text) at SD's 8 heads of 160 and at UNet3D's 4
      heads of 320 (the wide kernels, the launch counters zeroed just
      before): its forward and every gradient.
@@ -56,6 +59,15 @@ Phases; any failure exits non-zero and prints no result line.
   7. DiT training: DiffusionTrainer.train_step, batch 32, bf16 over f32
      params, AdamW 1e-4, EMA 0.999, 3 warm-up and 20 timed steps, with the
      same checks as phase 5.
+  8. Every sampler on phase 4's model, weights and inputs, 50 steps each:
+     ddpm, simple_ddpm, euler, simple_euler, euler_ancestral, heun and
+     multistep_dpm (orders 2, 3) on the cosine schedule; euler, heun and rk4
+     on the KarrasVE ramp (sigma_max 80) with EDM preconditioning and karras
+     spacing; one DDIM request inpainting the left half, whose kept half
+     must equal the reference exactly. Each request's launch counters,
+     zeroed just before, must read PER_FORWARD x its model calls.
+  9. EDM training: phase 5 with EDMNoiseSchedule and the Karras transform,
+     the same checks.
 The lines before the last are the kernels' JSON record and the card's
 name and power limit; the last is {"ok": true, "device": {...}}. With
 --record, the full record (every case, the model checks, both paths and
@@ -855,9 +867,10 @@ def random_state(model: torch.nn.Module, seed: int) -> dict:
 
 def model_checks(dev, state):
     from flaxdiff_tpu_torch.models import Unet
-    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
-    from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
-    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.predictors import (EpsilonPredictionTransform,
+                                               KarrasPredictionTransform)
+    from flaxdiff_tpu_torch.samplers import DDIMSampler, EulerAncestralSampler, HeunSampler
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule, KarrasVENoiseSchedule
 
     rng = np.random.default_rng(1)
     models = {}
@@ -880,31 +893,57 @@ def model_checks(dev, state):
     check(bool(torch.isfinite(out).all()), "forward output finite")
     check(err <= 1e-3 * scale, f"full-width forward: error {err} above {1e-3 * scale}")
 
+    pair = ((dev, gpu), ("cpu", cpu))
     x0 = rng.standard_normal((1, 32, 32, 3)).astype(np.float32)
     cond = rng.standard_normal((1, TEXT_LEN, TEXT_DIM)).astype(np.float32)
-    samples = {}
-    for where, m in (("cuda", gpu), ("cpu", cpu)):
-        sampler = DiffusionSampler(lambda a, b, c, m=m: m(a, b, c), CosineNoiseSchedule(1000),
-                                   EpsilonPredictionTransform(), DDIMSampler(),
-                                   guidance_scale=GUIDANCE, device=dev if where == "cuda" else "cpu")
-        # from t = 333: from t = 999 random weights drive every sample into
-        # the [-1, 1] clip and the comparison would see only +-1
-        samples[where] = sampler.generate_samples(
-            diffusion_steps=3, init_samples=torch.from_numpy(x0),
-            conditioning=torch.from_numpy(cond),
-            unconditional=torch.zeros(1, TEXT_LEN, TEXT_DIM), start_step=333.0).cpu()
-    err_traj = max_err(samples["cuda"], samples["cpu"])
-    saturated = float((samples["cpu"].abs() >= 1.0).float().mean())
-    log(f"  DDIM-3 + CFG 32x32 f32 from t=333: max err {err_traj:.3g}, "
-        f"{saturated:.0%} of values clipped")
-    check(saturated < 0.6, "trajectory samples mostly inside the clip range")
-    # early DDIM steps divide by a small signal rate, which amplifies the
-    # forward's difference
-    check(err_traj <= 1e-2, f"trajectory: error {err_traj} above 1e-2")
-    step = train_step_check(dev, gpu, cpu, rng)
+    # from t = 333: from t = 999 random weights drive every eps-prediction
+    # sample into the [-1, 1] clip (x0 divides by signal ~ 5e-5)
+    vp = dict(init_samples=x0, cond=cond, start_step=333.0)
+    res = {"forward_64_f32_err": err, "forward_64_f32_scale": scale}
+    res["ddim3"] = trajectory_check(pair, "DDIM-3 + CFG 32x32 f32 from t=333",
+                                    CosineNoiseSchedule, EpsilonPredictionTransform(),
+                                    DDIMSampler(), 3, **vp)
+    # its noise drawn once here and fed to both sides
+    draws = [rng.standard_normal(x0.shape).astype(np.float32) for _ in range(4)]
+    res["euler_ancestral4"] = trajectory_check(
+        pair, "euler_ancestral-4 + CFG 32x32 f32 from t=333", CosineNoiseSchedule,
+        EpsilonPredictionTransform(), EulerAncestralSampler(), 4, draws=draws, **vp)
+    # EDM preconditioning keeps x0 = c_skip x + c_out F bounded from sigma 80
+    res["heun4_karras"] = trajectory_check(
+        pair, "Heun-4 + CFG KarrasVE/Karras, karras spacing, 32x32 f32 from sigma 80",
+        KarrasVENoiseSchedule, KarrasPredictionTransform(), HeunSampler(), 4,
+        init_samples=(80.0 * x0).astype(np.float32), cond=cond, spacing="karras")
+    res.update(train_step_check(dev, gpu, cpu, rng))
     del models, gpu, cpu
-    return {"forward_64_f32_err": err, "forward_64_f32_scale": scale,
-            "ddim3_cfg_32_f32_err": err_traj, "ddim3_clipped_share": saturated, **step}
+    return res
+
+
+def trajectory_check(models, label, schedule, transform, sampler, steps, init_samples, cond,
+                     start_step=None, spacing="linear", draws=None) -> dict:
+    """A short trajectory with CFG, f32, on the card (kernels) and on the
+    CPU (plain versions), the same weights, inputs and draws: within 1e-2,
+    and the samples mostly inside the clip, or the comparison would see only
+    +-1. Early steps divide by a small signal rate, which amplifies the
+    forward's difference."""
+    from flaxdiff_tpu_torch.samplers import DiffusionSampler, GivenNoise
+
+    samples = []
+    for where, m in models:
+        sampler_ = DiffusionSampler(lambda a, b, c, m=m: m(a, b, c), schedule(1000), transform,
+                                    sampler, guidance_scale=GUIDANCE, timestep_spacing=spacing,
+                                    device=where)
+        samples.append(sampler_.generate_samples(
+            diffusion_steps=steps, init_samples=torch.from_numpy(init_samples),
+            generator=None if draws is None else GivenNoise(draws, device=where),
+            conditioning=torch.from_numpy(cond), unconditional=torch.zeros(cond.shape),
+            start_step=start_step).cpu())
+    out, ref = samples
+    err = max_err(out, ref)
+    clipped = float((ref.abs() >= 1.0).float().mean())
+    log(f"  {label}: max err {err:.3g}, {clipped:.0%} of values clipped")
+    check(clipped < 0.6, f"{label}: samples mostly inside the clip range")
+    check(err <= 1e-2, f"{label}: error {err} above 1e-2")
+    return {"err": err, "clipped_share": clipped}
 
 
 def wide_block_check(dev, w: dict, expected_launches=None) -> dict:
@@ -972,8 +1011,12 @@ def wide_block_check(dev, w: dict, expected_launches=None) -> dict:
 def train_step_check(dev, gpu, cpu, rng):
     """One training step's loss and gradients at 64x64, f32, batch 2, the
     same weights and draws on the card (kernels) and the CPU (plain
-    versions)."""
-    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    versions): the cosine schedule with eps prediction, then EDM (float
+    timesteps drawn from its log-normal sigmas, c_in, c_noise, the c_skip /
+    c_out wrap and EDM weights)."""
+    from flaxdiff_tpu_torch.predictors import (EpsilonPredictionTransform,
+                                               KarrasPredictionTransform)
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule, EDMNoiseSchedule
 
     arrays = {"sample": rng.standard_normal((2, 64, 64, 3)),
               "cond": rng.standard_normal((2, TEXT_LEN, TEXT_DIM)),
@@ -984,16 +1027,22 @@ def train_step_check(dev, gpu, cpu, rng):
     zero = lambda name: name.endswith("to_k.bias")
     # f32 with TF32 off; convolutions summed in other orders through ~60
     # layers and back
-    res = step_check(dev, gpu, cpu, arrays, CosineNoiseSchedule, zero, "train step 64x64 f32")
-    return {f"train_step_64_f32_{k}": v for k, v in res.items()}
+    res = step_check(dev, gpu, cpu, arrays, CosineNoiseSchedule, EpsilonPredictionTransform(),
+                     zero, "train step 64x64 f32")
+    out = {f"train_step_64_f32_{k}": v for k, v in res.items()}
+    arrays["t"] = EDMNoiseSchedule(1000).sample_timesteps(
+        torch.Generator().manual_seed(7), 2).numpy()
+    res = step_check(dev, gpu, cpu, arrays, EDMNoiseSchedule, KarrasPredictionTransform(),
+                     zero, f"EDM train step 64x64 f32, t {arrays['t']}")
+    out.update({f"edm_train_step_64_f32_{k}": v for k, v in res.items()})
+    return out
 
 
-def step_check(dev, gpu, cpu, arrays, schedule, zero_by_math, label):
+def step_check(dev, gpu, cpu, arrays, schedule, transform, zero_by_math, label):
     """Loss and every gradient of one training step, f32, the same weights
     and draws on the card and the CPU: loss within 1e-5 relative, each
     gradient within 1e-3 of its max|g|, the ones `zero_by_math` names below
     1e-6 of the model's largest."""
-    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
     from flaxdiff_tpu_torch.trainer import TrainStepConfig, make_loss_builder
 
     results = []
@@ -1001,7 +1050,7 @@ def step_check(dev, gpu, cpu, arrays, schedule, zero_by_math, label):
         a = {k: torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v).to(where)
              for k, v in arrays.items()}
         build = make_loss_builder(schedule(1000, device=where),
-                                  EpsilonPredictionTransform(), TrainStepConfig(normalize=False),
+                                  transform, TrainStepConfig(normalize=False),
                                   null_cond=torch.zeros(1, TEXT_LEN, TEXT_DIM, device=where))
         loss = build({"sample": a["sample"], "cond": a["cond"]}, a["noise"], a["t"],
                      a["mask"])(m)
@@ -1027,23 +1076,30 @@ def step_check(dev, gpu, cpu, arrays, schedule, zero_by_math, label):
             "worst_grad": worst_name}
 
 
+def serving_model(dev, state):
+    """Phase 4's UNet in bf16 with `state`'s weights, and its text and null
+    contexts."""
+    from flaxdiff_tpu_torch.models import Unet
+
+    model = Unet(**UNET, dtype="bfloat16", device=dev)
+    model.load_state_dict(state)
+    model.eval()
+    rng = np.random.default_rng(2)
+    cond = torch.from_numpy(rng.standard_normal((1, TEXT_LEN, TEXT_DIM)).astype(np.float32))
+    return model, cond, torch.zeros(1, TEXT_LEN, TEXT_DIM)
+
+
 def main_path(dev, state):
     from flaxdiff_tpu_torch.device import make_generator
-    from flaxdiff_tpu_torch.models import Unet
     from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
     from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
     from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
 
-    model = Unet(**UNET, dtype="bfloat16", device=dev)
-    model.load_state_dict(state)
-    model.eval()
+    model, cond, uncond = serving_model(dev, state)
     sampler = DiffusionSampler(lambda x, t, c: model(x, t, c), CosineNoiseSchedule(1000),
                                EpsilonPredictionTransform(), DDIMSampler(),
                                guidance_scale=GUIDANCE, device=dev)
-    rng = np.random.default_rng(2)
-    cond = torch.from_numpy(rng.standard_normal((1, TEXT_LEN, TEXT_DIM)).astype(np.float32))
-    uncond = torch.zeros(1, TEXT_LEN, TEXT_DIM)
     run = lambda steps, seed: sampler.generate_samples(
         num_samples=1, resolution=RESOLUTION, diffusion_steps=steps,
         generator=make_generator(seed, dev), conditioning=cond, unconditional=uncond)
@@ -1085,18 +1141,25 @@ def training_path(dev):
     return res
 
 
-def run_training(dev, model, schedule, shape, per_step):
+def run_training(dev, model, schedule, shape, per_step, transform=None,
+                 fixed_draws: bool = False):
     """DiffusionTrainer.train_step from the model's own init, AdamW 1e-4 at
     optax's defaults, EMA 0.999, CFG dropout 0.12 to a zeros context: 3
     warm-up and 20 timed steps over 4 seeded synthetic batches of `shape`
-    with a text context. Every launch counter, zeroed just before, must read
-    `per_step` launches a step."""
+    with a text context, eps prediction unless `transform` says otherwise.
+    Every launch counter, zeroed just before, must read `per_step` launches a
+    step, and the loss must fall: the mean of the last 5 below the first or,
+    with `fixed_draws`, the loss of the first batch under one fixed draw of
+    noise and timesteps lower after the steps than before them (EDM's
+    per-step loss swings 1-4x with its log-normal sigma draws, far more than
+    23 steps move it)."""
     from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
-    from flaxdiff_tpu_torch.trainer import AdamW, DiffusionTrainer, TrainerConfig
+    from flaxdiff_tpu_torch.trainer import (AdamW, DiffusionTrainer, TrainerConfig,
+                                            TrainStepConfig, make_loss_builder)
 
     trainer = DiffusionTrainer(
-        model, AdamW(TRAIN_LR), schedule, EpsilonPredictionTransform(),
+        model, AdamW(TRAIN_LR), schedule, transform or EpsilonPredictionTransform(),
         TrainerConfig(uncond_prob=0.12, ema_decay=0.999, normalize=False, weighted_loss=True,
                       gate_nonfinite=True, seed=0),
         null_cond=torch.zeros(1, TEXT_LEN, TEXT_DIM), device=dev)
@@ -1106,6 +1169,16 @@ def run_training(dev, model, schedule, shape, per_step):
                 "cond": torch.from_numpy(rng.standard_normal(
                     (batch, TEXT_LEN, TEXT_DIM)).astype(np.float32)).to(dev)}
                for _ in range(4)]
+    if fixed_draws:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        draws = (torch.randn(shape, generator=gen, device=dev),
+                 trainer.schedule.sample_timesteps(gen, batch),
+                 torch.zeros(batch, dtype=torch.bool, device=dev))
+        build = make_loss_builder(trainer.schedule, transform,
+                                  TrainStepConfig(normalize=False, weighted_loss=True))
+        with torch.no_grad():
+            probe = lambda: float(build(batches[0], *draws)(trainer.state.model))
+            fixed_before = probe()
     torch.cuda.synchronize()
     reset_launch_counts()
     losses = [trainer.train_step(batches[i % 4]) for i in range(WARMUP)]
@@ -1127,13 +1200,22 @@ def run_training(dev, model, schedule, shape, per_step):
     log("  losses " + " ".join(f"{x:.5f}" for x in losses))
     check(all(math.isfinite(x) for x in losses), "every loss finite")
     last5 = float(np.mean(losses[-5:]))
-    check(last5 < losses[0], f"the loss fell: mean of the last 5 {last5} against {losses[0]}")
+    if fixed_draws:
+        with torch.no_grad():
+            fixed_after = probe()
+        log(f"  first batch, fixed draws: loss {fixed_before:.5f} before, {fixed_after:.5f} after")
+        check(fixed_after < fixed_before, f"the loss fell under fixed draws: {fixed_after} "
+              f"against {fixed_before}")
+    else:
+        check(last5 < losses[0], f"the loss fell: mean of the last 5 {last5} against {losses[0]}")
     ms = start.elapsed_time(end) / TIMED
     res = {"ms_per_step": ms, "samples_per_s": batch * 1e3 / ms,
            "wall_ms_per_step": wall * 1e3 / TIMED,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "params": trainer.state.params.numel(), "losses": losses,
            "mean_last5_loss": last5, "launches": counts}
+    if fixed_draws:
+        res.update(fixed_draw_loss_before=fixed_before, fixed_draw_loss_after=fixed_after)
     log(f"  {ms:.3f} ms per step (CUDA events over {TIMED} steps), "
         f"{res['samples_per_s']:.1f} samples/s, peak {res['peak_mem_gib']:.2f} GiB, "
         f"{res['params']} params")
@@ -1149,6 +1231,97 @@ def run_training(dev, model, schedule, shape, per_step):
     return res
 
 
+# --- phases 8 and 9: every sampler, EDM training -------------------------------
+
+# (request, sampler name and settings, schedule, spacing): the cosine schedule
+# with eps prediction, the KarrasVE ramp (sigma_max 80) with EDM
+# preconditioning and karras spacing, and an inpainting request
+SAMPLER_REQUESTS = [(name, name, {}, "cosine", "linear") for name in
+                    ("ddpm", "simple_ddpm", "euler", "simple_euler", "euler_ancestral", "heun")]
+SAMPLER_REQUESTS += [(f"multistep_dpm{k}", "multistep_dpm", {"order": k}, "cosine", "linear")
+                     for k in (2, 3)]
+SAMPLER_REQUESTS += [(f"{name}_karras", name, {}, "karras", "karras")
+                     for name in ("euler", "heun", "rk4")]
+SAMPLER_REQUESTS += [("ddim_inpaint", "ddim", {}, "cosine", "linear")]
+CALLS_PER_STEP = {"heun": 2, "rk4": 4}
+
+
+def sampler_paths(dev, state):
+    """Every sampler at phase 4's full width (bf16, batch 1, CFG 3.0, the
+    77x768 text), one 50-step request each, the launch counters zeroed just
+    before each and read just after: PER_FORWARD x its model calls (50 x
+    calls a step + the terminal one). The inpainting request generates the
+    left half and keeps the right half of a reference, exactly."""
+    from flaxdiff_tpu_torch.device import make_generator
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.predictors import (EpsilonPredictionTransform,
+                                               KarrasPredictionTransform)
+    from flaxdiff_tpu_torch.samplers import DiffusionSampler, get_sampler
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule, KarrasVENoiseSchedule
+
+    model, cond, uncond = serving_model(dev, state)
+    schedules = {"cosine": (CosineNoiseSchedule(1000), EpsilonPredictionTransform()),
+                 "karras": (KarrasVENoiseSchedule(1000, sigma_max=80.0),
+                            KarrasPredictionTransform())}
+    shape = (1, RESOLUTION, RESOLUTION, 3)
+    reference = torch.from_numpy(np.random.default_rng(8).uniform(-0.9, 0.9, shape)
+                                 .astype(np.float32))
+    mask = torch.zeros(1, RESOLUTION, RESOLUTION)
+    mask[:, :, : RESOLUTION // 2] = 1.0
+    results, total = {}, {}
+    for request, name, kwargs, sched, spacing in SAMPLER_REQUESTS:
+        schedule, transform = schedules[sched]
+        sampler = DiffusionSampler(lambda x, t, c: model(x, t, c), schedule, transform,
+                                   get_sampler(name, **kwargs), guidance_scale=GUIDANCE,
+                                   timestep_spacing=spacing, device=dev)
+        inpaint = dict(inpaint_reference=reference, inpaint_mask=mask) \
+            if request.endswith("inpaint") else {}
+        calls = STEPS * CALLS_PER_STEP.get(name, 1) + 1
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = sampler.generate_samples(num_samples=1, resolution=RESOLUTION,
+                                       diffusion_steps=STEPS, generator=make_generator(9, dev),
+                                       conditioning=cond, unconditional=uncond, **inpaint)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        expected = {k: PER_FORWARD.get(k, 0) * calls for k in counts}
+        check(counts == expected, f"{request}: launches {counts}, expected {expected}")
+        check(tuple(out.shape) == shape, f"{request}: output shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{request}: samples finite")
+        check(float(out.abs().max()) <= 1.0, f"{request}: samples clipped to [-1, 1]")
+        res = {"wall_s": wall, "model_calls": calls, "ms_per_call": wall * 1e3 / calls,
+               "sample_std": float(out.float().std())}
+        if inpaint:
+            kept = out[:, :, RESOLUTION // 2:].cpu()
+            check(torch.equal(kept, reference[:, :, RESOLUTION // 2:]),
+                  f"{request}: the kept half equals the reference")
+            res["kept_half_exact"] = True
+        log(f"  {request}: {calls} model calls, wall {wall:.3f} s, {res['ms_per_call']:.2f} ms "
+            f"per call, sample std {res['sample_std']:.3f}")
+        results[request] = res
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    del model
+    return {"requests": results, "launches": total}
+
+
+def edm_training_path(dev):
+    """DiffusionTrainer.train_step on phase 5's UNet with EDM: the
+    log-normal sigma draws, the Karras transform and EDM loss weights."""
+    from flaxdiff_tpu_torch.models import Unet
+    from flaxdiff_tpu_torch.predictors import KarrasPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import EDMNoiseSchedule
+
+    torch.manual_seed(0)
+    res = run_training(dev, Unet(**UNET, dtype="bfloat16", device=dev), EDMNoiseSchedule(1000),
+                       (TRAIN_BATCH, TRAIN_RES, TRAIN_RES, 3), {**PER_FORWARD, **PER_BACKWARD},
+                       KarrasPredictionTransform(), fixed_draws=True)
+    res["images_per_s"] = res.pop("samples_per_s")
+    return res
+
+
 # --- phases 3b, 6 and 7: the DiT ---------------------------------------------
 
 def dit_model_checks(dev, state):
@@ -1157,7 +1330,7 @@ def dit_model_checks(dev, state):
     t = 333, one train step's loss and gradients."""
     from flaxdiff_tpu_torch.models import SimpleDiT
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
-    from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
+    from flaxdiff_tpu_torch.samplers import DDIMSampler
     from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
 
     rng = np.random.default_rng(4)
@@ -1186,31 +1359,19 @@ def dit_model_checks(dev, state):
     # x0 = (x - sigma eps) / signal of a unit-scale x would mostly clip
     x0 = (0.5 * rng.standard_normal(shape)).astype(np.float32)
     cond = rng.standard_normal((2, TEXT_LEN, TEXT_DIM)).astype(np.float32)
-    samples = {}
-    for where, m in (("cuda", gpu), ("cpu", cpu)):
-        sampler = DiffusionSampler(lambda a, b, c, m=m: m(a, b, c), LinearNoiseSchedule(1000),
-                                   EpsilonPredictionTransform(), DDIMSampler(),
-                                   guidance_scale=GUIDANCE, device=dev if where == "cuda" else "cpu")
-        samples[where] = sampler.generate_samples(
-            diffusion_steps=3, init_samples=torch.from_numpy(x0),
-            conditioning=torch.from_numpy(cond),
-            unconditional=torch.zeros(2, TEXT_LEN, TEXT_DIM), start_step=333.0,
-            channels=DIT_CH).cpu()
-    err_traj = max_err(samples["cuda"], samples["cpu"])
-    saturated = float((samples["cpu"].abs() >= 1.0).float().mean())
-    log(f"  DDIM-3 + CFG {DIT_RES}x{DIT_RES}x{DIT_CH} f32 from t=333: max err {err_traj:.3g}, "
-        f"{saturated:.0%} of values clipped")
-    check(saturated < 0.6, "DiT trajectory samples mostly inside the clip range")
-    check(err_traj <= 1e-2, f"DiT trajectory: error {err_traj} above 1e-2")
+    traj = trajectory_check(((dev, gpu), ("cpu", cpu)),
+                            f"DDIM-3 + CFG {DIT_RES}x{DIT_RES}x{DIT_CH} f32 from t=333",
+                            LinearNoiseSchedule, EpsilonPredictionTransform(), DDIMSampler(), 3,
+                            init_samples=x0, cond=cond, start_step=333.0)
     arrays = {"sample": rng.standard_normal(shape), "cond": rng.standard_normal((2, TEXT_LEN, TEXT_DIM)),
               "noise": rng.standard_normal(shape), "t": np.array([91, 655], np.int32),
               "mask": np.array([False, True])}
     # the raster order rotates keys by position, so no gradient is zero by the math
-    step = step_check(dev, gpu, cpu, arrays, LinearNoiseSchedule, lambda name: False,
-                      f"train step {DIT_RES}x{DIT_RES}x{DIT_CH} f32")
+    step = step_check(dev, gpu, cpu, arrays, LinearNoiseSchedule, EpsilonPredictionTransform(),
+                      lambda name: False, f"train step {DIT_RES}x{DIT_RES}x{DIT_CH} f32")
     del models, gpu, cpu
-    return {"forward_f32_err": err, "forward_f32_scale": scale, "ddim3_cfg_f32_err": err_traj,
-            "ddim3_clipped_share": saturated, **{f"train_step_f32_{k}": v for k, v in step.items()}}
+    return {"forward_f32_err": err, "forward_f32_scale": scale, "ddim3": traj,
+            **{f"train_step_f32_{k}": v for k, v in step.items()}}
 
 
 def dit_serving_path(dev, state):
@@ -1365,20 +1526,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     from flaxdiff_tpu_torch.models import Unet
-    state = random_state(Unet(**UNET, device="cpu"), 0)
+    unet_state = random_state(Unet(**UNET, device="cpu"), 0)
     log("phase 3: full-width UNet, card against CPU")
-    model_res = model_checks(dev, state)
+    model_res = model_checks(dev, unet_state)
     model_res["wide_block"] = wide_block_check(dev, WIDE_LEVEL)
     # the wide kernels' path: UNET3D_LEVEL's block, its launches counted
     model_res["unet3d_block"] = wide_block_check(dev, UNET3D_LEVEL, UNET3D_BLOCK)
     torch.cuda.empty_cache()
 
     log(f"phase 4: DDIM-{STEPS} + CFG {GUIDANCE} at {RESOLUTION}x{RESOLUTION}, bf16")
-    traj = main_path(dev, state)
+    traj = main_path(dev, unet_state)
     log(f"trajectory: DDIM-{STEPS} CFG {GUIDANCE} {RESOLUTION}x{RESOLUTION} batch 1 bf16 "
         f"wall {traj['wall_s']:.3f} s ({traj['ms_per_forward']:.2f} ms per forward), "
         f"peak {traj['peak_mem_gib']:.2f} GiB on {smi}")
-    del state
     torch.cuda.empty_cache()
 
     log(f"phase 5: DiffusionTrainer.train_step, batch {TRAIN_BATCH} at {TRAIN_RES}x{TRAIN_RES}, "
@@ -1419,8 +1579,31 @@ def main() -> int:
         f"busy {dit_train.get('busy_ms', float('nan')):.3f} ms "
         f"({dit_train.get('idle_share', float('nan')):.0%} idle) on {smi}")
 
+    torch.cuda.empty_cache()
+
+    log(f"phase 8: every sampler, {STEPS} steps + CFG {GUIDANCE} at {RESOLUTION}x{RESOLUTION}, "
+        f"bf16")
+    t8 = time.perf_counter()
+    samplers_res = sampler_paths(dev, unet_state)
+    samplers_res["phase_s"] = time.perf_counter() - t8
+    for request, r in samplers_res["requests"].items():
+        log(f"sampler {request}: {r['model_calls']} calls, wall {r['wall_s']:.3f} s "
+            f"({r['ms_per_call']:.2f} ms per call) on {smi}")
+    del unet_state
+    torch.cuda.empty_cache()
+
+    log(f"phase 9: EDM DiffusionTrainer.train_step, batch {TRAIN_BATCH} at "
+        f"{TRAIN_RES}x{TRAIN_RES}, bf16, {WARMUP} + {TIMED} steps")
+    t9 = time.perf_counter()
+    edm_train = edm_training_path(dev)
+    edm_train["phase_s"] = time.perf_counter() - t9
+    log(f"EDM training: batch {TRAIN_BATCH} {TRAIN_RES}x{TRAIN_RES} bf16 "
+        f"{edm_train['ms_per_step']:.3f} ms per step, {edm_train['images_per_s']:.1f} images/s, "
+        f"peak {edm_train['peak_mem_gib']:.2f} GiB on {smi}")
+
     paths = {"unet_serving": traj, "unet_training": train, "dit_serving": dit_traj,
-             "dit_training": dit_train, "unet3d_block_320": model_res["unet3d_block"]}
+             "dit_training": dit_train, "unet3d_block_320": model_res["unet3d_block"],
+             "unet_samplers": samplers_res, "unet_edm_training": edm_train}
     kernels, summary = [], []
     for kname in REPLACES:
         mine = [c for c in cases if c["name"] == kname]
@@ -1441,6 +1624,7 @@ def main() -> int:
               "kernels": kernels, "yardsticks": yardsticks,
               "model": model_res, "trajectory": traj, "training": train, "dit_model": dit_res,
               "dit_trajectory": dit_traj, "dit_training": dit_train,
+              "samplers": samplers_res, "edm_training": edm_train,
               "total_s": time.perf_counter() - t0}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

@@ -11,7 +11,7 @@ class DDIMSampler(Sampler):
     def __init__(self, eta: float = 0.0):
         self.eta = float(eta)
 
-    def step(self, denoise, x, t_cur, t_next, generator, state, schedule, step_index):
+    def step(self, denoise, x, t_cur, t_next, noise, state, schedule, step_index):
         b = x.shape[0]
         x0, eps = denoise(x, t_cur)
         signal_c, sh_c = self._coords(schedule, t_cur.expand(b), x.ndim)
@@ -22,7 +22,5 @@ class DDIMSampler(Sampler):
         sigma_down = torch.sqrt(torch.clamp_min(sh_n ** 2 - var_up, 0.0))
         x_next = x0 + sigma_down * eps
         if self.eta > 0:
-            noise = torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=x.dtype)
-            x_next = x_next + torch.sqrt(var_up) * noise
+            x_next = x_next + torch.sqrt(var_up) * noise.normal(x.shape)
         return signal_n * x_next, state

@@ -11,7 +11,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .common import NoiseSchedule
+from .common import NoiseSchedule, bcast_right
 
 
 def linear_beta_schedule(timesteps: int, beta_start: float = 0.0001,
@@ -39,33 +39,37 @@ def exp_beta_schedule(timesteps: int, beta_start: float = 0.0001,
 class DiscreteNoiseSchedule(NoiseSchedule):
     """VP schedule over alpha-bar tables: signal = sqrt(alpha_bar[t]),
     noise = sqrt(1 - alpha_bar[t]), with t truncated to an integer index
-    (``astype(int32)`` in the JAX package, flaxdiff_tpu/schedulers/discrete.py:95).
+    (``astype(int32)`` in the JAX package, flaxdiff_tpu/schedulers/discrete.py:318).
     Loss weights are P2's (k + SNR)^-gamma (Choi et al. 2022), 1 at the
-    default gamma 0. The DDPM posterior tables come with the DDPM sampler."""
+    default gamma 0. The DDPM posterior q(x_{t-1} | x_t, x0) comes as tables
+    too (``from_betas``, discrete.py:286-314)."""
 
     def __init__(self, betas: np.ndarray, device=None, p2_k: float = 1.0,
                  p2_gamma: float = 0.0):
         # the 1000/T rescale gives beta >= 1 for tiny T: clamp, as the JAX package does
         betas = np.clip(np.asarray(betas, dtype=np.float64), 1e-8, 0.999)
-        super().__init__(len(betas))
-        alphas_cumprod = np.cumprod(1.0 - betas)
-        f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+        timesteps = len(betas)
+        super().__init__(timesteps, device)
+        alphas = 1.0 - betas
+        alphas_cumprod = np.cumprod(alphas)
+        alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+        posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
+        # clipped at the first step's variance: posterior_variance[0] is 0
+        posterior_log_variance = np.log(
+            np.maximum(posterior_variance, posterior_variance[1] if timesteps > 1 else 1e-20))
+        f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=self.device)
         self.betas = f32(betas)
         self.alphas_cumprod = f32(alphas_cumprod)
         self.sqrt_alphas_cumprod = f32(np.sqrt(alphas_cumprod))
         self.sqrt_one_minus_alphas_cumprod = f32(np.sqrt(1.0 - alphas_cumprod))
+        self.posterior_variance = f32(posterior_variance)
+        self.posterior_log_variance_clipped = f32(posterior_log_variance)
+        self.posterior_mean_coef1 = f32(betas * np.sqrt(alphas_cumprod_prev)
+                                        / (1.0 - alphas_cumprod))
+        self.posterior_mean_coef2 = f32((1.0 - alphas_cumprod_prev) * np.sqrt(alphas)
+                                        / (1.0 - alphas_cumprod))
         self.p2_loss_weight_k = p2_k
         self.p2_loss_weight_gamma = p2_gamma
-
-    @property
-    def device(self) -> torch.device:
-        return self.betas.device
-
-    def to(self, device) -> "DiscreteNoiseSchedule":
-        new = object.__new__(type(self))
-        new.__dict__.update({k: v.to(device) if isinstance(v, torch.Tensor) else v
-                             for k, v in self.__dict__.items()})
-        return new
 
     def _index(self, t: torch.Tensor) -> torch.Tensor:
         return t.to(torch.int32).clamp(0, self.timesteps - 1).long()
@@ -82,6 +86,15 @@ class DiscreteNoiseSchedule(NoiseSchedule):
         """n integer steps uniform in [0, timesteps), int32 as in JAX."""
         return torch.randint(0, self.timesteps, (n,), generator=generator,
                              device=generator.device, dtype=torch.int32)
+
+    def posterior_mean(self, x0: torch.Tensor, x_t: torch.Tensor,
+                       t: torch.Tensor) -> torch.Tensor:
+        idx = self._index(t)
+        return (bcast_right(self.posterior_mean_coef1[idx], x0.ndim) * x0
+                + bcast_right(self.posterior_mean_coef2[idx], x0.ndim) * x_t)
+
+    def posterior_log_variance(self, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        return bcast_right(self.posterior_log_variance_clipped[self._index(t)], ndim)
 
 
 def LinearNoiseSchedule(timesteps: int = 1000, beta_start: float = 0.0001,

@@ -677,3 +677,146 @@ def test_tiny_dit_card_matches_cpu(cuda):
             assert float(g.abs().max()) <= 1e-6 * gmax, name
             continue
         torch.testing.assert_close(g.cpu(), r, atol=1e-4 * float(r.abs().max()), rtol=0)
+
+
+# --- samplers on the card ---------------------------------------------------------
+
+SAMPLER_CASES = [("ddpm", {}, "vp"), ("simple_ddpm", {}, "vp"), ("ddim", {}, "vp"),
+                 ("ddim", {"eta": 0.5}, "vp"), ("euler", {}, "vp"), ("simple_euler", {}, "vp"),
+                 ("euler_ancestral", {}, "vp"), ("heun", {}, "vp"),
+                 ("multistep_dpm", {"order": 2}, "vp"), ("multistep_dpm", {"order": 3}, "vp"),
+                 ("simple_ddpm", {}, "ve"), ("ddim", {}, "ve"), ("euler", {}, "ve"),
+                 ("euler_ancestral", {}, "ve"), ("heun", {}, "ve"), ("rk4", {}, "ve"),
+                 ("multistep_dpm", {"order": 2}, "ve")]
+STOCHASTIC_SAMPLERS = {"ddpm", "simple_ddpm", "euler_ancestral"}
+SAMPLE_SHAPE = (2, 8, 8, 1)
+
+
+def _schedule(kind):
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule, KarrasVENoiseSchedule
+    return CosineNoiseSchedule(1000) if kind == "vp" else KarrasVENoiseSchedule(1000,
+                                                                             sigma_max=20.0)
+
+
+def _delta_model(schedule, mu=0.35):
+    """A perfect eps-predictor for data ~ delta(mu): the time input is the
+    step for VP schedules and c_noise = log(sigma) / 4 for sigma schedules."""
+    from flaxdiff_tpu_torch.schedulers import SigmaSchedule, bcast_right
+
+    def model_fn(x, t, cond):
+        if isinstance(schedule, SigmaSchedule):
+            sigma = torch.exp(4.0 * t)
+            signal = torch.ones_like(sigma)
+        else:
+            signal, sigma = schedule.rates(t)
+        return (x - bcast_right(signal, x.ndim) * mu) / torch.clamp_min(
+            bcast_right(sigma, x.ndim), 1e-6)
+    return model_fn
+
+
+def _engine(name, kwargs, kind, dev, model=None):
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.samplers import DiffusionSampler, get_sampler
+    schedule = _schedule(kind).to(dev)
+    return DiffusionSampler(model or _delta_model(schedule), schedule,
+                            EpsilonPredictionTransform(), get_sampler(name, **kwargs),
+                            device=dev)
+
+
+def _draws(name, kwargs, steps, inpaint=False, seed=0):
+    """The trajectory's draws, made once on the CPU: the initial noise, a
+    stochastic sampler's one a step, inpainting's one a step."""
+    gen = torch.Generator().manual_seed(seed)
+    per_step = int(name in STOCHASTIC_SAMPLERS or kwargs.get("eta", 0) > 0) + int(inpaint)
+    return [torch.randn(SAMPLE_SHAPE, generator=gen) for _ in range(1 + steps * per_step)]
+
+
+@pytest.mark.parametrize("name,kwargs,kind", SAMPLER_CASES)
+def test_sampler_card_matches_cpu(cuda, name, kwargs, kind):
+    """Every sampler on the delta model, f32, with the same given draws."""
+    from flaxdiff_tpu_torch.samplers import GivenNoise
+    draws = _draws(name, kwargs, 6)
+    outs = []
+    for dev in (cuda, "cpu"):
+        given = GivenNoise(draws, device=dev)
+        out = _engine(name, kwargs, kind, dev).generate_samples(
+            num_samples=2, resolution=8, diffusion_steps=6, generator=given, channels=1)
+        assert given.used == len(draws) and out.device.type == torch.device(dev).type
+        outs.append(out.cpu())
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name,kwargs", [("ddpm", {}), ("simple_ddpm", {}),
+                                         ("euler_ancestral", {}), ("ddim", {"eta": 1.0})])
+def test_stochastic_samplers_draw_from_a_cuda_generator(cuda, name, kwargs):
+    """Seeded runs repeat and differ across seeds: an eps-model linear in x
+    carries every draw into the samples (the delta model's would be mu)."""
+    from flaxdiff_tpu_torch.device import make_generator
+    engine = _engine(name, kwargs, "vp", cuda, model=lambda x, t, c: 0.5 * x)
+    run = lambda seed: engine.generate_samples(num_samples=2, resolution=8, diffusion_steps=6,
+                                               generator=make_generator(seed, cuda), channels=1)
+    a, b, c = run(1), run(1), run(2)
+    assert a.device.type == "cuda" and torch.equal(a, b) and not torch.equal(a, c)
+
+
+@pytest.mark.parametrize("name,kwargs,kind", SAMPLER_CASES)
+def test_sampler_steps_never_sync_with_the_host(cuda, name, kwargs, kind):
+    """Each step of the loop, stochastic draws from a CUDA generator and
+    inpainting's re-noising included, under sync debug mode "error": a
+    step that reads a value back, or branches on one, raises."""
+    from flaxdiff_tpu_torch.device import make_generator
+    from flaxdiff_tpu_torch.samplers import NoiseSource, get_timestep_spacing
+    engine = _engine(name, kwargs, kind, cuda)
+    schedule = engine.schedule
+    steps = get_timestep_spacing("linear", 6, schedule.timesteps, device=cuda)
+    noise = NoiseSource(make_generator(3, cuda))
+    x = noise.normal(SAMPLE_SHAPE) * schedule.max_noise_std()
+    known = torch.zeros(SAMPLE_SHAPE, device=cuda)
+    mask = torch.ones(SAMPLE_SHAPE, device=cuda)
+    denoise = engine._denoise_fn(None, None)
+    state = engine.sampler.init_state(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(6):
+            x, state = engine.sampler.step(denoise, x, steps[i], steps[i + 1], noise, state,
+                                           schedule, i)
+            known_t = schedule.add_noise(known, noise.normal(known.shape),
+                                         steps[i + 1].expand(x.shape[0]))
+            x = mask * x + (1.0 - mask) * known_t
+        x0, _ = denoise(x, steps[-1])
+        with pytest.raises(RuntimeError):
+            float(x0.sum())       # a read-back: the mode is on and catches one
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(x0).all())
+
+
+@pytest.mark.parametrize("name,kwargs", [("ddim", {}), ("ddpm", {})])
+def test_inpainting_card_matches_cpu(cuda, name, kwargs):
+    """Masked generation with the same draws on both devices: within 1e-5,
+    and the kept region is the reference exactly."""
+    from flaxdiff_tpu_torch.samplers import GivenNoise
+    gen = torch.Generator().manual_seed(4)
+    reference = torch.rand(SAMPLE_SHAPE, generator=gen) * 1.6 - 0.8
+    mask = torch.zeros(2, 5, 5)           # resized 5 -> 8, nearest with half-pixel centres
+    mask[:, :, :2] = 1.0
+    draws = _draws(name, kwargs, 6, inpaint=True)
+    outs = []
+    for dev in (cuda, "cpu"):
+        given = GivenNoise(draws, device=dev)
+        out = _engine(name, kwargs, "vp", dev).generate_samples(
+            num_samples=2, resolution=8, diffusion_steps=6, generator=given, channels=1,
+            inpaint_reference=reference, inpaint_mask=mask)
+        assert given.used == len(draws)
+        outs.append(out.cpu())
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=1e-5)
+    keep = outs[1] == reference
+    assert 0.3 < keep.float().mean() < 0.7
+    assert torch.equal(outs[0][keep], reference[keep])
+
+
+def test_rk4_raises_on_a_vp_schedule_on_the_card(cuda):
+    with pytest.raises(TypeError, match="SigmaSchedule"):
+        _engine("rk4", {}, "vp", cuda).generate_samples(num_samples=1, resolution=4,
+                                                        diffusion_steps=2, channels=1)

@@ -21,7 +21,9 @@ from flaxdiff_tpu.ops.flash_attention import flash_attention as jax_flash
 from flaxdiff_tpu.ops.fused_adaln import fused_geglu as jax_geglu
 from flaxdiff_tpu.ops.fused_norm import fused_groupnorm_silu as jax_gn
 from flaxdiff_tpu.predictors import EpsilonPredictionTransform as JaxEps
+from flaxdiff_tpu.predictors import KarrasPredictionTransform as JaxKarras
 from flaxdiff_tpu.schedulers import CosineNoiseSchedule as JaxCosine
+from flaxdiff_tpu.schedulers import EDMNoiseSchedule as JaxEDM
 from flaxdiff_tpu.trainer.train_state import TrainState as JaxTrainState
 from flaxdiff_tpu.trainer.train_step import TrainStepConfig as JaxStepConfig
 from flaxdiff_tpu.trainer.train_step import _make_loss_builder as jax_loss_builder
@@ -37,8 +39,8 @@ from flaxdiff_tpu_torch.ops.fused_adaln import gelu_tanh
 from flaxdiff_tpu_torch.ops.fused_norm import (groupnorm_bwd_dx, groupnorm_bwd_finalize,
                                                groupnorm_bwd_stats, groupnorm_finalize,
                                                groupnorm_stats, rows_per_block)
-from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
-from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform, KarrasPredictionTransform
+from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule, EDMNoiseSchedule
 from flaxdiff_tpu_torch.trainer import AdamW, TrainStepConfig, make_loss_builder, make_train_step
 
 # f32 on both sides; the two differ only in summation order and the
@@ -210,13 +212,14 @@ BATCH, RES, CTX_LEN, CTX_DIM = 3, 16, 77, 12
 SEED = 18  # of the JAX state's rng: each of its first 3 steps drops one sample's context
 
 
-def jax_draws(state, x_shape):
+def jax_draws(state, x_shape, schedule=JaxCosine(timesteps=1000)):
     """The JAX step's own draws (train_step.py:53-84): fold the step into
-    the state's key, split in four, then bernoulli, randint and normal."""
+    the state's key, split in four, then bernoulli, the schedule's
+    timesteps and normal."""
     rng = jax.random.fold_in(state.rng, state.step)
     noise_key, t_key, uncond_key, _ = jax.random.split(rng, 4)
     mask = jax.random.bernoulli(uncond_key, 0.12, (x_shape[0],))
-    t = JaxCosine(timesteps=1000).sample_timesteps(t_key, x_shape[0])
+    t = schedule.sample_timesteps(t_key, x_shape[0])
     noise = jax.random.normal(noise_key, x_shape, dtype=jnp.float32)
     return tuple(torch.from_numpy(np.array(a)) for a in (noise, t, mask))
 
@@ -327,6 +330,46 @@ def test_train_step_loss_grads_and_three_steps_match_jax(jax_trainer):
     assert_lr_quantum(state.ema.numpy(), port_layout(state, jstate.ema_params), "ema")
     moved = np.abs(state.params.numpy() - port_layout(state, jt["params"]))
     assert np.median(moved) > LR, "the params barely moved: the comparison would be empty"
+
+
+@pytest.mark.parametrize("jax_trainer", [False], indirect=True, ids=["float"])
+def test_edm_train_step_loss_and_grads_match_jax(jax_trainer):
+    """EDM training through the same loss builder: float timesteps (ln sigma
+    ~ N(-1.2, 1.2) mapped through the inverse ramp), c_in on x_t, c_noise =
+    log(sigma) / 4 into the UNet, the c_skip / c_out wrap and the EDM
+    weights, with the JAX step's own draws."""
+    jt = jax_trainer
+    jm = JaxUnet(**TINY)
+    apply_fn = lambda p, x, t, c: jm.apply({"params": p}, x, t, c)
+    cfg = JaxStepConfig(uncond_prob=0.12, ema_decay=0.999, normalize=False, weighted_loss=True)
+    null = np.zeros((1, CTX_LEN, CTX_DIM), np.float32)
+    schedule = JaxEDM(timesteps=1000)
+    build = jax_loss_builder(apply_fn, schedule, JaxKarras(), cfg, None, None, null)
+    batch = make_batch(np.random.default_rng(29), False)
+    ref_loss, ref_grads = jax.jit(jax.value_and_grad(build(jt["state0"], batch)))(
+        jt["params"])
+    draws = jax_draws(jt["state0"], (BATCH, RES, RES, 3), schedule)
+    t = draws[1]
+    assert t.dtype == torch.float32 and not torch.equal(t, t.round())
+
+    model = Unet(**TINY, in_channels=3, context_dim=CTX_DIM, device="cpu")
+    model.load_flax_params(jt["params"], fourier_freqs(TINY["emb_features"]))
+    port_build = make_loss_builder(EDMNoiseSchedule(1000), KarrasPredictionTransform(),
+                                   TrainStepConfig(uncond_prob=0.12, ema_decay=0.999,
+                                                   normalize=False, weighted_loss=True),
+                                   null_cond=torch.from_numpy(null))
+    loss = port_build(torch_batch(batch), *draws)(model)
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-5)
+    names = [n for n, _ in model.named_parameters()]
+    grads = dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
+    ref = {k: v.numpy() for k, v in convert.unet_state_dict_from_flax(ref_grads).items()}
+    gmax = max(np.abs(r).max() for r in ref.values())
+    for name, g in grads.items():
+        if name.endswith("to_k.bias"):
+            # zero by the math, as in the eps step above
+            assert max(np.abs(g.numpy()).max(), np.abs(ref[name]).max()) <= 1e-6 * gmax, name
+            continue
+        assert_close_to_max(g.numpy(), ref[name], 1e-4, f"grad {name}")
 
 
 @pytest.mark.parametrize("jax_trainer", [False], indirect=True, ids=["float"])

@@ -1,5 +1,5 @@
-"""The port's UNet modules, the whole tiny UNet and a DDIM + CFG trajectory
-against the JAX package, on the CPU in f32.
+"""The port's UNet modules, the whole tiny UNet and DDIM + CFG and Heun +
+CFG (Karras) trajectories against the JAX package, on the CPU in f32.
 
 Every parameter of the flax side is replaced with seeded numpy values and
 converted with flaxdiff_tpu_torch.convert: a freshly initialised UNet has
@@ -15,10 +15,13 @@ from flaxdiff_tpu.models import attention as jattn
 from flaxdiff_tpu.models import common as jcommon
 from flaxdiff_tpu.models.unet import Unet as JaxUnet
 from flaxdiff_tpu.predictors import EpsilonPredictionTransform as JaxEps
+from flaxdiff_tpu.predictors import KarrasPredictionTransform as JaxKarras
 from flaxdiff_tpu.samplers import DDIMSampler as JaxDDIM
+from flaxdiff_tpu.samplers import HeunSampler as JaxHeun
 from flaxdiff_tpu.samplers import DiffusionSampler as JaxSampler
 from flaxdiff_tpu.samplers.common import get_timestep_spacing as jax_spacing
 from flaxdiff_tpu.schedulers import CosineNoiseSchedule as JaxCosine
+from flaxdiff_tpu.schedulers import KarrasVENoiseSchedule as JaxKarrasVE
 
 from flaxdiff_tpu import predictors as jpredictors
 from flaxdiff_tpu import schedulers as jschedulers
@@ -26,10 +29,10 @@ from flaxdiff_tpu_torch import convert, predictors, schedulers
 from flaxdiff_tpu_torch.models import attention as tattn
 from flaxdiff_tpu_torch.models import common as tcommon
 from flaxdiff_tpu_torch.models.unet import Unet
-from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
-from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
+from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform, KarrasPredictionTransform
+from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler, HeunSampler
 from flaxdiff_tpu_torch.samplers.common import get_timestep_spacing
-from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule, KarrasVENoiseSchedule
 
 # module outputs in f32: both sides sum convolutions and matmuls in their
 # own order; a few layers deep that stays below 1e-4 at unit scale
@@ -197,6 +200,29 @@ def test_ddim_cfg_trajectory_matches_jax(tiny_pair, clip_denoised):
     assert (np.abs(ref) >= 1.0).mean() < 0.5 and np.abs(ref).mean() > 0.05
     # early DDIM steps divide by a small signal rate (~0.03 at t=749),
     # amplifying the forward's 1e-5-scale differences
+    np.testing.assert_allclose(out, ref, atol=1e-3, rtol=1e-3)
+
+
+def test_heun_karras_cfg_trajectory_matches_jax(tiny_pair):
+    """4 Heun steps with CFG 3.0 on the KarrasVE schedule with EDM
+    preconditioning and karras spacing, from full noise (sigma 80): two
+    model calls a step at c_noise = log(sigma) / 4, then the terminal one."""
+    jm, params, tm, (_, _, ctx) = tiny_pair
+    x_init = (80.0 * np.random.default_rng(14).standard_normal((2, 16, 16, 3))).astype(np.float32)
+    uncond = np.zeros_like(ctx)
+    engine = JaxSampler(model_fn=lambda p, x, t, c: jm.apply({"params": p}, x, t, c),
+                        schedule=JaxKarrasVE(timesteps=1000), transform=JaxKarras(),
+                        sampler=JaxHeun(), guidance_scale=3.0, timestep_spacing="karras")
+    ref = np.asarray(engine.generate_samples(
+        params, num_samples=2, resolution=16, diffusion_steps=4, conditioning=ctx,
+        unconditional=uncond, init_samples=jnp.asarray(x_init)))
+    sampler = DiffusionSampler(lambda x, t, c: tm(x, t, c), KarrasVENoiseSchedule(1000),
+                               KarrasPredictionTransform(), HeunSampler(), guidance_scale=3.0,
+                               timestep_spacing="karras", device="cpu")
+    out = sampler.generate_samples(diffusion_steps=4, init_samples=torch.from_numpy(x_init),
+                                   conditioning=torch.from_numpy(ctx),
+                                   unconditional=torch.from_numpy(uncond)).numpy()
+    assert (np.abs(ref) >= 1.0).mean() < 0.5 and np.abs(ref).mean() > 0.05
     np.testing.assert_allclose(out, ref, atol=1e-3, rtol=1e-3)
 
 
