@@ -68,6 +68,20 @@ Phases; any failure exits non-zero and prints no result line.
      zeroed just before, must read PER_FORWARD x its model calls.
   9. EDM training: phase 5 with EDMNoiseSchedule and the Karras transform,
      the same checks.
+ 10. The training CLI end to end, in a temporary directory removed after:
+     flaxdiff_tpu_torch.train.main trains phase 5's UNet with the hash text
+     encoder on the synthetic dataset (batch 16 at 128x128, bf16 over f32
+     params, adamw on a 10-step warmup, grad clip 1.0) for 40 steps,
+     checkpointing at 20 and 40; every window loss must be finite and every
+     forward and backward kernel launched once per call per step. A second
+     run resumes from the step-20 checkpoint and trains to 40: its params,
+     EMA and moments must equal the first run's bit for bit. A fit with a
+     NaN batch must roll back and keep the state finite. Then
+     DiffusionInferencePipeline.from_checkpoint samples DDIM-50 with CFG 3.0
+     for the prompts "bright" and "dark" at 128x128, its launch counters
+     reading PER_FORWARD x 51. Prints fit's ms per step and images/s beside
+     phase 5's, the checkpoint's save time and bytes, peak memory and the
+     request's wall time.
 The lines before the last are the kernels' JSON record and the card's
 name and power limit; the last is {"ok": true, "device": {...}}. With
 --record, the full record (every case, the model checks, both paths and
@@ -1231,6 +1245,141 @@ def run_training(dev, model, schedule, shape, per_step, transform=None,
     return res
 
 
+# --- phase 10: the training CLI, checkpoints, resume, inference from a checkpoint --
+
+CLI_STEPS, CLI_SAVE_EVERY, CLI_LOG_EVERY, CLI_WARMUP, CLI_POISON_STEPS = 40, 20, 10, 10, 10
+# phase 5's UNet; the hash encoder's 64 features set the context width
+CLI_MODEL = {k: v for k, v in UNET.items() if k != "context_dim"}
+CLI_PROMPTS = ["bright", "dark"]
+
+
+def cli_args(checkpoint_dir: str, total_steps: int, dev) -> list:
+    return ["--device", str(dev), "--dataset", "synthetic", "--text_encoder", "hash", "--image_size", str(TRAIN_RES),
+            "--batch_size", str(TRAIN_BATCH), "--architecture", "unet",
+            "--model_config", json.dumps(CLI_MODEL), "--dtype", "bfloat16",
+            "--optimizer", "adamw", "--lr", str(TRAIN_LR), "--warmup_steps", str(CLI_WARMUP),
+            "--total_steps", str(total_steps), "--grad_clip", "1.0",
+            "--save_every", str(CLI_SAVE_EVERY), "--log_every", str(CLI_LOG_EVERY),
+            "--checkpoint_dir", checkpoint_dir, "--seed", "0"]
+
+
+def copy_run(src: str, dst: str, step: int) -> None:
+    """A run directory holding `src`'s config, hash table and `step` only
+    (hard links: nothing is copied)."""
+    os.makedirs(dst)
+    for name in ("pipeline_config.json", "hash_table.npy"):
+        shutil.copyfile(os.path.join(src, name), os.path.join(dst, name))
+    shutil.copytree(os.path.join(src, str(step)), os.path.join(dst, str(step)),
+                    copy_function=os.link)
+
+
+def cli_path(dev, per_step: dict) -> dict:
+    """Phase 10 (see the module docstring)."""
+    import tempfile
+
+    from flaxdiff_tpu_torch import train
+    from flaxdiff_tpu_torch.inference import DiffusionInferencePipeline
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.trainer import Checkpointer
+
+    root = tempfile.mkdtemp(prefix="flaxdiff_cli_")
+    res = {}
+    try:
+        whole, resumed, poisoned = (os.path.join(root, n) for n in ("whole", "resumed", "poison"))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = train.main(cli_args(whole, CLI_STEPS, dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        expected = {k: CLI_STEPS * per_step.get(k, 0) for k in counts}
+        log(f"  launches {counts}, expected {expected}")
+        check(counts == expected, "every forward and backward kernel ran once per call per step")
+        log("  window losses " + " ".join(f"{x:.5f}" for x in hist["loss"]))
+        check(hist["steps"] == list(range(CLI_LOG_EVERY, CLI_STEPS + 1, CLI_LOG_EVERY))
+              and all(math.isfinite(x) for x in hist["loss"]), "every window loss finite")
+        # the first window holds the warm-up (cuDNN's choices, the allocator)
+        steady = [TRAIN_BATCH * 1e3 / ips for ips in hist["imgs_per_sec"][1:]]
+        ckpt = hist["checkpoint"]
+        res["fit"] = {"wall_s": wall, "window_ms_per_step": [TRAIN_BATCH * 1e3 / ips for ips in
+                                                             hist["imgs_per_sec"]],
+                      "ms_per_step": float(np.median(steady)),
+                      "images_per_s": TRAIN_BATCH * 1e3 / float(np.median(steady)),
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "losses": hist["loss"], "launches": counts, "saves": hist["saves"],
+                      "checkpoint": ckpt}
+        log(f"  fit: {res['fit']['ms_per_step']:.3f} ms per step (median of windows 2-4: "
+            + " ".join(f"{x:.3f}" for x in steady) + f"), {res['fit']['images_per_s']:.1f} "
+            f"images/s, {wall:.2f} s for {CLI_STEPS} steps with the model's build; peak "
+            f"{res['fit']['peak_mem_gib']:.2f} GiB; checkpoint of step {ckpt['step']}: "
+            f"{ckpt['bytes'] / 2 ** 30:.3f} GiB, the loop held {ckpt['blocked_s'] * 1e3:.1f} ms, "
+            f"written in {ckpt['write_s']:.3f} s")
+
+        copy_run(whole, resumed, CLI_SAVE_EVERY)
+        reset_launch_counts()
+        hist = train.main(cli_args(resumed, CLI_STEPS, dev))
+        counts = launch_counts()
+        half = CLI_STEPS - CLI_SAVE_EVERY
+        check(counts == {k: half * per_step.get(k, 0) for k in counts},
+              f"the resumed run launched every kernel once per call for {half} steps")
+        a, _ = Checkpointer(whole).restore(CLI_STEPS)
+        b, _ = Checkpointer(resumed).restore(CLI_STEPS)
+        diffs = {k: float((a[k] - b[k]).abs().max()) for k in ("params", "ema", "exp_avg",
+                                                                "exp_avg_sq")}
+        res["resume"] = {"max_abs_diff": diffs, "bit_equal": all(torch.equal(a[k], b[k]) for k in diffs),
+                         "steps": hist["steps"], "losses": hist["loss"]}
+        log(f"  resumed from step {CLI_SAVE_EVERY} to {CLI_STEPS}: largest differences to the "
+            f"uninterrupted run {diffs}")
+        check(res["resume"]["bit_equal"], "the resumed run equals the uninterrupted one bit for bit")
+
+        copy_run(whole, poisoned, CLI_SAVE_EVERY)
+        run = train.make_run(cli_args(poisoned, CLI_STEPS, dev))
+
+        def poison(batches, at):
+            for i, batch in enumerate(batches):
+                if i == at:
+                    batch = {**batch, "sample": np.full(batch["sample"].shape, np.nan, np.float32)}
+                yield batch
+
+        hist = run.trainer.fit(poison(run.batches(run.start_step), 1), CLI_POISON_STEPS)
+        run.trainer.checkpointer.close()
+        state = run.trainer.state
+        finite = all(bool(torch.isfinite(v).all()) for v in state.buffers().values())
+        res["poison"] = {"steps": hist["steps"], "step_after": state.step, "finite": finite}
+        log(f"  NaN batch at step {CLI_SAVE_EVERY + 2}: windows kept {hist['steps']}, state at "
+            f"step {state.step}, finite {finite}")
+        check(finite and hist["steps"] == [] and state.step == CLI_SAVE_EVERY,
+              "the NaN batch rolled the run back to the restored state, every buffer finite")
+        del run, state
+        torch.cuda.empty_cache()
+
+        pipe = DiffusionInferencePipeline.from_checkpoint(whole, device=dev)
+        request = lambda steps: pipe.generate_samples(
+            resolution=TRAIN_RES, diffusion_steps=steps, sampler="ddim",
+            guidance_scale=GUIDANCE, prompts=CLI_PROMPTS, seed=1)
+        request(2)                 # warm-up: cuDNN's choices, the allocator
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = request(STEPS)
+        req_wall = time.perf_counter() - t0
+        counts = launch_counts()
+        check(counts == {k: PER_FORWARD.get(k, 0) * (STEPS + 1) for k in counts},
+              "the pipeline's request launched PER_FORWARD x 51 kernels")
+        check(out.shape == (2, TRAIN_RES, TRAIN_RES, 3) and bool(np.isfinite(out).all())
+              and float(np.abs(out).max()) <= 1.0, f"samples {out.shape}, finite, in [-1, 1]")
+        res["serving"] = {"wall_s": req_wall, "launches": counts,
+                          "sample_std": float(out.std()), "ms_per_call": req_wall * 1e3 / (STEPS + 1)}
+        res["launches"] = {k: res["fit"]["launches"][k] + counts[k] for k in counts}
+        log(f"  from_checkpoint: DDIM-{STEPS} CFG {GUIDANCE} for {CLI_PROMPTS} at "
+            f"{TRAIN_RES}x{TRAIN_RES} bf16: wall {req_wall:.3f} s "
+            f"({res['serving']['ms_per_call']:.2f} ms per call)")
+        del pipe
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 # --- phases 8 and 9: every sampler, EDM training -------------------------------
 
 # (request, sampler name and settings, schedule, spacing): the cosine schedule
@@ -1601,9 +1750,26 @@ def main() -> int:
         f"{edm_train['ms_per_step']:.3f} ms per step, {edm_train['images_per_s']:.1f} images/s, "
         f"peak {edm_train['peak_mem_gib']:.2f} GiB on {smi}")
 
+    torch.cuda.empty_cache()
+
+    log(f"phase 10: the training CLI, batch {TRAIN_BATCH} at {TRAIN_RES}x{TRAIN_RES}, bf16, "
+        f"{CLI_STEPS} steps, resume, a NaN batch, DDIM-{STEPS} + CFG from the checkpoint")
+    t10 = time.perf_counter()
+    cli = cli_path(dev, {**PER_FORWARD, **PER_BACKWARD})
+    cli["phase_s"] = time.perf_counter() - t10
+    log(f"CLI fit: batch {TRAIN_BATCH} {TRAIN_RES}x{TRAIN_RES} bf16 {cli['fit']['ms_per_step']:.3f} "
+        f"ms per step, {cli['fit']['images_per_s']:.1f} images/s (phase 5's loop "
+        f"{train['ms_per_step']:.3f} ms, {train['images_per_s']:.1f}), peak "
+        f"{cli['fit']['peak_mem_gib']:.2f} GiB, checkpoint "
+        f"{cli['fit']['checkpoint']['bytes'] / 2 ** 30:.3f} GiB held the loop "
+        f"{cli['fit']['checkpoint']['blocked_s'] * 1e3:.1f} ms, written in "
+        f"{cli['fit']['checkpoint']['write_s']:.3f} s; request wall {cli['serving']['wall_s']:.3f} s; "
+        f"phase {cli['phase_s']:.1f} s on {smi}")
+
     paths = {"unet_serving": traj, "unet_training": train, "dit_serving": dit_traj,
              "dit_training": dit_train, "unet3d_block_320": model_res["unet3d_block"],
-             "unet_samplers": samplers_res, "unet_edm_training": edm_train}
+             "unet_samplers": samplers_res, "unet_edm_training": edm_train,
+             "unet_cli": cli}
     kernels, summary = [], []
     for kname in REPLACES:
         mine = [c for c in cases if c["name"] == kname]
@@ -1624,7 +1790,7 @@ def main() -> int:
               "kernels": kernels, "yardsticks": yardsticks,
               "model": model_res, "trajectory": traj, "training": train, "dit_model": dit_res,
               "dit_trajectory": dit_traj, "dit_training": dit_train,
-              "samplers": samplers_res, "edm_training": edm_train,
+              "samplers": samplers_res, "edm_training": edm_train, "cli": cli,
               "total_s": time.perf_counter() - t0}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

@@ -1,6 +1,11 @@
-from .train_state import AdamW, TrainState
+from .checkpoints import Checkpointer
+from .optim import (AdamW, Chain, ClipByGlobalNorm, adam, adamw, chain, clip_by_global_norm,
+                    lamb, warmup_cosine_decay_schedule)
+from .train_state import TrainState
 from .train_step import TrainStepConfig, make_loss_builder, make_train_step
 from .trainer import DiffusionTrainer, TrainerConfig
 
-__all__ = ["AdamW", "DiffusionTrainer", "TrainState", "TrainStepConfig", "TrainerConfig",
-           "make_loss_builder", "make_train_step"]
+__all__ = ["AdamW", "Chain", "Checkpointer", "ClipByGlobalNorm", "DiffusionTrainer",
+           "TrainState", "TrainStepConfig", "TrainerConfig", "adam", "adamw", "chain",
+           "clip_by_global_norm", "lamb", "make_loss_builder", "make_train_step",
+           "warmup_cosine_decay_schedule"]

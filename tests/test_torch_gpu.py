@@ -820,3 +820,56 @@ def test_rk4_raises_on_a_vp_schedule_on_the_card(cuda):
     with pytest.raises(TypeError, match="SigmaSchedule"):
         _engine("rk4", {}, "vp", cuda).generate_samples(num_samples=1, resolution=4,
                                                         diffusion_steps=2, channels=1)
+
+
+# --- the fit loop ---------------------------------------------------------------------
+
+def test_fit_syncs_with_the_host_once_per_window(cuda, monkeypatch):
+    """fit on a small UNet under sync debug mode "error": the window's loss
+    fetch is the only read-back (counted, with the mode lifted around it),
+    so 7 steps in windows of 3 sync 3 times and the steps in between never
+    (the upload through pinned memory and a side stream included). Depth 0:
+    no bound on the steps in flight, whose backpressure wait would be a
+    sync when the card falls behind."""
+    import numpy as np
+    from flaxdiff_tpu_torch.models import Unet
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.trainer import (DiffusionTrainer, TrainerConfig, adamw, chain,
+                                            clip_by_global_norm, warmup_cosine_decay_schedule)
+    from flaxdiff_tpu_torch.trainer import trainer as trainer_module
+
+    cfg = dict(output_channels=3, emb_features=32, feature_depths=(32, 64),
+               attention_configs=(None, {"heads": 2, "dim_head": 32}), num_res_blocks=1,
+               norm_groups=8, context_dim=24)
+    tx = chain(clip_by_global_norm(1.0), adamw(warmup_cosine_decay_schedule(0.0, 1e-3, 2, 20)))
+    trainer = DiffusionTrainer(Unet(**cfg, device=cuda), tx, CosineNoiseSchedule(1000),
+                               EpsilonPredictionTransform(),
+                               TrainerConfig(log_every=3, pipeline_depth=0),
+                               null_cond=torch.zeros(1, 77, 24), device=cuda)
+    rng = np.random.default_rng(0)
+    batches = [{"sample": rng.integers(0, 256, (2, 16, 16, 3), dtype=np.uint8),
+                "cond": rng.standard_normal((2, 77, 24)).astype(np.float32),
+                "text": ["bright", "dark"]} for _ in range(8)]
+    trainer.fit(iter(batches[:1]), total_steps=1)    # builds the kernels, warms the allocator
+    torch.cuda.synchronize()
+    fetches = []
+    fetch = trainer_module._fetch_losses
+
+    def counted(window):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            fetches.append(len(window))
+            return fetch(window)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(trainer_module, "_fetch_losses", counted)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hist = trainer.fit(iter(batches[1:]), total_steps=7)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fetches == [3, 3, 1] and hist["steps"] == [3, 6, 7]
+    assert all(np.isfinite(hist["loss"])) and trainer.state.step == 8
+    assert all(bool(torch.isfinite(v).all()) for v in trainer.state.buffers().values())

@@ -76,6 +76,40 @@ def test_entry_points_default_to_cuda():
                             EpsilonPredictionTransform(), device="cpu") is not None
 
 
+def test_fit_pipeline_and_cli_default_to_cuda(tmp_path):
+    """The fit loop's upload, the inference pipeline and the training CLI
+    take CUDA unless given the CPU: without a card they raise, never fall
+    back (fit runs on its trainer's device, which defaults the same way)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    from flaxdiff_tpu_torch import train
+    from flaxdiff_tpu_torch.data import prefetch_to_device
+    from flaxdiff_tpu_torch.inference import DiffusionInferencePipeline, build_model
+    from flaxdiff_tpu_torch.models import Unet
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.trainer import AdamW, DiffusionTrainer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--checkpoint_dir", str(tmp_path / "run"), "--total_steps", "1"])
+    config = {"model": {"name": "unet", "feature_depths": [8], "norm_groups": 2}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DiffusionInferencePipeline.from_config(config, params={})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model("unet", feature_depths=(8,), norm_groups=2)
+    assert DiffusionInferencePipeline.from_config(config, params={}, device="cpu") is not None
+    # fit's upload goes to the trainer's device: a CUDA one cannot be made
+    # here, and prefetch_to_device raises on a CUDA target without a card
+    with pytest.raises((RuntimeError, AssertionError)):
+        prefetch_to_device(iter([{"sample": torch.zeros(1)}]), "cuda")
+    trainer = DiffusionTrainer(Unet(feature_depths=(8,), norm_groups=2, device="cpu"),
+                               AdamW(1e-4), CosineNoiseSchedule(10), EpsilonPredictionTransform(),
+                               device="cpu")
+    hist = trainer.fit(iter([{"sample": torch.zeros(1, 8, 8, 3, dtype=torch.uint8)}]),
+                       total_steps=1)
+    assert hist["steps"] == [1] and trainer.state.params.device.type == "cpu"
+
+
 def test_cuda_tensors_never_take_the_plain_path():
     """Without a card a CUDA tensor cannot exist, so the wrappers' device
     check is exercised with a meta tensor: anything not on the CPU must go
