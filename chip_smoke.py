@@ -82,6 +82,19 @@ Phases; any failure exits non-zero and prints no result line.
      reading PER_FORWARD x 51. Prints fit's ms per step and images/s beside
      phase 5's, the checkpoint's save time and bytes, peak memory and the
      request's wall time.
+ 11. Every 2D model family of the registry at full width, random weights,
+     built through build_model: the UNet's ref_arch (pure attention, dim_head
+     = C / heads), UViT, SimpleUDiT, SimpleMMDiT, HierarchicalMMDiT and the
+     hybrid SSM DiT with 2D fusion (FAMILIES11): (a) each f32 forward, batch
+     1, card against CPU within 1e-3 x max(1, max|ref|); (b) one DDIM-50 +
+     CFG 3.0 request each in bf16, launches exactly the family's census x 51,
+     wall, ms per call and one call's busy and idle shares as a CUDA graph;
+     (c) SimpleMMDiT's and the hybrid's f32 train step card against CPU
+     (loss to 1e-5 relative, each gradient to 1e-3 of its max|g|), and 3 + 20
+     bf16 DiffusionTrainer.train_steps of SimpleMMDiT at batch 32 (phase 7's
+     checks); (d) remat=True bit-equal to remat=False on the card, output and
+     every gradient of one bf16 step, for phase 5's UNet and DiT-B/2; (e)
+     the S5 layer's and its scan's device time at the hybrid's shapes.
 The lines before the last are the kernels' JSON record and the card's
 name and power limit; the last is {"ok": true, "device": {...}}. With
 --record, the full record (every case, the model checks, both paths and
@@ -858,16 +871,33 @@ def adaln_cases(randn, gen, record):
 
 # --- phases 3 and 4: the model -----------------------------------------------
 
+# the S5 layer's leaves, drawn like its HiPPO init: decay rates
+# exp(log_A_real) around n + 1/2, frequencies around pi n, steps dt in
+# [1e-3, 1e-1] (long memory along the 256 tokens), B and C by 1/sqrt(fan_in)
+S5_LEAVES = {
+    "log_A_real": lambda rng, s: np.log(np.arange(s[0]) + 0.5) + 0.1 * rng.standard_normal(s),
+    "A_imag": lambda rng, s: np.pi * np.arange(s[0]) + 0.1 * rng.standard_normal(s),
+    "log_dt": lambda rng, s: rng.uniform(math.log(1e-3), math.log(1e-1), s),
+    "D": lambda rng, s: rng.standard_normal(s),
+    **{k: (lambda rng, s: rng.standard_normal(s) / math.sqrt(s[0]))
+       for k in ("B_re", "B_im", "C_re", "C_im")},
+}
+
+
 def random_state(model: torch.nn.Module, seed: int) -> dict:
     """Every weight drawn from a seeded numpy normal: matrices and kernels
     scaled by 1/sqrt(fan_in), norm scales around 1, biases small, Fourier
-    frequencies N(0, 16^2). Zero-initialised layers would otherwise make the
-    UNet output exactly 0 and every comparison empty."""
+    frequencies N(0, 16^2), the S5 leaves as S5_LEAVES. Zero-initialised
+    layers would otherwise make the UNet output exactly 0 and every
+    comparison empty."""
     rng = np.random.default_rng(seed)
     state = {}
     for name, t in model.state_dict().items():
         shape = tuple(t.shape)
-        if name.endswith("freqs"):
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in S5_LEAVES:
+            a = S5_LEAVES[leaf](rng, shape)
+        elif name.endswith("freqs"):
             a = 16.0 * rng.standard_normal(shape)
         elif name.endswith("weight") and len(shape) >= 2:
             a = rng.standard_normal(shape) / math.sqrt(int(np.prod(shape[1:])))
@@ -1589,6 +1619,260 @@ def dit_training_path(dev):
                         {**DIT_PER_FORWARD, **DIT_PER_BACKWARD})
 
 
+# --- phase 11: every 2D model family of the registry ------------------------------
+
+# the FlaxDiff CLI's default architecture (bench.py:130-138 ref_arch): phase
+# 4's UNet with pure attention, dim_head = C / heads (32 and 64)
+REF_ARCH = dict(UNET, attention_configs=(None, None) + tuple(
+    dict(ATTN, dim_head=c // ATTN["heads"], only_pure_attention=True) for c in (256, 512)))
+LATENT = dict(output_channels=4, patch_size=2, in_channels=4, context_dim=TEXT_DIM)
+# name -> (registry name, constructor kwargs beyond the JAX defaults, input
+# (side, channels), the schedule, launches of one CFG call). The widths are
+# the JAX defaults: UViT patch 16, 768 wide, 12 layers of 12 heads on 256^2
+# images; SimpleUDiT, SimpleMMDiT and the hybrid SSM DiT (state 64, 3 SSM
+# blocks to 1 attention) 768 wide, 12 layers of 12 heads at patch 2 on
+# phase 6's 32x32x4 latents; HierarchicalMMDiT (512, 768, 1024) wide, (4, 4,
+# 14) layers of (8, 12, 16) heads, base patch 8 on 256^2 images. Launches:
+# ref_arch attends once at levels 2 and 3 down and up and in the middle, 19
+# res blocks x 2 norms; UViT 13 blocks of self-attention + GEGLU; the U-DiT
+# 13 DiT blocks; an MMDiT block one two-view LayerNorm + modulate, two gated
+# residuals and one attention (12 blocks; the hierarchy 22 encoder + 8
+# decoder); the hybrid's 3 attention blocks (its SSM blocks run plain ops,
+# as in JAX)
+FAMILIES11 = {
+    "unet_ref_arch": ("unet", REF_ARCH, (RESOLUTION, 3), "cosine",
+                      {"flash_fwd": 5, "gn_stats": 38, "gn_norm": 38}),
+    "uvit": ("uvit", dict(context_dim=TEXT_DIM), (RESOLUTION, 3), "cosine",
+             {"flash_fwd": 13, "geglu": 13}),
+    "simple_udit": ("simple_udit", LATENT, (DIT_RES, DIT_CH), "linear",
+                    {"ln_mod": 26, "gate_res": 26, "flash_fwd": 13}),
+    "simple_mmdit": ("simple_mmdit", LATENT, (DIT_RES, DIT_CH), "linear",
+                     {"ln_mod": 12, "gate_res": 24, "flash_fwd": 12}),
+    "hierarchical_mmdit": ("hierarchical_mmdit", dict(context_dim=TEXT_DIM), (RESOLUTION, 3),
+                           "cosine", {"ln_mod": 30, "gate_res": 60, "flash_fwd": 30}),
+    "hybrid_ssm_2d": ("hybrid_ssm+2d", LATENT, (DIT_RES, DIT_CH), "linear",
+                      {"ln_mod": 6, "gate_res": 6, "flash_fwd": 3}),
+}
+MMDIT_PER_BACKWARD = {"ln_mod_bwd": 12, "gate_res_bwd": 24, "flash_bwd_dq": 12,
+                      "flash_bwd_dkv": 12}
+
+
+def family_model(dev, key: str, dtype=None, state=None, **extra):
+    """FAMILIES11[key] through the registry, the entry point a user calls,
+    with `state`'s weights."""
+    from flaxdiff_tpu_torch.inference import build_model
+
+    name, kwargs = FAMILIES11[key][:2]
+    model = build_model(name, device=dev, dtype=dtype, **kwargs, **extra)
+    if state is not None:
+        model.load_state_dict(state)
+    return model
+
+
+def family_inputs(key: str, batch: int, seed: int):
+    side, ch = FAMILIES11[key][2]
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((batch, side, side, ch)).astype(np.float32),
+            np.array([37.5, 911.0][:batch], np.float32),
+            rng.standard_normal((batch, TEXT_LEN, TEXT_DIM)).astype(np.float32))
+
+
+def family_schedule(key: str):
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule, LinearNoiseSchedule
+    return {"cosine": CosineNoiseSchedule, "linear": LinearNoiseSchedule}[FAMILIES11[key][3]]
+
+
+def family_forward_check(dev, key: str, state, cpu) -> dict:
+    """(a) The f32 forward, batch 1, card (kernels) against CPU (plain
+    versions; `cpu` holds `state`), the same random weights: within 1e-3 x
+    max(1, max|ref|). Records the CPU forward's wall time, the cost of the
+    check at the configuration's full size."""
+    args = family_inputs(key, 1, 20)
+    gpu = family_model(dev, key, state=state).eval()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = cpu(*map(torch.from_numpy, args))
+        cpu_s = time.perf_counter() - t0
+        out = gpu(*(torch.from_numpy(a).to(dev) for a in args)).float().cpu()
+    del gpu
+    scale = max(1.0, float(ref.abs().max()))
+    err = max_err(out, ref)
+    log(f"  {key} forward {tuple(ref.shape)} f32: max|ref| {scale:.3g}, max err {err:.3g} "
+        f"(CPU forward {cpu_s:.1f} s)")
+    check(bool(torch.isfinite(out).all()), f"{key} forward output finite")
+    check(err <= 1e-3 * scale, f"{key} forward: error {err} above {1e-3 * scale}")
+    return {"forward_f32_err": err, "forward_f32_scale": scale, "cpu_forward_s": cpu_s}
+
+
+def family_serving(dev, key: str, state) -> dict:
+    """(b) One DDIM-50 + CFG 3.0 request in bf16, batch 1 with the 77x768
+    text and a zeros null context; the launch counters, zeroed just before,
+    must read the family's per-call census x 51. Then one CFG call as
+    launched from Python beside its busy time as a CUDA graph."""
+    from flaxdiff_tpu_torch.device import make_generator
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
+
+    (side, ch), per_forward = FAMILIES11[key][2], FAMILIES11[key][4]
+    model = family_model(dev, key, "bfloat16", state).eval()
+    sampler = DiffusionSampler(lambda x, t, c: model(x, t, c), family_schedule(key)(1000),
+                               EpsilonPredictionTransform(), DDIMSampler(),
+                               guidance_scale=GUIDANCE, device=dev)
+    _, _, cond = family_inputs(key, 1, 21)
+    cond, uncond = torch.from_numpy(cond), torch.zeros(1, TEXT_LEN, TEXT_DIM)
+    run = lambda steps, seed: sampler.generate_samples(
+        num_samples=1, resolution=side, diffusion_steps=steps, channels=ch,
+        generator=make_generator(seed, dev), conditioning=cond, unconditional=uncond)
+    run(2, 0)                      # warm-up: GEMM and conv algorithm choice, allocator
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run(STEPS, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    expected = {k: per_forward.get(k, 0) * (STEPS + 1) for k in counts}
+    check(counts == expected, f"{key}: launches {counts}, expected {expected}")
+    check(tuple(out.shape) == (1, side, side, ch), f"{key}: output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), f"{key}: samples finite")
+    check(float(out.abs().max()) <= 1.0, f"{key}: samples clipped to [-1, 1]")
+    res = {"wall_s": wall, "forwards": STEPS + 1, "ms_per_forward": wall * 1e3 / (STEPS + 1),
+           "launches_per_call": {k: v // (STEPS + 1) for k, v in counts.items() if v},
+           "launches": counts}
+    x = torch.randn(2, side, side, ch, device=dev)
+    ctx = torch.cat([cond, uncond]).to(dev)
+    res["breakdown"] = forward_breakdown(lambda: model(x, torch.full((2,), 500.0, device=dev), ctx),
+                                         f"{key}, batch 2 of {side}x{side}x{ch}")
+    log(f"  {key}: DDIM-{STEPS} + CFG wall {wall:.3f} s ({res['ms_per_forward']:.2f} ms per "
+        f"call), launches per call {res['launches_per_call']}")
+    del model
+    return res
+
+
+def remat_check(dev, label: str, make, shape, seed: int) -> dict:
+    """(d) One bf16 forward and backward with remat=True against
+    remat=False, the same weights and inputs: the output and every gradient
+    bit-equal. The plain model runs twice first: a difference there would be
+    the card's own nondeterminism, not remat's (cuDNN's deterministic
+    algorithms are asked for during the check)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    t = torch.from_numpy(rng.uniform(0, 999, shape[0]).astype(np.float32)).to(dev)
+    ctx = torch.from_numpy(rng.standard_normal((shape[0], TEXT_LEN, TEXT_DIM))
+                           .astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    state, results = None, []
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for remat in (False, False, True):
+            model = make(remat)
+            state = random_state(model, seed) if state is None else state
+            model.load_state_dict(state)
+            out = model(x, t, ctx)
+            grads = torch.autograd.grad((out.float() * g).sum(), list(model.parameters()))
+            results.append((out.detach(), grads))
+            del model
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    same = lambda a, b: torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    check(same(results[0], results[1]), f"{label}: two plain runs bit-equal (determinism)")
+    check(same(results[0], results[2]), f"{label}: remat bit-equal to no remat")
+    log(f"  {label} bf16 {tuple(shape)}: remat output and {len(results[0][1])} gradients "
+        f"bit-equal to no remat")
+    return {"bit_equal": True, "shape": list(shape), "gradients": len(results[0][1])}
+
+
+def s5_scan_timing(dev) -> dict:
+    """(e) The hybrid's S5 layer (state 64, 768 features, its 256 tokens)
+    at the serving path's CFG batch and the training batch, bf16 in: one
+    direction's layer and the log-depth scan alone, device time as a CUDA
+    graph. The scan is plain PyTorch (JAX's associative_scan is XLA, no
+    Pallas kernel)."""
+    from flaxdiff_tpu_torch.models import S5Layer
+    from flaxdiff_tpu_torch.models.ssm import linear_scan
+
+    torch.manual_seed(0)
+    layer = S5Layer(DIT_WIDTH, 64, dtype=BF16, device=dev)
+    res = {}
+    with torch.inference_mode():
+        a_bar, b_bar = layer.discretize()
+        for batch in (2, DIT_TRAIN_BATCH):
+            u = torch.randn(batch, DIT_TOKENS, DIT_WIDTH, device=dev, dtype=BF16)
+            bu = torch.complex(u.float() @ b_bar.real.T, u.float() @ b_bar.imag.T)
+            res[f"batch_{batch}"] = {"layer_ms": graph_ms(lambda: layer(u), 5),
+                                     "scan_ms": graph_ms(lambda: linear_scan(a_bar, bu), 5),
+                                     "layer_launched_ms": time_ms(lambda: layer(u), 10)}
+            log(f"  S5 layer [{batch}, {DIT_TOKENS}, {DIT_WIDTH}] state 64: "
+                f"{res[f'batch_{batch}']['layer_ms']:.4f} ms on the device "
+                f"({res[f'batch_{batch}']['layer_launched_ms']:.4f} ms launched), scan "
+                f"{res[f'batch_{batch}']['scan_ms']:.4f} ms")
+    return res
+
+
+def family_paths(dev) -> dict:
+    """Phase 11: every configuration of FAMILIES11, (a) card against CPU and
+    (b) a serving request; (c) SimpleMMDiT's and the hybrid's f32 train step
+    card against CPU, and SimpleMMDiT's bf16 training path; (d) remat on
+    phase 5's UNet and DiT-B/2; (e) the S5 scan's time."""
+    from flaxdiff_tpu_torch.models import SimpleDiT, Unet
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
+
+    out = {"forward": {}, "serving": {}}
+    for i, key in enumerate(FAMILIES11):
+        t0 = time.perf_counter()
+        cpu = family_model("cpu", key)
+        state = random_state(cpu, 30 + i)
+        cpu.load_state_dict(state)
+        out["forward"][key] = family_forward_check(dev, key, state, cpu.eval())
+        del cpu
+        torch.cuda.empty_cache()
+        out["serving"][key] = family_serving(dev, key, state)
+        out["serving"][key]["phase_s"] = time.perf_counter() - t0
+        del state
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(40)
+    shape = (2, DIT_RES, DIT_RES, DIT_CH)
+    arrays = {"sample": rng.standard_normal(shape),
+              "cond": rng.standard_normal((2, TEXT_LEN, TEXT_DIM)),
+              "noise": rng.standard_normal(shape), "t": np.array([91, 655], np.int32),
+              "mask": np.array([False, True])}
+    out["train_step_f32"] = {}
+    for i, key in enumerate(("simple_mmdit", "hybrid_ssm_2d")):
+        state = random_state(family_model("cpu", key), 50 + i)
+        gpu, cpu = (family_model(where, key, state=state) for where in (dev, "cpu"))
+        # RoPE rotates every key by its position: no gradient is zero by the math
+        out["train_step_f32"][key] = step_check(
+            dev, gpu, cpu, arrays, LinearNoiseSchedule, EpsilonPredictionTransform(),
+            lambda name: False, f"{key} train step {DIT_RES}x{DIT_RES}x{DIT_CH} f32")
+        del gpu, cpu, state
+        torch.cuda.empty_cache()
+
+    log(f"  SimpleMMDiT DiffusionTrainer.train_step, batch {DIT_TRAIN_BATCH}, bf16, "
+        f"{WARMUP} + {TIMED} steps")
+    torch.manual_seed(0)
+    out["mmdit_training"] = run_training(
+        dev, family_model(dev, "simple_mmdit", "bfloat16"), LinearNoiseSchedule(1000),
+        (DIT_TRAIN_BATCH, DIT_RES, DIT_RES, DIT_CH),
+        {**FAMILIES11["simple_mmdit"][4], **MMDIT_PER_BACKWARD})
+    torch.cuda.empty_cache()
+
+    out["remat"] = {
+        "unet": remat_check(dev, "phase 5's UNet", lambda r: Unet(
+            **UNET, dtype="bfloat16", remat=r, device=dev),
+            (TRAIN_BATCH, TRAIN_RES, TRAIN_RES, 3), 60),
+        "dit": remat_check(dev, "DiT-B/2", lambda r: SimpleDiT(
+            **DIT, dtype="bfloat16", remat=r, device=dev),
+            (DIT_TRAIN_BATCH, DIT_RES, DIT_RES, DIT_CH), 61)}
+    torch.cuda.empty_cache()
+    out["s5_scan"] = s5_scan_timing(dev)
+    return out
+
+
 # kernel-name fragments -> the layer they belong to, first match wins
 FAMILIES = [(fam, frag) for fam, frags in KERNEL_SYMBOLS.items() for frag in frags] + [
     ("conv", "conv"), ("conv", "fprop"), ("conv", "implicit"),
@@ -1766,10 +2050,29 @@ def main() -> int:
         f"{cli['fit']['checkpoint']['write_s']:.3f} s; request wall {cli['serving']['wall_s']:.3f} s; "
         f"phase {cli['phase_s']:.1f} s on {smi}")
 
+    torch.cuda.empty_cache()
+
+    log(f"phase 11: every model family at full width: card against CPU, DDIM-{STEPS} + CFG "
+        f"{GUIDANCE} in bf16, SimpleMMDiT and the hybrid SSM DiT's train steps, remat, the S5 "
+        f"scan")
+    t11 = time.perf_counter()
+    families = family_paths(dev)
+    families["phase_s"] = time.perf_counter() - t11
+    for key, r in families["serving"].items():
+        bd = r["breakdown"]
+        log(f"family {key}: DDIM-{STEPS} CFG {GUIDANCE} batch 1 bf16 wall {r['wall_s']:.3f} s "
+            f"({r['ms_per_forward']:.2f} ms per call), one call busy {bd['busy_ms']:.3f} ms as a "
+            f"graph ({bd['idle_share']:.0%} idle) on {smi}")
+    mm = families["mmdit_training"]
+    log(f"SimpleMMDiT training: batch {DIT_TRAIN_BATCH} bf16 {mm['ms_per_step']:.3f} ms per "
+        f"step, {mm['samples_per_s']:.1f} latents/s, peak {mm['peak_mem_gib']:.2f} GiB; phase 11 "
+        f"{families['phase_s']:.1f} s on {smi}")
+
     paths = {"unet_serving": traj, "unet_training": train, "dit_serving": dit_traj,
              "dit_training": dit_train, "unet3d_block_320": model_res["unet3d_block"],
              "unet_samplers": samplers_res, "unet_edm_training": edm_train,
-             "unet_cli": cli}
+             "unet_cli": cli, "mmdit_training": families["mmdit_training"],
+             **{f"{key}_serving": r for key, r in families["serving"].items()}}
     kernels, summary = [], []
     for kname in REPLACES:
         mine = [c for c in cases if c["name"] == kname]
@@ -1791,6 +2094,7 @@ def main() -> int:
               "model": model_res, "trajectory": traj, "training": train, "dit_model": dit_res,
               "dit_trajectory": dit_traj, "dit_training": dit_train,
               "samplers": samplers_res, "edm_training": edm_train, "cli": cli,
+              "families": families,
               "total_s": time.perf_counter() - t0}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

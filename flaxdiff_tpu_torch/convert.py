@@ -1,14 +1,21 @@
-"""flax -> torch parameter conversion for the UNet and the DiT.
+"""flax -> torch parameter conversion for every ported model.
 
 The torch modules carry the flax module names, so conversion is a rename of
 flax's auto-named wrappers plus a re-layout of each leaf:
 
-  nn.Conv kernel HWIO                  -> weight OIHW
+  nn.Conv kernel HWIO                  -> weight OIHW (a depthwise kernel,
+                                          I = 1, becomes [C, 1, kh, kw])
+  nn.ConvTranspose kernel HWIO         -> weight [I, O, kh, kw], flipped in
+                                          kh and kw (flax correlates with
+                                          the kernel as it is, torch's
+                                          conv_transpose2d with it flipped)
   nn.Dense kernel (in, out)            -> weight (out, in)
   to_q/to_k/to_v kernel (C, H, D)      -> weight (H*D, C); bias (H, D) -> (H*D)
   to_out kernel (H, D, C)              -> weight (C, H*D)
-  GroupNorm/LayerNorm scale, bias      -> weight, bias
+  GroupNorm/LayerNorm/RMSNorm scale    -> weight; bias -> bias
   PositionalEncoding pos_encoding      -> pos_encoding
+  S5 log_A_real, A_imag, B_re, B_im,   -> the same, as they are
+  C_re, C_im, D, log_dt
 
 The Fourier frequencies are not a flax parameter (the JAX models draw them
 from a fixed key in ``setup``), so the caller passes them, or the port's
@@ -34,7 +41,12 @@ _RENAME = {
     "Dense_1": "dense_1",
     "ConvLayer_0": "conv",
     "Conv_0": None,
+    "SeparableConv_0": None,
+    "ConvTranspose_0": None,
 }
+
+# the S5 layer's parameters, copied as they are
+_S5_LEAVES = {"log_A_real", "A_imag", "B_re", "B_im", "C_re", "C_im", "D", "log_dt"}
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -46,7 +58,7 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tupl
 
 
 def _leaf(parent: str, name: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
-    if name == "pos_encoding":
+    if name == "pos_encoding" or name in _S5_LEAVES:
         return name, a
     if name == "scale":
         return "weight", a
@@ -54,6 +66,8 @@ def _leaf(parent: str, name: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
         return "bias", a.reshape(-1)
     if name != "kernel":
         raise KeyError(f"unexpected flax leaf {name!r}")
+    if a.ndim == 4 and parent == "ConvTranspose_0":
+        return "weight", a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     if a.ndim == 4:
         return "weight", a.transpose(3, 2, 0, 1)
     if a.ndim == 2:
@@ -65,8 +79,12 @@ def _leaf(parent: str, name: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
     raise ValueError(f"unexpected kernel rank {a.ndim}")
 
 
-def _state_dict_from_flax(params: Mapping, fourier_key: str,
-                          fourier_freqs: Optional[np.ndarray]) -> dict[str, torch.Tensor]:
+def state_dict_from_flax(model: nn.Module, params: Mapping,
+                         fourier_freqs: Optional[np.ndarray] = None) -> dict[str, torch.Tensor]:
+    """A state dict for `model` (a ported model, or one of its modules) from
+    the parameter tree of its JAX counterpart (numpy or jax leaves). Given
+    the FourierEmbedding frequencies, it fills the model's ``...freqs``
+    buffer with them; without, it holds no buffer."""
     state = {}
     for path, a in _flatten(params):
         mods = [_RENAME.get(m, m) for m in path[:-1]]
@@ -74,47 +92,19 @@ def _state_dict_from_flax(params: Mapping, fourier_key: str,
         state[".".join([m for m in mods if m is not None] + [key])] = \
             torch.from_numpy(np.ascontiguousarray(w))
     if fourier_freqs is not None:
-        state[fourier_key] = torch.from_numpy(
+        key = next(name for name, _ in model.named_buffers() if name.endswith("freqs"))
+        state[key] = torch.from_numpy(
             np.ascontiguousarray(np.asarray(fourier_freqs, dtype=np.float32)))
     return state
 
 
-def unet_state_dict_from_flax(params: Mapping, fourier_freqs: Optional[np.ndarray] = None
-                              ) -> dict[str, torch.Tensor]:
-    """A torch ``Unet`` state dict from the JAX ``Unet``'s params tree
-    (numpy or jax leaves), with its FourierEmbedding frequencies if given."""
-    return _state_dict_from_flax(params, "time_embed.freqs", fourier_freqs)
-
-
-def dit_state_dict_from_flax(params: Mapping, fourier_freqs: Optional[np.ndarray] = None
-                             ) -> dict[str, torch.Tensor]:
-    """A torch ``SimpleDiT`` state dict from the JAX ``SimpleDiT``'s params
-    tree: the patch embed (``embed/patch_embed/proj``, or ``embed/scan_proj``
-    for the Hilbert and zigzag orders), ``cond/{t_proj/Dense_0, Dense_1,
-    t_out, text_proj}``, each ``block_i/{ada/ada_proj, attn/to_q, to_k,
-    to_v, to_out, mlp_in, mlp_out}`` (the norms carry no parameters),
-    ``final_norm`` and ``final_proj``; the time embedding's frequencies,
-    if given, as ``cond.t_fourier.freqs``."""
-    return _state_dict_from_flax(params, "cond.t_fourier.freqs", fourier_freqs)
-
-
-def _converter(model: nn.Module):
-    from .models import SimpleDiT, Unet
-    if isinstance(model, SimpleDiT):
-        return dit_state_dict_from_flax
-    if isinstance(model, Unet):
-        return unet_state_dict_from_flax
-    raise TypeError(f"no flax conversion for {type(model).__name__}")
-
-
 def train_state_from_flax(flax_state: Any, model: nn.Module, tx: Any):
-    """A port ``TrainState`` for ``model`` (a port ``Unet`` or ``SimpleDiT``)
-    from a JAX ``TrainState`` with an ``optax.adamw`` optimizer: params and
-    EMA through the model's converter, adamw's ``mu``/``nu`` as the moments
+    """A port ``TrainState`` for ``model`` (any ported model) from a JAX
+    ``TrainState`` with an ``optax.adamw`` optimizer: params and
+    EMA through ``state_dict_from_flax``, adamw's ``mu``/``nu`` as the moments
     and its ``count`` as the step. ``tx`` is the port's ``AdamW``."""
     from .trainer.train_state import TrainState
 
-    to_state_dict = _converter(model)
     adam = [s for s in flax_state.opt_state if hasattr(s, "mu") and hasattr(s, "nu")]
     if len(adam) != 1:
         raise ValueError("want an optax adamw state with one mu/nu pair")
@@ -122,6 +112,6 @@ def train_state_from_flax(flax_state: Any, model: nn.Module, tx: Any):
     for flat, tree in ((state.params, flax_state.params), (state.exp_avg, adam[0].mu),
                        (state.exp_avg_sq, adam[0].nu), (state.ema, flax_state.ema_params)):
         if flat is not None:
-            flat.copy_(state.flatten(to_state_dict(tree)))
+            flat.copy_(state.flatten(state_dict_from_flax(model, tree)))
     state.step = int(np.asarray(adam[0].count))
     return state

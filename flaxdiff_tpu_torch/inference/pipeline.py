@@ -84,7 +84,11 @@ class DiffusionInferencePipeline:
         if config.get("autoencoder"):
             raise NotImplementedError("latent diffusion is not ported yet: ROADMAP.md A9")
         if config.get("flat_params"):
-            raise NotImplementedError("flat-params checkpoints: ROADMAP.md A5")
+            # a JAX flat-params run comes across through from_flax_export,
+            # whose export has unflattened it
+            raise NotImplementedError("flat-params checkpoints: ROADMAP.md A5 (export a JAX "
+                                      "run with scripts/export_flax_checkpoint.py and load it "
+                                      "with from_flax_export)")
         input_config = None
         if config.get("input_config"):
             input_config = DiffusionInputConfig.deserialize(config["input_config"],
@@ -135,11 +139,10 @@ class DiffusionInferencePipeline:
                          ) -> "DiffusionInferencePipeline":
         """A JAX run written out by ``scripts/export_flax_checkpoint.py``:
         ``pipeline_config.json``, ``params.npz`` and ``ema_params.npz`` (the
-        flax tree's leaves under "/"-joined paths) and the hash table,
-        converted by ``convert.unet_state_dict_from_flax`` /
-        ``dit_state_dict_from_flax``."""
+        flax tree's leaves under "/"-joined paths) and the hash table, for
+        any ported model, converted by ``convert.state_dict_from_flax``. A flat-params run loads too: the
+        export wrote its structured tree."""
         from .. import convert
-        from ..models import SimpleDiT
         with open(os.path.join(export_dir, CONFIG_FILENAME)) as f:
             config = json.load(f)
         trees = []
@@ -158,11 +161,12 @@ class DiffusionInferencePipeline:
                     node[leaf] = npz[key]
             trees.append(tree)
         pipe = DiffusionInferencePipeline.from_config(
-            config, {}, hash_table=_load_table(export_dir), device=device)
-        to_torch = (convert.dit_state_dict_from_flax if isinstance(pipe.model, SimpleDiT)
-                    else convert.unet_state_dict_from_flax)
-        pipe.params, pipe.ema_params = (None if tree is None else to_torch(tree)
-                                        for tree in trees)
+            {**config, "flat_params": False}, {}, hash_table=_load_table(export_dir),
+            device=device)
+        pipe.config = config
+        pipe.params, pipe.ema_params = (
+            None if tree is None else convert.state_dict_from_flax(pipe.model, tree)
+            for tree in trees)
         if pipe.params is None:
             raise FileNotFoundError(f"no {EXPORT_FILES[0]} in {export_dir}")
         return pipe

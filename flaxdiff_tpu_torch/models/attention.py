@@ -74,30 +74,36 @@ class BasicTransformerBlock(nn.Module):
     """Pre-LN self-attention -> cross-attention -> GEGLU feed-forward. A
     cross-only block (the UNet's middle block) has one attention, ``attn1``,
     over the context and no ``attn2``
-    (flaxdiff_tpu/models/attention.py:242-245, :289)."""
+    (flaxdiff_tpu/models/attention.py:242-245, :289). With
+    ``only_pure_attention`` the block is ``attn1(norm1(x))`` alone: no
+    residual, no ``attn2``, no feed-forward (attention.py:239-241)."""
 
     def __init__(self, dim: int, context_dim: Optional[int], heads: int = 4,
                  dim_head: int = 64, backend: str = "auto", dtype=None,
-                 cross_only: bool = False, device=None):
+                 cross_only: bool = False, device=None, only_pure_attention: bool = False):
         super().__init__()
         if cross_only and context_dim is None:
             raise ValueError("a cross-only block needs a context_dim")
         attn = lambda ctx: AttentionLayer(dim, ctx, heads, dim_head, backend, dtype, device)
-        self.cross_only = cross_only
+        self.cross_only, self.pure = cross_only, only_pure_attention
         self.norm1 = LayerNorm(dim, device=device)
         self.attn1 = attn(context_dim if cross_only else None)
+        self.norm2 = self.attn2 = self.norm3 = self.ff = None
+        if only_pure_attention:
+            return
         if context_dim is not None and not cross_only:
             self.norm2 = LayerNorm(dim, device=device)
             self.attn2 = attn(context_dim)
-        else:
-            self.norm2 = self.attn2 = None
         self.norm3 = LayerNorm(dim, device=device)
         self.ff = GEGLUFeedForward(dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.cross_only and context is None:
             raise ValueError("a cross-only block needs a context")
-        x = x + self.attn1(self.norm1(x), context if self.cross_only else None)
+        h = self.attn1(self.norm1(x), context if self.cross_only else None)
+        if self.pure:
+            return h
+        x = x + h
         if self.attn2 is not None and context is not None:
             x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
@@ -109,7 +115,7 @@ class TransformerBlock(nn.Module):
     def __init__(self, dim: int, context_dim: Optional[int], heads: int = 4,
                  dim_head: int = 64, depth: int = 1, backend: str = "auto", dtype=None,
                  use_projection: bool = False, use_self_and_cross: bool = True,
-                 device=None):
+                 device=None, only_pure_attention: bool = False):
         super().__init__()
         inner = heads * dim_head
         width = inner if use_projection else dim
@@ -119,7 +125,8 @@ class TransformerBlock(nn.Module):
         cross_only = not use_self_and_cross and context_dim is not None
         for i in range(depth):
             self.add_module(f"block_{i}", BasicTransformerBlock(
-                width, context_dim, heads, dim_head, backend, dtype, cross_only, device))
+                width, context_dim, heads, dim_head, backend, dtype, cross_only, device,
+                only_pure_attention))
         self.depth = depth
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -3,8 +3,8 @@
 
 The index math is the JAX package's numpy, copied: that module imports jax
 at its top, and the port imports nothing of it. Every permutation is
-computed once per grid shape on the host; on the device a reorder is one
-``index_select`` with a constant index.
+computed once per grid shape on the host and uploaded once per device; on
+the device a reorder is one ``index_select`` with a constant index.
 """
 from __future__ import annotations
 
@@ -90,25 +90,51 @@ def unpatchify(tokens: torch.Tensor, patch_size: int, h: int, w: int,
     return x.reshape(b, h, w, channels)
 
 
-def _index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64)).to(device)
+SCAN_ORDERS = ("raster", "hilbert", "zigzag")
 
 
-def sfc_patchify(x: torch.Tensor, patch_size: int, indices: np.ndarray
-                 ) -> Tuple[torch.Tensor, np.ndarray]:
-    """Raw patches [B, N, p p C] reordered into the scan order, and the
-    inverse permutation that ``sfc_unpatchify`` needs."""
-    tokens = patchify(x, patch_size)
-    inv = inverse_permutation(indices, tokens.shape[1])
-    return tokens.index_select(1, _index(indices, x.device)), inv
+def scan_indices(scan_order: str, hp: int, wp: int) -> Optional[np.ndarray]:
+    """The scan order's permutation of an hp x wp grid (``hilbert_indices``
+    or ``zigzag_indices``), None for raster."""
+    if scan_order == "hilbert":
+        return hilbert_indices(hp, wp)
+    if scan_order == "zigzag":
+        return zigzag_indices(hp, wp)
+    if scan_order == "raster":
+        return None
+    raise ValueError(f"unknown scan_order {scan_order!r}; known: {SCAN_ORDERS}")
 
 
-def sfc_unpatchify(tokens: torch.Tensor, inv_idx: np.ndarray, patch_size: int, h: int, w: int,
-                   channels: int) -> torch.Tensor:
+@lru_cache(maxsize=64)
+def scan_permutation(scan_order: str, hp: int, wp: int, device: torch.device
+                     ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """(forward, inverse) int64 indices of the scan order on `device`, None
+    for raster. Uploaded once per key: an upload from pageable memory waits
+    for the host, and a CUDA graph cannot capture it. Made outside inference
+    mode, so that a forward with grad may save them for backward after a
+    sampler made them. Shared: callers do not write them."""
+    idx = scan_indices(scan_order, hp, wp)
+    if idx is None:
+        return None
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a.astype(np.int64)).to(device)
+                     for a in (idx, inverse_permutation(idx)))
+
+
+def sfc_patchify(x: torch.Tensor, patch_size: int, scan_order: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw patches [B, N, p p C] reordered into the scan order (hilbert or
+    zigzag), and the inverse permutation that ``sfc_unpatchify`` needs."""
+    _, h, w, _ = x.shape
+    fwd, inv = scan_permutation(scan_order, h // patch_size, w // patch_size, x.device)
+    return patchify(x, patch_size).index_select(1, fwd), inv
+
+
+def sfc_unpatchify(tokens: torch.Tensor, inv_idx: torch.Tensor, patch_size: int, h: int,
+                   w: int, channels: int) -> torch.Tensor:
     """Row-major order restored by a gather with the inverse permutation,
     then unpatchify."""
-    tokens = tokens.index_select(1, _index(inv_idx, tokens.device))
-    return unpatchify(tokens, patch_size, h, w, channels)
+    return unpatchify(tokens.index_select(1, inv_idx), patch_size, h, w, channels)
 
 
 def _sincos_1d(dim: int, positions: np.ndarray) -> np.ndarray:

@@ -2,7 +2,7 @@
 (counterpart of ``flaxdiff_tpu/models/vit_common.py``).
 
 Module and attribute names follow the flax modules, so a parameter tree
-converts name for name (``convert.dit_state_dict_from_flax``). These layers
+converts name for name (``convert.state_dict_from_flax``). These layers
 keep flax's default initializer, lecun normal (``init_mode="fan_in"``), where
 the JAX modules do, not the UNet's fan-avg law. RoPE is rotate-half with
 [S, D/2] tables applied in the [B, S, H, D] layout; the tables and the 2D
@@ -20,9 +20,7 @@ from torch import nn
 from ..ops.attention import dot_product_attention
 from ..ops.fused_adaln import fused_ln_modulate2, ln_stats
 from .common import ConvLayer, Dense, FourierEmbedding, TimeProjection
-from .sfc import build_2d_sincos_pos_embed, hilbert_indices, sfc_patchify, zigzag_indices
-
-SCAN_ORDERS = ("raster", "hilbert", "zigzag")
+from .sfc import build_2d_sincos_pos_embed, scan_indices, sfc_patchify
 
 
 class LayerNorm(nn.Module):
@@ -108,10 +106,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def scan_rope(dim_head: int, seq_len: int, scan_order: str, device: torch.device
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RoPE tables for a scan order: the real frequencies for raster, the
-    identity for hilbert and zigzag. Shared: callers do not write them."""
-    if scan_order == "raster":
-        return rope_frequencies(dim_head, seq_len, device=device)
-    return identity_rope(dim_head, seq_len, device=device)
+    identity for hilbert and zigzag. Made outside inference mode, as
+    ``sfc.scan_permutation``. Shared: callers do not write them."""
+    with torch.inference_mode(False):
+        if scan_order == "raster":
+            return rope_frequencies(dim_head, seq_len, device=device)
+        return identity_rope(dim_head, seq_len, device=device)
 
 
 class RoPEAttention(nn.Module):
@@ -152,22 +152,14 @@ class RoPEAttention(nn.Module):
 @functools.lru_cache(maxsize=32)
 def _pos_table(dim: int, hp: int, wp: int, scan_order: str, device: torch.device
                ) -> torch.Tensor:
-    """The 2D sin-cos table [N, dim] f32, permuted into the scan order."""
+    """The 2D sin-cos table [N, dim] f32, permuted into the scan order;
+    made outside inference mode, as ``sfc.scan_permutation``."""
     pos = build_2d_sincos_pos_embed(dim, hp, wp)
-    idx = _scan_indices(scan_order, hp, wp)
+    idx = scan_indices(scan_order, hp, wp)
     if idx is not None:
         pos = pos[idx]
-    return torch.from_numpy(np.ascontiguousarray(pos)).to(device)
-
-
-def _scan_indices(scan_order: str, hp: int, wp: int) -> Optional[np.ndarray]:
-    if scan_order == "hilbert":
-        return hilbert_indices(hp, wp)
-    if scan_order == "zigzag":
-        return zigzag_indices(hp, wp)
-    if scan_order == "raster":
-        return None
-    raise ValueError(f"unknown scan_order {scan_order!r}; known: {SCAN_ORDERS}")
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(pos)).to(device)
 
 
 class ScanPatchEmbed(nn.Module):
@@ -180,7 +172,7 @@ class ScanPatchEmbed(nn.Module):
     def __init__(self, in_channels: int, patch_size: int, embedding_dim: int,
                  scan_order: str = "raster", dtype=None, device=None):
         super().__init__()
-        _scan_indices(scan_order, 1, 1)
+        scan_indices(scan_order, 1, 1)
         self.patch_size, self.embedding_dim = patch_size, embedding_dim
         self.scan_order = scan_order
         if scan_order == "raster":
@@ -190,16 +182,15 @@ class ScanPatchEmbed(nn.Module):
             self.scan_proj = Dense(patch_size * patch_size * in_channels, embedding_dim, dtype,
                                    device, init_mode="fan_in")
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[np.ndarray]]:
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         _, h, w, _ = x.shape
         p = self.patch_size
         hp, wp = h // p, w // p
-        idx = _scan_indices(self.scan_order, hp, wp)
-        if idx is None:
+        if self.scan_order == "raster":
             inv_idx = None
             tokens = self.patch_embed(x)
         else:
-            raw, inv_idx = sfc_patchify(x, p, idx)
+            raw, inv_idx = sfc_patchify(x, p, self.scan_order)
             tokens = self.scan_proj(raw)
         pos = _pos_table(self.embedding_dim, hp, wp, self.scan_order, tokens.device)
         return tokens + pos[None].to(tokens.dtype), inv_idx
@@ -230,6 +221,18 @@ class TimeTextEmbedding(nn.Module):
 
 
 # --- AdaLN-Zero -----------------------------------------------------------------
+
+def plain_layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """flax ``nn.LayerNorm(use_scale=False, use_bias=False, dtype=f32)``:
+    the parameter-free norm of the unfused epilogues, f32 out."""
+    mean, rstd = ln_stats(x, eps)
+    return (x.float() - mean[..., None]) * rstd[..., None]
+
+
+def modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """DiT modulation: x (1 + scale) + shift."""
+    return x * (1.0 + scale) + shift
+
 
 class AdaLNParams(nn.Module):
     """Zero-initialised projection of the conditioning vector [B, D] (or

@@ -1,10 +1,12 @@
-"""The dtype names of the JAX package's policy, mapped to torch dtypes
-(counterpart of ``flaxdiff_tpu/typing.py`` ``DTYPE_MAP``)."""
+"""The dtype, precision and activation names of the JAX package's policy,
+mapped to their torch counterparts (counterpart of ``flaxdiff_tpu/typing.py``
+``DTYPE_MAP``, ``PRECISION_MAP`` and ``ACTIVATION_MAP``)."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 DTYPE_MAP: dict[str, Optional[torch.dtype]] = {
     "bfloat16": torch.bfloat16,
@@ -18,6 +20,50 @@ DTYPE_MAP: dict[str, Optional[torch.dtype]] = {
     "": None,
 }
 
+# XLA's matmul precisions. They are accepted and have no effect: the port's
+# f32 matmuls and convolutions follow the process's TF32 switches
+# (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32).
+PRECISION_MAP: dict[str, Optional[str]] = {
+    "default": "default",
+    "high": "high",
+    "highest": "highest",
+    "none": None,
+    "": None,
+}
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form."""
+    return F.gelu(x, approximate="tanh")
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: slope 0.01."""
+    return F.leaky_relu(x, 0.01)
+
+
+def hard_swish(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.hard_swish``: x relu6(x + 3) / 6."""
+    return x * F.relu6(x + 3.0) / 6.0
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.tanh(F.softplus(x))
+
+
+# swish and silu are one function, as in JAX, so either name takes the
+# fused GroupNorm + SiLU kernels
+ACTIVATION_MAP: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "swish": F.silu,
+    "silu": F.silu,
+    "gelu": gelu,
+    "relu": F.relu,
+    "leaky_relu": leaky_relu,
+    "tanh": torch.tanh,
+    "mish": mish,
+    "hard_swish": hard_swish,
+}
+
 
 def resolve_dtype(d: Union[str, torch.dtype, None]) -> Optional[torch.dtype]:
     if d is None or isinstance(d, torch.dtype):
@@ -26,3 +72,21 @@ def resolve_dtype(d: Union[str, torch.dtype, None]) -> Optional[torch.dtype]:
     if key not in DTYPE_MAP:
         raise ValueError(f"Unknown dtype {d!r}; known: {sorted(DTYPE_MAP)}")
     return DTYPE_MAP[key]
+
+
+def resolve_precision(p: Optional[str]) -> Optional[str]:
+    if p is None:
+        return None
+    key = str(p).lower()
+    if key not in PRECISION_MAP:
+        raise ValueError(f"Unknown precision {p!r}; known: {sorted(PRECISION_MAP)}")
+    return PRECISION_MAP[key]
+
+
+def resolve_activation(a: Union[str, Callable]) -> Callable[[torch.Tensor], torch.Tensor]:
+    if callable(a):
+        return a
+    key = a.lower()
+    if key not in ACTIVATION_MAP:
+        raise ValueError(f"Unknown activation {a!r}; known: {sorted(ACTIVATION_MAP)}")
+    return ACTIVATION_MAP[key]

@@ -1,9 +1,10 @@
 """The port's fit loop, optimizer chain, checkpoints and data feed on the CPU,
 against optax, the port's own step loop and the JAX package's ``fit``.
 
-Inputs are made with numpy from a seed; the models are the tiny UNet of
-``tests/test_torch_unet.py`` (port side) and a three-conv denoiser where
-only behaviour is compared.
+Inputs are made with numpy from a seed. The model is a three-conv denoiser:
+these tests hold bookkeeping (fit against the step loop, resume, rollback,
+checkpoints) bit for bit, which no model's numerics change, and the UNet's
+numerics are held in ``tests/test_torch_train.py``.
 """
 import os
 import shutil
@@ -23,10 +24,8 @@ from flaxdiff_tpu.predictors import EpsilonPredictionTransform as JaxEps
 from flaxdiff_tpu.schedulers import CosineNoiseSchedule as JaxCosine
 from flaxdiff_tpu.trainer import DiffusionTrainer as JaxTrainer
 from flaxdiff_tpu.trainer import TrainerConfig as JaxTrainerConfig
-from test_torch_unet import TINY
 
 from flaxdiff_tpu_torch.data import get_dataset, iterate_batches, prefetch_map, prefetch_to_device
-from flaxdiff_tpu_torch.models import Unet
 from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
 from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
 from flaxdiff_tpu_torch.trainer import (AdamW, Checkpointer, DiffusionTrainer, TrainerConfig,
@@ -103,7 +102,7 @@ def test_lamb_is_not_ported():
 
 def _model(seed=0):
     torch.manual_seed(seed)
-    return Unet(**TINY, in_channels=3, context_dim=CTX_DIM, device="cpu")
+    return _TorchDenoiser()
 
 
 def _tx():

@@ -679,6 +679,123 @@ def test_tiny_dit_card_matches_cpu(cuda):
         torch.testing.assert_close(g.cpu(), r, atol=1e-4 * float(r.abs().max()), rtol=0)
 
 
+# --- every model family on the card -------------------------------------------------
+
+_VIT = dict(patch_size=2, emb_features=64, num_layers=2, num_heads=2)
+FAMILY_CASES = {
+    "unet-ref_arch-gelu-separable": ("unet", dict(
+        emb_features=32, feature_depths=(32, 64), num_res_blocks=1, norm_groups=8,
+        attention_configs=[None, {"heads": 2, "dim_head": 32, "only_pure_attention": True}],
+        activation="gelu", conv_type="separable")),
+    "unet-remat": ("unet", dict(
+        emb_features=32, feature_depths=(32, 64), num_res_blocks=1, norm_groups=8,
+        attention_configs=[None, {"heads": 2, "dim_head": 32}], remat=True)),
+    "uvit-residual": ("uvit", dict(_VIT, add_residualblock_output=True, max_image_size=16)),
+    "simple_udit": ("simple_udit", _VIT),
+    "simple_mmdit-unfused": ("simple_mmdit", dict(_VIT, fused_epilogues=False)),
+    "simple_mmdit+hilbert": ("simple_mmdit+hilbert", dict(_VIT, learn_sigma=True)),
+    "hierarchical_mmdit": ("hierarchical_mmdit", dict(
+        base_patch_size=2, emb_features=(64, 128), num_layers=(1, 1), num_heads=(1, 2))),
+    "hybrid_ssm+hilbert+2d": ("hybrid_ssm+hilbert+2d", dict(_VIT, num_layers=4,
+                                                            ssm_state_dim=16)),
+}
+
+
+def _random_weights(model, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            r = torch.randn(p.shape, generator=gen)
+            p.copy_(r * 0.2 if p.ndim < 2 else r / p[0].numel() ** 0.5)
+
+
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_model_family_card_matches_cpu(cuda, case):
+    """Each 2D family of the registry at tiny widths, f32: the forward and
+    every gradient, card (kernels) against CPU (plain versions), the same
+    weights."""
+    from flaxdiff_tpu_torch.inference import build_model
+    name, cfg = FAMILY_CASES[case]
+    cpu = build_model(name, device="cpu", context_dim=32, **cfg)
+    _random_weights(cpu, 7)
+    gpu = build_model(name, device=cuda, context_dim=32, **cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(8)
+    x, c = torch.randn(2, 16, 16, 3, generator=gen), torch.randn(2, 7, 32, generator=gen)
+    t = torch.tensor([3.0, 700.0])
+    results = []
+    for model, dev in ((gpu, cuda), (cpu, "cpu")):
+        out = model(x.to(dev), t.to(dev), c.to(dev))
+        g = torch.autograd.grad(out.square().mean(), list(model.parameters()))
+        results.append((out.detach().cpu(), g))
+    (out, grads), (ref, ref_grads) = results
+    torch.testing.assert_close(out, ref, atol=1e-4 * max(1.0, float(ref.abs().max())), rtol=0)
+    gmax = max(float(r.abs().max()) for r in ref_grads)
+    for (pname, _), g, r in zip(cpu.named_parameters(), grads, ref_grads):
+        if float(r.abs().max()) <= 1e-6 * gmax:
+            assert float(g.abs().max()) <= 1e-6 * gmax, pname
+            continue
+        torch.testing.assert_close(g.cpu(), r, atol=1e-3 * float(r.abs().max()), rtol=0,
+                                   msg=pname)
+
+
+@pytest.mark.parametrize("name", ["simple_dit+hilbert", "uvit+hilbert", "simple_mmdit+hilbert",
+                                  "hybrid_ssm+zigzag+2d"])
+def test_a_scan_order_model_trains_after_sampling_on_the_card(cuda, name):
+    """One DDIM request (under inference mode), then one training step of
+    the same model: the scan-order indices the request cached on the card
+    serve the step's backward."""
+    from flaxdiff_tpu_torch.inference import build_model
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.samplers import DiffusionSampler, get_sampler
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.trainer import AdamW, DiffusionTrainer, TrainerConfig
+    cfg = dict(_VIT, ssm_state_dim=16) if name.startswith("hybrid") else _VIT
+    model = build_model(name, device=cuda, in_channels=3, context_dim=32, **cfg)
+    null = torch.zeros(1, 7, 32, device=cuda)
+    DiffusionSampler(model, CosineNoiseSchedule(1000), EpsilonPredictionTransform(),
+                     get_sampler("ddim"), device=cuda).generate_samples(
+        1, 16, 2, conditioning=null, unconditional=null)
+    trainer = DiffusionTrainer(model, AdamW(1e-3), CosineNoiseSchedule(1000),
+                               EpsilonPredictionTransform(), TrainerConfig(seed=1),
+                               null_cond=null, device=cuda)
+    gen = torch.Generator().manual_seed(11)
+    loss = trainer.train_step({"sample": torch.randint(0, 256, (2, 16, 16, 3), generator=gen,
+                                                       dtype=torch.uint8),
+                               "cond": torch.randn(2, 7, 32, generator=gen)})
+    assert torch.isfinite(loss).all()
+
+
+@pytest.mark.parametrize("name", ["unet", "simple_dit"])
+def test_remat_is_bit_equal_on_the_card(cuda, name):
+    """remat=True against remat=False in bf16 on the card: the output and
+    every gradient bit for bit (cuDNN's deterministic algorithms asked for;
+    the port's kernels are deterministic)."""
+    from flaxdiff_tpu_torch.inference import build_model
+    cfg = (dict(emb_features=32, feature_depths=(32, 64), num_res_blocks=1, norm_groups=8,
+                attention_configs=[None, {"heads": 2, "dim_head": 32}])
+           if name == "unet" else _VIT)
+    gen = torch.Generator().manual_seed(9)
+    x, c = torch.randn(4, 16, 16, 3, generator=gen), torch.randn(4, 7, 32, generator=gen)
+    t, g = torch.tensor([3.0, 300.0, 600.0, 900.0]), torch.randn(4, 16, 16, 3, generator=gen)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = []
+        for remat in (False, True):
+            model = build_model(name, device=cuda, context_dim=32, dtype="bfloat16", remat=remat,
+                                **cfg)
+            _random_weights(model, 10)
+            out = model(x.to(cuda), t.to(cuda), c.to(cuda))
+            runs.append((out.detach(), torch.autograd.grad((out.float() * g.to(cuda)).sum(),
+                                                           list(model.parameters()))))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    (out, grads), (rout, rgrads) = runs
+    assert torch.equal(out, rout)
+    assert all(torch.equal(a, b) for a, b in zip(grads, rgrads))
+
+
 # --- samplers on the card ---------------------------------------------------------
 
 SAMPLER_CASES = [("ddpm", {}, "vp"), ("simple_ddpm", {}, "vp"), ("ddim", {}, "vp"),

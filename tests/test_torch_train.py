@@ -278,7 +278,7 @@ def port_trainer(jt):
 
 def port_layout(state, tree):
     """A JAX params-shaped tree as a flat buffer of the port state's layout."""
-    return state.flatten(convert.unet_state_dict_from_flax(tree)).numpy()
+    return state.flatten(convert.state_dict_from_flax(state.model, tree)).numpy()
 
 
 def assert_lr_quantum(out, ref, what):
@@ -305,7 +305,7 @@ def test_train_step_loss_grads_and_three_steps_match_jax(jax_trainer):
     np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-5)
     grads = dict(zip([n for n, _, _ in state.layout],
                      torch.autograd.grad(loss, list(state.model.parameters()))))
-    ref = {k: v.numpy() for k, v in convert.unet_state_dict_from_flax(ref_grads).items()}
+    ref = {k: v.numpy() for k, v in convert.state_dict_from_flax(state.model, ref_grads).items()}
     assert grads.keys() == ref.keys()
     gmax = max(np.abs(r).max() for r in ref.values())
     for name, g in grads.items():
@@ -362,7 +362,7 @@ def test_edm_train_step_loss_and_grads_match_jax(jax_trainer):
     np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-5)
     names = [n for n, _ in model.named_parameters()]
     grads = dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
-    ref = {k: v.numpy() for k, v in convert.unet_state_dict_from_flax(ref_grads).items()}
+    ref = {k: v.numpy() for k, v in convert.state_dict_from_flax(model, ref_grads).items()}
     gmax = max(np.abs(r).max() for r in ref.values())
     for name, g in grads.items():
         if name.endswith("to_k.bias"):

@@ -59,9 +59,7 @@ def randomize(params, seed):
 
 def flax_to_torch(jmod, tmod, seed, *args):
     params = randomize(jmod.init(jax.random.PRNGKey(0), *args)["params"], seed)
-    state = convert.unet_state_dict_from_flax(params, np.zeros(0))
-    del state["time_embed.freqs"]
-    tmod.load_state_dict(state, strict=True)
+    tmod.load_state_dict(convert.state_dict_from_flax(tmod, params), strict=True)
     return params
 
 
