@@ -13,7 +13,9 @@ Phases; any failure exits non-zero and prints no result line.
   2. Hold each of the sixteen kernels against its plain PyTorch version on
      the card: the forward kernels at the serving paths' shapes, the backward
      kernels at the training paths' (bf16, plus one f32 case each with TF32
-     off, and a ragged case for the AdaLN kernels); the flash kernels also at
+     off, one f16 case each at a shape a bf16 case times, under the bf16
+     limits scaled to f16's ulp, and a ragged case for the AdaLN kernels);
+     the flash kernels also at
      head dim 256, the wide flash kernels (head dims above 256) at 320 and
      384, GroupNorm's forward kernels also at the training paths' shapes,
      LayerNorm + modulate at every width its row kernel is compiled for and
@@ -95,6 +97,25 @@ Phases; any failure exits non-zero and prints no result line.
      checks); (d) remat=True bit-equal to remat=False on the card, output and
      every gradient of one bf16 step, for phase 5's UNet and DiT-B/2; (e)
      the S5 layer's and its scan's device time at the hybrid's shapes.
+ 12. The training CLI with train.py's training options, in a temporary
+     directory removed after: phase 10's run in float16 (flax's dynamic
+     loss scale, through the f16 kernels) with MultiSteps(4) over lamb,
+     the monitored step every 10 micro-steps, a 16-slot loss ring, the
+     gate counter, a validation grid (euler_ancestral-50 + CFG 3.0, 8
+     samples) between its two chunks of 20 micro-steps and a torch.profiler
+     window, 40 micro-steps with saves every 10. The launch counters must
+     read the step's kernels once per call per micro-step plus the grid's
+     forward kernels; prints the scale and fin_steps after every micro-step,
+     the skipped ones, ms per micro-step beside phase 10's step, busy time
+     and idle share, peak memory, the grid's wall time and the trace's size.
+     A resume from micro-step 30 (inside an accumulation) must equal the
+     uninterrupted run bit for bit, accumulator, counts and scale included;
+     a NaN batch must halve the scale and leave params, moments,
+     accumulator and counts unchanged. Then the same chain in f32 on phase
+     3's UNet at 32x32, card against CPU with the same draws: the scale's
+     trajectory equal, the params within an update's quantum; and phase 5's
+     UNet forward in float16 against f32 on the card (RMS within 1e-2 of the
+     output's, every element within 5e-2 of its largest).
 The lines before the last are the kernels' JSON record and the card's
 name and power limit; the last is {"ok": true, "device": {...}}. With
 --record, the full record (every case, the model checks, both paths and
@@ -150,8 +171,9 @@ DIT_PER_BACKWARD = {"ln_mod_bwd": 24, "gate_res_bwd": 24, "flash_bwd_dq": 12, "f
 
 # phase 2's cases: the forward kernels at the serving path's shapes (batch
 # SERVE_BATCH), the backward kernels at the training path's (batch
-# TRAIN_BATCH); bf16 plus one f32 case each (TF32 off)
-BF16, F32 = torch.bfloat16, torch.float32
+# TRAIN_BATCH); bf16 plus one f32 case each (TF32 off), and one f16 case
+# each at a shape the bf16 cases time (the f16 training path of phase 12)
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
 # flash (batch, lq, lk, heads, head dim, dtype): the UNet's self at 64^2 and
 # 32^2 tokens and cross to the text (8 heads of 64), the DiT's self over 256
 # tokens (12 heads); then head dim 256, where the dispatch pads the 8 heads
@@ -165,7 +187,9 @@ FLASH_FWD_CASES = [(SERVE_BATCH, 4096, 4096, 8, 64, BF16),
                    (2 * DIT_SERVE_BATCH, DIT_TOKENS, DIT_TOKENS, DIT_HEADS, 64, BF16),
                    (SERVE_BATCH, 1024, 1024, 8, 256, BF16),
                    (SERVE_BATCH, 1024, TEXT_LEN, 8, 256, BF16),
-                   (SERVE_BATCH, 256, 256, 8, 256, F32)]
+                   (SERVE_BATCH, 256, 256, 8, 256, F32),
+                   (SERVE_BATCH, 1024, 1024, 8, 64, F16),
+                   (SERVE_BATCH, 1024, TEXT_LEN, 8, 64, F16)]
 # flash backward: the UNet's self at 32^2 and 16^2 tokens and cross to the
 # text, the DiT's self at its training batch; then head dim 256 at 16^2
 # tokens, self and cross, and f32
@@ -175,14 +199,17 @@ FLASH_BWD_CASES = [(TRAIN_BATCH, 1024, 1024, 8, 64, BF16),
                    (2, 1024, 1024, 8, 64, F32),
                    (DIT_TRAIN_BATCH, DIT_TOKENS, DIT_TOKENS, DIT_HEADS, 64, BF16),
                    (TRAIN_BATCH, 256, 256, 8, 256, BF16),
-                   (TRAIN_BATCH, 256, TEXT_LEN, 8, 256, BF16), (2, 256, 256, 8, 256, F32)]
+                   (TRAIN_BATCH, 256, TEXT_LEN, 8, 256, BF16), (2, 256, 256, 8, 256, F32),
+                   (TRAIN_BATCH, 1024, 1024, 8, 64, F16), (TRAIN_BATCH, 1024, TEXT_LEN, 8, 64, F16)]
 # the wide kernels (head dims above 256): UNet3D_LEVEL's 4 heads of 320 at
 # 32^2 tokens (serving) and 16^2 (training), self and cross; 384; f32
 WIDE_FWD_CASES = [(SERVE_BATCH, 1024, 1024, 4, 320, BF16),
                   (SERVE_BATCH, 1024, TEXT_LEN, 4, 320, BF16),
-                  (SERVE_BATCH, 1024, 1024, 4, 384, BF16), (SERVE_BATCH, 256, 256, 4, 320, F32)]
+                  (SERVE_BATCH, 1024, 1024, 4, 384, BF16), (SERVE_BATCH, 256, 256, 4, 320, F32),
+                  (SERVE_BATCH, 1024, 1024, 4, 320, F16)]
 WIDE_BWD_CASES = [(TRAIN_BATCH, 256, 256, 4, 320, BF16), (TRAIN_BATCH, 256, TEXT_LEN, 4, 320, BF16),
-                  (TRAIN_BATCH, 256, 256, 4, 384, BF16), (2, 256, 256, 4, 320, F32)]
+                  (TRAIN_BATCH, 256, 256, 4, 384, BF16), (2, 256, 256, 4, 320, F32),
+                  (TRAIN_BATCH, 256, 256, 4, 320, F16)]
 # SD's widest UNet level: 1280 channels in 8 heads of 160 at 16x16 tokens;
 # the same width in UNet3D's 4 heads (dim_head = channels // 4,
 # flaxdiff_tpu/models/unet3d.py:92) runs the wide flash kernels at 320
@@ -204,11 +231,13 @@ GN_CASES = [(SERVE_BATCH, 256 * 256, 64, BF16), (SERVE_BATCH, 64 * 64, 256, BF16
             (SERVE_BATCH, 256 * 256, 128, BF16),
             (TRAIN_BATCH, 128 * 128, 64, BF16), (TRAIN_BATCH, 32 * 32, 256, BF16),
             (TRAIN_BATCH, 16 * 16, 1024, BF16), (TRAIN_BATCH, 32 * 32, 256, F32),
-            (TRAIN_BATCH, 16 * 16, 512, BF16), (TRAIN_BATCH, 64 * 64, 128, BF16)]
+            (TRAIN_BATCH, 16 * 16, 512, BF16), (TRAIN_BATCH, 64 * 64, 128, BF16),
+            (TRAIN_BATCH, 128 * 128, 64, F16)]
 # GEGLU (batch, rows, 2F, dtype): forward cases at SERVE_BATCH
 GEGLU_CASES = [(SERVE_BATCH, 4096, 2048, BF16), (SERVE_BATCH, 1024, 4096, BF16),
                (SERVE_BATCH, 1024, 4096, F32), (TRAIN_BATCH, 1024, 2048, BF16),
-               (TRAIN_BATCH, 256, 4096, BF16), (TRAIN_BATCH, 256, 4096, F32)]
+               (TRAIN_BATCH, 256, 4096, BF16), (TRAIN_BATCH, 256, 4096, F32),
+               (SERVE_BATCH, 1024, 4096, F16), (TRAIN_BATCH, 1024, 2048, F16)]
 # the AdaLN kernels (batch, L, C, dtype, views): DiT-B at its serving batch
 # (one CFG call) and its training batch, one f32 case, and a ragged L = 77
 _SB, _TB = 2 * DIT_SERVE_BATCH, DIT_TRAIN_BATCH
@@ -218,12 +247,15 @@ LN_MOD_CASES = [(_SB, DIT_TOKENS, DIT_WIDTH, BF16, 1), (_SB, DIT_TOKENS, DIT_WID
 # and the other widths B10's row kernel is compiled for (DiT-S, -L, -XL),
 # one it is not (1280, the generic kernel), at the serving batch
 LN_MOD_CASES += [(_SB, DIT_TOKENS, c, BF16, 2) for c in (384, 1024, 1152, 1280)]
+LN_MOD_CASES += [(_SB, DIT_TOKENS, DIT_WIDTH, F16, 2)]
 LN_MOD_BWD_CASES = [(_TB, DIT_TOKENS, DIT_WIDTH, BF16, 1), (_TB, DIT_TOKENS, DIT_WIDTH, BF16, 2),
-                    (_SB, DIT_TOKENS, DIT_WIDTH, F32, 2), (3, TEXT_LEN, DIT_WIDTH, BF16, 2)]
+                    (_SB, DIT_TOKENS, DIT_WIDTH, F32, 2), (3, TEXT_LEN, DIT_WIDTH, BF16, 2),
+                    (_TB, DIT_TOKENS, DIT_WIDTH, F16, 2)]
 GATE_RES_CASES = [(_SB, DIT_TOKENS, DIT_WIDTH, BF16), (_TB, DIT_TOKENS, DIT_WIDTH, BF16),
-                  (_SB, DIT_TOKENS, DIT_WIDTH, F32), (3, TEXT_LEN, DIT_WIDTH, BF16)]
+                  (_SB, DIT_TOKENS, DIT_WIDTH, F32), (3, TEXT_LEN, DIT_WIDTH, BF16),
+                  (_TB, DIT_TOKENS, DIT_WIDTH, F16)]
 GATE_RES_BWD_CASES = [(_TB, DIT_TOKENS, DIT_WIDTH, BF16), (_SB, DIT_TOKENS, DIT_WIDTH, F32),
-                      (3, TEXT_LEN, DIT_WIDTH, BF16)]
+                      (3, TEXT_LEN, DIT_WIDTH, BF16), (_TB, DIT_TOKENS, DIT_WIDTH, F16)]
 
 REPLACES = {
     "flash_fwd": "flaxdiff_tpu/ops/flash_attention.py:78",
@@ -376,7 +408,11 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # A bf16 value |x| has an ulp of at most 2^-7 |x|: two results of the same f32
 # math that round differently are one such ulp apart. atol covers what the
 # kernel and its plain version compute differently before that rounding.
-BF16_RTOL = 2.0 ** -7
+# An f16 value's ulp is at most 2^-10 |x|: its limits are the bf16 ones
+# scaled by HALF_SCALE (1/8) where they cover a 16-bit rounding
+BF16_RTOL, F16_RTOL = 2.0 ** -7, 2.0 ** -10
+HALF_RTOL = {BF16: BF16_RTOL, F16: F16_RTOL}
+HALF_SCALE = {BF16: 1.0, F16: F16_RTOL / BF16_RTOL}
 
 
 def compare(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float,
@@ -550,8 +586,9 @@ def kernel_cases(dev, peak):
         # 77 keys); |out| has a std of only sqrt(e / Lk) (0.026 at 4096
         # keys), so the RMS limit and lse (f32, the same unrounded sums on
         # both sides) catch a dropped key tile
-        if dtype == torch.bfloat16:
-            reading = compare(out, ref, atol=4e-3, rtol=BF16_RTOL, rms_rel=1e-2)
+        if dtype in HALF_RTOL:
+            hs = HALF_SCALE[dtype]
+            reading = compare(out, ref, atol=4e-3 * hs, rtol=HALF_RTOL[dtype], rms_rel=1e-2 * hs)
         else:
             reading = compare(out, ref, atol=1e-5, rtol=1e-5, rms_rel=1e-5)
         reading.update(lse_err=max_err(lse, ref_lse), lse_atol=1e-4)
@@ -583,7 +620,8 @@ def kernel_cases(dev, peak):
         # gradient) covers, up to 1.4e-3 of it on an H100; rtol is one
         # output ulp. The RMS error read <= 1.2e-4; a dropped 64-row tile
         # of 1024 moves it by ~6%. f32: summation order only
-        limits = ((4e-3, BF16_RTOL, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-5, 1e-5))
+        limits = ((4e-3 * HALF_SCALE[dtype], HALF_RTOL[dtype], 1e-3 * HALF_SCALE[dtype])
+                  if dtype in HALF_RTOL else (1e-5, 1e-5, 1e-5))
         read = lambda o, r: compare(o, r, atol=limits[0] * float(r.float().abs().max()),
                                     rtol=limits[1], rms_rel=limits[2])
         qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -622,7 +660,7 @@ def kernel_cases(dev, peak):
         rows = rows_per_block(b, hw, c)
         nblk = -(-hw // rows)
         esz, n = x.element_size(), b * hw * c
-        rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-5
+        rtol = HALF_RTOL.get(dtype, 1e-5)
         ref_part = groupnorm_stats_plain(x, 8, rows)
         mean, rstd = groupnorm_finalize(ref_part, hw, c, 1e-6)
         part = groupnorm_stats(x, 8)
@@ -689,7 +727,7 @@ def kernel_cases(dev, peak):
         esz, n = proj.element_size(), b * rows * f2 // 2
         # the same f32 math, tanhf against torch's tanh: a few f32 ulps, then
         # at most one bf16 rounding apart
-        rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-5
+        rtol = HALF_RTOL.get(dtype, 1e-5)
         if b == SERVE_BATCH:
             out, ref = geglu_fwd(proj), geglu_plain(proj)
             torch.cuda.synchronize()
@@ -821,12 +859,13 @@ def adaln_cases(randn, gen, record):
         dx, part = ln_modulate_bwd(x, scales, mean, rstd, gs)
         dx_ref, part_ref = ln_modulate_bwd_plain(x, scales, mean, rstd, gs)
         torch.cuda.synchronize()
-        rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-5
+        rtol = HALF_RTOL.get(dtype, 1e-5)
         # dx: the same f32 math, at most one output rounding apart (bf16 RMS
         # read <= 1.2e-5, f32 <= 4.3e-8); the partials: f32 sums of ADALN_ROWS
         # rows in another order (<= 6e-8 of the largest, RMS <= 9.6e-8)
         readings = {"dx": compare(dx, dx_ref, atol=1e-6 * float(dx_ref.float().abs().max()),
-                                  rtol=rtol, rms_rel=1e-4 if dtype == torch.bfloat16 else 1e-6),
+                                  rtol=rtol, rms_rel=1e-4 * HALF_SCALE[dtype]
+                                  if dtype in HALF_RTOL else 1e-6),
                     "partials": compare(part, part_ref, atol=1e-6 * float(part_ref.abs().max()),
                                         rtol=1e-5, rms_rel=1e-6)}
         esz, n, nblk = x.element_size(), b * l * c, -(-l // ADALN_ROWS)
@@ -1408,6 +1447,331 @@ def cli_path(dev, per_step: dict) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return res
+
+
+# --- phase 12: the JAX CLI's training options, float16 through the loss scale --
+
+# phase 10's run with train.py's training options: float16 (flax's dynamic
+# loss scale), MultiSteps(4) over lamb, the monitored step every 10 steps, a
+# 16-slot loss ring, the gate counter, a validation grid (euler_ancestral-50
+# + CFG) between the two chunks of 20 steps, and a profiler window; saves
+# every 10 steps, so the resume can start at 30, inside an accumulation
+CLI12_STEPS, CLI12_SAVE_EVERY, CLI12_RESUME_AT, CLI12_ACCUM = 40, 10, 30, 4
+CLI12_VAL_EVERY, CLI12_VAL_STEPS, CLI12_RING, CLI12_CADENCE = 20, 50, 16, 10
+# the card-vs-CPU check of the same chain in f32 (phase 3's UNet at 32x32,
+# batch 2): MultiSteps(2) over lamb with the scale growing every 2 finite
+# steps, a NaN batch at step 4 of 5
+CHAIN_STEPS, CHAIN_NAN_AT, CHAIN_RES = 5, 3, 32
+
+
+def with_flags(args: list, **flags) -> list:
+    """`args` with each --flag set to its value (True: a bare switch),
+    replacing the value a flag already has."""
+    args = list(args)
+    for flag, value in flags.items():
+        key = "--" + flag
+        if key in args:
+            i = args.index(key)
+            del args[i:i + (1 if value is True else 2)]
+        args += [key] if value is True else [key, str(value)]
+    return args
+
+
+def cli12_args(checkpoint_dir: str, dev, profile_dir: str) -> list:
+    return with_flags(cli_args(checkpoint_dir, CLI12_STEPS, dev), dtype="float16",
+                      grad_accum=CLI12_ACCUM, optimizer="lamb", numerics_cadence=CLI12_CADENCE,
+                      loss_ring=CLI12_RING, gate_counter=True, val_every=CLI12_VAL_EVERY,
+                      val_steps=CLI12_VAL_STEPS, save_every=CLI12_SAVE_EVERY,
+                      profile_dir=profile_dir)
+
+
+@contextlib.contextmanager
+def recorded_scale(trajectory: list, runs: list):
+    """train.make_run patched to keep each run and to stack the loss scale
+    and fin_steps on the device after every step (no host read), for the
+    trajectory the run never prints."""
+    from flaxdiff_tpu_torch import train
+
+    make_run = train.make_run
+
+    def recording(argv=None):
+        run = make_run(argv)
+        inner, scale = run.trainer._run, run.trainer.state.dynamic_scale
+
+        def step(fn, batch):
+            out = inner(fn, batch)
+            trajectory.append(torch.stack([scale.scale, scale.fin_steps.float()]))
+            return out
+        run.trainer._run = step
+        runs.append(run)
+        return run
+    train.make_run = recording
+    try:
+        yield
+    finally:
+        train.make_run = make_run
+
+
+def options_path(dev, per_step: dict, phase10: dict, phase5: dict) -> dict:
+    """Phase 12 (see the module docstring). The fit's windows hold the
+    profiler window and the monitored steps, so the micro-step is also
+    timed as phase 5 times its step: the same trainer, 3 warm-up and 20
+    micro-steps on 4 batches already on the card, between CUDA events."""
+    import tempfile
+
+    from flaxdiff_tpu_torch import train
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.trainer import Checkpointer
+
+    root = tempfile.mkdtemp(prefix="flaxdiff_cli12_")
+    res = {}
+    try:
+        whole, resumed, poisoned = (os.path.join(root, n) for n in ("whole", "resumed", "poison"))
+        trajectory, runs = [], []
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with recorded_scale(trajectory, runs):
+            hist = train.main(cli12_args(whole, dev, os.path.join(root, "profile")))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        # one validation grid at step 20: euler_ancestral-50 calls the model
+        # STEPS + 1 times, as phase 8 counts it
+        expected = {k: CLI12_STEPS * per_step.get(k, 0) + (STEPS + 1) * PER_FORWARD.get(k, 0)
+                    for k in counts}
+        log(f"  launches {counts}, expected {expected}")
+        check(counts == expected, "every f16 forward and backward kernel ran once per call per "
+              "micro-step, and the forward kernels once per call of the validation grid")
+        traj = torch.stack(trajectory).cpu().tolist()
+        scales, fins = [s for s, _ in traj], [int(f) for _, f in traj]
+        state = runs[0].trainer.state
+        skipped = [i + 1 for i in range(1, len(scales)) if scales[i] < scales[i - 1]]
+        skipped = ([1] if scales and scales[0] < 65536.0 else []) + skipped
+        landed = CLI12_ACCUM * int(state.count) + int(state.mini_step)
+        log(f"  loss scale by micro-step: {scales}")
+        log(f"  fin_steps by micro-step: {fins}")
+        log(f"  skipped micro-steps (the scale backed off): {skipped}; count "
+            f"{int(state.count)}, mini-step {int(state.mini_step)}, step {state.step}")
+        check(len(traj) == CLI12_STEPS and state.step == CLI12_STEPS,
+              "the trajectory has every micro-step")
+        check(landed + len(skipped) == CLI12_STEPS, f"every micro-step either landed or was "
+              f"skipped: {landed} + {len(skipped)}")
+        check(all(math.isfinite(x) for x in hist["loss"]), "every window loss finite")
+        check(hist["steps"] == [16, 20, 36, 40], f"ring windows {hist['steps']}")
+        check(len(hist["numerics"]) == CLI12_STEPS // CLI12_CADENCE
+              and all(row["numerics/skipped"] in (0.0, 1.0) for row in hist["numerics"]),
+              "a monitored step every 10 micro-steps")
+        check(any(k.startswith("numerics/module/TimeProjection_0/") for k in hist["numerics"][0]),
+              "the aux's modules carry the JAX names")
+        check(hist["skipped_steps"] == sum(1 for r in hist["numerics"] if r["numerics/skipped"]),
+              "skipped monitored steps counted")
+        events = state.gate_events.tolist()
+        trace = hist["profile_trace"]
+        trace_bytes = os.path.getsize(trace) if os.path.exists(trace) else 0
+        with open(trace) as f:
+            kernel_events = len(re.findall(r'"cat":\s*"kernel"', f.read()))
+        check(trace_bytes > 0 and kernel_events > 0,
+              f"the profiler trace {trace} exists with device kernels ({kernel_events})")
+        val = hist["validation"]
+        check(len(val) == 1 and val[0]["step"] == CLI12_VAL_EVERY
+              and val[0]["samples"].shape == (8, TRAIN_RES, TRAIN_RES, 3),
+              "one validation grid of 8 samples at step 20")
+        # ms per micro-step from the ring's windows after the first (which
+        # holds the warm-up), weighted by their micro-steps; they also hold
+        # the profiler windows (micro-steps 10-14 of each chunk) and the
+        # monitored steps
+        per_window = [TRAIN_BATCH * 1e3 / ips for ips in hist["imgs_per_sec"]]
+        sizes = np.diff([0] + hist["steps"])
+        ms = float(np.dot(per_window[1:], sizes[1:]) / sizes[1:].sum())
+        res["fit"] = {"wall_s": wall, "window_ms_per_step": per_window,
+                      "window_steps": sizes.tolist(), "ms_per_micro_step": ms,
+                      "phase10_ms_per_step": phase10["fit"]["ms_per_step"],
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "losses": hist["loss"], "launches": counts, "scale": scales,
+                      "fin_steps": fins, "skipped": skipped, "count": int(state.count),
+                      "gate_events": events, "numerics": hist["numerics"],
+                      "validation_wall_s": val[0]["wall_s"],
+                      "validation_std": float(val[0]["samples"].std()),
+                      "profile_trace_bytes": trace_bytes, "profile_kernel_events": kernel_events,
+                      "checkpoint": hist["checkpoint"]}
+        log(f"  fit: {ms:.3f} ms per micro-step (windows 2-4, by micro-steps: "
+            + " ".join(f"{x:.3f}" for x in per_window[1:]) + f"; phase 10's bf16 step "
+            f"{phase10['fit']['ms_per_step']:.3f}), {wall:.2f} s with the model's build and "
+            f"the validation; peak {res['fit']['peak_mem_gib']:.2f} GiB; validation grid "
+            f"(euler_ancestral-{CLI12_VAL_STEPS} + CFG, 8 samples) {val[0]['wall_s']:.3f} s; "
+            f"gate counter {events}; trace {trace_bytes} bytes, {kernel_events} kernel events")
+        trainer = runs[0].trainer
+        stream = runs[0].batches(0)
+        batches = [{k: torch.as_tensor(v).to(dev) for k, v in next(stream).items()
+                    if k in ("sample", "cond")} for _ in range(4)]
+        stream.close()
+        for i in range(WARMUP):
+            trainer.train_step(batches[i % 4])
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(TIMED):
+            trainer.train_step(batches[i % 4])
+        end.record()
+        end.synchronize()
+        loop_ms = start.elapsed_time(end) / TIMED
+        res["fit"].update(loop_ms_per_micro_step=loop_ms,
+                          phase5_ms_per_step=phase5["ms_per_step"])
+        log(f"  loop: {loop_ms:.3f} ms per micro-step (CUDA events over {TIMED}; phase 5's bf16 "
+            f"step {phase5['ms_per_step']:.3f})")
+        res["fit"]["breakdown"] = family_profile(lambda: trainer.train_step(batches[0]),
+                                                 training=True)
+        by_family = res["fit"]["breakdown"]["ms_by_family"]
+        if by_family:
+            res["fit"]["busy_ms"] = sum(by_family.values())
+            res["fit"]["idle_share"] = 1.0 - res["fit"]["busy_ms"] / loop_ms
+            log(f"  device busy {res['fit']['busy_ms']:.3f} ms of {loop_ms:.3f} ms per "
+                f"micro-step ({res['fit']['idle_share']:.0%} idle)")
+        del runs[:], state, trainer, batches
+        torch.cuda.empty_cache()
+
+        copy_run(whole, resumed, CLI12_RESUME_AT)
+        reset_launch_counts()
+        hist = train.main(cli12_args(resumed, dev, os.path.join(root, "profile_resumed")))
+        rest = CLI12_STEPS - CLI12_RESUME_AT
+        check(launch_counts() == {k: rest * per_step.get(k, 0) for k in counts},
+              f"the resumed run launched every kernel once per call for {rest} micro-steps")
+        a, _ = Checkpointer(whole).restore(CLI12_STEPS)
+        b, _ = Checkpointer(resumed).restore(CLI12_STEPS)
+        mid, _ = Checkpointer(whole).restore(CLI12_RESUME_AT)
+        tensors = [k for k, v in a.items() if isinstance(v, torch.Tensor)]
+        equal = {k: torch.equal(a[k], b[k]) for k in tensors}
+        res["resume"] = {"bit_equal": equal, "mini_step_at_resume": int(mid["mini_step"]),
+                         "steps": hist["steps"]}
+        log(f"  resumed from micro-step {CLI12_RESUME_AT} (mini-step "
+            f"{int(mid['mini_step'])} of {CLI12_ACCUM}) to {CLI12_STEPS}: bit-equal {equal}")
+        check(CLI12_RESUME_AT % CLI12_ACCUM != 0 and all(equal.values())
+              and {"acc", "mini_step", "count", "loss_scale", "loss_ring",
+                   "gate_events"} <= set(tensors),
+              "the resumed run equals the uninterrupted one bit for bit, accumulator and "
+              "loss scale included")
+
+        copy_run(whole, poisoned, CLI12_STEPS)
+        run = train.make_run(cli12_args(poisoned, dev, os.path.join(root, "profile_poison")))
+        state = run.trainer.state
+        stream = run.batches(run.start_step)
+        batch = next(stream)
+        stream.close()
+        batch = {**batch, "sample": np.full(batch["sample"].shape, np.nan, np.float32)}
+        before = {k: v.clone() for k, v in state.buffers().items()}
+        loss = float(run.trainer.train_step(batch))
+        after = state.buffers()
+        kept = {k: torch.equal(before[k], after[k]) for k in
+                ("params", "exp_avg", "exp_avg_sq", "acc", "count", "mini_step", "gate_events")}
+        scale_before = float(before["loss_scale"])
+        res["poison"] = {"loss": loss, "kept": kept, "scale_before": scale_before,
+                         "scale_after": float(after["loss_scale"]),
+                         "fin_steps_after": int(after["loss_scale_fin_steps"]),
+                         "step_after": state.step}
+        log(f"  NaN batch at micro-step {CLI12_STEPS + 1}: loss {loss}, scale {scale_before} -> "
+            f"{res['poison']['scale_after']}, fin_steps {res['poison']['fin_steps_after']}, "
+            f"unchanged {kept}")
+        check(not math.isfinite(loss) and all(kept.values())
+              and res["poison"]["scale_after"] == scale_before / 2
+              and res["poison"]["fin_steps_after"] == 0 and state.step == CLI12_STEPS + 1,
+              "the NaN batch backed the scale off and left params, moments, accumulator and "
+              "counts unchanged")
+        run.trainer.checkpointer.close()
+        del run, state, before, after
+        torch.cuda.empty_cache()
+        res["launches"] = res["fit"]["launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def chain_card_vs_cpu(dev, unet_state: dict) -> dict:
+    """Phase 12's chain in f32, card against CPU: the same weights, batches
+    and draws through make_train_step with MultiSteps(2) over clip + lamb,
+    the loss scale growing every 2 finite steps and a NaN batch. The scale
+    and fin_steps must equal the CPU's after every step, the counts too,
+    and the params end within an update's quantum: every element within 3x
+    the largest element an update moved, 99% within 1% of it (Adam and the
+    trust ratio turn ulp-level differences of near-zero gradients into
+    whole steps, as tests/test_torch_train.py holds)."""
+    from flaxdiff_tpu_torch.models import Unet
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.trainer import (DynamicScale, MultiSteps, TrainState,
+                                            TrainStepConfig, chain, clip_by_global_norm, lamb,
+                                            make_train_step, warmup_cosine_decay_schedule)
+
+    rng = np.random.default_rng(12)
+    shape = (2, CHAIN_RES, CHAIN_RES, 3)
+    batches = [rng.standard_normal(shape).astype(np.float32) for _ in range(CHAIN_STEPS)]
+    batches[CHAIN_NAN_AT][:] = np.nan
+    draws = [(rng.standard_normal(shape).astype(np.float32),
+              rng.integers(0, 1000, 2).astype(np.int64), np.array([False, True]))
+             for _ in range(CHAIN_STEPS)]
+    cond = rng.standard_normal((2, TEXT_LEN, TEXT_DIM)).astype(np.float32)
+    sides = []
+    for where in (dev, torch.device("cpu")):
+        model = Unet(**UNET, device=where)
+        model.load_state_dict(unet_state)
+        tx = MultiSteps(chain(clip_by_global_norm(1.0),
+                              lamb(warmup_cosine_decay_schedule(0.0, 1e-3, 1, 4))), 2)
+        state = TrainState(model, tx, ema_decay=0.999,
+                           dynamic_scale=DynamicScale(growth_interval=2))
+        start = state.params.clone()
+        step = make_train_step(CosineNoiseSchedule(1000, device=where),
+                               EpsilonPredictionTransform(), TrainStepConfig(normalize=False),
+                               null_cond=torch.zeros(1, TEXT_LEN, TEXT_DIM, device=where),
+                               gate_nonfinite=True)
+        traj = []
+        for x, (noise, t, mask) in zip(batches, draws):
+            to = lambda a: torch.from_numpy(a).to(where)
+            step(state, {"sample": to(x), "cond": to(cond)}, to(noise), to(t), to(mask))
+            traj.append((float(state.dynamic_scale.scale), int(state.dynamic_scale.fin_steps),
+                         int(state.count), int(state.mini_step)))
+        sides.append((traj, state.params.cpu(), start.cpu()))
+        del model, state
+    (traj, params, _), (ref_traj, ref_params, start) = sides
+    moved = float((ref_params - start).abs().max())
+    d = (params - ref_params).abs()
+    share = float((d <= 1e-2 * moved).float().mean())
+    res = {"trajectory": traj, "cpu_trajectory": ref_traj, "largest_move": moved,
+           "max_param_diff": float(d.max()), "share_within_1pct": share}
+    log(f"  f32 chain card vs CPU: (scale, fin_steps, count, mini-step) {traj}; params differ "
+        f"by at most {float(d.max()):.3g} (largest move {moved:.3g}), {share:.4f} within 1%")
+    check(traj == ref_traj, f"the loss scale's trajectory equals the CPU's: {ref_traj}")
+    grown = traj[CHAIN_NAN_AT - 1][0]
+    check(grown > traj[0][0] and traj[CHAIN_NAN_AT][0] < grown, "the scale grew and backed off")
+    check(float(d.max()) <= 3 * moved and share >= 0.99,
+          "the params within an update's quantum of the CPU's")
+    return res
+
+
+def f16_forward_check(dev, unet_state: dict) -> dict:
+    """Phase 5's UNet in float16 against the same weights in f32 on the
+    card, one forward at 64x64, batch 2, with the text context: the f16
+    kernels and f16 activations through ~40 layers. Limits: RMS of the
+    difference within 1e-2 of the f32 output's, every element within 5e-2
+    of its largest (a few f16 ulps a layer, compounded)."""
+    from flaxdiff_tpu_torch.models import Unet
+
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(np.float32)).to(dev)
+    t = torch.tensor([91.0, 655.0], device=dev)
+    ctx = torch.from_numpy(rng.standard_normal((2, TEXT_LEN, TEXT_DIM)).astype(np.float32)).to(dev)
+    outs = []
+    for dtype in ("float32", "float16"):
+        model = Unet(**UNET, dtype=dtype, device=dev)
+        model.load_state_dict(unet_state)
+        with torch.no_grad():
+            outs.append(model(x, t, ctx).float())
+        del model
+    ref, out = outs
+    reading = compare(out, ref, atol=5e-2 * float(ref.abs().max()), rtol=0.0, rms_rel=1e-2)
+    log(f"  f16 forward against f32: max err {reading['max_abs_err']:.3g} (limit "
+        f"{reading['atol']:.3g}), rms rel {reading['rms_rel']:.3g} (limit 1e-2)")
+    check(bool(torch.isfinite(out).all()) and passes(reading), f"f16 forward: {reading}")
+    return reading
 
 
 # --- phases 8 and 9: every sampler, EDM training -------------------------------
@@ -2068,23 +2432,52 @@ def main() -> int:
         f"step, {mm['samples_per_s']:.1f} latents/s, peak {mm['peak_mem_gib']:.2f} GiB; phase 11 "
         f"{families['phase_s']:.1f} s on {smi}")
 
+    torch.cuda.empty_cache()
+
+    log(f"phase 12: the training CLI with train.py's options, batch {TRAIN_BATCH} at "
+        f"{TRAIN_RES}x{TRAIN_RES}, float16 with the loss scale, MultiSteps({CLI12_ACCUM}) over "
+        f"lamb, {CLI12_STEPS} micro-steps, resume at {CLI12_RESUME_AT}, a NaN batch; the f32 "
+        f"chain card against CPU; the f16 forward against f32")
+    t12 = time.perf_counter()
+    options = options_path(dev, {**PER_FORWARD, **PER_BACKWARD}, cli, train)
+    unet_state = random_state(Unet(**UNET, device="cpu"), 0)
+    options["chain_card_vs_cpu"] = chain_card_vs_cpu(dev, unet_state)
+    options["f16_forward"] = f16_forward_check(dev, unet_state)
+    del unet_state
+    options["phase_s"] = time.perf_counter() - t12
+    of = options["fit"]
+    log(f"CLI fp16 options: batch {TRAIN_BATCH} {TRAIN_RES}x{TRAIN_RES} float16 "
+        f"{of['loop_ms_per_micro_step']:.3f} ms per micro-step in a loop (phase 5's bf16 step "
+        f"{of['phase5_ms_per_step']:.3f} ms), {of['ms_per_micro_step']:.3f} in fit (phase 10's "
+        f"bf16 fit {of['phase10_ms_per_step']:.3f} ms), busy "
+        f"{of.get('busy_ms', float('nan')):.3f} ms "
+        f"({of.get('idle_share', float('nan')):.0%} idle), peak {of['peak_mem_gib']:.2f} GiB, "
+        f"skipped micro-steps {of['skipped']}, final scale {of['scale'][-1]}, validation "
+        f"{of['validation_wall_s']:.3f} s; phase {options['phase_s']:.1f} s on {smi}")
+
     paths = {"unet_serving": traj, "unet_training": train, "dit_serving": dit_traj,
              "dit_training": dit_train, "unet3d_block_320": model_res["unet3d_block"],
              "unet_samplers": samplers_res, "unet_edm_training": edm_train,
              "unet_cli": cli, "mmdit_training": families["mmdit_training"],
+             "unet_cli_f16": options,
              **{f"{key}_serving": r for key, r in families["serving"].items()}}
     kernels, summary = [], []
     for kname in REPLACES:
         mine = [c for c in cases if c["name"] == kname]
         head = mine[0]
         by_path = {path: res["launches"][kname] for path, res in paths.items()}
+        f16 = next(c for c in mine if c["dtype"] == "float16")
         kernel = {
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname], "launches": sum(by_path.values()),
             "max_abs_err": max(c["max_abs_err"] for c in mine), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "launches_by_path": by_path, "shape": head["shape"], "dtype": head["dtype"]}
+            "launches_by_path": by_path, "shape": head["shape"], "dtype": head["dtype"],
+            # the f16 case and the launches on the f16 path (phase 12)
+            "f16": {k: f16[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "max_abs_err")}
+            | {"launches": by_path["unet_cli_f16"]}}
         check(kernel["launches"] > 0, f"{kname} launched on a main path")
         summary.append(kernel)
         kernels.append({**kernel, "cases": mine})
@@ -2094,7 +2487,7 @@ def main() -> int:
               "model": model_res, "trajectory": traj, "training": train, "dit_model": dit_res,
               "dit_trajectory": dit_traj, "dit_training": dit_train,
               "samplers": samplers_res, "edm_training": edm_train, "cli": cli,
-              "families": families,
+              "families": families, "options": options,
               "total_s": time.perf_counter() - t0}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

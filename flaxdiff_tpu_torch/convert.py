@@ -114,4 +114,5 @@ def train_state_from_flax(flax_state: Any, model: nn.Module, tx: Any):
         if flat is not None:
             flat.copy_(state.flatten(state_dict_from_flax(model, tree)))
     state.step = int(np.asarray(adam[0].count))
+    state.count.fill_(state.step)
     return state

@@ -83,12 +83,6 @@ class DiffusionInferencePipeline:
         device = resolve_device(device)
         if config.get("autoencoder"):
             raise NotImplementedError("latent diffusion is not ported yet: ROADMAP.md A9")
-        if config.get("flat_params"):
-            # a JAX flat-params run comes across through from_flax_export,
-            # whose export has unflattened it
-            raise NotImplementedError("flat-params checkpoints: ROADMAP.md A5 (export a JAX "
-                                      "run with scripts/export_flax_checkpoint.py and load it "
-                                      "with from_flax_export)")
         input_config = None
         if config.get("input_config"):
             input_config = DiffusionInputConfig.deserialize(config["input_config"],
@@ -112,7 +106,8 @@ class DiffusionInferencePipeline:
                         device: DeviceLike = None) -> "DiffusionInferencePipeline":
         """The config, the hash encoder's table and the train state saved by
         the port's training CLI (``flaxdiff_tpu_torch.train``), at `step`
-        (default: the newest)."""
+        (default: the newest). The state is flat in every run, so a run
+        trained with ``--flat_params`` loads as any other."""
         from ..trainer.checkpoints import Checkpointer
         with open(os.path.join(checkpoint_dir, CONFIG_FILENAME)) as f:
             config = json.load(f)
@@ -161,8 +156,7 @@ class DiffusionInferencePipeline:
                     node[leaf] = npz[key]
             trees.append(tree)
         pipe = DiffusionInferencePipeline.from_config(
-            {**config, "flat_params": False}, {}, hash_table=_load_table(export_dir),
-            device=device)
+            config, {}, hash_table=_load_table(export_dir), device=device)
         pipe.config = config
         pipe.params, pipe.ema_params = (
             None if tree is None else convert.state_dict_from_flax(pipe.model, tree)

@@ -9,6 +9,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..utils import cfg_uncond_splice
 from .encoders import CONDITIONAL_ENCODERS_REGISTRY
 
 
@@ -79,6 +80,31 @@ class DiffusionInputConfig:
     sample_data_shape: Tuple[int, ...]
     conditions: List[ConditionalInputConfig]
 
+    def get_input_shapes(self, autoencoder=None, sample_model_key: str = "x",
+                         time_embeddings_model_key: str = "temb") -> Dict[str, Tuple[int, ...]]:
+        """Each model input's shape without the batch (config.py:84-108): the
+        sample's [(T,) H, W, C], its spatial size ceil-divided by a codec's
+        downscale factor and its channels the codec's latent channels for
+        latent diffusion (`autoencoder`: any object with
+        ``downscale_factor`` and ``latent_channels``), the time embedding's
+        (), and each condition's null embedding's."""
+        if len(self.sample_data_shape) == 3:
+            H, W, C = self.sample_data_shape
+            lead: Tuple[int, ...] = ()
+        elif len(self.sample_data_shape) == 4:
+            T, H, W, C = self.sample_data_shape
+            lead = (T,)
+        else:
+            raise ValueError(f"unsupported sample shape {self.sample_data_shape}")
+        if autoencoder is not None:
+            d = autoencoder.downscale_factor
+            # SAME-padded stride-2 convs give ceil(H / 2) per stage
+            H, W, C = -(-H // d), -(-W // d), autoencoder.latent_channels
+        shapes = {sample_model_key: (*lead, H, W, C), time_embeddings_model_key: ()}
+        for cond in self.conditions:
+            shapes[cond.model_key] = tuple(cond.get_unconditional()[0].shape)
+        return shapes
+
     def get_unconditionals(self, batch_size: Optional[int] = None) -> List[torch.Tensor]:
         """The cached null embeddings, broadcast to `batch_size` if given
         (the sampler's CFG batch takes them as they are)."""
@@ -89,6 +115,20 @@ class DiffusionInputConfig:
                 u = u.expand((batch_size,) + tuple(u.shape[1:]))
             out.append(u)
         return out
+
+    def process_conditioning(self, batch_data,
+                             uncond_mask: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """Every condition encoded from `batch_data`; where `uncond_mask` is
+        True, the cached null embedding in its place (CFG dropout,
+        config.py:121-132)."""
+        results = []
+        for cond in self.conditions:
+            emb = cond(batch_data)
+            if uncond_mask is not None:
+                null = torch.as_tensor(cond.get_unconditional()).to(emb.device)
+                emb = cfg_uncond_splice(emb, null, torch.as_tensor(uncond_mask, device=emb.device))
+            results.append(emb)
+        return results
 
     def serialize(self) -> Dict[str, Any]:
         return {

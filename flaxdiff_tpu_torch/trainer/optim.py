@@ -1,12 +1,14 @@
-"""The training CLI's optimizer chain (counterpart of ``train.py:456-468``):
-``optax.chain(clip_by_global_norm(max_norm), adam|adamw(schedule))`` over
-the train state's flat f32 buffers.
+"""The training CLI's optimizer chain (counterpart of ``train.py:456-503``):
+``optax.chain(clip_by_global_norm(max_norm), adam|adamw|lamb(schedule))``,
+optionally inside ``optax.MultiSteps(every_k_schedule=k)``, over the train
+state's flat f32 buffers.
 
 optax's order of operations is kept: the global-norm clip, Adam's moments
 and bias corrections at the incremented count, adamw's decoupled weight
-decay, then the learning rate, a schedule evaluated at the optimizer's
-count BEFORE the increment (so a warmup from 0 makes the first update
-exactly zero). The clip is a select on the device, never a host read.
+decay, lamb's per-leaf trust ratio, then the learning rate, a schedule
+evaluated at the optimizer's count BEFORE the increment (so a warmup from 0
+makes the first update exactly zero). The clip is a select on the device,
+never a host read. ``TrainState.apply_gradients`` runs the chain.
 """
 from __future__ import annotations
 
@@ -50,14 +52,17 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 class AdamW:
     """``optax.adamw`` with its defaults: decoupled weight decay on every
     parameter, at optax's 1e-4 (torch's own AdamW defaults to 1e-2).
-    ``weight_decay=0`` is ``optax.adam``. `learning_rate` is a float or a
-    schedule of the optimizer's count."""
+    ``weight_decay=0`` is ``optax.adam``; ``trust_ratio=True`` scales each
+    parameter's update by ||p|| / ||u|| after the weight decay (1 where
+    either norm is 0), which is ``optax.lamb``. `learning_rate` is a float
+    or a schedule of the optimizer's count."""
 
     learning_rate: Union[float, Schedule]
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 1e-4
+    trust_ratio: bool = False
 
     def lr(self, count: int) -> float:
         """The learning rate of the update made at `count` earlier updates."""
@@ -73,9 +78,15 @@ def adamw(learning_rate: Union[float, Schedule], **kwargs) -> AdamW:
     return AdamW(learning_rate, **kwargs)
 
 
-def lamb(learning_rate: Union[float, Schedule], **kwargs) -> AdamW:
-    raise NotImplementedError("lamb's trust ratio mixes information per parameter leaf, which "
-                              "the flat-buffer state does not keep; see ROADMAP.md queue A5")
+def lamb(learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-6, weight_decay: float = 0.0) -> AdamW:
+    """``optax.lamb`` with its defaults: scale_by_adam (eps 1e-6), the
+    weight decay (0), the trust ratio per parameter, then the learning
+    rate. Each torch parameter of the flat layout is one flax leaf (the
+    converter only reshapes, transposes and flips, which keep a norm), so
+    the per-parameter norms are optax's per-leaf ones."""
+    return AdamW(learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                 trust_ratio=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,9 +122,34 @@ def chain(*transforms) -> Chain:
     return Chain(tuple(pre), last)
 
 
-Optimizer = Union[AdamW, Chain]
+@dataclasses.dataclass(frozen=True)
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k_schedule=k)`` with its default
+    running mean: each micro-step folds its gradients into the accumulator,
+    ``acc + (g - acc) / (n + 1)``, and runs the inner chain on it, but only
+    the k-th (the emit step) keeps the chain's state and applies its update;
+    the others leave the params unchanged and reset nothing. The train state
+    keeps the accumulator and the mini-step as part of the optimizer state."""
+
+    inner: Union[AdamW, Chain]
+    every_k: int
+
+    def __post_init__(self):
+        if self.every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {self.every_k}")
+
+
+Optimizer = Union[AdamW, Chain, MultiSteps]
 
 
 def as_chain(tx: Optimizer) -> Chain:
+    """The chain a (possibly accumulating) optimizer runs."""
+    if isinstance(tx, MultiSteps):
+        tx = tx.inner
     return tx if isinstance(tx, Chain) else Chain((), tx)
+
+
+def every_k(tx: Optimizer) -> int:
+    """Micro-steps per update: MultiSteps' k, else 1."""
+    return tx.every_k if isinstance(tx, MultiSteps) else 1
 

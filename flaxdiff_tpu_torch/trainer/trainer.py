@@ -2,17 +2,19 @@
 ``flaxdiff_tpu/trainer/trainer.py``): it owns the train state and a seeded
 ``torch.Generator`` on the device, draws each step's noise, timesteps and
 CFG-dropout mask there, runs the step, and drives the fit loop with
-checkpoints, resume, preemption and abnormal-loss rollback.
+checkpoints, resume, preemption, abnormal-loss rollback, the float16 loss
+scale, the monitored step at the numerics cadence, the loss ring, the gate
+counter and a profiler window.
 
-Not ported (ROADMAP.md A5, A14): telemetry, the numerics monitor, the
-watchdog, elastic worlds, the data plane, the in-graph loss ring and gate
-counter, flat params, profiler windows, gradient accumulation
-(``optax.MultiSteps``), fp16 loss scaling and validation.
+Not ported (ROADMAP.md A14): telemetry (phases, goodput, MFU), the anomaly
+detector and its actions other than ``warn``, the NaN provenance probe,
+automated profile windows, the watchdog, elastic worlds and the data plane.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import signal
 import time
 import warnings
@@ -26,7 +28,10 @@ from ..data.prefetch import prefetch_to_device
 from ..device import DeviceLike, make_generator, resolve_device
 from ..predictors import PredictionTransform
 from ..schedulers.common import NoiseSchedule
+from ..telemetry.numerics import NumericsConfig, flatten_aux
+from ..typing import Policy
 from .checkpoints import Checkpointer
+from .loss_scale import DynamicScale
 from .optim import Optimizer
 from .train_state import TrainState
 from .train_step import TrainStepConfig, make_train_step
@@ -49,6 +54,25 @@ class TrainerConfig:
     # steps dispatched ahead of the card at most; 0: no bound (the window
     # fetch is then the only wait)
     pipeline_depth: int = 2
+    # every N steps the monitored twin of the step runs and its health aux
+    # is read back (history["numerics"]); 0: never
+    numerics_cadence: int = 0
+    # > 0: a device ring of this many losses, written in the step at
+    # step % N, is read once every N steps instead of a window of losses
+    # (the window is then N steps long); changes the checkpoint
+    loss_ring: int = 0
+    # a [3] int32 count on the device of the elements the gate masked in
+    # params / optimizer state / EMA, read at each window; needs the gate;
+    # changes the checkpoint
+    gate_counter: bool = False
+    # the state is flat in any case; a flat-params run's aux has no
+    # per-module entries, as in the JAX package
+    flat_params: bool = False
+    # a torch.profiler trace of `profile_steps` steps from step
+    # `profile_at_step` of each fit (clamped into the fit) in profile_dir
+    profile_dir: Optional[str] = None
+    profile_at_step: int = 10
+    profile_steps: int = 5
 
 
 def _fetch_losses(window: Sequence[torch.Tensor]) -> list[float]:
@@ -67,11 +91,21 @@ class DiffusionTrainer:
                  transform: PredictionTransform, config: TrainerConfig = TrainerConfig(),
                  null_cond: Optional[torch.Tensor] = None, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None,
-                 checkpointer: Optional[Checkpointer] = None):
+                 checkpointer: Optional[Checkpointer] = None, policy: Optional[Policy] = None):
+        """`policy`: the mixed-precision policy; a float16 compute dtype
+        keeps a dynamic loss scale in the state (trainer.py:335-339)."""
+        if config.gate_counter and not config.gate_nonfinite:
+            raise ValueError("gate_counter counts the in-graph gate's activations — it requires "
+                             "gate_nonfinite")
         self.device = resolve_device(device)
         self.config = config
         self.schedule = schedule.to(self.device)
-        self.state = TrainState(model.to(self.device), optimizer, config.ema_decay)
+        scale = None
+        if policy is not None and policy.compute_dtype == torch.float16:
+            scale = DynamicScale(device=self.device)
+        self.state = TrainState(model.to(self.device), optimizer, config.ema_decay,
+                                dynamic_scale=scale, loss_ring_size=max(config.loss_ring, 0),
+                                gate_counter=config.gate_counter)
         self.generator = make_generator(config.seed, self.device) if generator is None \
             else generator
         self.checkpointer = checkpointer
@@ -79,15 +113,19 @@ class DiffusionTrainer:
         self.best_state: Optional[Dict[str, Any]] = None   # buffers and step
         self.best_step: Optional[int] = None
         null = None if null_cond is None else torch.as_tensor(null_cond).to(self.device)
-        self._step = make_train_step(
-            self.schedule, transform,
-            TrainStepConfig(uncond_prob=config.uncond_prob, ema_decay=config.ema_decay,
-                            normalize=config.normalize, weighted_loss=config.weighted_loss),
-            null_cond=null, gate_nonfinite=config.gate_nonfinite)
+        step_cfg = TrainStepConfig(uncond_prob=config.uncond_prob, ema_decay=config.ema_decay,
+                                   normalize=config.normalize,
+                                   weighted_loss=config.weighted_loss)
+        self._step = make_train_step(self.schedule, transform, step_cfg, null_cond=null,
+                                     gate_nonfinite=config.gate_nonfinite, policy=policy)
+        self._step_monitored = None
+        if config.numerics_cadence > 0:
+            self._step_monitored = make_train_step(
+                self.schedule, transform, step_cfg, null_cond=null,
+                gate_nonfinite=config.gate_nonfinite, policy=policy,
+                numerics=NumericsConfig(per_module=not config.flat_params))
 
-    def train_step(self, batch: Mapping[str, "torch.Tensor | np.ndarray"]) -> torch.Tensor:
-        """One step on {"sample": [B, H, W, C], "cond": optional [B, L, D]};
-        returns the loss as a tensor on the device (no host sync)."""
+    def _run(self, step, batch: Mapping[str, "torch.Tensor | np.ndarray"]):
         batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                  for k, v in batch.items() if k in ("sample", "cond") and v is not None}
         x = batch["sample"]
@@ -95,7 +133,19 @@ class DiffusionTrainer:
         noise = torch.randn(x.shape, generator=gen, device=dev)
         t = self.schedule.sample_timesteps(gen, x.shape[0])
         uncond_mask = torch.rand(x.shape[0], generator=gen, device=dev) < self.config.uncond_prob
-        return self._step(self.state, batch, noise, t, uncond_mask)
+        return step(self.state, batch, noise, t, uncond_mask)
+
+    def train_step(self, batch: Mapping[str, "torch.Tensor | np.ndarray"]) -> torch.Tensor:
+        """One step on {"sample": [B, H, W, C], "cond": optional [B, L, D]};
+        returns the loss as a tensor on the device (no host sync)."""
+        return self._run(self._step, batch)
+
+    def train_step_monitored(self, batch: Mapping[str, "torch.Tensor | np.ndarray"]):
+        """The numerics-cadence step: ``(loss, aux)`` with the health aux on
+        the device (``telemetry/numerics.py``). Needs ``numerics_cadence > 0``."""
+        if self._step_monitored is None:
+            raise ValueError("train_step_monitored needs TrainerConfig.numerics_cadence > 0")
+        return self._run(self._step_monitored, batch)
 
     def get_params(self, use_ema: bool = True) -> dict[str, torch.Tensor]:
         """Parameter name -> tensor: the EMA copy, or the live parameters."""
@@ -173,28 +223,37 @@ class DiffusionTrainer:
         """Run `total_steps` steps on host batches from `data` and return
         the history: per window ``steps``, ``loss`` (the window's last) and
         ``imgs_per_sec``; ``preempted``; ``saves`` by result; ``final_loss``
-        and ``best_loss``.
+        and ``best_loss``; with ``numerics_cadence`` the monitored steps'
+        flattened aux (``numerics``, each with its ``step``) and
+        ``skipped_steps``; with ``gate_counter`` each window's masked
+        elements where there were any (``gate_activations``); with
+        ``profile_dir`` the trace's path (``profile_trace``).
 
         The loop waits on the card once a window: batches go up through
         ``prefetch_to_device``, at most `pipeline_depth` steps are in flight
         (tracked by CUDA events: ``query()`` first, ``synchronize()`` on the
         oldest only when the card is that far behind), and the window's
         losses stay on the device until one ``torch.stack(...).cpu()`` every
-        `log_every` steps. A NaN, Inf or a loss at or below
-        `abnormal_loss_floor` anywhere in the window rolls the state back
-        (``_recover``); the JAX package acts on the window's last loss only,
-        since its gate keeps a poisoned update out of the state, and counts
-        the rest. After a healthy window the state is snapshotted as the
-        best when the window's last loss beats the best so far
-        (trainer.py:1716-1719). A checkpoint is written every `save_every`
-        steps (not right after a rollback) and at the end; SIGTERM saves and
-        returns with ``preempted`` set, and the previous handler is restored
-        on the way out. Up to `pipeline_depth` + 2 batches of `data` may be
-        taken but unused when fit returns."""
+        `log_every` steps, or one read of the loss ring every `loss_ring`
+        steps. A monitored step's aux is read back at once. A NaN, Inf or a
+        loss at or below `abnormal_loss_floor` anywhere in the window rolls
+        the state back (``_recover``); the JAX package acts on the window's
+        last loss only, since its gate keeps a poisoned update out of the
+        state, and counts the rest. After a healthy window the state is
+        snapshotted as the best when the window's last loss beats the best
+        so far (trainer.py:1716-1719). A checkpoint is written every
+        `save_every` steps (not right after a rollback) and at the end;
+        SIGTERM saves and returns with ``preempted`` set, and the previous
+        handler is restored on the way out. Up to `pipeline_depth` + 2
+        batches of `data` may be taken but unused when fit returns."""
         cfg = self.config
         history: Dict[str, Any] = {"steps": [], "loss": [], "imgs_per_sec": [],
                                    "preempted": False,
                                    "saves": {"started": 0, "skipped_exists": 0}}
+        if cfg.numerics_cadence > 0:
+            history.update(numerics=[], skipped_steps=0)
+        if cfg.gate_counter:
+            history["gate_activations"] = []
         if cfg.restore_at_start and self.checkpointer is not None \
                 and self.checkpointer.latest_step() is not None:
             self.restore_checkpoint()
@@ -218,6 +277,34 @@ class DiffusionTrainer:
                               "SIGTERM handler; preemption will not checkpoint",
                               RuntimeWarning, stacklevel=2)
 
+        state = self.state
+        ring_n = max(cfg.loss_ring, 0)
+        if ring_n and state.loss_ring is None:
+            raise ValueError("TrainerConfig.loss_ring > 0 but the train state carries no ring")
+        fetch_every = ring_n or cfg.log_every
+        gate_prev = state.gate_events.cpu() if state.gate_events is not None else None
+        # the profiler window, clamped into this fit (trainer.py:1289-1292)
+        profile_at = max(1, min(cfg.profile_at_step, max(total_steps - cfg.profile_steps + 1, 1)))
+        profiler = None
+
+        def newest_losses(n: int) -> list[float]:
+            """The last `n` steps' losses: the window's, or the ring's slots."""
+            if not ring_n:
+                return _fetch_losses(window[-n:]) if n else []
+            ring = _fetch_losses([state.loss_ring])[0]
+            n = min(n, ring_n)
+            return [ring[(state.step - n + k) % ring_n] for k in range(n)]
+
+        def close_profiler() -> None:
+            nonlocal profiler
+            if cuda:
+                torch.cuda.synchronize()
+            profiler.__exit__(None, None, None)
+            path = os.path.join(cfg.profile_dir, f"trace_step{state.step}.json")
+            profiler.export_chrome_trace(path)
+            history["profile_trace"] = path
+            profiler = None
+
         cuda = self.device.type == "cuda"
         upload = prefetch_to_device(data, self.device, depth=max(cfg.pipeline_depth, 1))
         window: list[torch.Tensor] = []
@@ -229,7 +316,24 @@ class DiffusionTrainer:
                 if stop[0]:
                     history["preempted"] = True
                     break
-                window.append(self.train_step(batch))
+                if cfg.profile_dir is not None:
+                    if i + 1 == profile_at and profiler is None:
+                        os.makedirs(cfg.profile_dir, exist_ok=True)
+                        activities = [torch.profiler.ProfilerActivity.CPU]
+                        if cuda:
+                            activities.append(torch.profiler.ProfilerActivity.CUDA)
+                        profiler = torch.profiler.profile(activities=activities)
+                        profiler.__enter__()
+                    elif profiler is not None and i + 1 == profile_at + cfg.profile_steps:
+                        close_profiler()
+                monitored = (self._step_monitored is not None
+                             and (i + 1) % cfg.numerics_cadence == 0)
+                if monitored:
+                    loss, aux = self.train_step_monitored(batch)
+                else:
+                    loss = self.train_step(batch)
+                if not ring_n:
+                    window.append(loss)
                 bsz = batch["sample"].shape[0]
                 if cuda and cfg.pipeline_depth > 0:
                     done = torch.cuda.Event()
@@ -241,13 +345,30 @@ class DiffusionTrainer:
                             oldest.synchronize()
                 if i + 1 < total_steps:
                     batch = next(upload)
+                if monitored:
+                    # the one wait a cadence step pays: its aux
+                    flat = flatten_aux(aux)
+                    history["numerics"].append({"step": state.step, **flat})
+                    history["skipped_steps"] += int(flat.get("numerics/skipped", 0.0) > 0)
                 steps_in_window += 1
                 recovered = False
-                if (i + 1) % cfg.log_every == 0 or i == total_steps - 1:
+                if (i + 1) % fetch_every == 0 or i == total_steps - 1:
                     inflight.clear()
-                    vals = _fetch_losses(window)
+                    vals = newest_losses(steps_in_window)
                     window = []
                     loss = vals[-1]
+                    metrics: Dict[str, Any] = {}
+                    if gate_prev is not None:
+                        # the window fetch settled the card: no further wait.
+                        # A rollback rewinds the count below the baseline
+                        events = state.gate_events.cpu()
+                        delta = (events - gate_prev).clamp_min(0).tolist()
+                        gate_prev = events
+                        if any(delta):
+                            metrics["gate_activations"] = delta
+                            history["gate_activations"].append(
+                                {"step": state.step, "params": delta[0],
+                                 "opt_state": delta[1], "ema": delta[2]})
                     if any(self._abnormal(v) for v in vals):
                         self._recover(next(v for v in vals if self._abnormal(v)))
                         recovered = True
@@ -257,7 +378,9 @@ class DiffusionTrainer:
                         history["steps"].append(i + 1)
                         history["loss"].append(loss)
                         history["imgs_per_sec"].append(ips)
-                        metrics = {"imgs_per_sec": ips, "loss_window_mean": float(np.mean(vals))}
+                        metrics.update(imgs_per_sec=ips, loss_window_mean=float(np.mean(vals)))
+                        if ring_n:
+                            metrics["window_losses"] = vals
                         for cb in callbacks:
                             cb(i + 1, loss, metrics)
                         if cfg.keep_best_state and loss < self.best_loss:
@@ -265,11 +388,10 @@ class DiffusionTrainer:
                     steps_in_window, t0 = 0, time.perf_counter()
                 if not recovered and save_every and (i + 1) % save_every == 0:
                     bad = None
-                    if not cfg.gate_nonfinite and window:
+                    if not cfg.gate_nonfinite and steps_in_window:
                         # no gate: a non-finite update may have landed, so
                         # the save reads the newest loss first
-                        bad = next((v for v in _fetch_losses(window[-1:]) if self._abnormal(v)),
-                                   None)
+                        bad = next((v for v in newest_losses(1) if self._abnormal(v)), None)
                     if bad is None:
                         save()
                     else:
@@ -278,6 +400,8 @@ class DiffusionTrainer:
             save()
         finally:
             upload.close()
+            if profiler is not None:
+                close_profiler()
             if installed:
                 signal.signal(signal.SIGTERM,
                               prev_handler if prev_handler is not None else signal.SIG_DFL)

@@ -1,9 +1,11 @@
 """The dtype, precision and activation names of the JAX package's policy,
-mapped to their torch counterparts (counterpart of ``flaxdiff_tpu/typing.py``
-``DTYPE_MAP``, ``PRECISION_MAP`` and ``ACTIVATION_MAP``)."""
+mapped to their torch counterparts, and the mixed-precision ``Policy``
+(counterpart of ``flaxdiff_tpu/typing.py`` ``DTYPE_MAP``, ``PRECISION_MAP``,
+``ACTIVATION_MAP`` and ``Policy``)."""
 from __future__ import annotations
 
-from typing import Callable, Optional, Union
+import dataclasses
+from typing import Any, Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -90,3 +92,38 @@ def resolve_activation(a: Union[str, Callable]) -> Callable[[torch.Tensor], torc
     if key not in ACTIVATION_MAP:
         raise ValueError(f"Unknown activation {a!r}; known: {sorted(ACTIVATION_MAP)}")
     return ACTIVATION_MAP[key]
+
+
+def _tree_map(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """Which dtype parameters are kept in, the model computes in and its
+    output is returned in. The train step casts the network's input to
+    `compute_dtype`; the models cast their f32 parameters to their own
+    dtype at each use, so a model built with ``dtype=compute_dtype``
+    computes what the JAX step's ``cast_to_compute(params)`` computes.
+    A float16 compute dtype makes ``DiffusionTrainer`` keep a dynamic loss
+    scale (``trainer/loss_scale.py``), as the JAX trainer does."""
+
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    output_dtype: torch.dtype = torch.float32
+
+    def _cast(self, tree: Any, dtype: torch.dtype) -> Any:
+        return _tree_map(lambda x: x.to(dtype) if isinstance(x, torch.Tensor)
+                         and x.is_floating_point() else x, tree)
+
+    def cast_to_compute(self, tree: Any) -> Any:
+        """Every floating tensor of `tree` (a tensor, dict, list or tuple)
+        in the compute dtype; anything else as it is."""
+        return self._cast(tree, self.compute_dtype)
+
+    def cast_to_param(self, tree: Any) -> Any:
+        return self._cast(tree, self.param_dtype)

@@ -9,6 +9,11 @@ def normalize_images(x: torch.Tensor) -> torch.Tensor:
     return (x.float() - 127.5) / 127.5
 
 
+def denormalize_images(x: torch.Tensor) -> torch.Tensor:
+    """float [-1, 1] -> uint8 [0, 255] (flaxdiff_tpu/utils.py:71)."""
+    return torch.clamp(x * 127.5 + 127.5, 0, 255).to(torch.uint8)
+
+
 def clip_images(x: torch.Tensor, clip_min: float = -1.0, clip_max: float = 1.0) -> torch.Tensor:
     return torch.clamp(x, clip_min, clip_max)
 

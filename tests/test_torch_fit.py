@@ -94,8 +94,14 @@ def test_optimizer_chain_matches_optax(opt, grad_scale):
 
 
 def test_lamb_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lamb(1e-3)
+    """lamb, once refused here, is ported: it takes optax.lamb's defaults
+    (eps 1e-6, weight decay 0) and the trust ratio; its numerics are held
+    against optax in tests/test_torch_train_options.py."""
+    import inspect
+    ref = inspect.signature(optax.lamb).parameters
+    tx = lamb(1e-3)
+    assert tx.trust_ratio and (tx.b1, tx.b2, tx.eps, tx.weight_decay) == tuple(
+        ref[k].default for k in ("b1", "b2", "eps", "weight_decay")) == (0.9, 0.999, 1e-6, 0.0)
 
 
 # --- fit against the step loop ---------------------------------------------------

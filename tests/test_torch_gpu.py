@@ -121,7 +121,7 @@ GN_STATS_CASES = [((2, 65536, 64), 8, 0.5), ((2, 1000, 64), 8, 0.5), ((1, 701, 4
                   ((2, 64, 4096), 32, 0.5), ((2, 50, 36), 4, 0.5), ((2, 300, 128), 8, 100.0)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape,groups,mean", GN_STATS_CASES)
 def test_groupnorm_stats_kernel_matches_plain(cuda, dtype, shape, groups, mean):
     """The statistics kernel's partials against its plain version over the
@@ -135,7 +135,7 @@ def test_groupnorm_stats_kernel_matches_plain(cuda, dtype, shape, groups, mean):
     assert float((part - ref).norm() / ref.norm()) <= 1e-5
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape,groups", [((2, 65536, 64), 8), ((2, 50, 36), 4)])
 def test_groupnorm_stats_is_deterministic(cuda, dtype, shape, groups):
     """No atomics, a fixed reduction order: two launches give bit-equal
@@ -144,7 +144,7 @@ def test_groupnorm_stats_is_deterministic(cuda, dtype, shape, groups):
     assert torch.equal(groupnorm_stats(x, groups), groupnorm_stats(x, groups))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_geglu_kernel_matches_plain(cuda, dtype):
     for shape in [(2, 50, 256), (3, 7, 2 * 13)]:   # 16-byte and scalar paths
         p = _randn(cuda, *shape, dtype=dtype) * 2.0
@@ -592,7 +592,7 @@ ADALN_SHAPES = [(4, 256, 768), (3, 77, 768), (2, 19, 36), (2, 64, 384), (3, 77, 
                 (2, 40, 1152), (2, 33, 1280)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("nviews", [1, 2])
 @pytest.mark.parametrize("shape", ADALN_SHAPES)
 def test_ln_modulate_kernels_match_plain(cuda, dtype, nviews, shape):
@@ -616,7 +616,7 @@ def test_ln_modulate_kernels_match_plain(cuda, dtype, nviews, shape):
     torch.testing.assert_close(part, part_ref, atol=1e-5 * float(part_ref.abs().max()), rtol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", ADALN_SHAPES)
 def test_gate_residual_kernels_match_plain(cuda, dtype, shape):
     x = _randn(cuda, *shape, dtype=dtype, seed=1)
@@ -990,3 +990,42 @@ def test_fit_syncs_with_the_host_once_per_window(cuda, monkeypatch):
     assert fetches == [3, 3, 1] and hist["steps"] == [3, 6, 7]
     assert all(np.isfinite(hist["loss"])) and trainer.state.step == 8
     assert all(bool(torch.isfinite(v).all()) for v in trainer.state.buffers().values())
+
+
+def test_float16_cli_backs_the_loss_scale_off_on_the_card(cuda, tmp_path):
+    """The CLI's float16 run on the card: a small UNet, MultiSteps(2) over
+    lamb, 4 micro-steps through the f16 kernels (each forward and backward
+    kernel launched), then a NaN batch: the scale halves, fin_steps resets,
+    and the params, moments, accumulator and counts stay as they were."""
+    import json
+
+    import numpy as np
+    from flaxdiff_tpu_torch import train
+
+    cfg = dict(emb_features=32, feature_depths=(32, 64), num_res_blocks=1, norm_groups=8,
+               attention_configs=(None, {"heads": 2, "dim_head": 32}))
+    run = train.make_run(["--device", "cuda", "--image_size", "16", "--batch_size", "2",
+                          "--dtype", "float16", "--model_config", json.dumps(cfg),
+                          "--grad_accum", "2", "--optimizer", "lamb", "--total_steps", "4",
+                          "--save_every", "100", "--log_every", "2",
+                          "--checkpoint_dir", str(tmp_path)])
+    trainer, state = run.trainer, run.trainer.state
+    reset_launch_counts()
+    hist = trainer.fit(run.batches(0), total_steps=4)
+    counts = launch_counts()
+    assert all(np.isfinite(hist["loss"])) and state.step == 4
+    assert all(counts[k] > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gn_stats",
+                                       "gn_norm", "gn_bwd_stats", "gn_bwd_dx", "geglu",
+                                       "geglu_bwd"))
+    stream = run.batches(4)
+    batch = next(stream)
+    stream.close()
+    batch["sample"] = np.full(batch["sample"].shape, np.nan, np.float32)
+    before = {k: v.clone() for k, v in state.buffers().items()}
+    assert not np.isfinite(float(trainer.train_step(batch)))
+    after = state.buffers()
+    for k in ("params", "exp_avg", "exp_avg_sq", "acc", "count", "mini_step"):
+        assert torch.equal(before[k], after[k]), k
+    assert float(after["loss_scale"]) == float(before["loss_scale"]) / 2
+    assert int(after["loss_scale_fin_steps"]) == 0 and state.step == 5
+    trainer.checkpointer.close()

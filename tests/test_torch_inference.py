@@ -295,9 +295,10 @@ MMDIT = dict(output_channels=3, patch_size=2, emb_features=16, num_layers=2, num
 @pytest.mark.parametrize("family", ["unet-flat_params", "simple_mmdit"])
 def test_other_exports_serve_and_match_flax_apply(tmp_path, family):
     """A flat-params JAX run (the export unflattens it with its template;
-    ``from_config`` alone still refuses such a config, naming A5) and a run
-    of another family, SimpleMMDiT: ``from_flax_export`` builds the model
-    and its EMA output matches ``model.apply`` within 1e-4."""
+    ``from_config`` alone takes such a config too, since the port's state
+    is flat in every run) and a run of another family, SimpleMMDiT:
+    ``from_flax_export`` builds the model and its EMA output matches
+    ``model.apply`` within 1e-4."""
     from flaxdiff_tpu.models.mmdit import SimpleMMDiT as JaxMMDiT
     inputs = _jax_input_config()
     x = np.random.default_rng(35).standard_normal((2, 16, 16, 3)).astype(np.float32)
@@ -314,8 +315,9 @@ def test_other_exports_serve_and_match_flax_apply(tmp_path, family):
     export_flax_checkpoint.export(str(tmp_path / "run"), str(tmp_path / "out"))
     if family != "simple_mmdit":
         saved = json.loads((tmp_path / "out" / "pipeline_config.json").read_text())
-        with pytest.raises(NotImplementedError, match="A5"):
-            DiffusionInferencePipeline.from_config(saved, params={}, device="cpu")
+        assert saved["flat_params"]
+        built = DiffusionInferencePipeline.from_config(saved, params={}, device="cpu")
+        assert built.model is not None
     pipe = DiffusionInferencePipeline.from_flax_export(str(tmp_path / "out"), device="cpu")
     ref = np.asarray(jm.apply({"params": ema}, x, t, ctx))
     pipe._load(use_ema=True)
@@ -400,13 +402,19 @@ def test_cli_trains_resumes_and_serves_prompts(tmp_path, capsys):
         "encoder"] == {"type": "hash", "vocab_size": 4096, "features": 64, "max_length": 77}
 
 
+# --grad_accum, once refused here, is ported (tests/test_torch_train_options.py);
+# --telemetry_dir (A14) takes its place
 @pytest.mark.parametrize("flag", [["--mesh_fsdp", "2"], ["--text_encoder", "clip"],
-                                  ["--grad_accum", "2"], ["--dataset", "oxford_flowers102"]])
+                                  ["--telemetry_dir", "tel"], ["--dataset", "oxford_flowers102"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, flag):
     with pytest.raises(SystemExit):
         train.parse_args(_cli(tmp_path, 2, *flag))
 
 
 def test_cli_lamb_names_the_roadmap(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train.make_run(_cli(tmp_path, 2, "--optimizer", "lamb"))
+    """``--optimizer lamb``, once refused naming ROADMAP.md, builds the
+    clip + lamb chain now; what the CLI still refuses names its item."""
+    run = train.make_run(_cli(tmp_path / "a", 2, "--optimizer", "lamb"))
+    assert run.trainer.state.tx.adam.trust_ratio and run.trainer.state.tx.adam.eps == 1e-6
+    with pytest.raises(SystemExit, match="ROADMAP.md A10"):
+        train.make_run(_cli(tmp_path / "b", 2, "--val_every", "2", "--val_metrics", "fid"))

@@ -18,16 +18,19 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from flaxdiff_tpu.ops import fused_adaln as jax_adaln
 from flaxdiff_tpu.ops.attention import _xla_attention
 from flaxdiff_tpu.ops.flash_attention import _fwd_impl
+from flaxdiff_tpu.ops.flash_attention import flash_attention as jax_flash
 from flaxdiff_tpu.ops.fused_adaln import fused_geglu as jax_geglu
 from flaxdiff_tpu.ops.fused_norm import _gn_stats_kernel
 from flaxdiff_tpu.ops.fused_norm import fused_groupnorm_silu as jax_gn
 
 from flaxdiff_tpu_torch.ops import _build
 from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, dot_product_attention, flash_attention,
-                                    fused_geglu, fused_groupnorm_silu, groupnorm_normalize,
-                                    groupnorm_stats, launch_counts, reset_launch_counts)
+                                    fused_gate_residual, fused_geglu, fused_groupnorm_silu,
+                                    fused_ln_modulate2, groupnorm_normalize, groupnorm_stats,
+                                    launch_counts, reset_launch_counts)
 from flaxdiff_tpu_torch.ops.attention import eager_attention
 from flaxdiff_tpu_torch.ops.flash_attention import flash_fwd_plain
 from flaxdiff_tpu_torch.ops.fused_norm import rows_per_block
@@ -237,6 +240,71 @@ def test_geglu_plain_matches_pallas_kernel(shape):
     ref = np.asarray(jax_geglu(proj, interpret=True, force_pallas=True))
     out = fused_geglu(torch.from_numpy(proj))
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+# f16 on both sides: each output is rounded to f16 (an ulp of at most 2^-10
+# of its value) from f32 math that differs in summation order; two ulps of
+# the largest element cover one rounding apart and the f32 differences
+F16_TOL = 2.0 ** -9
+
+
+def _f16_cases():
+    """(jax_fn, port_fn, inputs) per kernel family, the inputs f16 where the
+    model passes f16 (the GroupNorm affine and the AdaLN modulators stay
+    as the models pass them)."""
+    rng = np.random.default_rng(16)
+    h = lambda *shape, s=1.0, m=0.0: (m + s * rng.standard_normal(shape)).astype(np.float16)
+    f = lambda *shape, s=1.0, m=0.0: (m + s * rng.standard_normal(shape)).astype(np.float32)
+    return {
+        # B1-B3: cross-attention to 77 tokens, 16-row tiles on the JAX side
+        "flash": (lambda q, k, v: jax_flash(q, k, v, None, 16, 16, True),
+                  lambda q, k, v: dot_product_attention(q, k, v, backend="flash"),
+                  (h(2, 40, 2, 64), h(2, 77, 2, 64), h(2, 77, 2, 64))),
+        # B4-B7
+        "groupnorm_silu": (
+            lambda x, s, b: jax_gn(x, s, b, groups=8, eps=1e-6, apply_silu=True, interpret=True,
+                                   force_pallas=True),
+            lambda x, s, b: fused_groupnorm_silu(x, s, b, groups=8, eps=1e-6, apply_silu=True),
+            (h(2, 100, 64, m=0.5), f(64, s=0.1, m=1.0), f(64, s=0.1))),
+        # B8-B9
+        "geglu": (lambda p: jax_geglu(p, interpret=True, force_pallas=True), fused_geglu,
+                  (h(2, 37, 192, s=2.0),)),
+        # B10-B11: two views, as the DiT block takes them
+        "ln_modulate": (
+            lambda x, s0, b0, s1, b1: jax_adaln.fused_ln_modulate2(
+                x, s0, b0, s1, b1, 1e-5, interpret=True, force_pallas=True),
+            lambda x, s0, b0, s1, b1: fused_ln_modulate2(x, s0, b0, s1, b1, eps=1e-5),
+            (h(2, 27, 64, s=2.0, m=3.0),) + tuple(h(2, 1, 64, s=0.5) for _ in range(4))),
+        # B12-B13
+        "gate_residual": (
+            lambda x, g, y: jax_adaln.fused_gate_residual(x, g, y, interpret=True,
+                                                          force_pallas=True),
+            fused_gate_residual, (h(2, 27, 64), h(2, 1, 64, s=0.5), h(2, 27, 64))),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["flash", "groupnorm_silu", "geglu", "ln_modulate",
+                                    "gate_residual"])
+def test_f16_plain_matches_pallas_kernels(kernel):
+    """The float16 path of each kernel family (the f16 UNet's, and the
+    AdaLN kernels'): the plain versions' forward and, through autograd,
+    their backward against the Pallas kernels interpreted in f16 (the
+    backward through ``jax.vjp``), every output in the reference's dtype
+    and within F16_TOL of its largest element."""
+    jax_fn, port_fn, inputs = _f16_cases()[kernel]
+    refs, vjp = jax.vjp(jax_fn, *map(jnp.asarray, inputs))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    outs = port_fn(*leaves)
+    refs, outs = ((refs,), (outs,)) if not isinstance(refs, tuple) else (refs, outs)
+    rng = np.random.default_rng(17)
+    cot = [rng.standard_normal(r.shape).astype(r.dtype) for r in refs]
+    grads = torch.autograd.grad(outs, leaves, [torch.from_numpy(c) for c in cot])
+    ref_grads = vjp(tuple(cot) if len(cot) > 1 else cot[0])
+    for i, (out, ref) in enumerate(list(zip(outs, refs)) + list(zip(grads, ref_grads))):
+        ref = np.asarray(ref)
+        assert out.dtype == torch.from_numpy(ref).dtype, (kernel, i, out.dtype, ref.dtype)
+        err = np.abs(out.detach().double().numpy() - ref.astype(np.float64)).max()
+        assert err <= F16_TOL * np.abs(ref.astype(np.float64)).max(), (kernel, i, err)
 
 
 def test_plain_paths_do_not_count_launches():
