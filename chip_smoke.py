@@ -116,6 +116,27 @@ Phases; any failure exits non-zero and prints no result line.
      trajectory equal, the params within an update's quantum; and phase 5's
      UNet forward in float16 against f32 on the card (RMS within 1e-2 of the
      output's, every element within 5e-2 of its largest).
+ 13. Latent video diffusion: UNet3D at ModelScope text-to-video's widths
+     (320/640/1280/1280, attention at the first three levels and the
+     middle, 4 heads: head dims 80, 160 and 320, the last through the wide
+     flash kernels) with random weights, a 77x1024 text context, over the
+     SD VAE (the JAX defaults, random weights). (a) f32, card against CPU,
+     on 4 frames of 16x16x4 latents: the forward, DDIM-3 + CFG, one latent
+     train step's loss and gradients with the codec encoding 128x128 frames
+     inside the step, the codec's encode mean and decode, and remat bit-equal
+     to the plain forward in bf16; (b) DDIM-50 + CFG 3.0, batch 1, 16 frames
+     of 32x32x4 in bf16, decoded to 16 x 256x256x3: the request's wall, ms
+     per call, the decode's time, one call's busy and idle shares, and the
+     launch counters at T2V_PER_FORWARD x 51; (c) 3 + 10 DiffusionTrainer
+     train_steps at batch 2 clips of 16 x 256x256x3 pixels through the codec,
+     bf16 over f32 params: losses finite, the kernels launched once per call
+     per step, ms per step, clips/s, peak memory; (d) the CLI with
+     --autoencoder sd_vae over a random full-width SD VAE saved as an npz:
+     phase 10's UNet on 256x256 images, 10 steps and a save, then
+     from_checkpoint(autoencoder=...) serving 2 prompts decoded to 256x256.
+     Phase 2 also holds the flash kernels at phase 13's attention shapes and
+     at batch x heads above 65535 (fault C5: 131072 at head dim 32, 65600 at
+     320).
 The lines before the last are the kernels' JSON record and the card's
 name and power limit; the last is {"ok": true, "device": {...}}. With
 --record, the full record (every case, the model checks, both paths and
@@ -210,6 +231,25 @@ WIDE_FWD_CASES = [(SERVE_BATCH, 1024, 1024, 4, 320, BF16),
 WIDE_BWD_CASES = [(TRAIN_BATCH, 256, 256, 4, 320, BF16), (TRAIN_BATCH, 256, TEXT_LEN, 4, 320, BF16),
                   (TRAIN_BATCH, 256, 256, 4, 384, BF16), (2, 256, 256, 4, 320, F32),
                   (TRAIN_BATCH, 256, 256, 4, 320, F16)]
+# phase 13's UNet3D (ModelScope T2V's widths, 4 heads) at its serving and
+# training shapes, 32 frames of 32x32 latents a call or step: the spatial
+# self and cross attention of level 2 (8x8 tokens, 320 wide) and the middle
+# (4x4), and the temporal attention over 16 frames of level 2 (2 x 64
+# sequences), level 0 (2 x 1024, 80 padded to 128) and level 1 (2 x 256, 160
+# padded to 256)
+T2V_FRAMES, T2V_TEXT = 32, 77
+T2V_FLASH_CASES = [(2 * 1024, 16, 16, 4, 128, BF16), (2 * 256, 16, 16, 4, 256, BF16)]
+T2V_WIDE_CASES = [(T2V_FRAMES, 64, 64, 4, 320, BF16), (T2V_FRAMES, 64, T2V_TEXT, 4, 320, BF16),
+                  (T2V_FRAMES, 16, 16, 4, 320, BF16), (2 * 64, 16, 16, 4, 320, BF16)]
+# fault C5: batch * heads past gridDim.y's 65535 (temporal attention over
+# B*H*W sequences of 16 frames): the JAX default UNet3D's level 0 at 64x64,
+# batch 8 (131072 at head dim 32), and 65600 at 320
+C5_FLASH_CASES = [(32768, 16, 16, 4, 32, BF16)]
+C5_WIDE_CASES = [(16400, 16, 16, 4, 320, BF16)]
+FLASH_FWD_CASES += T2V_FLASH_CASES + C5_FLASH_CASES
+FLASH_BWD_CASES += T2V_FLASH_CASES + C5_FLASH_CASES
+WIDE_FWD_CASES += T2V_WIDE_CASES + C5_WIDE_CASES
+WIDE_BWD_CASES += T2V_WIDE_CASES + C5_WIDE_CASES
 # SD's widest UNet level: 1280 channels in 8 heads of 160 at 16x16 tokens;
 # the same width in UNet3D's 4 heads (dim_head = channels // 4,
 # flaxdiff_tpu/models/unet3d.py:92) runs the wide flash kernels at 320
@@ -552,9 +592,12 @@ def kernel_cases(dev, peak):
                 f"{reading['rtol']:g}), rms rel {reading['rms_rel']:.3g} "
                 f"(limit {reading['rms_rel_limit']}){lse}")
             check(passes(reading), f"{name} {out_name} {shape} {dname}: {reading}")
-        ms = graph_ms(call, 20)
+        # 20 calls a graph, 3 where one call takes a tenth of a millisecond or
+        # more (C5's cases: their library backward takes ~64 ms a call)
+        calls = 20 if b_ms < 0.1 else 3
+        ms = graph_ms(call, calls)
         plain_ms = graph_ms(plain, 3, replays=3)
-        library_ms = graph_ms(library, 20) if library is not None else None
+        library_ms = graph_ms(library, calls) if library is not None else None
         case = dict(name=name, shape=list(shape), dtype=dname, outputs=readings,
                     max_abs_err=max(r["max_abs_err"] for r in readings.values()), ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
@@ -1121,22 +1164,24 @@ def train_step_check(dev, gpu, cpu, rng):
     return out
 
 
-def step_check(dev, gpu, cpu, arrays, schedule, transform, zero_by_math, label):
+def step_check(dev, gpu, cpu, arrays, schedule, transform, zero_by_math, label, codecs=None):
     """Loss and every gradient of one training step, f32, the same weights
     and draws on the card and the CPU: loss within 1e-5 relative, each
     gradient within 1e-3 of its max|g|, the ones `zero_by_math` names below
-    1e-6 of the model's largest."""
+    1e-6 of the model's largest. `codecs`: (card's, CPU's) latent codec, its
+    posterior noise ``arrays["vae_noise"]``."""
     from flaxdiff_tpu_torch.trainer import TrainStepConfig, make_loss_builder
 
     results = []
-    for where, m in ((dev, gpu), ("cpu", cpu)):
+    for i, (where, m) in enumerate(((dev, gpu), ("cpu", cpu))):
         a = {k: torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v).to(where)
              for k, v in arrays.items()}
         build = make_loss_builder(schedule(1000, device=where),
                                   transform, TrainStepConfig(normalize=False),
-                                  null_cond=torch.zeros(1, TEXT_LEN, TEXT_DIM, device=where))
+                                  null_cond=torch.zeros(1, *a["cond"].shape[1:], device=where),
+                                  autoencoder=None if codecs is None else codecs[i])
         loss = build({"sample": a["sample"], "cond": a["cond"]}, a["noise"], a["t"],
-                     a["mask"])(m)
+                     a["mask"], a.get("vae_noise"))(m)
         grads = torch.autograd.grad(loss, list(m.parameters()))
         results.append((float(loss.detach()), [g.cpu() for g in grads]))
     (loss, grads), (ref_loss, ref_grads) = results
@@ -2114,19 +2159,21 @@ def family_serving(dev, key: str, state) -> dict:
     return res
 
 
-def remat_check(dev, label: str, make, shape, seed: int) -> dict:
+def remat_check(dev, label: str, make, shape, seed: int, state=None,
+                ctx_shape=(TEXT_LEN, TEXT_DIM)) -> dict:
     """(d) One bf16 forward and backward with remat=True against
-    remat=False, the same weights and inputs: the output and every gradient
-    bit-equal. The plain model runs twice first: a difference there would be
-    the card's own nondeterminism, not remat's (cuDNN's deterministic
-    algorithms are asked for during the check)."""
+    remat=False, the same weights (`state`, or drawn from `seed`) and inputs:
+    the output and every gradient bit-equal. The plain model runs twice
+    first: a difference there would be the card's own nondeterminism, not
+    remat's (cuDNN's deterministic algorithms are asked for during the
+    check)."""
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
     t = torch.from_numpy(rng.uniform(0, 999, shape[0]).astype(np.float32)).to(dev)
-    ctx = torch.from_numpy(rng.standard_normal((shape[0], TEXT_LEN, TEXT_DIM))
+    ctx = torch.from_numpy(rng.standard_normal((shape[0], *ctx_shape))
                            .astype(np.float32)).to(dev)
     g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
-    state, results = None, []
+    results = []
     flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
@@ -2234,6 +2281,370 @@ def family_paths(dev) -> dict:
             (DIT_TRAIN_BATCH, DIT_RES, DIT_RES, DIT_CH), 61)}
     torch.cuda.empty_cache()
     out["s5_scan"] = s5_scan_timing(dev)
+    return out
+
+
+# --- phase 13: latent video diffusion, UNet3D at ModelScope T2V's widths ------------
+
+# ModelScope text-to-video (damo-vilab/text-to-video-ms-1.7b, unet/config.json):
+# block_out_channels (320, 640, 1280, 1280) with three CrossAttnDownBlock3D and
+# a DownBlock3D, 2 layers a block, 32 groups, a time embedding of 4 x 320 and
+# cross-attention 1024 wide; heads: the JAX UNet3D's one count, 4 (head dims
+# 80, 160, 320, 320). Clips of 16 frames of 32x32x4 latents (256x256 video
+# through the SD VAE at the JAX defaults), a random 77x1024 text context
+T2V = dict(output_channels=4, emb_features=1280, feature_depths=(320, 640, 1280, 1280),
+           attention_levels=(True, True, True, False), num_res_blocks=2, norm_groups=32,
+           heads=4, in_channels=4, context_dim=1024)
+T2V_CTX = (77, 1024)
+T2V_FRAMES, T2V_SIDE, T2V_PIXELS = 16, 32, 256
+T2V_TRAIN_BATCH, T2V_WARMUP, T2V_TIMED = 2, 3, 10
+# launches of one forward: 21 level blocks (8 down, the middle, 12 up) of two
+# GroupNorm + SiLU each; 16 of them attend (levels 0-2 and the middle): self,
+# cross and temporal attention and a GEGLU each, levels 0 and 1 through the
+# flash kernels (head dims 80 and 160 padded), level 2 and the middle through
+# the wide ones (320); one backward launches each backward kernel as often
+T2V_PER_FORWARD = {"flash_fwd": 30, "flash_fwd_wide": 18, "geglu": 16, "gn_stats": 42,
+                   "gn_norm": 42}
+T2V_PER_BACKWARD = {"flash_bwd_dq": 30, "flash_bwd_dkv": 30, "flash_bwd_dq_wide": 18,
+                    "flash_bwd_dkv_wide": 18, "geglu_bwd": 16, "gn_bwd_stats": 42,
+                    "gn_bwd_dx": 42}
+# 13d: phase 10's UNet on the SD VAE's 32x32x4 latents of 256x256 images
+CLI13_MODEL = {k: v for k, v in CLI_MODEL.items() if k not in ("in_channels", "output_channels")}
+CLI13_STEPS, CLI13_BATCH = 10, 16
+
+
+def t2v_state(seed: int) -> dict:
+    """Random weights for T2V (as ``random_state``, drawn with a seeded torch
+    generator: a billion numpy draws take minutes), the output conv at a
+    tenth of that scale: the CFG-guided eps of random weights then stays near
+    unit scale and a trajectory's x0 mostly inside the clip. The shapes come
+    from a model on the meta device (no memory, no init)."""
+    from flaxdiff_tpu_torch.inference import build_model
+
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, t in build_model("unet_3d", device="meta", **T2V).state_dict().items():
+        shape = tuple(t.shape)
+        a = torch.randn(shape, generator=gen)
+        if name.endswith("freqs"):
+            a *= 16.0
+        elif name.endswith("weight") and len(shape) >= 2:
+            a /= math.sqrt(int(np.prod(shape[1:])))
+        elif name.endswith("weight"):
+            a = 1.0 + 0.1 * a
+        else:
+            a *= 0.1
+        state[name] = a * 0.1 if name.startswith("conv_out.") else a
+    return state
+
+
+def t2v_model(where, state: dict, dtype=None, **extra):
+    """T2V through the registry on `where` with `state`'s weights, built on
+    the meta device and given the weights' tensors (no init)."""
+    from flaxdiff_tpu_torch.inference import build_model
+
+    model = build_model("unet_3d", device="meta", dtype=dtype, **T2V, **extra)
+    model.load_state_dict({k: v.to(where) for k, v in state.items()}, assign=True)
+    return model
+
+
+def sd_vae(where, seed: int = 5, dtype=None):
+    """The SD VAE at the JAX defaults with random weights from a seed."""
+    from flaxdiff_tpu_torch.models import SDVAE
+    return SDVAE.create(seed, dtype=dtype, device=where)
+
+
+def t2v_card_vs_cpu(dev, state: dict) -> dict:
+    """13a: T2V and the SD VAE in f32, card (kernels) against CPU (plain
+    versions), the same weights, inputs and draws, on 4 frames of 16x16x4
+    latents (128x128 pixels): the forward, a DDIM-3 + CFG trajectory from
+    t = 333, one latent train step's loss and gradients (the codec encoding
+    inside the step), the codec's encode mean and decode; then remat=True
+    bit-equal to remat=False in bf16 on the card."""
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.samplers import DDIMSampler
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+
+    rng = np.random.default_rng(70)
+    frames, side = 4, 16
+    gpu, cpu = t2v_model(dev, state).eval(), t2v_model("cpu", state).eval()
+    x = rng.standard_normal((1, frames, side, side, 4)).astype(np.float32)
+    t = np.array([611.0], np.float32)
+    ctx = rng.standard_normal((1, *T2V_CTX)).astype(np.float32)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = cpu(*map(torch.from_numpy, (x, t, ctx)))
+        cpu_s = time.perf_counter() - t0
+        out = gpu(*(torch.from_numpy(a).to(dev) for a in (x, t, ctx))).cpu()
+    scale, err = max(1.0, float(ref.abs().max())), max_err(out, ref)
+    log(f"  forward [1, {frames}, {side}, {side}, 4] f32: max|ref| {scale:.3g}, max err "
+        f"{err:.3g} (CPU forward {cpu_s:.1f} s)")
+    check(bool(torch.isfinite(out).all()), "T2V forward output finite")
+    check(err <= 1e-3 * scale, f"T2V forward: error {err} above {1e-3 * scale}")
+    res = {"forward_f32_err": err, "forward_f32_scale": scale, "cpu_forward_s": cpu_s}
+    res["ddim3"] = trajectory_check(((dev, gpu), ("cpu", cpu)),
+                                    f"DDIM-3 + CFG [1, {frames}, {side}, {side}, 4] f32 from t=333",
+                                    CosineNoiseSchedule, EpsilonPredictionTransform(),
+                                    DDIMSampler(), 3, init_samples=x, cond=ctx, start_step=333.0)
+
+    codecs = (sd_vae(dev), sd_vae("cpu"))
+    pixels = rng.uniform(-1, 1, (1, frames, 8 * side, 8 * side, 3)).astype(np.float32)
+    arrays = {"sample": pixels, "cond": ctx, "noise": rng.standard_normal(x.shape),
+              "t": np.array([433], np.int32), "mask": np.array([False]),
+              "vae_noise": rng.standard_normal((frames, side, side, 4))}
+    # the key biases of the spatial attention get no gradient by the math
+    # (softmax ignores a shift shared by a row's logits); the temporal ones
+    # rotate by RoPE first and get one
+    zero = lambda name: name.endswith("to_k.bias") and "spatial_attn" in name
+    res["latent_train_step"] = step_check(
+        dev, gpu, cpu, arrays, CosineNoiseSchedule, EpsilonPredictionTransform(), zero,
+        f"latent train step, SD VAE encoding [1, {frames}, {8 * side}, {8 * side}, 3], f32",
+        codecs=codecs)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        outs = [(c.encode(torch.from_numpy(pixels).to(where)).cpu(),
+                 c.decode(torch.from_numpy(x).to(where)).cpu())
+                for where, c in ((dev, codecs[0]), ("cpu", codecs[1]))]
+    res["sd_vae"] = {}
+    for i, what in enumerate(("encode mean", "decode")):
+        out, ref = outs[0][i], outs[1][i]
+        scale, err = max(1.0, float(ref.abs().max())), max_err(out, ref)
+        log(f"  SD VAE {what} {tuple(ref.shape)} f32: max|ref| {scale:.3g}, max err {err:.3g}")
+        check(bool(torch.isfinite(out).all()) and err <= 1e-3 * scale,
+              f"SD VAE {what}: error {err} above {1e-3 * scale}")
+        res["sd_vae"][what.replace(" ", "_")] = {"err": err, "scale": scale}
+    del codecs
+    torch.cuda.empty_cache()
+
+    res["remat"] = remat_check(dev, "T2V UNet3D", lambda r: t2v_model(dev, state, "bfloat16",
+                                                                      remat=r),
+                               x.shape, 71, state=state, ctx_shape=T2V_CTX)
+    return res
+
+
+def t2v_serving(dev, state: dict) -> dict:
+    """13b: DDIM-50 + CFG 3.0, batch 1, a clip of 16 frames of 32x32x4
+    latents in bf16, decoded by the SD VAE to 16 x 256x256x3; the launch
+    counters, zeroed just before, must read T2V_PER_FORWARD x 51 (the codec
+    is plain PyTorch). Then the decode alone, and one CFG call as launched
+    beside its busy time as a CUDA graph."""
+    from flaxdiff_tpu_torch.device import make_generator
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+
+    model = t2v_model(dev, state, "bfloat16").eval()
+    codec = sd_vae(dev, dtype="bfloat16")
+    sampler = DiffusionSampler(lambda x, t, c: model(x, t, c), CosineNoiseSchedule(1000),
+                               EpsilonPredictionTransform(), DDIMSampler(),
+                               guidance_scale=GUIDANCE, device=dev, autoencoder=codec)
+    rng = np.random.default_rng(72)
+    cond = torch.from_numpy(rng.standard_normal((1, *T2V_CTX)).astype(np.float32))
+    uncond = torch.zeros(1, *T2V_CTX)
+    run = lambda steps, seed: sampler.generate_samples(
+        num_samples=1, resolution=T2V_PIXELS, sequence_length=T2V_FRAMES,
+        diffusion_steps=steps, generator=make_generator(seed, dev), conditioning=cond,
+        unconditional=uncond)
+    run(2, 0)                      # warm-up: GEMM and conv algorithm choice, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run(STEPS, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    expected = {k: T2V_PER_FORWARD.get(k, 0) * (STEPS + 1) for k in counts}
+    log(f"  launches {counts}, expected {expected}")
+    check(counts == expected, "every attention, GEGLU and GroupNorm call of T2V ran its kernel")
+    shape = (1, T2V_FRAMES, T2V_PIXELS, T2V_PIXELS, 3)
+    check(tuple(out.shape) == shape, f"decoded clip {tuple(out.shape)}, want {shape}")
+    check(bool(torch.isfinite(out).all()) and float(out.abs().max()) <= 1.0,
+          "decoded frames finite, in [-1, 1]")
+    latents = torch.randn(1, T2V_FRAMES, T2V_SIDE, T2V_SIDE, 4, device=dev)
+    with torch.inference_mode():
+        decode_ms = time_ms(lambda: codec.decode(latents), 3)
+    res = {"wall_s": wall, "forwards": STEPS + 1, "ms_per_forward": wall * 1e3 / (STEPS + 1),
+           "decode_ms": decode_ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches_per_call": {k: v // (STEPS + 1) for k, v in counts.items() if v},
+           "launches": counts, "sample_std": float(out.float().std())}
+    x = torch.randn(2, T2V_FRAMES, T2V_SIDE, T2V_SIDE, 4, device=dev)
+    ctx = torch.cat([cond, uncond]).to(dev)
+    res["breakdown"] = forward_breakdown(
+        lambda: model(x, torch.full((2,), 500.0, device=dev), ctx),
+        f"2 clips of {T2V_FRAMES} x {T2V_SIDE}x{T2V_SIDE}x4")
+    log(f"  request wall {wall:.3f} s ({res['ms_per_forward']:.2f} ms per call), the decode "
+        f"{decode_ms:.3f} ms; wide flash per call: fwd {res['launches_per_call'].get('flash_fwd_wide', 0)}")
+    del model, codec, sampler
+    return res
+
+
+def t2v_training(dev) -> dict:
+    """13c: DiffusionTrainer.train_step on T2V from the port's own init with
+    the SD VAE (bf16) encoding inside the step: T2V_TRAIN_BATCH clips of 16 x
+    256x256x3 seeded uint8 pixels, bf16 over f32 params, AdamW 1e-4, EMA
+    0.999, CFG dropout 0.12 to a zeros context; 3 warm-up and 10 timed steps.
+    Every loss finite; the launch counters, zeroed just before, read the
+    forward and backward kernels once per call per step."""
+    from flaxdiff_tpu_torch.inference import build_model
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.trainer import AdamW, DiffusionTrainer, TrainerConfig
+
+    torch.manual_seed(0)           # the modules' own initializers
+    model = build_model("unet_3d", device=dev, dtype="bfloat16", **T2V)
+    trainer = DiffusionTrainer(
+        model, AdamW(TRAIN_LR), CosineNoiseSchedule(1000), EpsilonPredictionTransform(),
+        TrainerConfig(uncond_prob=0.12, ema_decay=0.999, normalize=True, weighted_loss=True,
+                      gate_nonfinite=True, seed=0),
+        null_cond=torch.zeros(1, *T2V_CTX), device=dev,
+        autoencoder=sd_vae(dev, dtype="bfloat16"))
+    rng = np.random.default_rng(73)
+    b = T2V_TRAIN_BATCH
+    batches = [{"sample": torch.from_numpy(rng.integers(
+                    0, 256, (b, T2V_FRAMES, T2V_PIXELS, T2V_PIXELS, 3), dtype=np.uint8)).to(dev),
+                "cond": torch.from_numpy(rng.standard_normal((b, *T2V_CTX)).astype(
+                    np.float32)).to(dev)} for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = [trainer.train_step(batches[i % 4]) for i in range(T2V_WARMUP)]
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses += [trainer.train_step(batches[i % 4])
+               for i in range(T2V_WARMUP, T2V_WARMUP + T2V_TIMED)]
+    end.record()
+    end.synchronize()
+    counts = launch_counts()
+    steps = T2V_WARMUP + T2V_TIMED
+    per_step = {**T2V_PER_FORWARD, **T2V_PER_BACKWARD}
+    expected = {k: steps * per_step.get(k, 0) for k in counts}
+    log(f"  launches {counts}, expected {expected}")
+    check(counts == expected, "every forward and backward kernel ran once per call per step")
+    losses = [float(x) for x in losses]
+    log("  losses " + " ".join(f"{x:.5f}" for x in losses))
+    check(all(math.isfinite(x) for x in losses), "every loss finite")
+    ms = start.elapsed_time(end) / T2V_TIMED
+    res = {"batch_clips": b, "ms_per_step": ms, "clips_per_s": b * 1e3 / ms,
+           "frames_per_s": b * T2V_FRAMES * 1e3 / ms,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "params": trainer.state.params.numel(), "losses": losses, "launches": counts,
+           "launches_per_step": {k: v // steps for k, v in counts.items() if v}}
+    log(f"  {ms:.3f} ms per step (CUDA events over {T2V_TIMED} steps), {res['clips_per_s']:.2f} "
+        f"clips/s, peak {res['peak_mem_gib']:.2f} GiB, {res['params']} params")
+    res["breakdown"] = family_profile(lambda: trainer.train_step(batches[0]), training=True)
+    by_family = res["breakdown"]["ms_by_family"]
+    if by_family:
+        res["busy_ms"] = sum(by_family.values())
+        res["idle_share"] = 1.0 - res["busy_ms"] / ms
+        log(f"  device busy {res['busy_ms']:.3f} ms of {ms:.3f} ms per step "
+            f"({res['idle_share']:.0%} idle)")
+    del trainer, model
+    return res
+
+
+def cli13_args(checkpoint_dir: str, npz: str, dev) -> list:
+    codec = json.dumps({"npz": npz, "dtype": "bfloat16"})
+    return ["--device", str(dev), "--dataset", "synthetic", "--text_encoder", "hash",
+            "--image_size", str(T2V_PIXELS), "--batch_size", str(CLI13_BATCH),
+            "--architecture", "unet", "--model_config", json.dumps(CLI13_MODEL),
+            "--dtype", "bfloat16", "--optimizer", "adamw", "--lr", str(TRAIN_LR),
+            "--warmup_steps", "5", "--total_steps", str(CLI13_STEPS), "--grad_clip", "1.0",
+            "--save_every", str(CLI13_STEPS), "--log_every", "5", "--checkpoint_dir",
+            checkpoint_dir, "--seed", "0", "--autoencoder", "sd_vae", "--autoencoder_opts", codec]
+
+
+def cli13_path(dev) -> dict:
+    """13d: the CLI with --autoencoder sd_vae over a random full-width SD VAE
+    written as diffusers-named weights to an npz in a temporary directory
+    (removed after): phase 10's UNet on 32x32x4 latents of 256x256 synthetic
+    images, 10 steps and a save; then from_checkpoint(autoencoder=...) serves
+    2 prompts, DDIM-50 + CFG, decoded to 256x256."""
+    import tempfile
+
+    from flaxdiff_tpu_torch import train
+    from flaxdiff_tpu_torch.inference import DiffusionInferencePipeline
+    from flaxdiff_tpu_torch.models import SDVAE
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    root = tempfile.mkdtemp(prefix="flaxdiff_cli13_")
+    res = {}
+    try:
+        npz, run_dir = os.path.join(root, "sd_vae.npz"), os.path.join(root, "run")
+        np.savez(npz, **{k: v.numpy() for k, v in sd_vae("cpu", seed=6).diffusers_state_dict()
+                         .items()})
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = train.main(cli13_args(run_dir, npz, dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        per_step = {**PER_FORWARD, **PER_BACKWARD}
+        check(counts == {k: CLI13_STEPS * per_step.get(k, 0) for k in counts},
+              f"the latent CLI run launched every kernel once per call per step: {counts}")
+        log("  window losses " + " ".join(f"{x:.5f}" for x in hist["loss"]))
+        check(all(math.isfinite(x) for x in hist["loss"]) and hist["checkpoint"]["step"] ==
+              CLI13_STEPS, "every window loss finite, the last step saved")
+        with open(os.path.join(run_dir, "pipeline_config.json")) as f:
+            config = json.load(f)
+        check(config["autoencoder"]["name"] == "sd_vae", "the config records the codec")
+        res["fit"] = {"wall_s": wall, "losses": hist["loss"], "launches": counts,
+                      "ms_per_step_last_window": CLI13_BATCH * 1e3 / hist["imgs_per_sec"][-1],
+                      "autoencoder": config["autoencoder"]}
+        pipe = DiffusionInferencePipeline.from_checkpoint(
+            run_dir, device=dev, autoencoder=SDVAE.from_npz(npz, dtype="bfloat16", device=dev))
+        request = lambda steps: pipe.generate_samples(
+            resolution=T2V_PIXELS, diffusion_steps=steps, sampler="ddim",
+            guidance_scale=GUIDANCE, prompts=CLI_PROMPTS, seed=1)
+        request(2)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = request(STEPS)
+        req_wall = time.perf_counter() - t0
+        serve_counts = launch_counts()
+        check(serve_counts == {k: PER_FORWARD.get(k, 0) * (STEPS + 1) for k in serve_counts},
+              "the latent pipeline's request launched PER_FORWARD x 51 kernels")
+        check(out.shape == (2, T2V_PIXELS, T2V_PIXELS, 3) and bool(np.isfinite(out).all())
+              and float(np.abs(out).max()) <= 1.0, f"decoded samples {out.shape}, finite, in [-1, 1]")
+        res["serving"] = {"wall_s": req_wall, "launches": serve_counts,
+                          "ms_per_call": req_wall * 1e3 / (STEPS + 1)}
+        res["launches"] = {k: counts[k] + serve_counts[k] for k in counts}
+        log(f"  CLI: {CLI13_STEPS} steps in {wall:.2f} s with the build (last window "
+            f"{res['fit']['ms_per_step_last_window']:.3f} ms per step); from_checkpoint: "
+            f"DDIM-{STEPS} CFG {GUIDANCE} for {CLI_PROMPTS} decoded to {T2V_PIXELS}x{T2V_PIXELS}: "
+            f"wall {req_wall:.3f} s")
+        del pipe
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def t2v_paths(dev) -> dict:
+    """Phase 13 (see the module docstring)."""
+    out = {}
+    t0 = time.perf_counter()
+    state = t2v_state(74)
+    log(f"  T2V: {sum(v.numel() for k, v in state.items() if not k.endswith('freqs'))} "
+        f"parameters, drawn in {time.perf_counter() - t0:.1f} s")
+    out["card_vs_cpu"] = t2v_card_vs_cpu(dev, state)
+    torch.cuda.empty_cache()
+    log(f"  13b: DDIM-{STEPS} + CFG {GUIDANCE}, batch 1, {T2V_FRAMES} frames of "
+        f"{T2V_SIDE}x{T2V_SIDE}x4, bf16, SD VAE decode")
+    out["serving"] = t2v_serving(dev, state)
+    del state
+    torch.cuda.empty_cache()
+    log(f"  13c: DiffusionTrainer.train_step, {T2V_TRAIN_BATCH} clips of {T2V_FRAMES} x "
+        f"{T2V_PIXELS}x{T2V_PIXELS}x3 through the SD VAE, bf16, {T2V_WARMUP} + {T2V_TIMED} steps")
+    out["training"] = t2v_training(dev)
+    torch.cuda.empty_cache()
+    log(f"  13d: the CLI with --autoencoder sd_vae, {CLI13_STEPS} steps at {T2V_PIXELS}x"
+        f"{T2V_PIXELS}, from_checkpoint decoded")
+    out["cli"] = cli13_path(dev)
     return out
 
 
@@ -2455,11 +2866,30 @@ def main() -> int:
         f"skipped micro-steps {of['skipped']}, final scale {of['scale'][-1]}, validation "
         f"{of['validation_wall_s']:.3f} s; phase {options['phase_s']:.1f} s on {smi}")
 
+    torch.cuda.empty_cache()
+
+    log(f"phase 13: latent video diffusion, UNet3D at ModelScope T2V's widths over SD VAE "
+        f"latents: card against CPU, DDIM-{STEPS} + CFG {GUIDANCE} decoded, training through the "
+        f"codec, the CLI with --autoencoder sd_vae")
+    t13 = time.perf_counter()
+    t2v = t2v_paths(dev)
+    t2v["phase_s"] = time.perf_counter() - t13
+    ts, tt = t2v["serving"], t2v["training"]
+    log(f"T2V serving: DDIM-{STEPS} CFG {GUIDANCE} batch 1, {T2V_FRAMES} frames {T2V_SIDE}x"
+        f"{T2V_SIDE}x4 bf16, wall {ts['wall_s']:.3f} s ({ts['ms_per_forward']:.2f} ms per call), "
+        f"SD VAE decode to {T2V_PIXELS}x{T2V_PIXELS} {ts['decode_ms']:.3f} ms, one call busy "
+        f"{ts['breakdown']['busy_ms']:.3f} ms as a graph ({ts['breakdown']['idle_share']:.0%} idle)"
+        f", peak {ts['peak_mem_gib']:.2f} GiB on {smi}")
+    log(f"T2V training: {tt['batch_clips']} clips of {T2V_FRAMES} x {T2V_PIXELS}x{T2V_PIXELS} "
+        f"bf16 {tt['ms_per_step']:.3f} ms per step, {tt['clips_per_s']:.2f} clips/s, peak "
+        f"{tt['peak_mem_gib']:.2f} GiB; phase 13 {t2v['phase_s']:.1f} s on {smi}")
+
     paths = {"unet_serving": traj, "unet_training": train, "dit_serving": dit_traj,
              "dit_training": dit_train, "unet3d_block_320": model_res["unet3d_block"],
              "unet_samplers": samplers_res, "unet_edm_training": edm_train,
              "unet_cli": cli, "mmdit_training": families["mmdit_training"],
-             "unet_cli_f16": options,
+             "unet_cli_f16": options, "unet3d_t2v_serving": t2v["serving"],
+             "unet3d_t2v_training": t2v["training"], "unet_cli_latent": t2v["cli"],
              **{f"{key}_serving": r for key, r in families["serving"].items()}}
     kernels, summary = [], []
     for kname in REPLACES:
@@ -2487,7 +2917,7 @@ def main() -> int:
               "model": model_res, "trajectory": traj, "training": train, "dit_model": dit_res,
               "dit_trajectory": dit_traj, "dit_training": dit_train,
               "samplers": samplers_res, "edm_training": edm_train, "cli": cli,
-              "families": families, "options": options,
+              "families": families, "options": options, "t2v": t2v,
               "total_s": time.perf_counter() - t0}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

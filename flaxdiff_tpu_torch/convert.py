@@ -5,6 +5,8 @@ flax's auto-named wrappers plus a re-layout of each leaf:
 
   nn.Conv kernel HWIO                  -> weight OIHW (a depthwise kernel,
                                           I = 1, becomes [C, 1, kh, kw])
+  nn.Conv kernel (kt, kh, kw, I, O)    -> weight [O, I, kt, kh, kw] (the
+                                          video UNet's temporal convs)
   nn.ConvTranspose kernel HWIO         -> weight [I, O, kh, kw], flipped in
                                           kh and kw (flax correlates with
                                           the kernel as it is, torch's
@@ -22,11 +24,14 @@ from a fixed key in ``setup``), so the caller passes them, or the port's
 table of the same draws fills them (``models/common.py``).
 
 Any tree of the params' structure converts the same way: gradients, and the
-AdamW moments of ``train_state_from_flax``.
+AdamW moments of ``train_state_from_flax``; so do the latent codecs' trees
+(``KLAutoEncoder`` / ``SDVAE.load_flax_params``). Diffusers-named SD VAE
+weights go through ``models/sd_vae.py``'s ``convert_sd_vae_torch_state_dict``
+to the flax paths first (``SDVAE.from_torch_state_dict``).
 """
 from __future__ import annotations
 
-from typing import Any, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +52,18 @@ _RENAME = {
 
 # the S5 layer's parameters, copied as they are
 _S5_LEAVES = {"log_A_real", "A_imag", "B_re", "B_im", "C_re", "C_im", "D", "log_dt"}
+
+
+def flax_tree(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """{'/'-joined flax path: array} -> the nested tree."""
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(value)
+    return tree
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -70,6 +87,8 @@ def _leaf(parent: str, name: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
         return "weight", a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     if a.ndim == 4:
         return "weight", a.transpose(3, 2, 0, 1)
+    if a.ndim == 5:
+        return "weight", a.transpose(4, 3, 0, 1, 2)
     if a.ndim == 2:
         return "weight", a.T
     if a.ndim == 3 and parent == "to_out":

@@ -102,6 +102,7 @@ struct Params {
   int64_t g_sb, g_sl, g_sh;  // of every gradient output
   int heads, lq, lk;
   float scale;
+  int bhs;  // batch * heads
 };
 
 // Shared-memory layout: the block's two own tiles of BR = 4 RW rows (q and
@@ -170,7 +171,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_fma_kernel(const Params
   Views<T, D> sm(smem, warp);
   T *sQ = sm.own[0], *sDO = sm.own[1], *sK = sm.stream[0], *sV = sm.stream[1];
 
-  const int bh = blockIdx.y;
+  const int bh = split_bh();
+  if (bh >= p.bhs) return;
   const int b = bh / p.heads, h = bh - b * p.heads;
   const int q0 = blockIdx.x * BR;
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -226,7 +228,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_fma_kernel(const Param
   Views<T, D> sm(smem, warp);
   T *sK = sm.own[0], *sV = sm.own[1], *sQ = sm.stream[0], *sDO = sm.stream[1];
 
-  const int bh = blockIdx.y;
+  const int bh = split_bh();
+  if (bh >= p.bhs) return;
   const int b = bh / p.heads, h = bh - b * p.heads;
   const int k0 = blockIdx.x * BR;
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -327,6 +330,8 @@ struct BwdArgs {
   const float* delta;  // [B*H, Lq]
   int heads, lq, lk;
   float scale, scale_log2;
+  int bhs;   // batch * heads
+  int bits;  // z's low bits holding the column chunk: chunk_bits(chunks)
 };
 
 // A warpgroup's 64 x N f32 accumulator, rounded to T, into rows
@@ -367,7 +372,8 @@ __global__ void __launch_bounds__(DkvCfg<D, NC>::THREADS, DkvCfg<D, NC>::MIN_BLO
   uint64_t* full = bar_kv + 1;
   uint64_t* empty = full + STAGES;
 
-  const int bh = blockIdx.y;
+  const int bh = split_bh();
+  if (bh >= a.bhs) return;
   const int b = bh / a.heads, h = bh - b * a.heads;
   const int k0 = blockIdx.x * BKV;
   const int n_tiles = (a.lq + BQ - 1) / BQ;
@@ -528,8 +534,10 @@ int launch_dkv_wgmma_nc(const Params& p, int batch, int dtype, cudaStream_t stre
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const BwdArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, p.scale, p.scale * LOG2E};
-  const dim3 grid((p.lk + C::BKV - 1) / C::BKV, batch * p.heads);
+  const BwdArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, p.scale, p.scale * LOG2E, p.bhs};
+  dim3 grid;
+  if (!split_bh_grid((p.lk + C::BKV - 1) / C::BKV, p.bhs, 1, &grid))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   kernel<<<grid, C::THREADS, C::BYTES, stream>>>(mq, mk, mv, mdo, mdk, mdv, args);
   return static_cast<int>(cudaGetLastError());
 }
@@ -583,7 +591,8 @@ __global__ void __launch_bounds__(DkvSplitCfg<D>::THREADS, 1)
   uint64_t* full = bar_kv + 1;
   uint64_t* empty = full + STAGES;
 
-  const int bh = blockIdx.y;
+  const int bh = split_bh();
+  if (bh >= a.bhs) return;
   const int b = bh / a.heads, h = bh - b * a.heads;
   const int k0 = blockIdx.x * BKV;
   const int n_tiles = (a.lq + BQT - 1) / BQT;
@@ -742,8 +751,10 @@ int launch_dkv_split(const Params& p, int batch, int dtype, cudaStream_t stream)
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const BwdArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, p.scale, p.scale * LOG2E};
-  const dim3 grid((p.lk + C::BKV - 1) / C::BKV, batch * p.heads);
+  const BwdArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, p.scale, p.scale * LOG2E, p.bhs};
+  dim3 grid;
+  if (!split_bh_grid((p.lk + C::BKV - 1) / C::BKV, p.bhs, 1, &grid))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   kernel<<<grid, C::THREADS, C::BYTES, stream>>>(mq, mk, mv, mdo, mdk, mdv, args);
   return static_cast<int>(cudaGetLastError());
 }
@@ -784,7 +795,8 @@ __global__ void __launch_bounds__(DqCfg<D, NC>::THREADS, DqCfg<D, NC>::MIN_BLOCK
   uint64_t* full = bar_q + 1;
   uint64_t* empty = full + STAGES;
 
-  const int bh = blockIdx.y;
+  const int bh = split_bh();
+  if (bh >= a.bhs) return;
   const int b = bh / a.heads, h = bh - b * a.heads;
   const int q0 = blockIdx.x * BM;
   const int n_tiles = (a.lk + BK - 1) / BK;
@@ -923,8 +935,10 @@ int launch_dq_wgmma_nc(const Params& p, int batch, int dtype, cudaStream_t strea
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const BwdArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, p.scale, p.scale * LOG2E};
-  const dim3 grid((p.lq + C::BM - 1) / C::BM, batch * p.heads);
+  const BwdArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, p.scale, p.scale * LOG2E, p.bhs};
+  dim3 grid;
+  if (!split_bh_grid((p.lq + C::BM - 1) / C::BM, p.bhs, 1, &grid))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   kernel<<<grid, C::THREADS, C::BYTES, stream>>>(mq, mk, mv, mdo, mdq, args);
   return static_cast<int>(cudaGetLastError());
 }
@@ -950,7 +964,9 @@ int launch_fma(void (*kernel)(const Params), const Params& p, int rows, int batc
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((rows + S::BR - 1) / S::BR, batch * p.heads);
+  dim3 grid;
+  if (!split_bh_grid((rows + S::BR - 1) / S::BR, p.bhs, 1, &grid))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   kernel<<<grid, NTHREADS, S::BYTES, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1032,6 +1048,8 @@ struct WideBwdArgs {
   const float* delta;  // [B*H, Lq]
   int heads, lq, lk, d;
   float scale, scale_log2;
+  int bhs;   // batch * heads
+  int bits;  // z's low bits holding the column chunk: chunk_bits(chunks)
 };
 
 template <typename T>
@@ -1055,9 +1073,11 @@ __global__ void __launch_bounds__(WideBwdCfg::THREADS)
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + OFF_BAR);
   uint64_t* bar_w = full + STAGES;
 
-  const int bh = blockIdx.y;
+  const int chunks = (a.d + W - 1) / W, chunk = split_chunk(a.bits);
+  const int bh = split_bh(a.bits);
+  if (bh >= a.bhs || chunk >= chunks) return;
   const int b = bh / a.heads, h = bh - b * a.heads;
-  const int q0 = blockIdx.x * BM, col0 = blockIdx.z * W;
+  const int q0 = blockIdx.x * BM, col0 = chunk * W;
   const int nd = a.d / CH;
   const int n_tiles = (a.lk + BK - 1) / BK;
   const int total = n_tiles * nd;
@@ -1205,9 +1225,11 @@ __global__ void __launch_bounds__(WideBwdCfg::THREADS)
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + OFF_BAR);
   uint64_t* bar_w = full + STAGES;
 
-  const int bh = blockIdx.y;
+  const int chunks = (a.d + W - 1) / W, chunk = split_chunk(a.bits);
+  const int bh = split_bh(a.bits);
+  if (bh >= a.bhs || chunk >= chunks) return;
   const int b = bh / a.heads, h = bh - b * a.heads;
-  const int k0 = blockIdx.x * BKV, col0 = blockIdx.z * W;
+  const int k0 = blockIdx.x * BKV, col0 = chunk * W;
   const int nd = a.d / CH;
   const int n_tiles = (a.lq + BQT - 1) / BQT;
   const int total = n_tiles * nd;
@@ -1377,24 +1399,30 @@ int launch_wide_wgmma(const Params& p, const WideBwdArgs& args, int batch, int d
   constexpr int RING_DKV = STAGES * (2 * C::B_OWN + 2 * C::BQ_DKV) * C::ROW_BYTES;
   const int bytes = dq ? RING_DQ + C::BK_DQ * C::W * 2 + 8 * (STAGES + 1) + 1024
                        : RING_DKV + 2 * C::BQ_DKV * C::W * 2 + 8 * (STAGES + 1) + 1024;
-  const dim3 grid((g_len + C::B_OWN - 1) / C::B_OWN, batch * p.heads, (d + C::W - 1) / C::W);
+  const int chunks = (d + C::W - 1) / C::W;
+  dim3 grid;
+  if (!split_bh_grid((g_len + C::B_OWN - 1) / C::B_OWN, p.bhs, chunks, &grid))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  WideBwdArgs a = args;
+  a.bits = chunk_bits(chunks);
   cudaError_t err;
   if (dq) {
     auto kernel = flash_bwd_dq_wide_wgmma_kernel<T>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, C::THREADS, bytes, stream>>>(mq, mk, mv, mdo, mg0, args);
+    kernel<<<grid, C::THREADS, bytes, stream>>>(mq, mk, mv, mdo, mg0, a);
   } else {
     auto kernel = flash_bwd_dkv_wide_wgmma_kernel<T>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, C::THREADS, bytes, stream>>>(mq, mk, mv, mdo, mg0, mg1, args);
+    kernel<<<grid, C::THREADS, bytes, stream>>>(mq, mk, mv, mdo, mg0, mg1, a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_wide_fma_kernel(const Params p, int d) {
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_wide_fma_kernel(const Params p, int d,
+                                                                         int bits) {
   static_assert(kIsF32<T>, "the 16-bit types take flash_bwd_dq_wide_wgmma_kernel");
   constexpr int D = WIDE_CHUNK;  // the tiles' columns: a score chunk, or the block's dq
   using S = Smem<T, D>;
@@ -1404,9 +1432,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_wide_fma_kernel(const P
   Views<T, D> sm(smem, warp);
   T *sQ = sm.own[0], *sDO = sm.own[1], *sK = sm.stream[0], *sV = sm.stream[1];
 
-  const int bh = blockIdx.y;
+  const int chunks = d / WIDE_COLS_F32, chunk = split_chunk(bits);
+  const int bh = split_bh(bits);
+  if (bh >= p.bhs || chunk >= chunks) return;
   const int b = bh / p.heads, h = bh - b * p.heads;
-  const int q0 = blockIdx.x * BR, col0 = blockIdx.z * WIDE_COLS_F32;
+  const int q0 = blockIdx.x * BR, col0 = chunk * WIDE_COLS_F32;
   const int nd = d / D;
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -1453,7 +1483,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_wide_fma_kernel(const P
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_wide_fma_kernel(const Params p, int d) {
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_wide_fma_kernel(const Params p, int d,
+                                                                          int bits) {
   static_assert(kIsF32<T>, "the 16-bit types take flash_bwd_dkv_wide_wgmma_kernel");
   constexpr int D = WIDE_CHUNK;
   using S = Smem<T, D>;
@@ -1463,9 +1494,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_wide_fma_kernel(const 
   Views<T, D> sm(smem, warp);
   T *sK = sm.own[0], *sV = sm.own[1], *sQ = sm.stream[0], *sDO = sm.stream[1];
 
-  const int bh = blockIdx.y;
+  const int chunks = d / WIDE_COLS_F32, chunk = split_chunk(bits);
+  const int bh = split_bh(bits);
+  if (bh >= p.bhs || chunk >= chunks) return;
   const int b = bh / p.heads, h = bh - b * p.heads;
-  const int k0 = blockIdx.x * BR, col0 = blockIdx.z * WIDE_COLS_F32;
+  const int k0 = blockIdx.x * BR, col0 = chunk * WIDE_COLS_F32;
   const int nd = d / D;
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -1524,7 +1557,8 @@ int dispatch_wide(const Params& p, int batch, int d, int dtype, bool dq, void* s
       d % WIDE_CHUNK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const WideBwdArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, d, p.scale, p.scale * LOG2E};
+  const WideBwdArgs args{p.lse, p.delta, p.heads, p.lq, p.lk, d, p.scale, p.scale * LOG2E,
+                           p.bhs, 0};
   switch (dtype) {
     case kFloat32: {
       using S = Smem<float, WIDE_CHUNK>;
@@ -1532,9 +1566,11 @@ int dispatch_wide(const Params& p, int batch, int d, int dtype, bool dq, void* s
       cudaError_t err =
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
       if (err != cudaSuccess) return static_cast<int>(err);
-      const dim3 grid(((dq ? p.lq : p.lk) + S::BR - 1) / S::BR, batch * p.heads,
-                      d / WIDE_COLS_F32);
-      kernel<<<grid, NTHREADS, S::BYTES, s>>>(p, d);
+      const int chunks = d / WIDE_COLS_F32;
+      dim3 grid;
+      if (!split_bh_grid(((dq ? p.lq : p.lk) + S::BR - 1) / S::BR, p.bhs, chunks, &grid))
+        return static_cast<int>(cudaErrorInvalidConfiguration);
+      kernel<<<grid, NTHREADS, S::BYTES, s>>>(p, d, chunk_bits(chunks));
       return static_cast<int>(cudaGetLastError());
     }
     case kBFloat16: return launch_wide_wgmma<__nv_bfloat16>(p, args, batch, dtype, dq, s);
@@ -1554,7 +1590,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             float scale, int dtype, void* stream) {
   const Params p{q,    k,    v,    dout, lse,   delta, dq,   nullptr, q_sb,  q_sl,
                  q_sh, k_sb, k_sl, k_sh, v_sb,  v_sl,  v_sh, do_sb,   do_sl, do_sh,
-                 g_sb, g_sl, g_sh, heads, lq,   lk,    scale};
+                 g_sb, g_sl, g_sh, heads, lq,   lk,    scale, batch * heads};
   return dispatch(p, batch, d, dtype, true, stream);
 }
 
@@ -1567,7 +1603,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int lq, int lk, int d, float scale, int dtype, void* stream) {
   const Params p{q,    k,    v,    dout, lse,   delta, dk,   dv,    q_sb,  q_sl,
                  q_sh, k_sb, k_sl, k_sh, v_sb,  v_sl,  v_sh, do_sb, do_sl, do_sh,
-                 g_sb, g_sl, g_sh, heads, lq,   lk,    scale};
+                 g_sb, g_sl, g_sh, heads, lq,   lk,    scale, batch * heads};
   return dispatch(p, batch, d, dtype, false, stream);
 }
 
@@ -1582,7 +1618,7 @@ extern "C" int flash_bwd_dq_wide(const void* q, const void* k, const void* v, co
                                  int d, float scale, int dtype, void* stream) {
   const Params p{q,    k,    v,    dout, lse,   delta, dq,   nullptr, q_sb,  q_sl,
                  q_sh, k_sb, k_sl, k_sh, v_sb,  v_sl,  v_sh, do_sb,   do_sl, do_sh,
-                 g_sb, g_sl, g_sh, heads, lq,   lk,    scale};
+                 g_sb, g_sl, g_sh, heads, lq,   lk,    scale, batch * heads};
   return dispatch_wide(p, batch, d, dtype, true, stream);
 }
 
@@ -1595,6 +1631,6 @@ extern "C" int flash_bwd_dkv_wide(const void* q, const void* k, const void* v, c
                                   int lq, int lk, int d, float scale, int dtype, void* stream) {
   const Params p{q,    k,    v,    dout, lse,   delta, dk,   dv,    q_sb,  q_sl,
                  q_sh, k_sb, k_sl, k_sh, v_sb,  v_sl,  v_sh, do_sb, do_sl, do_sh,
-                 g_sb, g_sl, g_sh, heads, lq,   lk,    scale};
+                 g_sb, g_sl, g_sh, heads, lq,   lk,    scale, batch * heads};
   return dispatch_wide(p, batch, d, dtype, false, stream);
 }

@@ -6,8 +6,8 @@
 // 16, and 8 at D = 256, where a warp's f32 accumulators (RW * D / 32 a lane)
 // and four padded tiles would not fit the registers and shared memory.
 // Scores and probabilities go through shared memory, where every lane can
-// read whole rows. The 16-bit kernels do not use these pieces: they run on
-// wgmma (hopper.cuh).
+// read whole rows. The 16-bit kernels run on wgmma (hopper.cuh) and share
+// only the constants and the grid helpers below.
 #pragma once
 
 #include <type_traits>
@@ -34,6 +34,42 @@ constexpr int WIDE_CHUNK = 64;
 constexpr int WIDE_COLS_16 = 128;
 constexpr int WIDE_COLS_F32 = 64;
 constexpr int WIDE_MIN_D = 320;
+
+// Every flash grid keeps a block's tile on x and splits batch*heads over y
+// and z: bh = y + gridDim.y * z, with y at most 65535, so batch*heads may
+// pass y's limit of 65535 (a video UNet's temporal attention runs B*H*W
+// sequences of frames); blocks past the count return at once. Every index
+// is a special register and constants, which the compiler re-reads where it
+// needs it instead of holding a derived value across the kernel's loops (a
+// quotient held there made ptxas spill in the f32 dq kernels), and with one
+// z the blocks run in the order they did before. The wide kernels keep
+// their column chunk in the low `bits` bits of z, chunk_bits(chunks) of
+// them, a kernel argument; past 65535 batch*heads, the chunk slots a block
+// of z leaves empty return at once.
+__host__ __device__ constexpr int chunk_bits(int chunks) {
+  return chunks <= 1 ? 0 : 1 + chunk_bits((chunks + 1) / 2);
+}
+
+__device__ __forceinline__ int split_bh(int bits = 0) {
+  return static_cast<int>(blockIdx.y + gridDim.y * (blockIdx.z >> bits));
+}
+
+__device__ __forceinline__ int split_chunk(int bits) {
+  return static_cast<int>(blockIdx.z & ((1u << bits) - 1u));
+}
+
+// The grid of `tiles` tiles for each of `bh` batch*heads; the wide kernels'
+// `chunks` column chunks in the chunk_bits(chunks) low bits of z. False
+// where a dimension would pass its limit.
+inline bool split_bh_grid(int64_t tiles, int64_t bh, int chunks, dim3* grid) {
+  if (bh < 1 || chunks < 1) return false;
+  const int64_t hi = (bh + 65534) / 65535, y = (bh + hi - 1) / hi;
+  const int64_t z = ((hi - 1) << chunk_bits(chunks)) + chunks;
+  if (tiles < 1 || tiles > 0x7fffffff || y < 1 || z > 65535) return false;
+  *grid = dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(y),
+               static_cast<unsigned>(z));
+  return true;
+}
 
 // Rows a warp owns of the block's own tile (q rows, or kv rows for dk/dv).
 template <int D>

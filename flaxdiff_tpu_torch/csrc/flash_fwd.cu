@@ -64,6 +64,7 @@ struct Params {
   int64_t o_sb, o_sl, o_sh;
   int heads, lq, lk;
   float scale;
+  int bhs;  // batch * heads
 };
 
 // --- f32: FMA loops ------------------------------------------------------------
@@ -119,7 +120,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_fma_kernel(const Params p)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* sW = reinterpret_cast<float*>(smem + S::OFF_W) + warp * S::WARP_SCRATCH;
 
-  const int bh = blockIdx.y;
+  const int bh = split_bh();
+  if (bh >= p.bhs) return;
   const int b = bh / p.heads, h = bh - b * p.heads;
   const int q0 = blockIdx.x * BM;
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -239,6 +241,7 @@ struct FwdArgs {
   float* lse;  // [B*H, Lq] or nullptr
   int heads, lq, lk;
   float scale_log2;  // scale * log2(e)
+  int bhs;           // batch * heads
 };
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -267,7 +270,8 @@ __global__ void __launch_bounds__(FwdCfg<D, NC>::THREADS, NC == 1 && D <= 128 ? 
   uint64_t* full = bar_q + 1;
   uint64_t* empty = full + STAGES;
 
-  const int bh = blockIdx.y;
+  const int bh = split_bh();
+  if (bh >= a.bhs) return;
   const int b = bh / a.heads, h = bh - b * a.heads;
   const int q0 = blockIdx.x * BM;
   const int n_tiles = (a.lk + BN - 1) / BN;
@@ -425,8 +429,10 @@ int launch_wgmma_nc(const Params& p, int batch, int dtype, cudaStream_t stream) 
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const FwdArgs args{p.lse, p.heads, p.lq, p.lk, p.scale * LOG2E};
-  const dim3 grid((p.lq + C::BM - 1) / C::BM, batch * p.heads);
+  const FwdArgs args{p.lse, p.heads, p.lq, p.lk, p.scale * LOG2E, p.bhs};
+  dim3 grid;
+  if (!split_bh_grid((p.lq + C::BM - 1) / C::BM, p.bhs, 1, &grid))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   kernel<<<grid, C::THREADS, C::BYTES, stream>>>(mq, mk, mv, mo, args);
   return static_cast<int>(cudaGetLastError());
 }
@@ -452,7 +458,9 @@ int launch_fma(const Params& p, int batch, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.lq + S::BM - 1) / S::BM, batch * p.heads);
+  dim3 grid;
+  if (!split_bh_grid((p.lq + S::BM - 1) / S::BM, p.bhs, 1, &grid))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   kernel<<<grid, NTHREADS, S::BYTES, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -503,6 +511,8 @@ struct WideArgs {
   int64_t lse_chunk_stride;
   int heads, lq, lk, d;
   float scale_log2;
+  int bhs;   // batch * heads
+  int bits;  // z's low bits holding the column chunk: chunk_bits(chunks)
 };
 
 struct WideFwdCfg {
@@ -530,9 +540,11 @@ __global__ void __launch_bounds__(WideFwdCfg::THREADS)
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
   uint64_t* bar_v = full + STAGES;
 
-  const int bh = blockIdx.y;
+  const int chunks = (a.d + W - 1) / W, chunk = split_chunk(a.bits);
+  const int bh = split_bh(a.bits);
+  if (bh >= a.bhs || chunk >= chunks) return;
   const int b = bh / a.heads, h = bh - b * a.heads;
-  const int q0 = blockIdx.x * BM, col0 = blockIdx.z * W;
+  const int q0 = blockIdx.x * BM, col0 = chunk * W;
   const int nd = a.d / CH;
   const int n_tiles = (a.lk + BN - 1) / BN;
   const int total = n_tiles * nd;
@@ -656,8 +668,8 @@ __global__ void __launch_bounds__(WideFwdCfg::THREADS)
     inv[j] = 1.0f / l[j];
   }
   const int row_in_tile = 16 * warp + g;
-  if (a.lse != nullptr && tq == 0 && (blockIdx.z == 0 || a.lse_chunk_stride != 0)) {
-    float* lse = a.lse + blockIdx.z * a.lse_chunk_stride + static_cast<int64_t>(bh) * a.lq;
+  if (a.lse != nullptr && tq == 0 && (chunk == 0 || a.lse_chunk_stride != 0)) {
+    float* lse = a.lse + chunk * a.lse_chunk_stride + static_cast<int64_t>(bh) * a.lq;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int row = q0 + row_in_tile + 8 * j;
@@ -697,8 +709,13 @@ int launch_wide_wgmma(const Params& p, const WideArgs& args, int batch, int dtyp
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.lq + C::BM - 1) / C::BM, batch * p.heads, (d + C::W - 1) / C::W);
-  kernel<<<grid, C::THREADS, C::BYTES, stream>>>(mq, mk, mv, mo, args);
+  const int chunks = (d + C::W - 1) / C::W;
+  dim3 grid;
+  if (!split_bh_grid((p.lq + C::BM - 1) / C::BM, p.bhs, chunks, &grid))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  WideArgs a = args;
+  a.bits = chunk_bits(chunks);
+  kernel<<<grid, C::THREADS, C::BYTES, stream>>>(mq, mk, mv, mo, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -721,9 +738,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_wide_fma_kernel(const Para
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* sW = reinterpret_cast<float*>(smem + S::OFF_W) + warp * S::WARP_SCRATCH;
 
-  const int bh = blockIdx.y;
+  const int chunks = a.d / WIDE_COLS_F32, chunk = split_chunk(a.bits);
+  const int bh = split_bh(a.bits);
+  if (bh >= p.bhs || chunk >= chunks) return;
   const int b = bh / p.heads, h = bh - b * p.heads;
-  const int q0 = blockIdx.x * BM, col0 = blockIdx.z * WIDE_COLS_F32;
+  const int q0 = blockIdx.x * BM, col0 = chunk * WIDE_COLS_F32;
   const int nd = a.d / D;
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -804,11 +823,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_wide_fma_kernel(const Para
       O[row * p.o_sl + col] = from_f32<T>(acc[i] * inv_l);
     }
   }
-  if (a.lse != nullptr && lane < RW && (blockIdx.z == 0 || a.lse_chunk_stride != 0)) {
+  if (a.lse != nullptr && lane < RW && (chunk == 0 || a.lse_chunk_stride != 0)) {
     const int r = warp * RW + lane;
     const int row = q0 + r;
     if (row < p.lq)
-      a.lse[blockIdx.z * a.lse_chunk_stride + static_cast<int64_t>(bh) * p.lq + row] =
+      a.lse[chunk * a.lse_chunk_stride + static_cast<int64_t>(bh) * p.lq + row] =
           sM[r] + logf(fmaxf(sL[r], 1e-30f));
   }
 }
@@ -819,8 +838,13 @@ int launch_wide_fma(const Params& p, const WideArgs& args, int batch, cudaStream
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.lq + S::BM - 1) / S::BM, batch * p.heads, args.d / WIDE_COLS_F32);
-  kernel<<<grid, NTHREADS, S::BYTES, stream>>>(p, args);
+  const int chunks = args.d / WIDE_COLS_F32;
+  dim3 grid;
+  if (!split_bh_grid((p.lq + S::BM - 1) / S::BM, p.bhs, chunks, &grid))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  WideArgs a = args;
+  a.bits = chunk_bits(chunks);
+  kernel<<<grid, NTHREADS, S::BYTES, stream>>>(p, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -833,7 +857,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, f
                          float scale, int dtype, void* stream) {
   if (lq <= 0 || lk <= 0 || batch <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q,    k,    v,    o,    lse,  q_sb,  q_sl, q_sh, k_sb, k_sl,  k_sh,
-                 v_sb, v_sl, v_sh, o_sb, o_sl, o_sh, heads, lq,   lk,   scale};
+                 v_sb, v_sl, v_sh, o_sb, o_sl, o_sh, heads, lq,   lk,   scale, batch * heads};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return dispatch_dtype<32>(p, batch, dtype, s);
@@ -856,8 +880,8 @@ extern "C" int flash_fwd_wide(const void* q, const void* k, const void* v, void*
   if (lq <= 0 || lk <= 0 || batch <= 0 || heads <= 0 || d < WIDE_MIN_D || d % WIDE_CHUNK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q,    k,    v,    o,    lse,  q_sb,  q_sl, q_sh, k_sb, k_sl,  k_sh,
-                 v_sb, v_sl, v_sh, o_sb, o_sl, o_sh, heads, lq,   lk,   scale};
-  const WideArgs args{lse, lse_chunk_stride, heads, lq, lk, d, scale * LOG2E};
+                 v_sb, v_sl, v_sh, o_sb, o_sl, o_sh, heads, lq,   lk,   scale, batch * heads};
+  const WideArgs args{lse, lse_chunk_stride, heads, lq, lk, d, scale * LOG2E, batch * heads, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32: return launch_wide_fma(p, args, batch, s);

@@ -3,6 +3,10 @@
 config dict the training CLI saves beside its checkpoints, load the
 parameters, and generate with samplers cached per configuration.
 
+A latent model's codec (``models/autoencoder.py``: ``SDVAE.from_npz(...)``,
+``KLAutoEncoder.create(...)``) is passed in, never rebuilt from the config,
+as in the JAX package; samples come back decoded.
+
 It runs on the card unless given ``device="cpu"``. Not ported:
 ``from_wandb_run``, ``from_registry``, the activation cache plans and
 telemetry.
@@ -11,6 +15,7 @@ from __future__ import annotations
 
 import json
 import os
+import warnings
 from typing import Any, Dict, Optional, Tuple, Type, Union
 
 import numpy as np
@@ -57,9 +62,11 @@ class DiffusionInferencePipeline:
                  transform: PredictionTransform,
                  input_config: Optional[DiffusionInputConfig] = None,
                  ema_params: Optional[Dict[str, torch.Tensor]] = None,
-                 config: Optional[Dict[str, Any]] = None, device: DeviceLike = None):
+                 config: Optional[Dict[str, Any]] = None, device: DeviceLike = None,
+                 autoencoder=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.autoencoder = None if autoencoder is None else autoencoder.to(self.device)
         self.params, self.ema_params = params, ema_params
         self.schedule = schedule
         self.transform = transform
@@ -74,15 +81,21 @@ class DiffusionInferencePipeline:
     def from_config(config: Dict[str, Any], params: Dict[str, torch.Tensor],
                     ema_params: Optional[Dict[str, torch.Tensor]] = None,
                     hash_table: Optional[np.ndarray] = None,
-                    device: DeviceLike = None) -> "DiffusionInferencePipeline":
+                    device: DeviceLike = None,
+                    autoencoder=None) -> "DiffusionInferencePipeline":
         """config = {"model": {"name": ..., **kwargs}, "schedule": {"name":
         ..., **kwargs}, "predictor": name, "input_config": ...}, as either
         package's CLI writes it. A text-conditional model's context width,
         which flax infers and torch must be told, comes from the encoder's
-        when the config does not give it."""
+        when the config does not give it; with `autoencoder`, the model's
+        input channels are its latent channels unless the config says.
+        A config trained with a codec (its "autoencoder" entry) needs the
+        codec passed here."""
         device = resolve_device(device)
-        if config.get("autoencoder"):
-            raise NotImplementedError("latent diffusion is not ported yet: ROADMAP.md A9")
+        if config.get("autoencoder") and autoencoder is None:
+            warnings.warn(f"the run trained in a {config['autoencoder'].get('name')} codec's "
+                          "latent space: pass autoencoder= to decode its samples",
+                          stacklevel=2)
         input_config = None
         if config.get("input_config"):
             input_config = DiffusionInputConfig.deserialize(config["input_config"],
@@ -90,6 +103,8 @@ class DiffusionInferencePipeline:
         model_cfg = dict(config["model"])
         if input_config is not None and input_config.conditions:
             model_cfg.setdefault("context_dim", input_config.conditions[0].encoder.features)
+        if autoencoder is not None:
+            model_cfg.setdefault("in_channels", autoencoder.latent_channels)
         model = build_model(model_cfg.pop("name"), device=device, **model_cfg)
         sched_cfg = dict(config.get("schedule", {"name": "cosine"}))
         schedule = get_schedule(sched_cfg.pop("name"), **sched_cfg)
@@ -99,11 +114,12 @@ class DiffusionInferencePipeline:
         return DiffusionInferencePipeline(
             model=model, params=params, ema_params=ema_params, schedule=schedule,
             transform=TRANSFORM_REGISTRY[pred_name](), input_config=input_config,
-            config=config, device=device)
+            config=config, device=device, autoencoder=autoencoder)
 
     @staticmethod
     def from_checkpoint(checkpoint_dir: str, step: Optional[int] = None,
-                        device: DeviceLike = None) -> "DiffusionInferencePipeline":
+                        device: DeviceLike = None,
+                        autoencoder=None) -> "DiffusionInferencePipeline":
         """The config, the hash encoder's table and the train state saved by
         the port's training CLI (``flaxdiff_tpu_torch.train``), at `step`
         (default: the newest). The state is flat in every run, so a run
@@ -127,11 +143,11 @@ class DiffusionInferencePipeline:
 
         return DiffusionInferencePipeline.from_config(
             config, named(state["params"]), named(state["ema"]),
-            hash_table=_load_table(checkpoint_dir), device=device)
+            hash_table=_load_table(checkpoint_dir), device=device, autoencoder=autoencoder)
 
     @staticmethod
-    def from_flax_export(export_dir: str, device: DeviceLike = None
-                         ) -> "DiffusionInferencePipeline":
+    def from_flax_export(export_dir: str, device: DeviceLike = None,
+                         autoencoder=None) -> "DiffusionInferencePipeline":
         """A JAX run written out by ``scripts/export_flax_checkpoint.py``:
         ``pipeline_config.json``, ``params.npz`` and ``ema_params.npz`` (the
         flax tree's leaves under "/"-joined paths) and the hash table, for
@@ -146,17 +162,11 @@ class DiffusionInferencePipeline:
             if not os.path.exists(path):
                 trees.append(None)
                 continue
-            tree: Dict[str, Any] = {}
             with np.load(path) as npz:
-                for key in npz.files:
-                    *parents, leaf = key.split("/")
-                    node = tree
-                    for p in parents:
-                        node = node.setdefault(p, {})
-                    node[leaf] = npz[key]
-            trees.append(tree)
+                trees.append(convert.flax_tree({k: npz[k] for k in npz.files}))
         pipe = DiffusionInferencePipeline.from_config(
-            config, {}, hash_table=_load_table(export_dir), device=device)
+            config, {}, hash_table=_load_table(export_dir), device=device,
+            autoencoder=autoencoder)
         pipe.config = config
         pipe.params, pipe.ema_params = (
             None if tree is None else convert.state_dict_from_flax(pipe.model, tree)
@@ -179,7 +189,7 @@ class DiffusionInferencePipeline:
         if key not in self._sampler_cache:
             self._sampler_cache[key] = DiffusionSampler(
                 lambda x, t, c: self.model(x, t, c), self.schedule, self.transform, sampler,
-                guidance_scale=guidance_scale, device=self.device)
+                guidance_scale=guidance_scale, device=self.device, autoencoder=self.autoencoder)
         return self._sampler_cache[key]
 
     def _load(self, use_ema: bool) -> None:
@@ -200,7 +210,9 @@ class DiffusionInferencePipeline:
                          guidance_scale: float = 0.0, prompts=None, use_ema: bool = True,
                          seed: int = 42, sequence_length: Optional[int] = None, channels: int = 3,
                          inpaint_reference=None, inpaint_mask=None) -> np.ndarray:
-        """Samples in [-1, 1] as a host array [N, R, R, C]. Prompts go through
+        """Samples in [-1, 1] as a host array [N, R, R, C] ([N, T, R, R, C]
+        with a `sequence_length`; decoded pixels with a codec, R and C the
+        pixels'). Prompts go through
         the input config (N becomes their count) with its null tokens as the
         unconditional input; a conditional model without prompts gets the
         null tokens (pipeline.py:249-276). Every draw comes from a generator

@@ -6,7 +6,7 @@ import warnings
 from typing import Any, Dict, Tuple
 
 from ..models import (HierarchicalMMDiT, HybridSSMAttentionDiT, SimpleDiT, SimpleMMDiT,
-                      SimpleUDiT, Unet, UViT)
+                      SimpleUDiT, UNet3D, Unet, UViT)
 
 MODEL_REGISTRY: Dict[str, Any] = {
     "unet": Unet,
@@ -16,10 +16,8 @@ MODEL_REGISTRY: Dict[str, Any] = {
     "simple_mmdit": SimpleMMDiT,
     "hierarchical_mmdit": HierarchicalMMDiT,
     "hybrid_ssm": HybridSSMAttentionDiT,
+    "unet_3d": UNet3D,
 }
-
-# the JAX registry's other names, each with the ROADMAP.md item that ports it
-NOT_PORTED = {"unet_3d": "A9"}
 
 # each JAX model's dataclass fields (its constructor keys, flax's ``parent``
 # and ``name`` aside). The port's models take every one, except the Unet's
@@ -45,6 +43,9 @@ JAX_FIELDS: Dict[str, Tuple[str, ...]] = {
     "hybrid_ssm": _DIT_KEYS[:6] + ("ssm_state_dim",) + _DIT_KEYS[6:] + (
         "learn_sigma", "use_hilbert", "use_zigzag", "block_pattern", "ssm_attention_ratio",
         "bidirectional_ssm", "use_2d_fusion", "activation"),
+    "unet_3d": ("output_channels", "emb_features", "feature_depths", "attention_levels",
+                "num_res_blocks", "heads", "norm_groups", "backend", "dtype", "precision",
+                "activation", "remat"),
 }
 # keys flax infers from the inputs, which torch needs at construction
 PORT_KEYS = ("in_channels", "context_dim")
@@ -72,11 +73,8 @@ def build_model(name: str, device=None, **kwargs):
     precision and activation strings resolve in the model (``typing.py``'s
     maps); a key the JAX model does not take (and that is not one of
     ``PORT_KEYS``) is dropped with a warning, as the JAX registry does, and
-    so is a suffix's flag the model lacks. A registry name the port lacks
-    raises."""
+    so is a suffix's flag the model lacks. An unknown name raises."""
     base, flags = parse_architecture_name(name)
-    if base in NOT_PORTED:
-        raise NotImplementedError(f"{base} is not ported yet: ROADMAP.md {NOT_PORTED[base]}")
     if base not in MODEL_REGISTRY:
         raise ValueError(f"unknown model {base!r}; known: {sorted(MODEL_REGISTRY)}")
     merged = {**flags, **kwargs}

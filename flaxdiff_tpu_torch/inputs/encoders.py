@@ -9,8 +9,8 @@ The training CLI saves the table it trained with beside the checkpoints
 (``hash_table.npy``) so that inference encodes prompts with the same one;
 ``scripts/export_flax_checkpoint.py`` writes the JAX table there.
 
-CLIP needs downloaded weights (ROADMAP.md A5); the audio encoders come with
-video (A9).
+CLIP needs downloaded weights (ROADMAP.md A5); the mel audio encoder comes
+with the video sources (A9's rest).
 """
 from __future__ import annotations
 
@@ -101,7 +101,7 @@ def _not_ported(name: str, item: str):
 
 
 CLIPTextEncoder = _not_ported("CLIPTextEncoder", "A5")
-MelAudioEncoder = _not_ported("MelAudioEncoder", "A9")
+MelAudioEncoder = _not_ported("MelAudioEncoder", "A9's rest")
 
 # the JAX registry's keys (flaxdiff_tpu/inputs/encoders.py), none dropped
 CONDITIONAL_ENCODERS_REGISTRY: Dict[str, Any] = {

@@ -6,7 +6,11 @@ from .mmdit import (HierarchicalMMDiT, MMAdaLNZero, MMDiTBlock, PatchExpanding, 
                     SimpleMMDiT)
 from .ssm import (BidirectionalS5Layer, HybridSSMAttentionDiT, S5Layer, SpatialFusionConv,
                   SSMDiTBlock, build_block_pattern)
+from .autoencoder import (AUTOENCODER_REGISTRY, AutoEncoder, IdentityAutoEncoder, KLAutoEncoder,
+                          build_autoencoder)
+from .sd_vae import SDVAE
 from .unet import Unet
+from .unet3d import TemporalAttention, TemporalConvLayer, UNet3D, UNet3DBlock
 from .uvit import SimpleUDiT, UViT
 from .vit_common import (AdaLNParams, AdaLNZero, PatchEmbedding, PositionalEncoding,
                          RoPEAttention, ScanPatchEmbed, TimeTextEmbedding)
@@ -18,4 +22,7 @@ __all__ = ["AttentionLayer", "BasicTransformerBlock", "GEGLUFeedForward", "Trans
            "RoPEAttention", "ScanPatchEmbed", "SimpleDiT", "TimeTextEmbedding",
            "HierarchicalMMDiT", "MMAdaLNZero", "MMDiTBlock", "PatchExpanding", "PatchMerging",
            "SimpleMMDiT", "BidirectionalS5Layer", "HybridSSMAttentionDiT", "S5Layer",
-           "SpatialFusionConv", "SSMDiTBlock", "build_block_pattern", "SimpleUDiT", "UViT"]
+           "SpatialFusionConv", "SSMDiTBlock", "build_block_pattern", "SimpleUDiT", "UViT",
+           "AUTOENCODER_REGISTRY", "AutoEncoder", "IdentityAutoEncoder", "KLAutoEncoder",
+           "build_autoencoder", "SDVAE", "TemporalAttention", "TemporalConvLayer", "UNet3D",
+           "UNet3DBlock"]

@@ -74,7 +74,8 @@ def lecun_dense(in_features: int, features: int, dtype=None, device=None) -> Den
 
 
 class ConvLayer(nn.Module):
-    """The JAX package's ConvLayer over NHWC input, XLA "SAME" padding:
+    """The JAX package's ConvLayer over NHWC input, XLA "SAME" padding (or
+    none, with ``padding="VALID"``):
 
     - ``conv``: ``nn.Conv`` (``groups``, ``dilation`` and ``use_bias`` give
       the depthwise convolutions of ``SeparableConv`` and the SSM's spatial
@@ -98,8 +99,10 @@ class ConvLayer(nn.Module):
                  kernel_size: Sequence[int] = (3, 3), strides: Union[int, Sequence[int]] = 1,
                  dtype=None, device=None, init_scale: float = 1.0, init_mode: str = "fan_avg",
                  conv_type: str = "conv", groups: int = 1, dilation: int = 1,
-                 use_bias: bool = True):
+                 use_bias: bool = True, padding: str = "SAME"):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r}: SAME or VALID")
         if conv_type == "w_conv":
             raise ValueError("conv_type 'w_conv' cannot be built by the JAX package "
                              "(flaxdiff_tpu/models/common.py:119 hands nn.map_variables a "
@@ -111,6 +114,7 @@ class ConvLayer(nn.Module):
         self.kernel_size = tuple(kernel_size)
         self.strides = (strides, strides) if isinstance(strides, int) else tuple(strides)
         self.groups, self.dilation = groups, dilation
+        self.padding = padding
         kh, kw = self.kernel_size
         if conv_type == "separable":
             conv = lambda i, o, k, s, g: ConvLayer(i, o, k, s, dtype, device, init_scale,
@@ -138,7 +142,7 @@ class ConvLayer(nn.Module):
         if self.conv_type == "conv_transpose":
             return self._transpose(x, bias)
         span = lambda k: (k - 1) * self.dilation + 1
-        (ph0, ph1), (pw0, pw1) = (
+        (ph0, ph1), (pw0, pw1) = ((0, 0), (0, 0)) if self.padding == "VALID" else (
             _same_padding(x.shape[1], span(self.kernel_size[0]), self.strides[0]),
             _same_padding(x.shape[2], span(self.kernel_size[1]), self.strides[1]))
         if ph0 == ph1 and pw0 == pw1:
@@ -262,8 +266,11 @@ class FusedGroupNormSiLU(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """flax ``nn.GroupNorm(dtype=f32)`` over NHWC input: eps 1e-6, f32 math
-    and output. A plain composition, as in JAX, where XLA runs it."""
+    """flax ``nn.GroupNorm(dtype=f32)`` over channels-last input: eps 1e-6
+    (or `eps`), f32 math and output. A plain composition, as in JAX, where XLA
+    runs it. Each group is reduced over every axis but the batch, so a
+    [B, F, H, W, C] clip is normalized over its frames jointly, as flax does
+    (a video UNet's temporal layers)."""
 
     def __init__(self, channels: int, groups: int, eps: float = 1e-6, device=None):
         super().__init__()
@@ -274,9 +281,12 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float().permute(0, 3, 1, 2), self.groups, self.weight, self.bias,
-                         self.eps)
-        return y.permute(0, 2, 3, 1)
+        x = x.float().movedim(-1, 1)
+        if x.device.type == "cpu":
+            # torch's CPU backward of a channels-last group_norm crashes when
+            # the input takes no gradient; the card takes the view as it is
+            x = x.contiguous()
+        return F.group_norm(x, self.groups, self.weight, self.bias, self.eps).movedim(1, -1)
 
 
 class RMSNorm(nn.Module):

@@ -11,7 +11,8 @@ delta = rowsum(dO * O) is one torch reduction before the two kernels.
 Head dims: the kernels take 32, 64, 128 and 256, and any multiple of 64
 above 256 through the wide kernels (``flash_fwd_wide``, ``flash_bwd_dq_wide``,
 ``flash_bwd_dkv_wide``), which split the output columns over a third grid
-dimension; ``FlashAttentionFn`` picks them by head dim.
+dimension; ``FlashAttentionFn`` picks them by head dim. Every grid takes
+any batch * heads (tile on x, batch * heads over y and z).
 
 Layout: [B, L, H, D] at the interface, the JAX package's BTNH convention.
 The kernels take explicit (batch, seq, head) strides, so a [B, L, H*D]

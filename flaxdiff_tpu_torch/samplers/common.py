@@ -4,10 +4,11 @@ The trajectory is a Python loop under ``torch.inference_mode()``: one model
 call per step (two batches in one call with classifier-free guidance), then a
 terminal denoise at the last step value. Samplers update in the VE-ified
 coordinates x / signal(t), sigma(t) / signal(t), as the JAX package does.
+With a codec the trajectory runs in its latent space and the result is
+decoded (a clip's frames folded through the codec).
 
-Not ported yet: the autoencoder decode, the cached programs and the
-serving chunk, terminal and trajectory-input programs. Capturing the loop
-in a CUDA graph is later work.
+Not ported yet: the cached programs and the serving chunk, terminal and
+trajectory-input programs. Capturing the loop in a CUDA graph is later work.
 """
 from __future__ import annotations
 
@@ -161,13 +162,18 @@ class DiffusionSampler:
     ``guidance_scale > 0`` and an ``unconditional`` input, one model call
     takes [cond; uncond] stacked on the batch axis and the guided output is
     u + s * (c - u), as at flaxdiff_tpu/samplers/common.py:180-189.
+    `autoencoder`: latent diffusion (``models/autoencoder.py``); the
+    trajectory runs at the codec's latent resolution and channels and its
+    result is decoded.
     """
 
     def __init__(self, model_fn: Callable, schedule: NoiseSchedule,
                  transform: PredictionTransform, sampler: Sampler,
                  guidance_scale: float = 0.0, clip_denoised: bool = False,
-                 timestep_spacing: str = "linear", device: DeviceLike = None):
+                 timestep_spacing: str = "linear", device: DeviceLike = None,
+                 autoencoder=None):
         self.device = resolve_device(device)
+        self.autoencoder = autoencoder
         self.model_fn = model_fn
         self.schedule = schedule.to(self.device)
         self.transform = transform
@@ -235,7 +241,11 @@ class DiffusionSampler:
                          inpaint_reference: Optional[torch.Tensor] = None,
                          inpaint_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Run the trajectory; returns samples [N, R, R, C] clipped to [-1, 1],
-        or [N, T, R, R, C] with a `sequence_length`.
+        or [N, T, R, R, C] with a `sequence_length`. With a codec, R and C
+        are the pixels' (the trajectory runs at R / its downscale factor in
+        its latent channels) and the result is decoded; inpainting's reference
+        is encoded (its posterior mean) and the mask resized to the latent
+        grid.
 
         Every random draw comes from `generator`: a ``torch.Generator``
         (default: seed 42 on the sampler's device) or a `NoiseSource`.
@@ -248,12 +258,19 @@ class DiffusionSampler:
         if generator is None:
             generator = make_generator(42, dev)
         noise = generator if isinstance(generator, NoiseSource) else NoiseSource(generator)
+        codec = self.autoencoder
+        if codec is not None:
+            resolution = resolution // codec.downscale_factor
+            channels = codec.latent_channels
         if sequence_length is not None:
             shape = (num_samples, sequence_length, resolution, resolution, channels)
         else:
             shape = (num_samples, resolution, resolution, channels)
         inpaint = inpaint_reference is not None
         if inpaint:
+            if codec is not None:
+                inpaint_reference = codec.encode(torch.as_tensor(inpaint_reference).to(
+                    dev, torch.float32))
             mask, known = self._inpaint_inputs(inpaint_reference, inpaint_mask, shape)
         if init_samples is None:
             x = noise.normal(shape) * self.schedule.max_noise_std()
@@ -277,6 +294,8 @@ class DiffusionSampler:
         x0, _ = denoise(x, steps[-1])
         if inpaint:
             x0 = mask * x0 + (1.0 - mask) * known
+        if codec is not None:
+            x0 = codec.decode(x0)
         return clip_images(x0)
 
     generate_images = generate_samples

@@ -18,6 +18,10 @@ decay divided by k), ``--numerics_cadence``, ``--loss_ring`` and
 ``--gate_counter`` watch the run's health, ``--val_every`` samples a
 validation grid from the EMA params between chunks of the fit and
 ``--profile_dir`` writes a torch.profiler trace of a few steps.
+``--autoencoder kl_vae|sd_vae`` trains in a codec's latent space (``sd_vae``
+with ``--autoencoder_opts '{"npz": "sd_vae.npz"}'`` loads converted weights;
+without, both codecs take random weights from ``{"seed": N}``); serve such a
+run with ``from_checkpoint(checkpoint_dir, autoencoder=SDVAE.from_npz(...))``.
 
 Only what is ported is accepted; any other flag of ``train.py`` is refused
 (ROADMAP.md names the items that port them).
@@ -39,10 +43,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="flaxdiff_tpu_torch trainer")
     p.add_argument("--dataset", default="synthetic", choices=["synthetic"])
     p.add_argument("--image_size", type=int, default=64)
+    p.add_argument("--num_frames", type=int, default=0,
+                   help="refused above 0: the video sources are ROADMAP.md A9's rest")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--architecture", default="unet",
                    help="registry name, e.g. unet, simple_dit+hilbert")
     p.add_argument("--model_config", default="{}", help="JSON kwargs for the model constructor")
+    p.add_argument("--autoencoder", default=None,
+                   choices=["identity", "kl_vae", "sd_vae", "stable_diffusion"],
+                   help="latent-diffusion codec: the prior trains in its latent space and "
+                        "validation decodes (stable_diffusion is refused: ROADMAP.md A9's rest)")
+    p.add_argument("--autoencoder_opts", default="{}",
+                   help='JSON codec opts. sd_vae: {"npz": "sd_vae.npz"} loads converted '
+                        "weights (scripts/convert_sd_vae_weights.py); kl_vae / sd_vae "
+                        'without weights take random ones from {"seed": N}')
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--schedule", default="cosine")
     p.add_argument("--timesteps", type=int, default=1000)
@@ -126,6 +140,13 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     if args.anomaly_action != "warn":
         raise SystemExit(f"--anomaly_action {args.anomaly_action}: the anomaly detector's "
                          "actions are ROADMAP.md A14; only warn is ported")
+    if args.num_frames:
+        raise SystemExit(f"--num_frames {args.num_frames}: the video and audio-video sources "
+                         "read clips with OpenCV and ffmpeg (ROADMAP.md A9's rest)")
+    if args.autoencoder == "stable_diffusion":
+        raise SystemExit("--autoencoder stable_diffusion wraps diffusers and downloads SD's VAE "
+                         "weights (ROADMAP.md A9's rest); use --autoencoder sd_vae with "
+                         "--autoencoder_opts '{\"npz\": ...}' for converted weights")
     if any(filter(None, args.val_metrics.split(","))):
         raise SystemExit(f"--val_metrics {args.val_metrics}: validation metrics are "
                          "ROADMAP.md A10")
@@ -151,6 +172,7 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
     from .inference.pipeline import HASH_TABLE_FILENAME, save_pipeline_config
     from .inference.registry import build_model
     from .inputs import ConditionalInputConfig, DiffusionInputConfig, HashTextEncoder
+    from .models import build_autoencoder
     from .predictors import get_transform
     from .samplers import SAMPLER_REGISTRY
     from .schedulers import get_schedule
@@ -163,6 +185,18 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
     _refuse_unported(args)
     device = resolve_device(args.device)
     os.makedirs(args.checkpoint_dir, exist_ok=True)
+
+    autoencoder = None
+    if args.autoencoder:
+        autoencoder = build_autoencoder(args.autoencoder, device=device,
+                                        **json.loads(args.autoencoder_opts))
+        if args.image_size % autoencoder.downscale_factor:
+            raise SystemExit(
+                f"--image_size {args.image_size} is not divisible by the {autoencoder.name} "
+                f"codec's downscale factor {autoencoder.downscale_factor}; the encoder would "
+                "produce ceil-sized latents that disagree with the prior's sample shape")
+        print(f"latent diffusion via {autoencoder.name}: {autoencoder.downscale_factor}x "
+              f"downscale, {autoencoder.latent_channels} latent channels")
 
     encoder = None
     if args.text_encoder == "hash":
@@ -178,6 +212,9 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
 
     model_kwargs = json.loads(args.model_config)
     model_kwargs.setdefault("dtype", args.dtype)
+    if autoencoder is not None:
+        model_kwargs.setdefault("output_channels", autoencoder.latent_channels)
+        model_kwargs.setdefault("in_channels", autoencoder.latent_channels)
     if encoder is not None:
         model_kwargs.setdefault("context_dim", encoder.features)
     torch.manual_seed(args.seed)          # the modules' own initializers
@@ -208,7 +245,8 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
                       numerics_cadence=args.numerics_cadence, loss_ring=args.loss_ring,
                       gate_counter=args.gate_counter, flat_params=args.flat_params,
                       profile_dir=args.profile_dir),
-        null_cond=null_cond, device=device, checkpointer=ckpt, policy=policy)
+        null_cond=null_cond, device=device, checkpointer=ckpt, policy=policy,
+        autoencoder=autoencoder)
     start = 0
     if ckpt.latest_step() is not None:
         start = trainer.restore_checkpoint()
@@ -220,7 +258,8 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
         "schedule": {"name": args.schedule, "timesteps": args.timesteps},
         "predictor": args.predictor,
         "input_config": input_config.serialize() if conditions else None,
-        "autoencoder": None,
+        "autoencoder": ({"name": args.autoencoder, **autoencoder.serialize()}
+                        if autoencoder is not None else None),
         "flat_params": args.flat_params,
     })
 
@@ -242,7 +281,7 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
             ValidationConfig(num_samples=args.val_samples, diffusion_steps=args.val_steps,
                              guidance_scale=args.val_guidance if encoder else 0.0,
                              resolution=args.image_size),
-            sampler=SAMPLER_REGISTRY[args.sampler](), device=device)
+            sampler=SAMPLER_REGISTRY[args.sampler](), device=device, autoencoder=autoencoder)
 
         def validate(step: int) -> Dict[str, Any]:
             """A grid from the EMA params for the prompt "a photo"

@@ -1,13 +1,15 @@
 """The diffusion train step (counterpart of ``flaxdiff_tpu/trainer/train_step.py``).
 
-normalize -> CFG dropout splice -> forward diffusion -> weighted MSE in f32
+normalize -> the codec's encode (latent diffusion, the codec frozen) -> CFG
+dropout splice -> forward diffusion -> weighted MSE in f32
 -> gradients (of the scaled loss under a float16 loss scale) -> the
 optimizer chain -> the loss scale's restore -> EMA -> the loss ring -> the
 non-finite gate (elementwise, or the monitored step's global verdict) and
 its counter. The JAX step draws its noise, timesteps and dropout mask from a
 key folded with the step; here the step takes them as arguments, so a test
 can hand both the same draws and ``DiffusionTrainer`` draws them from a
-``torch.Generator``.
+``torch.Generator``. With a codec the posterior sample's noise is one more
+such draw (the JAX step's ``vae_key``, the fourth of the step's keys).
 
 With a ``NumericsConfig`` the step is the monitored twin: it also returns
 the health aux (``telemetry/numerics.py``).
@@ -41,18 +43,25 @@ class TrainStepConfig:
 def make_loss_builder(schedule: NoiseSchedule, transform: PredictionTransform,
                       config: TrainStepConfig = TrainStepConfig(),
                       null_cond: Optional[torch.Tensor] = None,
-                      policy: Optional[Policy] = None) -> Callable:
-    """``build(batch, noise, t, uncond_mask) -> loss_fn(model)``, as
-    ``_make_loss_builder`` (train_step.py:45-109) but with the draws given.
-    Batch: {"sample": [B, H, W, C] uint8 or float, "cond": optional [B, L, D]
-    text context}; null_cond: the [1, L, D] null context CFG dropout puts in
-    place of a dropped sample's; `policy`: the network's input goes in its
-    compute dtype (the model casts its parameters to its own dtype)."""
+                      policy: Optional[Policy] = None, autoencoder=None) -> Callable:
+    """``build(batch, noise, t, uncond_mask, vae_noise) -> loss_fn(model)``,
+    as ``_make_loss_builder`` (train_step.py:45-109) but with the draws given.
+    Batch: {"sample": [B, (T,) H, W, C] uint8 or float, "cond": optional
+    [B, L, D] text context}; null_cond: the [1, L, D] null context CFG dropout
+    puts in place of a dropped sample's; `policy`: the network's input goes in
+    its compute dtype (the model casts its parameters to its own dtype).
+    `autoencoder`: the normalized sample is encoded without gradients, the
+    posterior sampled with `vae_noise` (of the posterior mean's shape; its
+    mean without), and `noise` has the latent's shape."""
 
     def build(batch: Batch, noise: torch.Tensor, t: torch.Tensor,
-              uncond_mask: Optional[torch.Tensor] = None):
+              uncond_mask: Optional[torch.Tensor] = None,
+              vae_noise: Optional[torch.Tensor] = None):
         x0 = batch["sample"]
         x0 = normalize_images(x0) if config.normalize else x0.float()
+        if autoencoder is not None:
+            with torch.no_grad():
+                x0 = autoencoder.encode(x0, vae_noise)
         cond = batch.get("cond")
         if cond is not None and null_cond is not None and config.uncond_prob > 0:
             if uncond_mask is None:
@@ -81,8 +90,8 @@ def make_train_step(schedule: NoiseSchedule, transform: PredictionTransform,
                     config: TrainStepConfig = TrainStepConfig(),
                     null_cond: Optional[torch.Tensor] = None,
                     gate_nonfinite: bool = False, policy: Optional[Policy] = None,
-                    numerics: Optional[NumericsConfig] = None) -> Callable:
-    """``step(state, batch, noise, t, uncond_mask) -> loss`` (with
+                    numerics: Optional[NumericsConfig] = None, autoencoder=None) -> Callable:
+    """``step(state, batch, noise, t, uncond_mask, vae_noise) -> loss`` (with
     `numerics`: ``(loss, aux)``): one update of ``state`` in place
     (train_step.py:242-301).
 
@@ -96,11 +105,12 @@ def make_train_step(schedule: NoiseSchedule, transform: PredictionTransform,
     ``gate_nonfinite`` or ``numerics.skip_nonfinite``, on one verdict that
     every gradient and the loss are finite (``_nonfinite_gate``), and its aux
     then has ``skipped``."""
-    build = make_loss_builder(schedule, transform, config, null_cond, policy)
+    build = make_loss_builder(schedule, transform, config, null_cond, policy, autoencoder)
 
     def train_step(state: TrainState, batch: Batch, noise: torch.Tensor, t: torch.Tensor,
-                   uncond_mask: Optional[torch.Tensor] = None):
-        loss_fn = build(batch, noise, t, uncond_mask)
+                   uncond_mask: Optional[torch.Tensor] = None,
+                   vae_noise: Optional[torch.Tensor] = None):
+        loss_fn = build(batch, noise, t, uncond_mask, vae_noise)
         scale, finite = state.dynamic_scale, None
         if scale is not None:
             scaled = loss_fn(state.model) * scale.scale

@@ -1,7 +1,8 @@
 """The diffusion trainer (counterpart of the core of
 ``flaxdiff_tpu/trainer/trainer.py``): it owns the train state and a seeded
 ``torch.Generator`` on the device, draws each step's noise, timesteps and
-CFG-dropout mask there, runs the step, and drives the fit loop with
+CFG-dropout mask there (and, for latent diffusion, the codec's posterior
+noise), runs the step, and drives the fit loop with
 checkpoints, resume, preemption, abnormal-loss rollback, the float16 loss
 scale, the monitored step at the numerics cadence, the loss ring, the gate
 counter and a profiler window.
@@ -91,15 +92,19 @@ class DiffusionTrainer:
                  transform: PredictionTransform, config: TrainerConfig = TrainerConfig(),
                  null_cond: Optional[torch.Tensor] = None, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None,
-                 checkpointer: Optional[Checkpointer] = None, policy: Optional[Policy] = None):
+                 checkpointer: Optional[Checkpointer] = None, policy: Optional[Policy] = None,
+                 autoencoder=None):
         """`policy`: the mixed-precision policy; a float16 compute dtype
-        keeps a dynamic loss scale in the state (trainer.py:335-339)."""
+        keeps a dynamic loss scale in the state (trainer.py:335-339).
+        `autoencoder`: latent diffusion, the codec frozen and moved to the
+        trainer's device; batches stay pixels and are encoded in the step."""
         if config.gate_counter and not config.gate_nonfinite:
             raise ValueError("gate_counter counts the in-graph gate's activations — it requires "
                              "gate_nonfinite")
         self.device = resolve_device(device)
         self.config = config
         self.schedule = schedule.to(self.device)
+        self.autoencoder = None if autoencoder is None else autoencoder.to(self.device)
         scale = None
         if policy is not None and policy.compute_dtype == torch.float16:
             scale = DynamicScale(device=self.device)
@@ -117,27 +122,40 @@ class DiffusionTrainer:
                                    normalize=config.normalize,
                                    weighted_loss=config.weighted_loss)
         self._step = make_train_step(self.schedule, transform, step_cfg, null_cond=null,
-                                     gate_nonfinite=config.gate_nonfinite, policy=policy)
+                                     gate_nonfinite=config.gate_nonfinite, policy=policy,
+                                     autoencoder=self.autoencoder)
         self._step_monitored = None
         if config.numerics_cadence > 0:
             self._step_monitored = make_train_step(
                 self.schedule, transform, step_cfg, null_cond=null,
                 gate_nonfinite=config.gate_nonfinite, policy=policy,
-                numerics=NumericsConfig(per_module=not config.flat_params))
+                numerics=NumericsConfig(per_module=not config.flat_params),
+                autoencoder=self.autoencoder)
 
     def _run(self, step, batch: Mapping[str, "torch.Tensor | np.ndarray"]):
         batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                  for k, v in batch.items() if k in ("sample", "cond") and v is not None}
         x = batch["sample"]
         gen, dev = self.generator, self.device
-        noise = torch.randn(x.shape, generator=gen, device=dev)
+        shape, vae_shape = x.shape, None
+        if self.autoencoder is not None:
+            # the latent's shape (inputs/config.py's ceil division), and the
+            # posterior mean's: a clip's frames folded into its batch
+            d, c = self.autoencoder.downscale_factor, self.autoencoder.latent_channels
+            *lead, h, w, _ = x.shape
+            shape = (*lead, -(-h // d), -(-w // d), c)
+            vae_shape = (math.prod(lead), *shape[-3:])
+        noise = torch.randn(shape, generator=gen, device=dev)
         t = self.schedule.sample_timesteps(gen, x.shape[0])
         uncond_mask = torch.rand(x.shape[0], generator=gen, device=dev) < self.config.uncond_prob
-        return step(self.state, batch, noise, t, uncond_mask)
+        vae_noise = None if vae_shape is None else torch.randn(vae_shape, generator=gen,
+                                                               device=dev)
+        return step(self.state, batch, noise, t, uncond_mask, vae_noise)
 
     def train_step(self, batch: Mapping[str, "torch.Tensor | np.ndarray"]) -> torch.Tensor:
-        """One step on {"sample": [B, H, W, C], "cond": optional [B, L, D]};
-        returns the loss as a tensor on the device (no host sync)."""
+        """One step on {"sample": [B, (T,) H, W, C], "cond": optional
+        [B, L, D]}; returns the loss as a tensor on the device (no host
+        sync)."""
         return self._run(self._step, batch)
 
     def train_step_monitored(self, batch: Mapping[str, "torch.Tensor | np.ndarray"]):

@@ -31,11 +31,13 @@ class ValidationConfig:
 
 class Validator:
     """Generates samples from given params of `model` (the EMA copy, from
-    ``DiffusionTrainer.get_params()``) through the port's sampler."""
+    ``DiffusionTrainer.get_params()``) through the port's sampler; with a
+    codec the grid is decoded (``resolution`` and ``channels`` are the
+    pixels')."""
 
     def __init__(self, model: torch.nn.Module, schedule, transform,
                  config: Optional[ValidationConfig] = None, sampler: Optional[Sampler] = None,
-                 device=None):
+                 device=None, autoencoder=None):
         self.config = config if config is not None else ValidationConfig()
         self.model = model
         self._params: Mapping[str, torch.Tensor] = {}
@@ -44,7 +46,7 @@ class Validator:
                                                                    (x, t, cond)),
             schedule=schedule, transform=transform,
             sampler=sampler if sampler is not None else EulerAncestralSampler(),
-            guidance_scale=self.config.guidance_scale, device=device)
+            guidance_scale=self.config.guidance_scale, device=device, autoencoder=autoencoder)
 
     def run(self, params: Mapping[str, torch.Tensor],
             conditioning: Optional[torch.Tensor] = None,

@@ -16,8 +16,9 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-# the emb_features of the repo's configs, tests and benchmarks
-WIDTHS = (16, 32, 64, 128, 256, 512, 768, 1024)
+# the emb_features of the repo's configs, tests and benchmarks (1280: the video
+# UNet at ModelScope text-to-video's widths)
+WIDTHS = (16, 32, 64, 128, 256, 512, 768, 1024, 1280)
 OUT = os.path.join(os.path.dirname(__file__), os.pardir, "flaxdiff_tpu_torch", "models",
                    "fourier_freqs.npz")
 

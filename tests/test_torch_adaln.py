@@ -22,6 +22,7 @@ from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, GateResidualFn, LNModulateF
                                     ln_modulate_bwd, ln_modulate_fwd, reset_launch_counts)
 from flaxdiff_tpu_torch.ops.fused_adaln import (ADALN_ROWS, gate_residual_bwd_plain,
                                                 ln_modulate_bwd_plain, ln_modulate_finalize)
+from test_torch_unet import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 on both sides: summation order and the libraries' rsqrt, a few ulps
 TOL = 1e-5

@@ -35,7 +35,7 @@ from flaxdiff_tpu.trainer.train_step import TrainStepConfig as JaxStepConfig
 from flaxdiff_tpu.trainer.train_step import _make_loss_builder as jax_loss_builder
 from flaxdiff_tpu.trainer.train_step import make_train_step as jax_make_train_step
 from test_torch_train import assert_close_to_max
-from test_torch_unet import randomize
+from test_torch_unet import randomize, one_torch_thread  # noqa: F401 (autouse)
 
 from flaxdiff_tpu_torch import convert
 from flaxdiff_tpu_torch.models import AdaLNZero, SimpleDiT

@@ -33,6 +33,7 @@ from flaxdiff_tpu_torch.trainer import (AdamW, Checkpointer, DiffusionTrainer, T
                                         clip_by_global_norm, lamb, make_train_step,
                                         warmup_cosine_decay_schedule)
 from flaxdiff_tpu_torch.trainer import trainer as trainer_module
+from test_torch_unet import one_torch_thread  # noqa: F401 (autouse)
 
 CTX_LEN, CTX_DIM, BATCH, RES = 7, 12, 2, 16
 

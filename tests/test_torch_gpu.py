@@ -385,6 +385,34 @@ def test_flash_wide_kernels_match_plain(cuda, dtype, lq, lk, d):
         _close(got, want, dtype)
 
 
+# fault C5: batch * heads past gridDim.y's 65535, as a video UNet's temporal
+# attention runs it (B*H*W sequences of 16 frames): the JAX default UNet3D's
+# level 0 at 64x64, batch 8 (131072 at head dim 32), and 65600 at 320 (the
+# wide kernels)
+C5_CASES = [(32768, 4, 32), (16400, 4, 320)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,d", C5_CASES, ids=["bh131072-d32", "bh65600-d320"])
+def test_flash_kernels_take_any_batch_heads(cuda, dtype, b, h, d):
+    """Forward, dq and dk/dv over 16 frames at batch * heads above 65535
+    against the plain versions, under the limits of the cases above."""
+    wide = d > 256
+    fwd, bwd_dq, bwd_dkv = ((flash_fwd_wide, flash_bwd_dq_wide, flash_bwd_dkv_wide) if wide
+                            else (flash_fwd, flash_bwd_dq, flash_bwd_dkv))
+    q, k, v, do = (_randn(cuda, b, 16, h, d, dtype=dtype, seed=s) for s in (1, 2, 3, 4))
+    out, lse = fwd(q, k, v)
+    ref, ref_lse = flash_fwd_plain(q, k, v)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    delta = flash_delta(out, do)
+    _close(bwd_dq(q, k, v, do, lse, delta), flash_bwd_dq_plain(q, k, v, do, lse, delta), dtype)
+    for got, want in zip(bwd_dkv(q, k, v, do, lse, delta),
+                         flash_bwd_dkv_plain(q, k, v, do, lse, delta)):
+        _close(got, want, dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [320, 384, 640])
 def test_flash_wide_lse_is_bit_equal_across_column_chunks(cuda, dtype, d):

@@ -8,6 +8,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from test_torch_unet import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "flaxdiff_tpu_torch"

@@ -25,7 +25,7 @@ from flaxdiff_tpu.inputs import HashTextEncoder as JaxHash
 from flaxdiff_tpu.models.unet import Unet as JaxUnet
 from flaxdiff_tpu.trainer.checkpoints import Checkpointer as JaxCheckpointer
 from flaxdiff_tpu.trainer.train_state import TrainState as JaxTrainState
-from test_torch_unet import START, TINY, randomize
+from test_torch_unet import START, TINY, randomize, one_torch_thread  # noqa: F401 (autouse)
 
 from flaxdiff_tpu_torch import train
 from flaxdiff_tpu_torch.inference import DiffusionInferencePipeline, build_model
@@ -90,8 +90,8 @@ def test_pipeline_config_reads_in_both_packages(tmp_path):
 
 def test_registry_builds_what_is_ported_and_names_the_rest():
     """Every 2D family builds (``+2d`` reaches the hybrid SSM DiT and, as in
-    JAX, is dropped with a warning by a model without it); ``unet_3d`` names
-    its ROADMAP item."""
+    JAX, is dropped with a warning by a model without it); ``unet_3d``, once
+    refused naming ROADMAP.md A9, builds the video UNet."""
     dit = build_model("simple_dit+hilbert", device="cpu", patch_size=2, emb_features=16,
                       num_layers=1, num_heads=1)
     assert dit.scan_order == "hilbert"
@@ -104,8 +104,9 @@ def test_registry_builds_what_is_ported_and_names_the_rest():
     ssm = build_model("hybrid_ssm+zigzag+2d", device="cpu", patch_size=2, emb_features=16,
                       num_layers=2, num_heads=2, ssm_state_dim=4)
     assert ssm.scan_order == "zigzag" and ssm.ssm_block_0.spatial_fusion is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-        build_model("unet_3d", device="cpu")
+    video = build_model("unet_3d", device="cpu", emb_features=16, feature_depths=(8,),
+                        attention_levels=(True,), num_res_blocks=1, heads=2, norm_groups=4)
+    assert type(video).__name__ == "UNet3D" and video.mid.use_attention
     with pytest.raises(ValueError, match="common.py:119"):
         build_model("unet", device="cpu", feature_depths=(8,), norm_groups=2, conv_type="w_conv")
 
@@ -136,7 +137,7 @@ def test_the_port_knows_each_jax_models_keys():
     dataclass's (flax's parent and name aside)."""
     from flaxdiff_tpu.inference.registry import MODEL_REGISTRY as JAX_REGISTRY
     from flaxdiff_tpu_torch.inference.registry import JAX_FIELDS, MODEL_REGISTRY
-    assert set(JAX_FIELDS) == set(MODEL_REGISTRY) == set(JAX_REGISTRY) - {"unet_3d"}
+    assert set(JAX_FIELDS) == set(MODEL_REGISTRY) == set(JAX_REGISTRY)
     for name, fields in JAX_FIELDS.items():
         jax_fields = [f for f in JAX_REGISTRY[name].__dataclass_fields__
                       if f not in ("parent", "name")]

@@ -34,6 +34,7 @@ from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, dot_product_attention, flas
 from flaxdiff_tpu_torch.ops.attention import eager_attention
 from flaxdiff_tpu_torch.ops.flash_attention import flash_fwd_plain
 from flaxdiff_tpu_torch.ops.fused_norm import rows_per_block
+from test_torch_unet import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 on both sides: the two differ only in summation order and in the
 # libraries' exp/tanh/rsqrt, a few ulps each, far below 1e-5 at these sizes

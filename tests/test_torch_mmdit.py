@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from flaxdiff_tpu.models import mmdit as jmmdit
-from test_torch_unet import randomize
+from test_torch_unet import randomize, one_torch_thread  # noqa: F401 (autouse)
 from test_torch_unet_variants import _x, flax_leaves, forward_and_grads, load_port
 from test_torch_uvit import INPUTS, TEXT, VIT
 

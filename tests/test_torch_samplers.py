@@ -20,6 +20,7 @@ from flaxdiff_tpu.samplers.common import get_timestep_spacing as jax_spacing
 from flaxdiff_tpu.schedulers.common import bcast_right as jbcast
 from flaxdiff_tpu.utils import RngSeq
 from test_samplers import MU, VE_SAMPLERS, VP_SAMPLERS, make_delta_model
+from test_torch_unet import one_torch_thread  # noqa: F401 (autouse)
 
 from flaxdiff_tpu_torch import predictors, samplers, schedulers
 from flaxdiff_tpu_torch.samplers import DiffusionSampler, GivenNoise, get_timestep_spacing

@@ -20,6 +20,7 @@ import torch
 from flaxdiff_tpu.models import ssm as jssm
 from test_torch_unet_variants import _x, flax_leaves, forward_and_grads, load_port
 from test_torch_uvit import INPUTS, TEXT, VIT
+from test_torch_unet import one_torch_thread  # noqa: F401 (autouse)
 
 from flaxdiff_tpu_torch.models import (HybridSSMAttentionDiT, S5Layer, SpatialFusionConv,
                                        build_block_pattern)

@@ -28,7 +28,7 @@ from flaxdiff_tpu.trainer.train_state import TrainState as JaxTrainState
 from flaxdiff_tpu.trainer.train_step import TrainStepConfig as JaxStepConfig
 from flaxdiff_tpu.trainer.train_step import _make_loss_builder as jax_loss_builder
 from flaxdiff_tpu.trainer.train_step import make_train_step as jax_make_train_step
-from test_torch_unet import TINY, randomize
+from test_torch_unet import TINY, randomize, one_torch_thread  # noqa: F401 (autouse)
 
 from flaxdiff_tpu_torch import convert, predictors, schedulers, utils
 from flaxdiff_tpu_torch.models import Unet
@@ -212,16 +212,22 @@ BATCH, RES, CTX_LEN, CTX_DIM = 3, 16, 77, 12
 SEED = 18  # of the JAX state's rng: each of its first 3 steps drops one sample's context
 
 
-def jax_draws(state, x_shape, schedule=JaxCosine(timesteps=1000)):
+def jax_draw_arrays(state, x_shape, schedule=JaxCosine(timesteps=1000)):
     """The JAX step's own draws (train_step.py:53-84): fold the step into
     the state's key, split in four, then bernoulli, the schedule's
-    timesteps and normal."""
+    timesteps and normal; traceable, so a test may draw inside the jitted
+    reference step."""
     rng = jax.random.fold_in(state.rng, state.step)
     noise_key, t_key, uncond_key, _ = jax.random.split(rng, 4)
     mask = jax.random.bernoulli(uncond_key, 0.12, (x_shape[0],))
     t = schedule.sample_timesteps(t_key, x_shape[0])
     noise = jax.random.normal(noise_key, x_shape, dtype=jnp.float32)
-    return tuple(torch.from_numpy(np.array(a)) for a in (noise, t, mask))
+    return noise, t, mask
+
+
+def jax_draws(state, x_shape, schedule=JaxCosine(timesteps=1000)):
+    """``jax_draw_arrays`` as torch tensors."""
+    return tuple(torch.from_numpy(np.array(a)) for a in jax_draw_arrays(state, x_shape, schedule))
 
 
 def make_batch(rng, normalize):
@@ -430,7 +436,7 @@ def test_train_state_from_flax_continues_the_jax_run(jax_trainer):
 
 # --- the pieces of the step ---------------------------------------------------------
 
-@pytest.mark.parametrize("features", [16, 32, 64, 128, 256, 512, 768, 1024])
+@pytest.mark.parametrize("features", [16, 32, 64, 128, 256, 512, 768, 1024, 1280])
 def test_fourier_table_is_bit_exact_with_jax(features):
     ref = np.asarray(jax.random.normal(jax.random.PRNGKey(42), (features // 2,)) * 16.0)
     from flaxdiff_tpu_torch.models.common import FourierEmbedding

@@ -37,7 +37,7 @@ from flaxdiff_tpu.trainer.train_step import TrainStepConfig as JaxStepConfig
 from flaxdiff_tpu.trainer.train_step import make_train_step as jax_make_train_step
 from test_torch_fit import _Leaves, _JaxDenoiser
 from test_torch_train import jax_draws
-from test_torch_unet import TINY, randomize
+from test_torch_unet import TINY, randomize, one_torch_thread  # noqa: F401 (autouse)
 
 from flaxdiff_tpu_torch import convert, train
 from flaxdiff_tpu_torch.inputs import ConditionalInputConfig, DiffusionInputConfig, HashTextEncoder

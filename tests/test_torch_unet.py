@@ -39,6 +39,18 @@ from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule, KarrasVENoiseSche
 MODULE_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's CPU tests (every test module of
+    the port takes this fixture): their shapes are tiny, and under a
+    parallel test run torch's thread pool would only contend with the other
+    workers (a tiny UNet3D step took 4 s on 8 threads against 0.1 s on one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def randomize(params, seed):
     """Seeded numpy values for every flax leaf: kernels N(0, 1/fan_in),
     norm scales around 1, biases small."""

@@ -17,7 +17,7 @@ from flaxdiff_tpu.models import common as jcommon
 from flaxdiff_tpu.models.unet import Unet as JaxUnet
 from flaxdiff_tpu.typing import ACTIVATION_MAP as JAX_ACTIVATIONS
 from test_torch_dit import assert_grads_close
-from test_torch_unet import randomize
+from test_torch_unet import randomize, one_torch_thread  # noqa: F401 (autouse)
 
 from flaxdiff_tpu_torch import convert
 from flaxdiff_tpu_torch.models import ConvLayer, ResidualBlock, SimpleDiT, TransformerBlock, Unet

@@ -10,6 +10,7 @@ from flaxdiff_tpu.models.uvit import SimpleUDiT as JaxUDiT
 from flaxdiff_tpu.models.uvit import UViT as JaxUViT
 from flaxdiff_tpu.typing import ACTIVATION_MAP as JAX_ACTIVATIONS
 from test_torch_unet_variants import _x, flax_leaves, forward_and_grads, load_port
+from test_torch_unet import one_torch_thread  # noqa: F401 (autouse)
 
 from flaxdiff_tpu_torch.models import SimpleDiT, SimpleMMDiT, SimpleUDiT, UViT
 
