@@ -137,6 +137,28 @@ Phases; any failure exits non-zero and prints no result line.
      Phase 2 also holds the flash kernels at phase 13's attention shapes and
      at batch x heads above 65535 (fault C5: 131072 at head dim 32, 65600 at
      320).
+  14. The training-free caches and the quality metrics. (a) f32, card
+     against CPU: DiT-B/2 (phase 6's weights) under record, record_ref,
+     reuse and spatial (split 2, keep 1/8: 32 of 256 tokens) within the
+     forward limit, the selected tokens equal (the k-th score gap printed),
+     DDIM-10 + CFG under CachePlan(refresh_every=3) and the composed default
+     within 1e-2; in bf16 record bit-equal to the plain forward and a
+     refresh_every=1 request to the uncached one; PSNR and SSIM of 16 pairs
+     at 256x256 within 1e-4 relative; InceptionV3's features of 4 images
+     grown from 256x256 and 4 shrunk from 512x512 within 1e-4 x max|ref|.
+     (b) bf16 DDIM-50 + CFG 3.0 requests of DiT-B/2 at batch 4 under every
+     plan of docs/CACHING.md's table, and of SimpleUDiT and SimpleMMDiT
+     (phase 11's) uncached and under the composed default: wall, ms per
+     call, device busy time (profiler sum) and idle share, the launches of
+     flash, LayerNorm + modulate and gated residual exactly as the plan
+     implies, the trajectory PSNR against the uncached request; the
+     pipeline's diffcache counters; a cached and a composed trajectory
+     under sync debug mode "error". (c) InceptionV3 at 299x299 for a batch
+     of 32, FID of 64 noised against 64 real images with sqrtm's share, and
+     the CLI on phase 10's UNet with --val_every 5 --val_metrics
+     psnr,ssim,fid (10 steps): finite val/psnr, val/ssim and val/fid.
+     Phase 2 also holds flash, LayerNorm + modulate and the gated residual
+     at the spatial step's 32 tokens.
 The lines before the last are the kernels' JSON record and the card's
 name and power limit; the last is {"ok": true, "device": {...}}. With
 --record, the full record (every case, the model checks, both paths and
@@ -246,7 +268,10 @@ T2V_WIDE_CASES = [(T2V_FRAMES, 64, 64, 4, 320, BF16), (T2V_FRAMES, 64, T2V_TEXT,
 # batch 8 (131072 at head dim 32), and 65600 at 320
 C5_FLASH_CASES = [(32768, 16, 16, 4, 32, BF16)]
 C5_WIDE_CASES = [(16400, 16, 16, 4, 320, BF16)]
-FLASH_FWD_CASES += T2V_FLASH_CASES + C5_FLASH_CASES
+# phase 14's spatial step: DiT-B/2's deep trunk on the 32 selected tokens of a
+# CFG call at batch 4
+CACHE_FLASH_CASES = [(2 * DIT_SERVE_BATCH, 32, 32, DIT_HEADS, 64, BF16)]
+FLASH_FWD_CASES += T2V_FLASH_CASES + C5_FLASH_CASES + CACHE_FLASH_CASES
 FLASH_BWD_CASES += T2V_FLASH_CASES + C5_FLASH_CASES
 WIDE_FWD_CASES += T2V_WIDE_CASES + C5_WIDE_CASES
 WIDE_BWD_CASES += T2V_WIDE_CASES + C5_WIDE_CASES
@@ -288,12 +313,14 @@ LN_MOD_CASES = [(_SB, DIT_TOKENS, DIT_WIDTH, BF16, 1), (_SB, DIT_TOKENS, DIT_WID
 # one it is not (1280, the generic kernel), at the serving batch
 LN_MOD_CASES += [(_SB, DIT_TOKENS, c, BF16, 2) for c in (384, 1024, 1152, 1280)]
 LN_MOD_CASES += [(_SB, DIT_TOKENS, DIT_WIDTH, F16, 2)]
+# phase 14's spatial step: the deep blocks on 32 of the 256 tokens
+LN_MOD_CASES += [(_SB, 32, DIT_WIDTH, BF16, 1)]
 LN_MOD_BWD_CASES = [(_TB, DIT_TOKENS, DIT_WIDTH, BF16, 1), (_TB, DIT_TOKENS, DIT_WIDTH, BF16, 2),
                     (_SB, DIT_TOKENS, DIT_WIDTH, F32, 2), (3, TEXT_LEN, DIT_WIDTH, BF16, 2),
                     (_TB, DIT_TOKENS, DIT_WIDTH, F16, 2)]
 GATE_RES_CASES = [(_SB, DIT_TOKENS, DIT_WIDTH, BF16), (_TB, DIT_TOKENS, DIT_WIDTH, BF16),
                   (_SB, DIT_TOKENS, DIT_WIDTH, F32), (3, TEXT_LEN, DIT_WIDTH, BF16),
-                  (_TB, DIT_TOKENS, DIT_WIDTH, F16)]
+                  (_TB, DIT_TOKENS, DIT_WIDTH, F16), (_SB, 32, DIT_WIDTH, BF16)]
 GATE_RES_BWD_CASES = [(_TB, DIT_TOKENS, DIT_WIDTH, BF16), (_SB, DIT_TOKENS, DIT_WIDTH, F32),
                       (3, TEXT_LEN, DIT_WIDTH, BF16), (_TB, DIT_TOKENS, DIT_WIDTH, F16)]
 
@@ -2648,6 +2675,513 @@ def t2v_paths(dev) -> dict:
     return out
 
 
+# --- phase 14: the training-free caches and the quality metrics ----------------------
+
+# 14a's spatial keep on DiT-B/2: k = round(256 / 8) = 32 tokens through the deep trunk
+CACHE_KEEP, CACHE_K = 0.125, 32
+CACHE_TRAJ_STEPS = 10
+# 14c: Inception's timed batch, FID's sample counts, the CLI's run
+INCEPTION_BATCH, FID_SAMPLES, FID_SIDE = 32, 64, 256
+CLI14_STEPS, CLI14_VAL_EVERY, CLI14_VAL_STEPS = 10, 5, 50
+# the blocks of one call of each cached family (12 DiT blocks; the U-DiT's
+# 6 downs, mid and 6 ups), its launches a block (an MMDiT block: one
+# two-view LayerNorm + modulate) and the blocks a reuse call runs for each
+# of the split's blocks (the flat trunk's shallow blocks; the U-DiT's outer
+# downs and their ups)
+CACHED_FAMILIES = {"simple_dit": (12, {"ln_mod": 2, "gate_res": 2, "flash_fwd": 1}, 1),
+                   "simple_udit": (13, {"ln_mod": 2, "gate_res": 2, "flash_fwd": 1}, 2),
+                   "simple_mmdit": (12, {"ln_mod": 1, "gate_res": 2, "flash_fwd": 1}, 1)}
+
+
+def cache_plans14() -> dict:
+    """docs/CACHING.md's table (bench.py:stage_diffcache's plans)."""
+    from flaxdiff_tpu_torch.ops.diffcache import DEFAULT_CACHE_PLAN, CachePlan
+    from flaxdiff_tpu_torch.ops.spatialcache import (DEFAULT_COMPOSED_PLAN, ComposedPlan,
+                                                     SpatialPlan)
+    edges = dict(depth_fraction=0.2, refresh_head=2, refresh_tail=1)
+    return {"off": None,
+            "conservative": CachePlan(refresh_every=2, depth_fraction=0.5),
+            "default": DEFAULT_CACHE_PLAN,
+            "aggressive": CachePlan(refresh_every=5, depth_fraction=0.2),
+            "composed_conservative": ComposedPlan(CachePlan(refresh_every=6, **edges),
+                                                  SpatialPlan(keep_fraction=0.25)),
+            "composed_default": DEFAULT_COMPOSED_PLAN,
+            "composed_aggressive": ComposedPlan(CachePlan(refresh_every=24, **edges),
+                                                SpatialPlan(keep_fraction=0.125, every=3))}
+
+
+def planned_launches(key: str, model, plan, steps: int) -> dict:
+    """A request's launches as the plan implies them: every refresh and
+    spatial step and the terminal call run all of the family's blocks (a
+    spatial step's deep blocks on k tokens), a reuse step the blocks of its
+    split."""
+    from flaxdiff_tpu_torch.ops.spatialcache import CODE_REUSE, ComposedPlan, resolve_plan
+    blocks, per_block, per_split = CACHED_FAMILIES[key]
+    plan = resolve_plan(plan)
+    if plan is None:
+        full, reuse_blocks = np.ones(steps, bool), 0
+    else:
+        full = (plan.step_codes(steps) != CODE_REUSE if isinstance(plan, ComposedPlan)
+                else plan.flags(steps))
+        reuse_blocks = per_split * model.cache_split_index(plan.depth_fraction)
+    run = (int(full.sum()) + 1) * blocks + int((~full).sum()) * reuse_blocks
+    return {k: v * run for k, v in per_block.items()}
+
+
+def busy_ms(call):
+    """The device time of one call: torch.profiler's kernel durations summed
+    (one stream: they do not overlap); None when it sees no device events.
+    Device activity only: tracing the host's operators of a whole request
+    took ~15 s a request to collect."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return sum(ev.time_range.elapsed_us() for ev in events) / 1e3
+    return None
+
+
+def trajectory_psnr(out: torch.Tensor, base: torch.Tensor) -> float:
+    """docs/CACHING.md's trajectory PSNR: the cached endpoint against the
+    uncached one, before the clip, over the uncached endpoint's range."""
+    out, base = out.double(), base.double()
+    mse = float(((out - base) ** 2).mean())
+    peak = float(base.max() - base.min())
+    return math.inf if mse == 0 else 10.0 * math.log10(peak * peak / mse)
+
+
+def dit14_state() -> dict:
+    """Phase 6's DiT-B/2 weights: seed 1, the output projection at a tenth."""
+    from flaxdiff_tpu_torch.models import SimpleDiT
+    state = random_state(SimpleDiT(**DIT, device="cpu"), 1)
+    for key in ("final_proj.weight", "final_proj.bias"):
+        state[key] *= 0.1
+    return state
+
+
+def cache_card_vs_cpu(dev, state) -> dict:
+    """14a: DiT-B/2 in f32, card (kernels) against CPU (plain versions), the
+    same weights: the four cache modes at split 2 and keep 1/8, the selected
+    tokens, DDIM-10 + CFG under a timestep and a composed plan; then in bf16
+    record bit-equal to the plain forward and a refresh_every=1 request to
+    the uncached one."""
+    from flaxdiff_tpu_torch.device import make_generator
+    from flaxdiff_tpu_torch.inference import DiffusionInferencePipeline
+    from flaxdiff_tpu_torch.models import SimpleDiT
+    from flaxdiff_tpu_torch.ops import spatialcache as sc
+    from flaxdiff_tpu_torch.ops.diffcache import CachePlan, resolve_cache_fns
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
+    from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
+
+    models = []
+    for where in (dev, "cpu"):
+        m = SimpleDiT(**DIT, device=where)
+        m.load_state_dict(state)
+        models.append((where, m.eval()))
+    split = models[1][1].cache_split_index(0.2)
+    check(split == 2 and sc.spatial_k(DIT_TOKENS, CACHE_KEEP) == CACHE_K,
+          f"DiT-B/2 splits at {split}, keeps {sc.spatial_k(DIT_TOKENS, CACHE_KEEP)} tokens")
+    rng = np.random.default_rng(70)
+    # a CFG call of 2 samples: [cond; uncond] rows
+    x1 = rng.standard_normal((2, DIT_RES, DIT_RES, DIT_CH)).astype(np.float32)
+    x1 = np.concatenate([x1, x1])
+    x2 = (x1 + 0.3 * rng.standard_normal(x1.shape)).astype(np.float32)
+    t = np.array([37.5, 911.0] * 2, np.float32)
+    text = rng.standard_normal((2, TEXT_LEN, TEXT_DIM)).astype(np.float32)
+    ctx = np.concatenate([text, np.zeros_like(text)])
+    outs = []
+    for where, m in models:
+        a1, a2, at, ac = (torch.from_numpy(a).to(where) for a in (x1, x2, t, ctx))
+        kw = dict(cache_split=split)
+        with torch.inference_mode():
+            plain = m(a1, at, ac)
+            rec, taps = m(a1, at, ac, cache_mode="record", **kw)
+            rr, taps_rr, ref = m(a1, at, ac, cache_mode="record_ref", **kw)
+            check(torch.equal(rec, plain) and torch.equal(rr, plain) and torch.equal(taps_rr, taps),
+                  f"f32 record and record_ref bit-equal to the plain forward on {where}")
+            reuse = m(a2, at, ac, cache_mode="reuse", cache_taps=taps, **kw)
+            _, _, ref2 = m(a2, at, ac, cache_mode="record_ref", **kw)
+            sp, sp_taps, sp_ref = m(a2, at, ac, cache_mode="spatial", cache_taps=taps,
+                                    cache_ref=ref, cache_keep=CACHE_KEEP, **kw)
+            idx = sc.select_tokens(ref2, ref, CACHE_KEEP, "l2")
+            scores = sc.token_change_scores(ref2, ref, "l2")
+        outs.append({k: v.float().cpu() for k, v in dict(
+            record=plain, taps=taps, ref=ref, reuse=reuse, spatial=sp, spatial_taps=sp_taps,
+            spatial_ref=sp_ref, idx=idx, scores=scores).items()})
+    gpu, cpu = outs
+    ranked = torch.sort(cpu["scores"], descending=True).values
+    gap = float(ranked[CACHE_K - 1] - ranked[CACHE_K])
+    same = torch.equal(gpu["idx"], cpu["idx"])
+    res = {"split": split, "k": CACHE_K, "selection_equal": same, "kth_gap": gap,
+           "kth_score": float(ranked[CACHE_K - 1])}
+    log(f"  selected tokens card == CPU: {same}; the scores ranked {CACHE_K} and {CACHE_K + 1}: "
+        f"{float(ranked[CACHE_K - 1]):.6g} and {float(ranked[CACHE_K]):.6g} (gap {gap:.3g})")
+    if not same:
+        differ = sorted(set(gpu["idx"].long().tolist()) ^ set(cpu["idx"].long().tolist()))
+        log(f"  the selections differ in tokens {differ}, gap {gap:.3g}")
+    check(same, f"card and CPU select the same {CACHE_K} tokens (gap {gap:.3g})")
+    for name in ("record", "taps", "ref", "reuse", "spatial", "spatial_taps", "spatial_ref"):
+        scale = max(1.0, float(cpu[name].abs().max()))
+        err = max_err(gpu[name], cpu[name])
+        res[f"{name}_err"], res[f"{name}_scale"] = err, scale
+        log(f"  {name} f32: max|ref| {scale:.3g}, max err {err:.3g}")
+        check(err <= 1e-3 * scale, f"cache mode {name}: error {err} above {1e-3 * scale}")
+
+    x0 = (0.5 * rng.standard_normal((1, DIT_RES, DIT_RES, DIT_CH))).astype(np.float32)
+    cond = rng.standard_normal((1, TEXT_LEN, TEXT_DIM)).astype(np.float32)
+    for label, plan in (("timestep", CachePlan(refresh_every=3)),
+                        ("composed", sc.DEFAULT_COMPOSED_PLAN)):
+        samples = []
+        for where, m in models:
+            fns = (sc.resolve_composed_fns(m, plan) if isinstance(plan, sc.ComposedPlan)
+                   else resolve_cache_fns(m, plan))
+            ds = DiffusionSampler(lambda a, b, c, m=m: m(a, b, c), LinearNoiseSchedule(1000),
+                                  EpsilonPredictionTransform(), DDIMSampler(),
+                                  guidance_scale=GUIDANCE, device=where, cache_plan=plan,
+                                  cache_fns=fns)
+            samples.append(ds.generate_samples(
+                diffusion_steps=CACHE_TRAJ_STEPS, init_samples=torch.from_numpy(x0),
+                conditioning=torch.from_numpy(cond), unconditional=torch.zeros(cond.shape),
+                start_step=333.0, channels=DIT_CH).cpu())
+        err = max_err(*samples)
+        clipped = float((samples[1].abs() >= 1.0).float().mean())
+        res[f"ddim{CACHE_TRAJ_STEPS}_{label}"] = {"err": err, "clipped_share": clipped}
+        log(f"  DDIM-{CACHE_TRAJ_STEPS} + CFG under the {label} plan f32 from t=333: max err "
+            f"{err:.3g}, {clipped:.0%} clipped")
+        check(clipped < 0.6 and err <= 1e-2, f"the {label} cached trajectory within 1e-2")
+    del models
+
+    model = SimpleDiT(**DIT, dtype="bfloat16", device=dev)
+    model.load_state_dict(state)
+    model.eval()
+    a1, at, ac = (torch.from_numpy(a).to(dev) for a in (x1, t, ctx))
+    with torch.inference_mode():
+        plain = model(a1, at, ac)
+        rec, _ = model(a1, at, ac, cache_mode="record", cache_split=split)
+    check(torch.equal(plain, rec), "bf16 record bit-equal to the plain forward")
+    pipe = DiffusionInferencePipeline(model, state, LinearNoiseSchedule(1000),
+                                      EpsilonPredictionTransform(), device=dev)
+    uncached = pipe.get_sampler("ddim", GUIDANCE)
+    always = pipe.get_sampler("ddim", GUIDANCE, cache_plan=CachePlan(refresh_every=1))
+    request = lambda ds: ds.generate_samples(
+        num_samples=1, resolution=DIT_RES, diffusion_steps=CACHE_TRAJ_STEPS,
+        generator=make_generator(2, dev), conditioning=torch.from_numpy(cond),
+        unconditional=torch.zeros(cond.shape), channels=DIT_CH)
+    check(always is uncached and torch.equal(request(always), request(uncached)),
+          "a refresh_every=1 request is the uncached one, bit for bit")
+    res["bf16_record_bit_equal"] = res["bf16_refresh_every_1_bit_equal"] = True
+    log("  bf16: record bit-equal to the plain forward; refresh_every=1 bit-equal to uncached")
+    return res
+
+
+def metric_card_vs_cpu(dev) -> dict:
+    """14a: PSNR and SSIM of 16 image pairs at 256x256, and InceptionV3's
+    features of 4 images grown from 256x256 and 4 shrunk from 512x512 (He
+    scaled random weights, so the features neither vanish nor blow up), f32
+    card against CPU."""
+    from flaxdiff_tpu_torch.metrics import InceptionV3Features, psnr, ssim
+    gen = torch.Generator().manual_seed(71)
+    target = torch.rand(16, 256, 256, 3, generator=gen) * 2 - 1
+    pred = torch.clamp(target + 0.1 * torch.randn(target.shape, generator=gen), -1, 1)
+    res = {}
+    for name, fn in (("psnr", psnr), ("ssim", ssim)):
+        ref = float(fn(pred, target))
+        out = float(fn(pred.to(dev), target.to(dev)))
+        res[name] = {"card": out, "cpu": ref, "rel_err": abs(out - ref) / abs(ref)}
+        log(f"  {name} of 16 pairs at 256x256: card {out:.7g}, CPU {ref:.7g}, rel err "
+            f"{res[name]['rel_err']:.3g}")
+        check(res[name]["rel_err"] <= 1e-4, f"{name} card vs CPU within 1e-4 relative")
+    state = inception_state(72)
+    models = [InceptionV3Features(device=where).load_torch_state_dict(state)
+              for where in (dev, "cpu")]
+    for side in (256, 512):
+        x = torch.rand(4, side, side, 3, generator=gen)
+        with torch.inference_mode():
+            out = models[0](x.to(dev)).cpu()
+            ref = models[1](x)
+        scale = float(ref.abs().max())
+        err = max_err(out, ref)
+        res[f"inception_{side}"] = {"err": err, "scale": scale}
+        log(f"  Inception features of 4 images {'grown' if side < 299 else 'shrunk'} from "
+            f"{side}x{side}: max|ref| {scale:.3g}, max err {err:.3g}")
+        check(err <= 1e-4 * scale, f"Inception at {side}: error {err} above {1e-4 * scale}")
+    return res
+
+
+def inception_state(seed: int) -> dict:
+    """InceptionV3's weights in pytorch-FID's names, drawn from a seed:
+    kernels N(0, 2 / fan_in), BatchNorm statistics near (0, 1)."""
+    from flaxdiff_tpu_torch.metrics import InceptionV3Features
+    rng = np.random.default_rng(seed)
+    state = {}
+    for name, t in InceptionV3Features(device="cpu").state_dict().items():
+        shape = tuple(t.shape)
+        if name.endswith("conv.weight"):
+            a = rng.standard_normal(shape) * math.sqrt(2.0 / np.prod(shape[1:]))
+        elif name.endswith("running_var"):
+            a = 1.0 + 0.1 * np.abs(rng.standard_normal(shape))
+        elif name.endswith("bn.weight"):
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            a = 0.1 * rng.standard_normal(shape)
+        state[name] = torch.from_numpy(a.astype(np.float32))
+    return state
+
+
+def cached_serving(dev, key: str, model, cond, uncond, plans: dict) -> dict:
+    """14b: one DDIM-50 + CFG 3.0 request in bf16 per plan through the
+    pipeline's sampler for that plan: its wall, ms per call, device busy time
+    (profiler sum) and idle share, the launches (zeroed just before) against
+    the plan's arithmetic, and the trajectory PSNR of its pre-clip endpoint
+    (the same initial noise) against the uncached one."""
+    from flaxdiff_tpu_torch.device import make_generator
+    from flaxdiff_tpu_torch.inference import DiffusionInferencePipeline
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.samplers import NoiseSource, get_timestep_spacing
+    from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
+
+    side, ch = (DIT_RES, DIT_CH)
+    pipe = DiffusionInferencePipeline(model, {}, LinearNoiseSchedule(1000),
+                                      EpsilonPredictionTransform(), device=dev)
+    batch = cond.shape[0]
+    x_init = torch.randn(batch, side, side, ch, generator=make_generator(9, dev), device=dev)
+    spacing = get_timestep_spacing("linear", STEPS, 1000, device=dev)
+    cond_d, uncond_d = cond.to(dev), uncond.to(dev)
+    res, base = {}, None
+    for name, plan in plans.items():
+        ds = pipe.get_sampler("ddim", GUIDANCE, cache_plan=plan)
+        request = lambda steps, seed: ds.generate_samples(
+            num_samples=batch, resolution=side, diffusion_steps=steps, channels=ch,
+            generator=make_generator(seed, dev), conditioning=cond, unconditional=uncond)
+        request(2, 0)              # warm-up: GEMM choices at the cached shapes, allocator
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = request(STEPS, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        planned = planned_launches(key, model, plan, STEPS)
+        expected = {k: planned.get(k, 0) for k in counts}
+        check(counts == expected, f"{key} {name}: launches {counts}, expected {expected}")
+        check(tuple(out.shape) == (batch, side, side, ch) and bool(torch.isfinite(out).all()),
+              f"{key} {name}: samples {tuple(out.shape)}, finite")
+        busy = busy_ms(lambda: request(STEPS, 1))
+        with torch.inference_mode():
+            end = ds.run_loop(x_init, spacing, NoiseSource(make_generator(3, dev)), cond_d,
+                              uncond_d).float()
+        check(bool(torch.isfinite(end).all()), f"{key} {name}: pre-clip endpoint finite")
+        if base is None:
+            base = end
+        row = {"wall_s": wall, "ms_per_call": wall * 1e3 / (STEPS + 1), "launches": counts,
+               "busy_ms": busy, "idle_share": None if busy is None else 1.0 - busy / (wall * 1e3),
+               "psnr_db": trajectory_psnr(end, base), "plan": None if plan is None else repr(plan)}
+        res[name] = row
+        log(f"  {key} {name}: wall {wall:.3f} s ({row['ms_per_call']:.2f} ms per call), busy "
+            + ("not measured" if busy is None else
+               f"{busy:.3f} ms ({row['idle_share']:.0%} idle)")
+            + f", launches flash {counts['flash_fwd']} / ln_mod {counts['ln_mod']} / gate_res "
+            f"{counts['gate_res']}, trajectory PSNR {row['psnr_db']:.2f} dB")
+    return res
+
+
+def cache_serving_paths(dev, state, phase11: dict) -> dict:
+    """14b: DiT-B/2 (phase 6's batch 4 and text) under every plan of
+    docs/CACHING.md's table, a composed request through the pipeline's
+    generate_samples and its diffcache counters, a cached and a composed
+    trajectory under sync debug mode "error"; SimpleUDiT and SimpleMMDiT (phase
+    11's widths, weights and batch-1 text) uncached and under the composed
+    default."""
+    from flaxdiff_tpu_torch.device import make_generator
+    from flaxdiff_tpu_torch.inference import DiffusionInferencePipeline
+    from flaxdiff_tpu_torch.models import SimpleDiT
+    from flaxdiff_tpu_torch.ops.diffcache import DEFAULT_CACHE_PLAN
+    from flaxdiff_tpu_torch.ops.spatialcache import DEFAULT_COMPOSED_PLAN
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.samplers import NoiseSource, get_timestep_spacing
+    from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
+    from flaxdiff_tpu_torch.telemetry import global_telemetry
+
+    plans = cache_plans14()
+    model = SimpleDiT(**DIT, dtype="bfloat16", device=dev)
+    model.load_state_dict(state)
+    model.eval()
+    rng = np.random.default_rng(5)         # phase 6's text
+    b = DIT_SERVE_BATCH
+    cond = torch.from_numpy(rng.standard_normal((b, TEXT_LEN, TEXT_DIM)).astype(np.float32))
+    uncond = torch.zeros(b, TEXT_LEN, TEXT_DIM)
+    out = {"simple_dit": cached_serving(dev, "simple_dit", model, cond, uncond, plans)}
+
+    # the entry point with its counters: unconditional, no CFG
+    pipe = DiffusionInferencePipeline(model, dict(model.named_parameters()),
+                                      LinearNoiseSchedule(1000), EpsilonPredictionTransform(),
+                                      device=dev)
+    names = ("requests", "spatial_requests", "refresh_steps", "spatial_steps", "reused_steps")
+    read = lambda: {n: global_telemetry().counter(f"diffcache/{n}").value for n in names}
+    before = read()
+    samples = pipe.generate_samples(num_samples=b, resolution=DIT_RES, channels=DIT_CH,
+                                    diffusion_steps=STEPS, sampler="ddim", use_ema=False,
+                                    cache_plan=DEFAULT_COMPOSED_PLAN)
+    delta = {n: read()[n] - before[n] for n in names}
+    counts = DEFAULT_COMPOSED_PLAN.counts(STEPS)
+    check(delta == {"requests": 1, "spatial_requests": 1, "refresh_steps": counts["refresh"],
+                    "spatial_steps": counts["spatial"], "reused_steps": counts["reused"]},
+          f"the diffcache counters {delta}")
+    check(bool(np.isfinite(samples).all()), "the pipeline's composed request finite")
+    out["pipeline_counters"] = delta
+    log(f"  pipeline.generate_samples(cache_plan=DEFAULT_COMPOSED_PLAN): counters {delta}")
+
+    spacing = get_timestep_spacing("linear", STEPS, 1000, device=dev)
+    x = torch.randn(b, DIT_RES, DIT_RES, DIT_CH, generator=make_generator(4, dev), device=dev)
+    cond_d, uncond_d = cond.to(dev), uncond.to(dev)
+    for label, plan in (("timestep", DEFAULT_CACHE_PLAN), ("composed", DEFAULT_COMPOSED_PLAN)):
+        ds = pipe.get_sampler("ddim", GUIDANCE, cache_plan=plan)
+        noise = NoiseSource(make_generator(5, dev))
+        with torch.inference_mode():
+            ds.run_loop(x, spacing, noise, cond_d, uncond_d)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                end = ds.run_loop(x, spacing, noise, cond_d, uncond_d)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        check(bool(torch.isfinite(end).all()), f"the {label} trajectory under sync debug")
+        log(f"  DDIM-{STEPS} + CFG under the {label} default plan ran under sync debug mode "
+            f"\"error\": no host sync")
+    out["sync_debug_clean"] = True
+    del model, pipe
+    torch.cuda.empty_cache()
+
+    two = {k: plans[k] for k in ("off", "composed_default")}
+    for key in ("simple_udit", "simple_mmdit"):
+        i = list(FAMILIES11).index(key)
+        model = family_model(dev, key, "bfloat16", random_state(family_model("cpu", key),
+                                                               30 + i)).eval()
+        _, _, text = family_inputs(key, 1, 21)
+        out[key] = cached_serving(dev, key, model, torch.from_numpy(text),
+                                  torch.zeros(1, TEXT_LEN, TEXT_DIM), two)
+        log(f"  {key}: phase 11's uncached request {phase11[key]['wall_s']:.3f} s "
+            f"({phase11[key]['ms_per_forward']:.2f} ms per call)")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def metrics_paths(dev) -> dict:
+    """14c: InceptionV3's features at 299x299 for a batch of 32 (launched and
+    as a CUDA graph), FID of 64 generated against 64 real images with its
+    sqrtm's share, and the CLI with --val_metrics psnr,ssim,fid."""
+    import io
+    import tempfile
+
+    from flaxdiff_tpu_torch import train
+    from flaxdiff_tpu_torch.data import get_dataset, iterate_batches
+    from flaxdiff_tpu_torch.device import make_generator
+    from flaxdiff_tpu_torch.metrics import FIDComputer, fid, make_inception_extractor
+    from flaxdiff_tpu_torch.utils import to_unit_float
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    res = {}
+    extractor = make_inception_extractor(seed=0, device=dev)
+    x = torch.rand(INCEPTION_BATCH, 299, 299, 3, generator=make_generator(74, dev), device=dev)
+    with torch.inference_mode():
+        launched = time_ms(lambda: extractor.model(x), 5)
+        graph = graph_ms(lambda: extractor.model(x), 1, replays=5)
+    res["inception"] = {"batch": INCEPTION_BATCH, "ms": launched, "busy_ms": graph,
+                        "images_per_s": INCEPTION_BATCH * 1e3 / launched}
+    log(f"  InceptionV3 features, batch {INCEPTION_BATCH} at 299x299 f32: {launched:.3f} ms "
+        f"launched, {graph:.3f} ms as a CUDA graph ({res['inception']['images_per_s']:.0f} "
+        f"images/s)")
+
+    real = next(iterate_batches(get_dataset("synthetic", image_size=FID_SIDE), FID_SAMPLES))
+    real = real["sample"]
+    # a stand-in generator: the real images, noised
+    noisy = (real.astype(np.float32) / 127.5 - 1.0
+             + 0.1 * np.random.default_rng(73).standard_normal(real.shape))
+    generated = np.clip(noisy, -1.0, 1.0).astype(np.float32)
+    sqrtm_s = [0.0]
+    plain_sqrtm = fid._sqrtm
+
+    def timed_sqrtm(a):
+        t0 = time.perf_counter()
+        r = plain_sqrtm(a)
+        sqrtm_s[0] += time.perf_counter() - t0
+        return r
+
+    fid._sqrtm = timed_sqrtm
+    try:
+        computer = FIDComputer(extractor, batch_size=INCEPTION_BATCH)
+        t0 = time.perf_counter()
+        computer.add_real(to_unit_float(real))
+        computer.add_generated(to_unit_float(generated))
+        torch.cuda.synchronize()
+        feats_s = time.perf_counter() - t0
+        value = computer.compute()
+        total = time.perf_counter() - t0
+    finally:
+        fid._sqrtm = plain_sqrtm
+    check(math.isfinite(value), f"FID {value} finite")
+    res["fid"] = {"samples": FID_SAMPLES, "value": value, "total_s": total, "features_s": feats_s,
+                  "sqrtm_s": sqrtm_s[0], "sqrtm_share": sqrtm_s[0] / total}
+    log(f"  FID of {FID_SAMPLES} noised against {FID_SAMPLES} real images at "
+        f"{FID_SIDE}x{FID_SIDE} (seeded random features): {value:.6g}, {total:.3f} s in all, "
+        f"features {feats_s:.3f} s, sqrtm {sqrtm_s[0]:.3f} s ({res['fid']['sqrtm_share']:.0%})")
+
+    root = tempfile.mkdtemp(prefix="flaxdiff_cli14_")
+    try:
+        argv = cli_args(root, CLI14_STEPS, dev) + [
+            "--val_every", str(CLI14_VAL_EVERY), "--val_steps", str(CLI14_VAL_STEPS),
+            "--val_metrics", "psnr,ssim,fid"]
+        buf = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            hist = train.main(argv)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{") and "val/wall_s" in line]
+    for row in rows:
+        log(f"  CLI log: {json.dumps(row)}")
+    check(len(rows) == 1 and all(math.isfinite(rows[0][f"val/{k}"]) for k in
+                                 ("psnr", "ssim", "fid")),
+          "the CLI's log shows finite val/psnr, val/ssim and val/fid")
+    res["cli"] = {"wall_s": wall, "validation": rows, "launches": counts,
+                  "final_loss": hist.get("final_loss")}
+    return res
+
+
+def cache_paths(dev, phase11: dict) -> dict:
+    """Phase 14 (see the module docstring)."""
+    state = dit14_state()
+    out = {}
+    log("  14a: card against CPU, f32: the cache modes, cached trajectories, the metrics")
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = cache_card_vs_cpu(dev, state)
+    torch.cuda.empty_cache()
+    out["metrics_card_vs_cpu"] = metric_card_vs_cpu(dev)
+    out["a_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log(f"  14b: DDIM-{STEPS} + CFG {GUIDANCE} in bf16 under docs/CACHING.md's plans")
+    t0 = time.perf_counter()
+    out["serving"] = cache_serving_paths(dev, state, phase11)
+    out["b_s"] = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    log("  14c: InceptionV3, FID, the CLI's --val_metrics")
+    t0 = time.perf_counter()
+    out["metrics"] = metrics_paths(dev)
+    out["c_s"] = time.perf_counter() - t0
+    return out
+
+
 # kernel-name fragments -> the layer they belong to, first match wins
 FAMILIES = [(fam, frag) for fam, frags in KERNEL_SYMBOLS.items() for frag in frags] + [
     ("conv", "conv"), ("conv", "fprop"), ("conv", "implicit"),
@@ -2884,13 +3418,38 @@ def main() -> int:
         f"bf16 {tt['ms_per_step']:.3f} ms per step, {tt['clips_per_s']:.2f} clips/s, peak "
         f"{tt['peak_mem_gib']:.2f} GiB; phase 13 {t2v['phase_s']:.1f} s on {smi}")
 
+    torch.cuda.empty_cache()
+
+    log(f"phase 14: the training-free caches on DiT-B/2, SimpleUDiT and SimpleMMDiT (card against "
+        f"CPU, DDIM-{STEPS} + CFG {GUIDANCE} under docs/CACHING.md's plans), PSNR, SSIM, FID with "
+        f"InceptionV3, the CLI's --val_metrics")
+    t14 = time.perf_counter()
+    cache = cache_paths(dev, families["serving"])
+    cache["phase_s"] = time.perf_counter() - t14
+    for key in CACHED_FAMILIES:
+        for plan, r in cache["serving"][key].items():
+            log(f"cache {key} {plan}: DDIM-{STEPS} CFG {GUIDANCE} bf16 wall {r['wall_s']:.3f} s "
+                f"({r['ms_per_call']:.2f} ms per call), busy "
+                + ("not measured" if r["busy_ms"] is None else
+                   f"{r['busy_ms']:.3f} ms ({r['idle_share']:.0%} idle)")
+                + f", PSNR {r['psnr_db']:.2f} dB on {smi}")
+    mt = cache["metrics"]
+    log(f"metrics: Inception batch {INCEPTION_BATCH} {mt['inception']['ms']:.3f} ms "
+        f"({mt['inception']['busy_ms']:.3f} busy), FID of {FID_SAMPLES} {mt['fid']['total_s']:.3f} s "
+        f"(sqrtm {mt['fid']['sqrtm_share']:.0%}); phase 14 {cache['phase_s']:.1f} s on {smi}")
+
+    cache_launches = lambda key: {k: sum(r["launches"][k] for r in cache["serving"][key].values())
+                                  for k in REPLACES}
     paths = {"unet_serving": traj, "unet_training": train, "dit_serving": dit_traj,
              "dit_training": dit_train, "unet3d_block_320": model_res["unet3d_block"],
              "unet_samplers": samplers_res, "unet_edm_training": edm_train,
              "unet_cli": cli, "mmdit_training": families["mmdit_training"],
              "unet_cli_f16": options, "unet3d_t2v_serving": t2v["serving"],
              "unet3d_t2v_training": t2v["training"], "unet_cli_latent": t2v["cli"],
-             **{f"{key}_serving": r for key, r in families["serving"].items()}}
+             **{f"{key}_serving": r for key, r in families["serving"].items()},
+             **{f"{key}_cached_serving": {"launches": cache_launches(key)}
+                for key in CACHED_FAMILIES},
+             "unet_cli_val_metrics": cache["metrics"]["cli"]}
     kernels, summary = [], []
     for kname in REPLACES:
         mine = [c for c in cases if c["name"] == kname]
@@ -2917,7 +3476,7 @@ def main() -> int:
               "model": model_res, "trajectory": traj, "training": train, "dit_model": dit_res,
               "dit_trajectory": dit_traj, "dit_training": dit_train,
               "samplers": samplers_res, "edm_training": edm_train, "cli": cli,
-              "families": families, "options": options, "t2v": t2v,
+              "families": families, "options": options, "t2v": t2v, "cache": cache,
               "total_s": time.perf_counter() - t0}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

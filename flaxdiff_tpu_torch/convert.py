@@ -23,6 +23,11 @@ The Fourier frequencies are not a flax parameter (the JAX models draw them
 from a fixed key in ``setup``), so the caller passes them, or the port's
 table of the same draws fills them (``models/common.py``).
 
+InceptionV3's variables (``metrics/inception.py``) convert with
+``inception_state_dict_from_flax``: params/<mod>/conv/kernel (HWIO) ->
+<mod>.conv.weight (OIHW), bn scale / bias -> bn.weight / bn.bias, and
+batch_stats/<mod>/bn/mean / var -> bn.running_mean / running_var.
+
 Any tree of the params' structure converts the same way: gradients, and the
 AdamW moments of ``train_state_from_flax``; so do the latent codecs' trees
 (``KLAutoEncoder`` / ``SDVAE.load_flax_params``). Diffusers-named SD VAE
@@ -114,6 +119,26 @@ def state_dict_from_flax(model: nn.Module, params: Mapping,
         key = next(name for name, _ in model.named_buffers() if name.endswith("freqs"))
         state[key] = torch.from_numpy(
             np.ascontiguousarray(np.asarray(fourier_freqs, dtype=np.float32)))
+    return state
+
+
+def inception_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The state dict of the port's ``InceptionV3Features`` (pytorch-FID's
+    names) from the JAX module's variables, {"params": ..., "batch_stats":
+    ...} (numpy or jax leaves)."""
+    leaves = {("params", "conv", "kernel"): "conv.weight", ("params", "bn", "scale"): "bn.weight",
+              ("params", "bn", "bias"): "bn.bias",
+              ("batch_stats", "bn", "mean"): "bn.running_mean",
+              ("batch_stats", "bn", "var"): "bn.running_var"}
+    state = {}
+    for collection in ("params", "batch_stats"):
+        for path, a in _flatten(variables[collection]):
+            name = leaves.get((collection,) + path[-2:])
+            if name is None:
+                raise KeyError(f"unexpected inception leaf {collection}/{'/'.join(path)}")
+            if name == "conv.weight":
+                a = a.transpose(3, 2, 0, 1)
+            state[".".join(path[:-2] + (name,))] = torch.from_numpy(np.ascontiguousarray(a))
     return state
 
 

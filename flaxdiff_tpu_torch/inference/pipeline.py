@@ -7,9 +7,13 @@ A latent model's codec (``models/autoencoder.py``: ``SDVAE.from_npz(...)``,
 ``KLAutoEncoder.create(...)``) is passed in, never rebuilt from the config,
 as in the JAX package; samples come back decoded.
 
+``generate_samples(..., cache_plan=)`` serves a request through the
+training-free caches (a ``CachePlan``, ``SpatialPlan`` or ``ComposedPlan``;
+docs/CACHING.md) and counts its steps on the global hub's ``diffcache/*``
+counters.
+
 It runs on the card unless given ``device="cpu"``. Not ported:
-``from_wandb_run``, ``from_registry``, the activation cache plans and
-telemetry.
+``from_wandb_run``, ``from_registry`` and the rest of the telemetry.
 """
 from __future__ import annotations
 
@@ -178,18 +182,35 @@ class DiffusionInferencePipeline:
     # -- sampling ----------------------------------------------------------------
 
     def get_sampler(self, sampler: Union[str, Sampler, Type[Sampler]] = "ddim",
-                    guidance_scale: float = 0.0) -> DiffusionSampler:
+                    guidance_scale: float = 0.0, cache_plan=None) -> DiffusionSampler:
+        """`cache_plan` (a ``CachePlan``, ``SpatialPlan`` or ``ComposedPlan``)
+        turns the training-free caches on. The plan is normalised first
+        (``resolve_plan``: degenerate axes route to the simpler loop), then
+        its key joins the sampler cache's, so two effective plans never share
+        a sampler. A model without the ``cache_mode`` contract raises
+        ValueError."""
+        from ..ops.diffcache import resolve_cache_fns
+        from ..ops.spatialcache import ComposedPlan, resolve_composed_fns, resolve_plan
         if isinstance(sampler, str):
             if sampler not in SAMPLER_REGISTRY:
                 raise ValueError(f"unknown sampler {sampler!r}")
             sampler = SAMPLER_REGISTRY[sampler]()
         elif isinstance(sampler, type):
             sampler = sampler()
-        key = _sampler_cache_key(sampler, guidance_scale)
+        plan = resolve_plan(cache_plan)
+        key = _sampler_cache_key(sampler, guidance_scale) + (
+            plan.key() if plan is not None else None,)
         if key not in self._sampler_cache:
+            if plan is None:
+                cache_fns = None
+            elif isinstance(plan, ComposedPlan):
+                cache_fns = resolve_composed_fns(self.model, plan)
+            else:
+                cache_fns = resolve_cache_fns(self.model, plan)
             self._sampler_cache[key] = DiffusionSampler(
                 lambda x, t, c: self.model(x, t, c), self.schedule, self.transform, sampler,
-                guidance_scale=guidance_scale, device=self.device, autoencoder=self.autoencoder)
+                guidance_scale=guidance_scale, device=self.device, autoencoder=self.autoencoder,
+                cache_plan=plan, cache_fns=cache_fns)
         return self._sampler_cache[key]
 
     def _load(self, use_ema: bool) -> None:
@@ -209,14 +230,17 @@ class DiffusionInferencePipeline:
                          diffusion_steps: int = 50, sampler: Union[str, Sampler] = "euler_ancestral",
                          guidance_scale: float = 0.0, prompts=None, use_ema: bool = True,
                          seed: int = 42, sequence_length: Optional[int] = None, channels: int = 3,
-                         inpaint_reference=None, inpaint_mask=None) -> np.ndarray:
+                         inpaint_reference=None, inpaint_mask=None,
+                         cache_plan=None) -> np.ndarray:
         """Samples in [-1, 1] as a host array [N, R, R, C] ([N, T, R, R, C]
         with a `sequence_length`; decoded pixels with a codec, R and C the
         pixels'). Prompts go through
         the input config (N becomes their count) with its null tokens as the
         unconditional input; a conditional model without prompts gets the
         null tokens (pipeline.py:249-276). Every draw comes from a generator
-        seeded with `seed` on the pipeline's device."""
+        seeded with `seed` on the pipeline's device. `cache_plan`: the
+        training-free caches for this request (see `get_sampler`); None
+        keeps the plain loop."""
         self._load(use_ema)
         conditioning = unconditional = None
         if prompts is not None:
@@ -227,7 +251,23 @@ class DiffusionInferencePipeline:
             unconditional = self.input_config.get_unconditionals(batch_size=num_samples)[0]
         elif self.input_config is not None and self.input_config.conditions:
             conditioning = self.input_config.get_unconditionals(batch_size=num_samples)[0]
-        out = self.get_sampler(sampler, guidance_scale).generate_samples(
+        ds = self.get_sampler(sampler, guidance_scale, cache_plan=cache_plan)
+        if ds.cache_active:
+            # host arithmetic on the static plan: no device sync
+            from ..telemetry import global_telemetry
+            tel = global_telemetry()
+            tel.counter("diffcache/requests").inc()
+            if ds.spatial_active:
+                counts = ds.cache_plan.counts(diffusion_steps)
+                tel.counter("diffcache/spatial_requests").inc()
+                tel.counter("diffcache/spatial_steps").inc(counts["spatial"])
+                refresh, reused = counts["refresh"], counts["reused"]
+            else:
+                flags = ds.cache_plan.flags(diffusion_steps)
+                refresh, reused = int(flags.sum()), int((~flags).sum())
+            tel.counter("diffcache/refresh_steps").inc(refresh)
+            tel.counter("diffcache/reused_steps").inc(reused)
+        out = ds.generate_samples(
             num_samples=num_samples, resolution=resolution, diffusion_steps=diffusion_steps,
             generator=make_generator(seed, self.device), conditioning=conditioning,
             unconditional=unconditional, sequence_length=sequence_length, channels=channels,

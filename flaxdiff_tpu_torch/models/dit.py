@@ -13,7 +13,13 @@ LayerNorm, ``modulate`` and ``x + g h`` in plain ops), never a fallback.
 widths up front: ``in_channels`` and ``context_dim`` (None: no text context).
 ``precision`` and ``force_fp32_for_softmax`` are accepted and have no effect.
 
-Not ported yet: ``cache_mode`` (the training-free caches, ROADMAP.md A8).
+``cache_mode`` is the training-free caches' forward contract
+(``ops/diffcache.py``, ``ops/spatialcache.py``): "record" and "record_ref"
+run the plain block sequence and also return the deep trunk's residual delta
+(and the shallow activations, the spatial cache's score reference); "reuse"
+adds a recorded delta to fresh shallow activations instead of running the
+deep blocks; "spatial" runs the deep blocks on the top-k changed tokens and
+writes their delta and reference entries back.
 """
 from __future__ import annotations
 
@@ -25,13 +31,71 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..ops.fused_adaln import fused_gate_residual, fused_ln_modulate
+from ..ops.spatialcache import gather_freqs, gather_tokens, scatter_tokens, select_tokens
 from ..typing import gelu, resolve_activation, resolve_dtype, resolve_precision
 from .common import Dense, remat_call
 from .sfc import sfc_unpatchify, unpatchify
 from .vit_common import (AdaLNParams, LayerNorm, RoPEAttention, ScanPatchEmbed,
                          TimeTextEmbedding, modulate, plain_layer_norm, scan_rope)
 
-CACHE_NOT_PORTED = "cache_mode is not ported yet (ROADMAP.md A8, the training-free caches)"
+CACHE_MODES = (None, "record", "record_ref", "reuse", "spatial")
+
+
+def check_cache_mode(cache_mode: Optional[str]) -> None:
+    if cache_mode not in CACHE_MODES:
+        raise ValueError(f"unknown cache_mode {cache_mode!r}")
+
+
+def split_index(num_layers: int, depth_fraction: float) -> int:
+    """The flat trunk's cache split: blocks [0, split) always run, [split,
+    num_layers) form the cached deep trunk. Python's round (half to even),
+    as the JAX models."""
+    if num_layers < 2:
+        raise ValueError("diffusion cache needs num_layers >= 2 (no deep trunk to cache "
+                         "below that)")
+    return max(1, min(num_layers - 1, round(num_layers * depth_fraction)))
+
+
+def cached_trunk(run_block: Callable, num_layers: int, tokens: torch.Tensor,
+                 freqs: Optional[Tuple[torch.Tensor, torch.Tensor]], cache_mode: str,
+                 cache_split: int, cache_taps, cache_ref, cache_keep: float, cache_metric: str):
+    """The flat trunk under a cache mode (SimpleDiT, SimpleMMDiT):
+    `run_block(i, tokens, freqs)` runs block i. Returns (tokens for the tail,
+    taps, ref); taps and ref are None where the mode makes none."""
+    split = int(cache_split)
+    if not 0 < split < num_layers:
+        raise ValueError(f"cache_split {split} out of range for {num_layers} blocks")
+    for i in range(split):
+        tokens = run_block(i, tokens, freqs)
+    if cache_mode in ("record", "record_ref"):
+        deep = tokens
+        for i in range(split, num_layers):
+            deep = run_block(i, deep, freqs)
+        return deep, deep - tokens, tokens
+    if cache_mode == "reuse":
+        if cache_taps is None:
+            raise ValueError("cache_mode='reuse' requires cache_taps")
+        return tokens + cache_taps, None, None
+    if cache_taps is None or cache_ref is None:
+        raise ValueError("cache_mode='spatial' requires cache_taps and cache_ref")
+    idx = select_tokens(tokens, cache_ref, cache_keep, cache_metric)
+    sel = gather_tokens(tokens, idx)
+    freqs_sel = gather_freqs(freqs, idx)
+    deep = sel
+    for i in range(split, num_layers):
+        deep = run_block(i, deep, freqs_sel)
+    taps = scatter_tokens(cache_taps, idx, deep - sel)
+    return tokens + taps, taps, scatter_tokens(cache_ref, idx, sel)
+
+
+def cache_outputs(out: torch.Tensor, cache_mode: Optional[str], taps, ref):
+    """What a ``cache_mode`` forward returns: out; (out, taps) for "record";
+    (out, taps, ref) for "record_ref" and "spatial"."""
+    if cache_mode == "record":
+        return out, taps
+    if cache_mode in ("record_ref", "spatial"):
+        return out, taps, ref
+    return out
 
 
 def gate_residual(x: torch.Tensor, gate: torch.Tensor, h: torch.Tensor, fused: bool
@@ -132,17 +196,33 @@ class SimpleDiT(nn.Module):
             return sfc_unpatchify(tokens, inv_idx, p, height, width, c)
         return unpatchify(tokens, p, height, width, c)
 
+    def cache_split_index(self, depth_fraction: float) -> int:
+        """The trunk split for the training-free caches (ops/diffcache.py):
+        blocks [0, split) always run, [split, num_layers) are cached."""
+        return split_index(self.num_layers, depth_fraction)
+
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
-                textcontext: Optional[torch.Tensor] = None,
-                cache_mode: Optional[str] = None, **cache_args) -> torch.Tensor:
+                textcontext: Optional[torch.Tensor] = None, cache_mode: Optional[str] = None,
+                cache_split: int = 0, cache_taps: Optional[torch.Tensor] = None,
+                cache_ref: Optional[torch.Tensor] = None, cache_keep: float = 1.0,
+                cache_metric: str = "l2"):
         """x [B, H, W, C_in], temb [B], textcontext [B, L, context_dim]
-        -> [B, H, W, output_channels] in f32."""
-        if cache_mode is not None or cache_args:
-            raise NotImplementedError(CACHE_NOT_PORTED)
+        -> [B, H, W, output_channels] in f32; under a `cache_mode`, the
+        outputs of ``cache_outputs``."""
+        check_cache_mode(cache_mode)
         tokens, cond, freqs, inv_idx = self.head(x, temb, textcontext)
-        for i in range(self.num_layers):
-            tokens = remat_call(getattr(self, f"block_{i}"), self.remat, tokens, cond, freqs)
-        return self.tail(tokens, inv_idx, x.shape[1], x.shape[2])
+        run_block = lambda i, h, fr: remat_call(getattr(self, f"block_{i}"), self.remat, h,
+                                                 cond, fr)
+        taps = ref = None
+        if cache_mode is None:
+            for i in range(self.num_layers):
+                tokens = run_block(i, tokens, freqs)
+        else:
+            tokens, taps, ref = cached_trunk(run_block, self.num_layers, tokens, freqs,
+                                             cache_mode, cache_split, cache_taps, cache_ref,
+                                             cache_keep, cache_metric)
+        return cache_outputs(self.tail(tokens, inv_idx, x.shape[1], x.shape[2]), cache_mode,
+                             taps, ref)
 
     def load_flax_params(self, params: Mapping, fourier_freqs: Optional[np.ndarray] = None
                          ) -> "SimpleDiT":

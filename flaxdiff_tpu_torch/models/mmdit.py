@@ -8,7 +8,9 @@
   ``fused_epilogues=False``.
 - ``MMDiTBlock``: gated RoPE self-attention and a gated MLP.
 - ``SimpleMMDiT``: a flat stack of them over raster or Hilbert patch tokens;
-  RoPE follows the token sequence in both orders.
+  RoPE follows the token sequence in both orders. It takes the training-free
+  caches' ``cache_mode`` as ``SimpleDiT`` does (``models/dit.py``);
+  ``HierarchicalMMDiT`` has no cache contract, as in JAX.
 - ``HierarchicalMMDiT``: fine -> coarse stages joined by ``PatchMerging``,
   back up by ``PatchExpanding`` with fused skips; per-stage conditioning
   projected from one base at the coarsest width, per-stage RoPE. Its Hilbert
@@ -32,7 +34,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops.fused_adaln import fused_ln_modulate2
 from ..typing import gelu, resolve_activation, resolve_dtype, resolve_precision
 from .common import Dense, FourierEmbedding, TimeProjection, lecun_dense
-from .dit import CACHE_NOT_PORTED, gate_residual
+from .dit import cache_outputs, cached_trunk, check_cache_mode, gate_residual, split_index
 from .sfc import patchify, sfc_patchify, sfc_unpatchify, unpatchify
 from .vit_common import (LayerNorm, PatchEmbedding, RoPEAttention, modulate, plain_layer_norm,
                          scan_rope)
@@ -137,14 +139,20 @@ class SimpleMMDiT(nn.Module):
         out_dim = p * p * output_channels * (2 if learn_sigma else 1)
         self.final_proj = Dense(d, out_dim, torch.float32, device, init_scale=0.0)
 
+    def cache_split_index(self, depth_fraction: float) -> int:
+        """The trunk split for the training-free caches, as SimpleDiT's."""
+        return split_index(self.num_layers, depth_fraction)
+
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
-                textcontext: Optional[torch.Tensor] = None,
-                cache_mode: Optional[str] = None, **cache_args) -> torch.Tensor:
+                textcontext: Optional[torch.Tensor] = None, cache_mode: Optional[str] = None,
+                cache_split: int = 0, cache_taps: Optional[torch.Tensor] = None,
+                cache_ref: Optional[torch.Tensor] = None, cache_keep: float = 1.0,
+                cache_metric: str = "l2"):
         """x [B, H, W, C_in], temb [B], textcontext [B, L, context_dim]
-        -> [B, H, W, output_channels] in f32."""
+        -> [B, H, W, output_channels] in f32; under a `cache_mode`, the
+        outputs of ``models.dit.cache_outputs``."""
         _need_context(textcontext, "SimpleMMDiT")
-        if cache_mode is not None or cache_args:
-            raise NotImplementedError(CACHE_NOT_PORTED)
+        check_cache_mode(cache_mode)
         _, h, w, _ = x.shape
         p = self.patch_size
         inv_idx = None
@@ -159,15 +167,22 @@ class SimpleMMDiT(nn.Module):
         # distances, as in the reference)
         freqs = scan_rope(self.emb_features // self.num_heads, tokens.shape[1], "raster",
                           x.device)
-        for i in range(self.num_layers):
-            tokens = getattr(self, f"block_{i}")(tokens, t_emb, text_emb, freqs)
+        run_block = lambda i, t, fr: getattr(self, f"block_{i}")(t, t_emb, text_emb, fr)
+        taps = ref = None
+        if cache_mode is None:
+            for i in range(self.num_layers):
+                tokens = run_block(i, tokens, freqs)
+        else:
+            tokens, taps, ref = cached_trunk(run_block, self.num_layers, tokens, freqs,
+                                             cache_mode, cache_split, cache_taps, cache_ref,
+                                             cache_keep, cache_metric)
         tokens = self.final_proj(self.final_norm(tokens))
         if self.learn_sigma:
             tokens = tokens.chunk(2, dim=-1)[0]
         c = self.output_channels
-        if inv_idx is not None:
-            return sfc_unpatchify(tokens, inv_idx, p, h, w, c)
-        return unpatchify(tokens, p, h, w, c)
+        out = (sfc_unpatchify(tokens, inv_idx, p, h, w, c) if inv_idx is not None
+               else unpatchify(tokens, p, h, w, c))
+        return cache_outputs(out, cache_mode, taps, ref)
 
 
 class PatchMerging(nn.Module):

@@ -13,6 +13,11 @@ Module names follow the flax modules, so ``convert.state_dict_from_flax``
 is a rename. Torch needs the input widths up front: ``in_channels`` and
 ``context_dim`` (None: no text context). ``precision`` and
 ``force_fp32_for_softmax`` are accepted and have no effect.
+
+``SimpleUDiT`` takes the training-free caches' ``cache_mode`` (see
+``models/dit.py``) on its U: the outer downs and ups always run; the inner
+downs, the mid block and the inner ups, with their own skip concats, form
+the cached core. ``UViT`` has no cache contract, as in JAX.
 """
 from __future__ import annotations
 
@@ -22,10 +27,11 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..ops.spatialcache import gather_freqs, gather_tokens, scatter_tokens, select_tokens
 from ..typing import resolve_activation, resolve_dtype, resolve_precision
 from .attention import TransformerBlock
 from .common import ConvLayer, Dense, FourierEmbedding, TimeProjection, lecun_dense
-from .dit import CACHE_NOT_PORTED, DiTBlock
+from .dit import DiTBlock, cache_outputs, check_cache_mode
 from .sfc import sfc_patchify, sfc_unpatchify, unpatchify
 from .vit_common import (LayerNorm, PatchEmbedding, PositionalEncoding, ScanPatchEmbed,
                          TimeTextEmbedding, scan_rope)
@@ -160,30 +166,85 @@ class SimpleUDiT(nn.Module):
         self.final_proj = Dense(d, patch_size ** 2 * output_channels, torch.float32, device,
                                 init_scale=0.0)
 
+    def cache_split_index(self, depth_fraction: float) -> int:
+        """The U's split for the training-free caches (ops/diffcache.py):
+        the outer `s` downs and the last `s` ups always run (2s of
+        num_layers + 1 blocks ~ depth_fraction); the inner downs, the mid
+        block and the inner ups form the cached core. Python's round."""
+        half = self.num_layers // 2
+        if half < 2:
+            raise ValueError("diffusion cache needs num_layers >= 4 on the U shape (no inner "
+                             "core to cache below that)")
+        s = round(depth_fraction * (self.num_layers + 1) / 2.0)
+        return max(1, min(half - 1, s))
+
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
-                textcontext: Optional[torch.Tensor] = None,
-                cache_mode: Optional[str] = None, **cache_args) -> torch.Tensor:
+                textcontext: Optional[torch.Tensor] = None, cache_mode: Optional[str] = None,
+                cache_split: int = 0, cache_taps: Optional[torch.Tensor] = None,
+                cache_ref: Optional[torch.Tensor] = None, cache_keep: float = 1.0,
+                cache_metric: str = "l2"):
         """x [B, H, W, C_in], temb [B], textcontext [B, L, context_dim]
-        -> [B, H, W, output_channels] in f32."""
-        if cache_mode is not None or cache_args:
-            raise NotImplementedError(CACHE_NOT_PORTED)
+        -> [B, H, W, output_channels] in f32; under a `cache_mode`, the
+        outputs of ``models.dit.cache_outputs``."""
+        check_cache_mode(cache_mode)
         _, h, w, _ = x.shape
         p = self.patch_size
         tokens, inv_idx = self.embed(x)
         cond = self.cond(temb, textcontext)
         freqs = scan_rope(self.emb_features // self.num_heads, (h // p) * (w // p),
                           self.scan_order, x.device)
+        down = lambda i, t, fr: getattr(self, f"down_{i}")(t, cond, fr)
+
+        def up(i, t, skip, fr):
+            t = getattr(self, f"up_fuse_{i}")(torch.cat([t, skip], dim=-1))
+            return getattr(self, f"up_{i}")(t, cond, fr)
+
         half = self.num_layers // 2
-        skips = []
-        for i in range(half):
-            tokens = getattr(self, f"down_{i}")(tokens, cond, freqs)
+        s = half if cache_mode is None else int(cache_split)
+        if cache_mode is not None and not 0 < s < half:
+            raise ValueError(f"cache_split {s} out of range for {self.num_layers} U layers")
+        skips, taps, ref = [], None, None
+        for i in range(s):                       # outer downs (always)
+            tokens = down(i, tokens, freqs)
             skips.append(tokens)
-        tokens = self.mid(tokens, cond, freqs)
-        for i in range(half):
-            tokens = getattr(self, f"up_fuse_{i}")(torch.cat([tokens, skips.pop()], dim=-1))
-            tokens = getattr(self, f"up_{i}")(tokens, cond, freqs)
+        if cache_mode == "reuse":
+            if cache_taps is None:
+                raise ValueError("cache_mode='reuse' requires cache_taps")
+            tokens = tokens + cache_taps
+        elif cache_mode == "spatial":
+            # the inner core on the top-k tokens; the outer skips stay exact,
+            # their down blocks ran on every token above
+            if cache_taps is None or cache_ref is None:
+                raise ValueError("cache_mode='spatial' requires cache_taps and cache_ref")
+            idx = select_tokens(tokens, cache_ref, cache_keep, cache_metric)
+            sel = gather_tokens(tokens, idx)
+            freqs_sel = gather_freqs(freqs, idx)
+            core_skips, g = [], sel
+            for i in range(s, half):             # inner downs (subset)
+                g = down(i, g, freqs_sel)
+                core_skips.append(g)
+            g = self.mid(g, cond, freqs_sel)
+            for i in range(half - s):            # inner ups (subset)
+                g = up(i, g, core_skips.pop(), freqs_sel)
+            taps = scatter_tokens(cache_taps, idx, g - sel)
+            ref = scatter_tokens(cache_ref, idx, sel)
+            tokens = tokens + taps
+        else:
+            # plain (s == half: these loops cover the whole U), "record" and
+            # "record_ref": the same block sequence
+            core_in = tokens
+            for i in range(s, half):             # inner downs
+                tokens = down(i, tokens, freqs)
+                skips.append(tokens)
+            tokens = self.mid(tokens, cond, freqs)
+            for i in range(half - s):            # inner ups
+                tokens = up(i, tokens, skips.pop(), freqs)
+            if cache_mode is not None:
+                taps, ref = tokens - core_in, core_in
+        for i in range(half - s, half):          # outer ups (always)
+            tokens = up(i, tokens, skips.pop(), freqs)
         tokens = self.final_proj(self.final_norm(tokens))
         c = self.output_channels
-        if inv_idx is not None:
-            return sfc_unpatchify(tokens, inv_idx, p, h, w, c)
-        return unpatchify(tokens, p, h, w, c)
+        out = (sfc_unpatchify(tokens, inv_idx, p, h, w, c) if inv_idx is not None
+               else unpatchify(tokens, p, h, w, c))
+        return cache_outputs(out, cache_mode, taps, ref)

@@ -7,8 +7,13 @@ coordinates x / signal(t), sigma(t) / signal(t), as the JAX package does.
 With a codec the trajectory runs in its latent space and the result is
 decoded (a clip's frames folded through the codec).
 
-Not ported yet: the cached programs and the serving chunk, terminal and
-trajectory-input programs. Capturing the loop in a CUDA graph is later work.
+With a cache plan (``ops/diffcache.py``, ``ops/spatialcache.py``) each step
+picks its forward on the host from the plan's numpy row: record or reuse
+under a `CachePlan`, record_ref, spatial or reuse under a `ComposedPlan`;
+the taps (and the score reference) are carried across steps.
+
+Not ported yet: the serving chunk, terminal and trajectory-input programs
+(ROADMAP.md A13). Capturing the loop in a CUDA graph is later work.
 """
 from __future__ import annotations
 
@@ -171,7 +176,7 @@ class DiffusionSampler:
                  transform: PredictionTransform, sampler: Sampler,
                  guidance_scale: float = 0.0, clip_denoised: bool = False,
                  timestep_spacing: str = "linear", device: DeviceLike = None,
-                 autoencoder=None):
+                 autoencoder=None, cache_plan=None, cache_fns=None):
         self.device = resolve_device(device)
         self.autoencoder = autoencoder
         self.model_fn = model_fn
@@ -181,22 +186,45 @@ class DiffusionSampler:
         self.guidance_scale = float(guidance_scale)
         self.clip_denoised = clip_denoised
         self.timestep_spacing = timestep_spacing
+        # the training-free caches: a static plan and the model's cache_mode
+        # closures (a (record, reuse) pair or a ComposedCacheFns); without
+        # both the loop is the plain one
+        self.cache_plan = cache_plan
+        self.cache_fns = cache_fns
 
-    def _denoise_fn(self, cond, uncond):
+    @property
+    def cache_active(self) -> bool:
+        return (self.cache_plan is not None and getattr(self.cache_plan, "enabled", False)
+                and self.cache_fns is not None)
+
+    @property
+    def spatial_active(self) -> bool:
+        """True when the plan composes the spatial token axis on the timestep
+        cache: it carries a `spatial` sub-plan and the closures the
+        record_ref and spatial forwards."""
+        return (self.cache_active and getattr(self.cache_plan, "spatial", None) is not None
+                and hasattr(self.cache_fns, "spatial"))
+
+    def _denoise_fn(self, cond, uncond, model_fn: Optional[Callable] = None):
+        """`denoise(x, t) -> (x0, eps)` through `model_fn` (default: the
+        model) with CFG, the transform and the optional clip. Every cache
+        mode goes through this one function, so a record step's math is the
+        plain step's."""
         schedule, transform = self.schedule, self.transform
         use_cfg = self.guidance_scale > 0.0 and uncond is not None
+        model_fn = self.model_fn if model_fn is None else model_fn
 
         def denoise(x, t):
             t_b = t.expand(x.shape[0]).to(torch.float32)
             c_in = bcast_right(transform.input_scale(schedule, t_b), x.ndim)
             x_in, t_in = schedule.transform_inputs(x * c_in, t_b)
             if use_cfg:
-                raw = self.model_fn(torch.cat([x_in, x_in]), torch.cat([t_in, t_in]),
-                                    torch.cat([cond, uncond]))
+                raw = model_fn(torch.cat([x_in, x_in]), torch.cat([t_in, t_in]),
+                               torch.cat([cond, uncond]))
                 raw_c, raw_u = raw.chunk(2)
                 raw = raw_u + self.guidance_scale * (raw_c - raw_u)
             else:
-                raw = self.model_fn(x_in, t_in, cond)
+                raw = model_fn(x_in, t_in, cond)
             pred = transform.transform_output(x, t_b, raw.float(), schedule)
             x0, eps = transform.to_x0_eps(x, t_b, pred, schedule)
             if self.clip_denoised:
@@ -207,6 +235,47 @@ class DiffusionSampler:
             return x0, eps
 
         return denoise
+
+    def _step_denoisers(self, cond, uncond, num_steps: int):
+        """One `denoise` per step of the trajectory. Uncached: the plain one
+        for every step. Cached: the step's mode from the plan's host row
+        (flags, or codes under a composed plan), each mode's denoiser
+        reading and writing one carry of taps (and the score reference).
+        A multi-evaluation sampler step (Heun, RK4) calls its denoiser
+        several times: on a refresh step each call records again, on a
+        cached step each reuses the newest taps. Step 0 always refreshes,
+        so the carry starts empty; this replaces the JAX engine's
+        ``cache_taps_init`` / ``cache_carry_init``, whose zeros exist only to
+        give ``lax.scan`` a carry shape."""
+        if not self.cache_active:
+            return [self._denoise_fn(cond, uncond)] * num_steps
+        fns, carry = self.cache_fns, {}
+
+        def record(x, t, c):
+            raw, carry["taps"] = fns[0](x, t, c)
+            return raw
+
+        def reuse(x, t, c):
+            return fns[1](x, t, c, carry["taps"])
+
+        if not self.spatial_active:
+            modes = {True: self._denoise_fn(cond, uncond, record),
+                     False: self._denoise_fn(cond, uncond, reuse)}
+            return [modes[bool(f)] for f in self.cache_plan.flags(num_steps)]
+        from ..ops.spatialcache import CODE_REFRESH, CODE_REUSE, CODE_SPATIAL
+
+        def record_ref(x, t, c):
+            raw, carry["taps"], carry["ref"] = fns.record_ref(x, t, c)
+            return raw
+
+        def spatial(x, t, c):
+            raw, carry["taps"], carry["ref"] = fns.spatial(x, t, c, carry["taps"], carry["ref"])
+            return raw
+
+        modes = {CODE_REFRESH: self._denoise_fn(cond, uncond, record_ref),
+                 CODE_SPATIAL: self._denoise_fn(cond, uncond, spatial),
+                 CODE_REUSE: self._denoise_fn(cond, uncond, reuse)}
+        return [modes[int(c)] for c in self.cache_plan.step_codes(num_steps)]
 
     def _inpaint_inputs(self, reference, mask, shape):
         """(mask, known) as the JAX engine checks and shapes them
@@ -281,24 +350,36 @@ class DiffusionSampler:
         steps = get_timestep_spacing(self.timestep_spacing, diffusion_steps,
                                      self.schedule.timesteps, start_step, end_step,
                                      schedule=self.schedule, device=dev)
-        denoise = self._denoise_fn(cond, uncond)
-        state = self.sampler.init_state(x)
-        for i in range(diffusion_steps):
-            x, state = self.sampler.step(denoise, x, steps[i], steps[i + 1], noise,
-                                         state, self.schedule, i)
-            if inpaint:
-                known_t = self.schedule.add_noise(known, noise.normal(known.shape),
-                                                  steps[i + 1].expand(x.shape[0]))
-                x = mask * x + (1.0 - mask) * known_t
-        # terminal denoise: a plain model call at the final step value
-        x0, _ = denoise(x, steps[-1])
-        if inpaint:
-            x0 = mask * x0 + (1.0 - mask) * known
+        x0 = self.run_loop(x, steps, noise, cond, uncond,
+                           (mask, known) if inpaint else None)
         if codec is not None:
             x0 = codec.decode(x0)
         return clip_images(x0)
 
     generate_images = generate_samples
+
+    def run_loop(self, x: torch.Tensor, steps: torch.Tensor, noise: NoiseSource,
+                 cond: Optional[torch.Tensor] = None, uncond: Optional[torch.Tensor] = None,
+                 inpaint: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """The trajectory from `x` over `steps` (on the device), then the
+        terminal denoise, a plain model call at the last step value; returns
+        x0 before the codec and the clip. `inpaint`: (mask, known). Nothing
+        here reads a value back from the card."""
+        denoisers = self._step_denoisers(cond, uncond, len(steps) - 1)
+        state = self.sampler.init_state(x)
+        for i, denoise in enumerate(denoisers):
+            x, state = self.sampler.step(denoise, x, steps[i], steps[i + 1], noise,
+                                         state, self.schedule, i)
+            if inpaint is not None:
+                mask, known = inpaint
+                known_t = self.schedule.add_noise(known, noise.normal(known.shape),
+                                                  steps[i + 1].expand(x.shape[0]))
+                x = mask * x + (1.0 - mask) * known_t
+        x0, _ = self._denoise_fn(cond, uncond)(x, steps[-1])
+        if inpaint is not None:
+            mask, known = inpaint
+            x0 = mask * x0 + (1.0 - mask) * known
+        return x0
 
 
 __all__ = ["DiffusionSampler", "GivenNoise", "NoiseSource", "Sampler",

@@ -16,7 +16,10 @@ Sample from the result with
 k`` accumulates k micro-batches a update (``optax.MultiSteps``, warmup and
 decay divided by k), ``--numerics_cadence``, ``--loss_ring`` and
 ``--gate_counter`` watch the run's health, ``--val_every`` samples a
-validation grid from the EMA params between chunks of the fit and
+validation grid from the EMA params between chunks of the fit, scored by
+``--val_metrics psnr,ssim,fid`` against the next real batch (FID with
+InceptionV3 features, pytorch-FID's weights from ``--inception_weights``,
+seeded random ones without), and
 ``--profile_dir`` writes a torch.profiler trace of a few steps.
 ``--autoencoder kl_vae|sd_vae`` trains in a codec's latent space (``sd_vae``
 with ``--autoencoder_opts '{"npz": "sd_vae.npz"}'`` loads converted weights;
@@ -111,7 +114,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--val_steps", type=int, default=200)
     p.add_argument("--val_guidance", type=float, default=3.0)
     p.add_argument("--val_metrics", default="",
-                   help="refused unless empty: the metrics are ROADMAP.md A10")
+                   help="comma list of {psnr, ssim, fid}; clip and clip_score are refused "
+                        "(they need CLIP's published weights)")
+    p.add_argument("--inception_weights", default=None,
+                   help="pytorch-FID's InceptionV3 state dict (.pth) or the npz of "
+                        "scripts/convert_inception_weights.py (standard FID; seeded random "
+                        "features otherwise)")
     p.add_argument("--sampler", default="euler_ancestral")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="torch device; default: CUDA")
@@ -132,6 +140,10 @@ class Run:
     validate: Optional[Callable[[int], Dict[str, Any]]] = None
 
 
+# --val_metrics name -> its EvaluationMetric factory in metrics/
+VAL_METRICS = {"psnr": "get_psnr_metric", "ssim": "get_ssim_metric", "fid": "get_fid_metric"}
+
+
 def _refuse_unported(args: argparse.Namespace) -> None:
     """train.py's own refusals, and the flags whose features are not ported."""
     if args.flash_tune_cache:
@@ -147,9 +159,12 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         raise SystemExit("--autoencoder stable_diffusion wraps diffusers and downloads SD's VAE "
                          "weights (ROADMAP.md A9's rest); use --autoencoder sd_vae with "
                          "--autoencoder_opts '{\"npz\": ...}' for converted weights")
-    if any(filter(None, args.val_metrics.split(","))):
-        raise SystemExit(f"--val_metrics {args.val_metrics}: validation metrics are "
-                         "ROADMAP.md A10")
+    for name in filter(None, args.val_metrics.split(",")):
+        if name in ("clip", "clip_score"):
+            raise SystemExit(f"--val_metrics {name}: the CLIP metrics need CLIP's published "
+                             "weights, which are not in the repository")
+        if name not in VAL_METRICS:
+            raise SystemExit(f"unknown --val_metrics entry {name!r}")
     # train.py:469-496: the whole state is flat under --flat_params, which
     # clears --flat_optimizer; either takes elementwise optimizers only
     if args.flat_params:
@@ -276,23 +291,32 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
 
     validate = None
     if args.val_every:
+        from . import metrics
+        val_metrics = []
+        for name in filter(None, args.val_metrics.split(",")):
+            kwargs = {"params_file": args.inception_weights} if name == "fid" else {}
+            val_metrics.append(getattr(metrics, VAL_METRICS[name])(device=device, **kwargs))
         validator = Validator(
             trainer.state.model, trainer.schedule, transform,
             ValidationConfig(num_samples=args.val_samples, diffusion_steps=args.val_steps,
                              guidance_scale=args.val_guidance if encoder else 0.0,
                              resolution=args.image_size),
-            sampler=SAMPLER_REGISTRY[args.sampler](), device=device, autoencoder=autoencoder)
+            sampler=SAMPLER_REGISTRY[args.sampler](), device=device, autoencoder=autoencoder,
+            metrics=val_metrics)
 
         def validate(step: int) -> Dict[str, Any]:
-            """A grid from the EMA params for the prompt "a photo"
-            (train.py:779-805); the JAX CLI also takes a batch of real
-            images for the metrics, which are ROADMAP.md A10."""
+            """A grid from the EMA params for the prompt "a photo", scored
+            against real images (train.py:779-805): the batch at index `step`
+            of the stream, the next chunk's first. The JAX CLI takes the next
+            batch off its training iterator; the port's stream is a function
+            of the step, so it reads the batch and trains on it too."""
             cond = unc = None
             if encoder is not None:
                 cond = encoder(["a photo"] * args.val_samples).to(device)
                 unc = input_config.get_unconditionals(args.val_samples)[0].to(device)
+            real = next(iterate_batches(dataset, args.batch_size, args.seed, start_batch=step))
             t0 = time.perf_counter()
-            result = validator.run(trainer.get_params(use_ema=True), cond, unc)
+            result = validator.run(trainer.get_params(use_ema=True), cond, unc, batch=real)
             return {"step": step, "wall_s": time.perf_counter() - t0,
                     "samples": Validator.to_uint8(result["samples"]),
                     "metrics": result["metrics"]}

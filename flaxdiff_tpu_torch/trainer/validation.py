@@ -1,19 +1,19 @@
 """Validation: a sample grid from the EMA params (counterpart of
 ``flaxdiff_tpu/trainer/validation.py``): 8 samples, 200 steps of
-``EulerAncestralSampler`` with guidance 3.0, from a generator of seed 42.
-
-The metrics (FID, CLIP, PSNR, SSIM) are ROADMAP.md A10; a validator runs
-none yet.
+``EulerAncestralSampler`` with guidance 3.0, from a generator of seed 42,
+then the given metrics (``metrics/``: PSNR, SSIM, FID) against a batch of
+real images, each one's best tracked with its direction.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import make_generator
+from ..metrics import EvaluationMetric, MetricTracker
 from ..samplers import DiffusionSampler, EulerAncestralSampler, Sampler
 from ..utils import denormalize_images
 
@@ -37,8 +37,10 @@ class Validator:
 
     def __init__(self, model: torch.nn.Module, schedule, transform,
                  config: Optional[ValidationConfig] = None, sampler: Optional[Sampler] = None,
-                 device=None, autoencoder=None):
+                 device=None, autoencoder=None, metrics: Sequence[EvaluationMetric] = ()):
         self.config = config if config is not None else ValidationConfig()
+        self.metrics = list(metrics)
+        self.tracker = MetricTracker()
         self.model = model
         self._params: Mapping[str, torch.Tensor] = {}
         self.sampler = DiffusionSampler(
@@ -50,10 +52,12 @@ class Validator:
 
     def run(self, params: Mapping[str, torch.Tensor],
             conditioning: Optional[torch.Tensor] = None,
-            unconditional: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+            unconditional: Optional[torch.Tensor] = None,
+            batch: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """A validation grid from `params` (name -> tensor, the model's
-        parameters replaced for the calls): {"samples": [N, R, R, C] numpy
-        in [-1, 1], "metrics": {}}."""
+        parameters replaced for the calls), scored by each metric against
+        `batch` (real images under "sample"): {"samples": [N, R, R, C] numpy
+        in [-1, 1], "metrics": {name: value}, "improved": {name: new best}}."""
         cfg = self.config
         self._params = params
         try:
@@ -65,7 +69,14 @@ class Validator:
                 conditioning=conditioning, unconditional=unconditional)
         finally:
             self._params = {}
-        return {"samples": samples.float().cpu().numpy(), "metrics": {}}
+        samples = samples.float().cpu().numpy()
+        results, improved = {}, {}
+        for metric in self.metrics:
+            value = float(metric.function(samples, batch))
+            results[metric.name] = value
+            improved[metric.name] = self.tracker.update(metric.name, value,
+                                                        metric.higher_is_better)
+        return {"samples": samples, "metrics": results, "improved": improved}
 
     @staticmethod
     def to_uint8(samples: np.ndarray) -> np.ndarray:

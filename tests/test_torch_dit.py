@@ -282,13 +282,23 @@ def test_dit_loss_graph_runs_every_epilogue_through_its_function():
 
 
 def test_unported_options_raise():
-    """remat is ported (tests/test_torch_unet_variants.py holds it bit-equal);
-    the training-free caches are ROADMAP.md A8."""
+    """remat is ported (tests/test_torch_unet_variants.py holds it bit-equal),
+    and so is cache_mode, once refused naming ROADMAP.md A8: "record" returns
+    the plain forward bit for bit and the deep delta, which "reuse" adds back
+    (tests/test_torch_diffcache.py holds every mode against JAX); an unknown
+    mode raises."""
     assert SimpleDiT(**TINY, remat=True, device="cpu").remat
     tm = SimpleDiT(**TINY, in_channels=CH, device="cpu")
-    x, t, _ = tiny_inputs(15)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tm(torch.from_numpy(x), torch.from_numpy(t), cache_mode="record", cache_split=1)
+    x, t, _ = (torch.from_numpy(a) for a in tiny_inputs(15))
+    with torch.no_grad():
+        for p in tm.parameters():
+            p.add_(0.1 * torch.randn_like(p))
+        out, taps = tm(x, t, cache_mode="record", cache_split=1)
+        assert torch.equal(out, tm(x, t)) and float(taps.abs().max()) > 0
+        torch.testing.assert_close(tm(x, t, cache_mode="reuse", cache_split=1, cache_taps=taps),
+                                   out, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="unknown cache_mode"):
+        tm(x, t, cache_mode="replay", cache_split=1)
 
 
 @pytest.mark.parametrize("scan", list(SCANS))

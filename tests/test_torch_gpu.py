@@ -1057,3 +1057,58 @@ def test_float16_cli_backs_the_loss_scale_off_on_the_card(cuda, tmp_path):
     assert float(after["loss_scale"]) == float(before["loss_scale"]) / 2
     assert int(after["loss_scale_fin_steps"]) == 0 and state.step == 5
     trainer.checkpointer.close()
+
+
+# --- the training-free caches ------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["timestep", "composed"])
+def test_cached_dit_request_never_syncs_and_launches_as_planned(cuda, kind):
+    """A cached DDIM + CFG trajectory of a small bf16 DiT under sync debug
+    mode "error" (the plan's row is host numpy, the token selection stays on
+    the card), its launches zeroed just before: every step runs all blocks
+    (refresh, spatial) or the shallow split (reuse), 1 attention, 2
+    LayerNorm + modulate and 2 gated residuals a block, plus the terminal
+    call's."""
+    from flaxdiff_tpu_torch.device import make_generator
+    from flaxdiff_tpu_torch.models import SimpleDiT
+    from flaxdiff_tpu_torch.ops.diffcache import CachePlan, resolve_cache_fns
+    from flaxdiff_tpu_torch.ops.spatialcache import (CODE_REUSE, ComposedPlan, SpatialPlan,
+                                                     resolve_composed_fns)
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.samplers import (DDIMSampler, DiffusionSampler, NoiseSource,
+                                             get_timestep_spacing)
+    from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
+    layers, steps = 5, 12
+    model = SimpleDiT(output_channels=4, patch_size=2, emb_features=128, num_layers=layers,
+                      num_heads=2, in_channels=4, context_dim=32, dtype="bfloat16", device=cuda)
+    _random_weights(model)
+    timestep = CachePlan(refresh_every=4, refresh_head=1, refresh_tail=1)
+    if kind == "timestep":
+        plan, fns = timestep, resolve_cache_fns(model, timestep)
+        full = plan.flags(steps)
+    else:
+        plan = ComposedPlan(timestep, SpatialPlan(keep_fraction=0.25, every=2))
+        fns = resolve_composed_fns(model, plan)
+        full = plan.step_codes(steps) != CODE_REUSE
+    engine = DiffusionSampler(lambda x, t, c: model(x, t, c), LinearNoiseSchedule(1000),
+                              EpsilonPredictionTransform(), DDIMSampler(), guidance_scale=3.0,
+                              device=cuda, cache_plan=plan, cache_fns=fns)
+    noise = NoiseSource(make_generator(3, cuda))
+    x = noise.normal((2, 16, 16, 4))
+    cond = _randn(cuda, 2, 7, 32, seed=4)
+    uncond = torch.zeros_like(cond)
+    spacing = get_timestep_spacing("linear", steps, 1000, device=cuda)
+    with torch.inference_mode():
+        engine.run_loop(x, spacing, noise, cond, uncond)      # warm-up: builds, GEMM choices
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            x0 = engine.run_loop(x, spacing, noise, cond, uncond)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    blocks = int(full.sum()) * layers + int((~full).sum()) * model.cache_split_index(0.2) + layers
+    counts = launch_counts()
+    assert counts == {k: {"flash_fwd": 1, "ln_mod": 2, "gate_res": 2}.get(k, 0) * blocks
+                      for k in counts}
+    assert bool(torch.isfinite(x0).all())

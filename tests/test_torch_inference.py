@@ -417,5 +417,5 @@ def test_cli_lamb_names_the_roadmap(tmp_path):
     clip + lamb chain now; what the CLI still refuses names its item."""
     run = train.make_run(_cli(tmp_path / "a", 2, "--optimizer", "lamb"))
     assert run.trainer.state.tx.adam.trust_ratio and run.trainer.state.tx.adam.eps == 1e-6
-    with pytest.raises(SystemExit, match="ROADMAP.md A10"):
-        train.make_run(_cli(tmp_path / "b", 2, "--val_every", "2", "--val_metrics", "fid"))
+    with pytest.raises(SystemExit, match="CLIP's published weights"):
+        train.make_run(_cli(tmp_path / "b", 2, "--val_every", "2", "--val_metrics", "clip"))

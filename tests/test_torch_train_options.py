@@ -458,7 +458,7 @@ def test_an_earlier_checkpoint_restores_without_scale_or_accumulation(tmp_path):
     (["--optimizer", "lamb", "--flat_optimizer"], SystemExit,
      "--flat_optimizer is elementwise-only"),
     (["--gate_counter", "--no_nonfinite_gate"], ValueError, "requires gate_nonfinite"),
-    (["--val_every", "2", "--val_metrics", "fid"], SystemExit, "A10"),
+    (["--val_every", "2", "--val_metrics", "clip"], SystemExit, "CLIP's published weights"),
     (["--anomaly_action", "skip_step"], SystemExit, "A14"),
     (["--flash_tune_cache", "cache"], SystemExit, "queue B"),
 ], ids=["lamb_flat_params", "lamb_flat_optimizer", "gate_counter_no_gate", "val_metrics",
@@ -466,7 +466,8 @@ def test_an_earlier_checkpoint_restores_without_scale_or_accumulation(tmp_path):
 def test_cli_refuses_what_train_py_refuses(tmp_path, flags, error, match):
     """train.py's refusals, with its messages (the flat flags' text is the
     JAX CLI's; the gate counter's the JAX trainer's), and the flags whose
-    features are not ported, naming their ROADMAP.md item."""
+    features are not ported, naming their ROADMAP.md item (the CLIP metrics:
+    the weights they need)."""
     tiny = json.dumps({**TINY, "attention_configs": [None, None]})
     argv = ["--device", "cpu", "--image_size", "16", "--batch_size", "2", "--dtype", "float32",
             "--model_config", tiny, "--text_encoder", "none", "--checkpoint_dir",

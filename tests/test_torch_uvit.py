@@ -67,9 +67,19 @@ def test_dit_unfused_epilogues_and_activation_match_jax(activation):
 
 @pytest.mark.parametrize("cls", [SimpleDiT, SimpleUDiT, SimpleMMDiT])
 def test_cache_mode_names_the_roadmap(cls):
-    """The training-free caches are ROADMAP.md A8; every DiT-family model
-    that takes ``cache_mode`` in JAX raises naming it."""
-    model = cls(**VIT, in_channels=3, context_dim=TEXT, device="cpu")
+    """The training-free caches, once refused naming ROADMAP.md A8, are
+    ported: every DiT-family model that takes ``cache_mode`` in JAX records
+    its plain forward bit for bit with the deep delta, reuses it, and
+    refuses a split outside its trunk (tests/test_torch_diffcache.py holds
+    the modes against JAX)."""
+    model = cls(**dict(VIT, num_layers=4), in_channels=3, context_dim=TEXT, device="cpu")
     x, t, ctx = map(torch.from_numpy, INPUTS(80))
-    with pytest.raises(NotImplementedError, match="A8"):
-        model(x, t, ctx, cache_mode="record", cache_split=1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.1 * torch.randn_like(p))
+        out, taps = model(x, t, ctx, cache_mode="record", cache_split=1)
+        assert torch.equal(out, model(x, t, ctx)) and float(taps.abs().max()) > 0
+        torch.testing.assert_close(model(x, t, ctx, cache_mode="reuse", cache_split=1,
+                                         cache_taps=taps), out, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="out of range"):
+        model(x, t, ctx, cache_mode="record", cache_split=4)
