@@ -159,6 +159,32 @@ Phases; any failure exits non-zero and prints no result line.
      psnr,ssim,fid (10 steps): finite val/psnr, val/ssim and val/fid.
      Phase 2 also holds flash, LayerNorm + modulate and the gated residual
      at the spatial step's 32 tokens.
+  15. The serving subsystem: phase 4's UNet (bf16, CFG 3.0) behind a
+     DiffusionInferencePipeline with the hash encoder's 77x768 text input,
+     served by ServingScheduler with prompted requests. (a) DDIM-25, DDIM-50
+     and Euler-ancestral-50 batched in bucket 4 (rounds of 10 steps), and
+     two multistep DPM requests admitted at different offsets, all on x0
+     before the clip (random eps weights saturate the samples): each of the
+     five alone in bucket 1 bit-equal to the solo generate_samples; each
+     batched bit-equal to itself alone in bucket 4 and within TOL15 of the
+     solo call; one round under sync debug "error".
+     (b) a seeded Poisson replay (32 requests at 8 Hz, buckets 1/2/4/8,
+     max_inflight 2) twice after prewarm: latency p50/p99, requests/s,
+     images/s, occupancy, program-cache hit rate, shed and backpressure
+     counts; the second replay builds no program and launches PER_FORWARD x
+     model calls (launches zeroed just before); one bucket-8 round's
+     launched, wall and busy ms and idle share beside phase 4's. (c) (b)'s
+     workload in (b)'s buckets under a FaultPlan (a round fault, a fetch
+     fault, a device loss): every request completes within TOL15 of its
+     fault-free run (requeues move it to other buckets and positions), every
+     fault fires and is recovered; its first 6 requests in bucket 1 under
+     the same plan, each bit-equal to its fault-free run;
+     requeued, quarantined and rebuild counts. (d) two replicas behind the
+     FrontDoor with serving.replica_lost killing one mid-replay: every
+     future resolves, the failovers counted. (e) DiT-B/2 (phase 6's) under
+     the composed default plan through the scheduler: a request bit-equal to
+     itself alone in its bucket, its launches the plan's (phase 14's
+     planned_launches).
 The lines before the last are the kernels' JSON record and the card's
 name and power limit; the last is {"ok": true, "device": {...}}. With
 --record, the full record (every case, the model checks, both paths and
@@ -3182,6 +3208,481 @@ def cache_paths(dev, phase11: dict) -> dict:
     return out
 
 
+# --- phase 15: the serving subsystem ------------------------------------------------
+
+SERVE15_ROUND, SERVE15_BUCKETS = 10, (1, 2, 4, 8)
+SERVE15_REQUESTS, SERVE15_RATE, SERVE15_SEED = 32, 8.0, 15
+PROMPTS15 = ["a watercolor of a lighthouse at dawn", "a macro photo of frost on a leaf",
+             "an isometric city block at night"]
+# the replay's traffic (bench.py:stage_serve's kind of mix at phase 4's size)
+MIX15 = [dict(resolution=RESOLUTION, channels=3, guidance_scale=GUIDANCE, use_ema=False,
+              diffusion_steps=n, sampler=s, prompts=[p])
+         for (n, s), p in zip(((25, "ddim"), (50, "ddim"), (50, "euler_ancestral")), PROMPTS15)]
+CHAOS15_EXACT, CHAOS15_EXACT_SPEED, DOOR15_REQUESTS = 6, 4.0, 16
+# a request served in another bucket than its reference, or at another
+# position among other mates, runs through the convolution algorithms cuDNN
+# picks for that batch, whose bf16 sums round differently: its x0 before
+# the clip is held to TOL15 x max(1, max|ref|). Each side may be as far from
+# the f32 trajectory as bf16 takes a request (the bf16 solo call against the
+# f32 model's: 1.9e-2-2.4e-2 of max, scripts/row_position_probe.py on an
+# H100), so two of them may be twice that apart.
+TOL15 = 5e-2
+
+
+def serving15_pipeline(dev, model, side: int, ch: int, schedule, transform):
+    """A pipeline over `model` (its own weights as the params) with the hash
+    encoder's 77x768 text input: requests carry prompts."""
+    from flaxdiff_tpu_torch.inference import DiffusionInferencePipeline
+    from flaxdiff_tpu_torch.inputs import (ConditionalInputConfig, DiffusionInputConfig,
+                                           HashTextEncoder)
+    ic = DiffusionInputConfig("sample", (side, side, ch), [ConditionalInputConfig(
+        HashTextEncoder(features=TEXT_DIM, max_length=TEXT_LEN))])
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    return DiffusionInferencePipeline(model, params, schedule, transform, input_config=ic,
+                                      device=dev)
+
+
+def serve15(pipe, reqs, telemetry=None, **cfg):
+    """Serve `reqs` through one scheduler; the results in request order."""
+    from flaxdiff_tpu_torch.serving import SchedulerConfig, ServingScheduler
+    from flaxdiff_tpu_torch.telemetry import Telemetry
+    sched = ServingScheduler(pipeline=pipe, telemetry=telemetry or Telemetry(),
+                             autostart=False, config=SchedulerConfig(**cfg))
+    futs = [sched.submit(r) for r in reqs]
+    sched.start()
+    try:
+        return [f.result(timeout=600) for f in futs]
+    finally:
+        sched.close()
+
+
+def drive15(submit, workload, speed: float):
+    """Submit on the workload's arrival clock (scaled by `speed`); every
+    future's result or exception, in workload order."""
+    t0 = time.perf_counter()
+    futs = []
+    for offset, req in workload:
+        delay = offset / speed - (time.perf_counter() - t0)
+        if delay > 0:
+            time.sleep(delay)
+        futs.append(submit(req))
+    out = []
+    for f in futs:
+        try:
+            out.append(f.result(timeout=600))
+        except Exception as e:          # noqa: BLE001 — tallied by the caller
+            out.append(e)
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def preclip():
+    """Serve and sample without the final clip to [-1, 1]. The random eps
+    UNet's x0 from t = 999 lies far outside it (99.99% of the pixels clip),
+    so clipped samples agree in their signs and little else: phase 15's
+    comparisons read x0 before the clip."""
+    import flaxdiff_tpu_torch.samplers.common as sampler_common
+    import flaxdiff_tpu_torch.serving.engine as engine
+    saved = sampler_common.clip_images, engine.clip_images
+    sampler_common.clip_images = engine.clip_images = lambda x: x
+    try:
+        yield
+    finally:
+        sampler_common.clip_images, engine.clip_images = saved
+
+
+def rel15(out, ref) -> float:
+    """max|out - ref| / max(1, max|ref|)."""
+    return float(np.abs(out - ref).max() / max(1.0, float(np.abs(ref).max())))
+
+
+def solo15(pipe, r):
+    return pipe.generate_samples(num_samples=r.num_samples, resolution=r.resolution,
+                                 channels=r.channels, diffusion_steps=r.diffusion_steps,
+                                 sampler=r.sampler, guidance_scale=r.guidance_scale,
+                                 prompts=r.prompts, seed=r.seed, use_ema=False,
+                                 cache_plan=r.cache_plan)
+
+
+def serving_identity(dev, pipe) -> dict:
+    """15a, on x0 before the clip (`preclip`): each request alone in bucket 1
+    (CFG batch 2, the solo call's own batch) bit-equal to the solo
+    generate_samples; three requests batched in bucket 4 bit-equal to each
+    alone in bucket 4 and within TOL15 of the solo call; multistep DPM at two
+    offsets; one round under sync debug "error"."""
+    from flaxdiff_tpu_torch.serving import SampleRequest, SamplerProgramEngine, ServingFuture
+    from flaxdiff_tpu_torch.telemetry import Telemetry
+    reqs = [SampleRequest(**dict(MIX15[i], seed=101 + i)) for i in range(3)]
+    ms = [SampleRequest(**dict(MIX15[1], sampler="multistep_dpm", diffusion_steps=n, seed=s))
+          for n, s in ((30, 104), (20, 105))]
+    name = lambda r: f"{r.sampler}-{r.diffusion_steps}"
+    res = {"requests": {name(r): {} for r in reqs + ms}}
+    with preclip():
+        solos = {r.seed: solo15(pipe, r) for r in reqs + ms}
+        ones = serve15(pipe, reqs + ms, round_steps=SERVE15_ROUND, batch_buckets=(1,))
+        for r, o in zip(reqs + ms, ones):
+            ref = solos[r.seed]
+            row = res["requests"][name(r)]
+            row.update(bit_equal_solo_bucket1=bool(np.array_equal(o.samples, ref)),
+                       max_diff_solo_bucket1=float(np.abs(o.samples - ref).max()),
+                       max_abs_x0=float(np.abs(ref).max()),
+                       clipped_share=float((np.abs(ref) >= 1.0).mean()))
+            log(f"  15a {name(r)} alone in bucket 1: x0 before the clip bit-equal to the solo "
+                f"generate_samples {row['bit_equal_solo_bucket1']} (max diff "
+                f"{row['max_diff_solo_bucket1']:.3g}, max|x0| {row['max_abs_x0']:.4g}, "
+                f"{row['clipped_share']:.2%} of it outside [-1, 1])")
+            check(row["bit_equal_solo_bucket1"],
+                  f"15a {name(r)}: bucket 1 equals the solo generate_samples bit for bit")
+            check(bool(np.isfinite(o.samples).all())
+                  and o.samples.shape == (1, RESOLUTION, RESOLUTION, 3),
+                  f"15a {name(r)}: samples {o.samples.shape}, finite")
+
+        cfg = dict(round_steps=SERVE15_ROUND, batch_buckets=(4,))
+        batched = serve15(pipe, reqs, **cfg)
+        for r, o in zip(reqs, batched):
+            alone = serve15(pipe, [r], **cfg)[0]
+            row = res["requests"][name(r)]
+            row.update(bit_equal_alone=bool(np.array_equal(o.samples, alone.samples)),
+                       rel_diff_solo=rel15(o.samples, solos[r.seed]), rounds=o.rounds)
+            log(f"  15a {name(r)} batched in bucket 4: bit-equal alone in bucket 4 "
+                f"{row['bit_equal_alone']}, {o.rounds} rounds, x0 against the solo call "
+                f"{row['rel_diff_solo']:.3g} of max (limit {TOL15})")
+            check(row["bit_equal_alone"], f"15a {name(r)}: batched equals itself alone in bucket 4")
+            check(row["rel_diff_solo"] <= TOL15, f"15a {name(r)}: bucket 4 within {TOL15} of solo")
+
+        # multistep DPM: B admitted one round after A, at A's offset 10
+        eng = SamplerProgramEngine(pipe, telemetry=Telemetry())
+
+        def run(admit):
+            rows, outs, rnd = [], {}, 0
+            while rnd in admit or rows:
+                if rnd in admit:
+                    rows.append(eng.prepare(admit[rnd], ServingFuture(), 0.0, 0.0))
+                done, _ = eng.advance(rows, 4, SERVE15_ROUND)
+                if done:
+                    x0, _ = eng.finalize(done, 4)
+                    host = x0.cpu().numpy()
+                    for i, r in enumerate(done):
+                        outs[r.req.seed] = host[i]
+                rows = [r for r in rows if r.remaining > 0]
+                rnd += 1
+            return outs
+
+        together = run({0: ms[0], 1: ms[1]})
+        for r in ms:
+            alone = run({0: r})[r.seed]
+            row = res["requests"][name(r)]
+            row.update(bit_equal_alone=bool(np.array_equal(together[r.seed], alone)),
+                       rel_diff_solo=rel15(together[r.seed], solos[r.seed]))
+            log(f"  15a {name(r)} (admitted at offset "
+                f"{0 if r is ms[0] else SERVE15_ROUND}) in bucket 4: bit-equal alone "
+                f"{row['bit_equal_alone']}, x0 against the solo call {row['rel_diff_solo']:.3g} "
+                f"of max (limit {TOL15})")
+            check(row["bit_equal_alone"], f"15a multistep seed {r.seed}: equals itself alone")
+            check(row["rel_diff_solo"] <= TOL15,
+                  f"15a multistep seed {r.seed}: bucket 4 within {TOL15} of solo")
+
+    # one round under sync debug "error": prepared before, launched inside
+    rows = [eng.prepare(r, ServingFuture(), 0.0, 0.0) for r in reqs[:2]]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.advance(rows, 4, SERVE15_ROUND)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    res["sync_debug_round"] = True
+    log("  15a one bucket-4 round of two DDIM rows ran under sync debug \"error\"")
+    return res
+
+
+def bucket8_round(engine, phase4: dict) -> dict:
+    """One bucket-8 round of 10 DDIM steps: its time as launched (the
+    host's enqueue), its wall to completion and its device busy time."""
+    from flaxdiff_tpu_torch.serving import SampleRequest, ServingFuture
+    reqs = [SampleRequest(**dict(MIX15[1], seed=300 + i)) for i in range(8)]
+    sets = [[engine.prepare(r, ServingFuture(), 0.0, 0.0) for r in reqs] for _ in range(6)]
+    engine.advance(sets.pop(), 8, SERVE15_ROUND)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.advance(sets.pop(), 8, SERVE15_ROUND)
+    launched = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = busy_ms(lambda: engine.advance(sets.pop(), 8, SERVE15_ROUND))
+    out = {"launched_ms": launched * 1e3, "wall_ms": wall * 1e3, "busy_ms": busy,
+           "idle_share": None if busy is None else 1.0 - busy / (wall * 1e3),
+           "ms_per_step": wall * 1e3 / SERVE15_ROUND,
+           "phase4_ms_per_forward": phase4["ms_per_forward"],
+           "phase4_forward_busy_ms": phase4["breakdown"]["busy_ms"]}
+    log(f"  15b one bucket-8 round (8 requests x 10 DDIM steps, CFG batch 16): launched in "
+        f"{out['launched_ms']:.3f} ms, wall {out['wall_ms']:.3f} ms "
+        f"({out['ms_per_step']:.3f} ms a step), busy "
+        + ("not measured" if busy is None else f"{busy:.3f} ms ({out['idle_share']:.0%} idle)")
+        + f"; phase 4's solo request {phase4['ms_per_forward']:.3f} ms a step, one CFG forward "
+        f"busy {phase4['breakdown']['busy_ms']:.3f} ms")
+    return out
+
+
+def serving_replay(dev, pipe, workload, phase4: dict) -> dict:
+    """15b: the seeded Poisson replay twice after prewarm."""
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.serving import SampleRequest, SchedulerConfig, ServingScheduler, replay
+    from flaxdiff_tpu_torch.telemetry import Telemetry
+    tel = Telemetry()
+    sched = ServingScheduler(pipeline=pipe, telemetry=tel, autostart=False,
+                             config=SchedulerConfig(round_steps=SERVE15_ROUND,
+                                                    batch_buckets=SERVE15_BUCKETS,
+                                                    max_inflight=2))
+    # one prototype a group: the program keys hold the round length, not
+    # the NFE, so one round of each covers every request of the mix
+    protos = [SampleRequest(**dict(m, diffusion_steps=SERVE15_ROUND, seed=0))
+              for m in (MIX15[0], MIX15[2])]
+    warm = sched.prewarm(protos)
+    log(f"  15b prewarm: {warm['programs']} programs in {warm['seconds']:.3f} s")
+    calls = {"model": 0, "finalize": 0}
+    hook = pipe.model.register_forward_pre_hook(
+        lambda *_: calls.__setitem__("model", calls["model"] + 1))
+    finalize = sched.engine.finalize
+
+    def counted_finalize(*a, **kw):
+        calls["finalize"] += 1
+        return finalize(*a, **kw)
+
+    sched.engine.finalize = counted_finalize
+    sched.start()
+    names = ("rounds", "rows_real", "rows_padded", "program_cache_hits",
+             "program_cache_misses", "shed", "backpressure_waits", "requests_ok")
+    runs = []
+    try:
+        for i in range(2):
+            before = {n: tel.counter(f"serving/{n}").value for n in names}
+            if i == 1:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                calls.update(model=0, finalize=0)
+            summary = replay(sched, workload, timeout_s=600)
+            d = {n: tel.counter(f"serving/{n}").value - before[n] for n in names}
+            lookups = d["program_cache_hits"] + d["program_cache_misses"]
+            row = {"summary": summary, "counters": d,
+                   "occupancy": d["rows_real"] / max(1.0, d["rows_real"] + d["rows_padded"]),
+                   "cache_hit_rate": d["program_cache_hits"] / max(1.0, lookups)}
+            runs.append(row)
+            lat = summary["latency_ms"]
+            log(f"  15b replay {i + 1}: {summary['completed']}/{summary['requests']} completed, "
+                f"latency p50 {lat['p50']:.1f} ms p99 {lat['p99']:.1f} ms, "
+                f"{summary['throughput_rps']:.3f} requests/s, {summary['samples_per_s']:.3f} "
+                f"images/s, occupancy {row['occupancy']:.3f}, cache hit rate "
+                f"{row['cache_hit_rate']:.3f} ({int(d['program_cache_misses'])} misses), shed "
+                f"{int(d['shed'])}, backpressure waits {int(d['backpressure_waits'])}, "
+                f"{int(d['rounds'])} rounds")
+            check(summary["completed"] == summary["requests"], f"15b replay {i + 1}: all completed")
+        counts = launch_counts()
+    finally:
+        sched.close()
+        hook.remove()
+    d = runs[1]["counters"]
+    check(d["program_cache_misses"] == 0, "15b: the warm replay built no program")
+    model_calls = calls["model"]
+    check(model_calls == d["rounds"] * SERVE15_ROUND + calls["finalize"],
+          f"15b: {model_calls} model calls = {int(d['rounds'])} rounds x {SERVE15_ROUND} steps "
+          f"+ {calls['finalize']} terminal calls")
+    expected = {k: PER_FORWARD.get(k, 0) * model_calls for k in counts}
+    log(f"  15b warm replay launches {counts}, expected {expected}")
+    check(counts == expected, "15b: every model call of the warm replay ran its kernels")
+    round8 = bucket8_round(sched.engine, phase4)
+    return {"prewarm": warm, "replays": runs, "launches": counts, "model_calls": model_calls,
+            "terminal_calls": calls["finalize"], "bucket8_round": round8}
+
+
+def chaos15(pipe, workload, cfg, speed: float, chaos: bool):
+    """`workload` through one scheduler after prewarm, under
+    bench.py:stage_serve's FaultPlan when `chaos`, on x0 before the clip:
+    (every future's result or exception, the registry's snapshot)."""
+    from flaxdiff_tpu_torch import resilience as R
+    from flaxdiff_tpu_torch.serving import SampleRequest, ServingScheduler
+    from flaxdiff_tpu_torch.telemetry import Telemetry
+    tel = Telemetry()
+    sched = ServingScheduler(pipeline=pipe, telemetry=tel, autostart=False, config=cfg)
+    sched.prewarm([SampleRequest(**dict(m, diffusion_steps=SERVE15_ROUND, seed=0))
+                   for m in (MIX15[0], MIX15[2])])
+    sched.start()
+    plan = R.FaultPlan([R.FaultSpec("serving.round", at=(3,), times=1),
+                        R.FaultSpec("serving.fetch", at=(2,), times=1),
+                        R.FaultSpec("serving.device_lost", at=(6,), times=1,
+                                    error="flag")] if chaos else [], seed=0)
+    try:
+        with plan.installed(), preclip():
+            results, _ = drive15(sched.submit, workload, speed)
+    finally:
+        sched.close()
+    return results, tel.registry.snapshot()
+
+
+def serving_chaos(dev, pipe, workload) -> dict:
+    """15c: bench.py:stage_serve's FaultPlan over 15b's workload in 15b's
+    buckets, and over its first CHAOS15_EXACT requests in bucket 1. Every
+    request completes and every fault fires and is recovered. The faults'
+    requeues and conviction's probe rounds move a request into other
+    buckets and among other mates, so in 15b's buckets a request's x0 is
+    held to TOL15 of its fault-free run; in bucket 1 it keeps its batch and
+    its position, and is held bit for bit."""
+    from flaxdiff_tpu_torch.serving import SchedulerConfig
+    # no brownout: after a fault it caps the NFE of the requests admitted in
+    # its cooldown (degrade before shed), a different request by design
+    res = {}
+    for key, buckets, work, speed in (
+            ("bucketed", SERVE15_BUCKETS, workload, 1.0),
+            ("bucket1", (1,), workload[:CHAOS15_EXACT], CHAOS15_EXACT_SPEED)):
+        cfg = SchedulerConfig(round_steps=SERVE15_ROUND, batch_buckets=buckets,
+                              max_inflight=2, brownout=None)
+        clean, _ = chaos15(pipe, work, cfg, speed, chaos=False)
+        faulted, snap = chaos15(pipe, work, cfg, speed, chaos=True)
+        failed = [type(r).__name__ for r in clean + faulted if isinstance(r, Exception)]
+        check(not failed, f"15c {key}: every request completed ({failed})")
+        rels = [rel15(b.samples, a.samples) for a, b in zip(clean, faulted)]
+        row = {k: snap.get(f"serving/{k}", 0.0) for k in
+               ("requeued", "quarantined", "supervisor_rebuilds", "round_faults",
+                "fetch_faults", "device_lost", "probe_rounds")}
+        row.update(requests=len(work), buckets=list(buckets),
+                   bit_equal=sum(bool(np.array_equal(a.samples, b.samples))
+                                 for a, b in zip(clean, faulted)),
+                   max_rel_diff=max(rels), retried=sum(r.attempts > 0 for r in faulted),
+                   recovered_p99_ms=float(np.percentile(
+                       [r.latency_ms for r in faulted if r.attempts > 0] or [0.0], 99)))
+        res[key] = row
+        log(f"  15c chaos in buckets {buckets}: {len(work)} completed, {row['bit_equal']} "
+            f"bit-equal to the fault-free run, x0 within {row['max_rel_diff']:.3g} of max "
+            f"(limit {TOL15 if key == 'bucketed' else 0}); round faults "
+            f"{row['round_faults']:.0f}, fetch faults {row['fetch_faults']:.0f}, device lost "
+            f"{row['device_lost']:.0f}; requeued {row['requeued']:.0f}, quarantined "
+            f"{row['quarantined']:.0f}, rebuilds {row['supervisor_rebuilds']:.0f}, probe rounds "
+            f"{row['probe_rounds']:.0f}")
+        check(row["supervisor_rebuilds"] == 1 and row["round_faults"] >= 1
+              and row["fetch_faults"] == 1, f"15c {key}: every fault fired and was recovered")
+        if key == "bucketed":
+            check(row["max_rel_diff"] <= TOL15,
+                  f"15c: every request within {TOL15} of its fault-free result")
+        else:
+            check(row["bit_equal"] == len(work),
+                  "15c: in bucket 1 every request bit-equal to its fault-free result")
+    return res
+
+
+def serving_frontdoor(dev, pipe, workload) -> dict:
+    """15d: two replicas over the pipeline's weights behind the FrontDoor;
+    serving.replica_lost kills r0 mid-replay (bench.py:2321's plan)."""
+    from flaxdiff_tpu_torch import resilience as R
+    from flaxdiff_tpu_torch.serving import (DEAD, FrontDoor, FrontDoorConfig, SchedulerConfig,
+                                            ServingFault, build_pool)
+    from flaxdiff_tpu_torch.telemetry import Telemetry
+    work = workload[:DOOR15_REQUESTS]
+    tels, door_tel = [Telemetry(), Telemetry()], Telemetry()
+    pool = build_pool([pipe, pipe], scheduler_config=SchedulerConfig(
+        round_steps=SERVE15_ROUND, batch_buckets=SERVE15_BUCKETS, max_inflight=2),
+        telemetries=tels)
+    door = FrontDoor(pool, telemetry=door_tel, config=FrontDoorConfig(max_attempts=3))
+    kill_at = max(3, len(work) // 3)
+    plan = R.FaultPlan([R.FaultSpec("serving.replica_lost", per_key=True, match="replica:r0:",
+                                    at=(kill_at,), times=1, error="flag")], seed=0)
+    try:
+        with plan.installed():
+            results, wall = drive15(door.submit, work, 1.0)
+    finally:
+        door.close()
+    snap = door_tel.registry.snapshot()
+    completed = sum(not isinstance(r, Exception) for r in results)
+    typed = sum(isinstance(r, ServingFault) for r in results)
+    res = {"requests": len(work), "completed": completed, "typed_faults": typed,
+           "failovers": snap.get("frontdoor/failovers", 0.0),
+           "replica_lost": snap.get("frontdoor/replica_lost", 0.0),
+           "pool_exhausted": snap.get("frontdoor/pool_exhausted", 0.0),
+           "r0_dead": pool.replicas[0].health() == DEAD, "wall_s": wall,
+           "served_by": [t.counter("serving/requests_ok").value for t in tels]}
+    log(f"  15d front door: {completed}/{len(work)} completed ({typed} typed faults), r0 killed "
+        f"at its submission poll {kill_at}, failovers {res['failovers']:.0f}, served by r0/r1 "
+        f"{res['served_by']}, wall {wall:.3f} s")
+    check(completed + typed == len(work), "15d: every future resolved")
+    check(res["replica_lost"] == 1 and res["r0_dead"], "15d: r0 was lost")
+    check(res["failovers"] >= 1, "15d: failover was counted")
+    return res
+
+
+def serving_cached(dev) -> dict:
+    """15e: DiT-B/2 under the composed default plan through the scheduler."""
+    from flaxdiff_tpu_torch.models import SimpleDiT
+    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops.spatialcache import DEFAULT_COMPOSED_PLAN
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
+    from flaxdiff_tpu_torch.serving import SampleRequest
+    from flaxdiff_tpu_torch.telemetry import Telemetry
+    model = SimpleDiT(**DIT, dtype="bfloat16", device=dev)
+    model.load_state_dict(dit14_state())
+    model.eval()
+    pipe = serving15_pipeline(dev, model, DIT_RES, DIT_CH, LinearNoiseSchedule(1000),
+                              EpsilonPredictionTransform())
+    cfg = dict(round_steps=SERVE15_ROUND, batch_buckets=(2,))
+    reqs = [SampleRequest(resolution=DIT_RES, channels=DIT_CH, diffusion_steps=STEPS,
+                          sampler="ddim", guidance_scale=GUIDANCE, use_ema=False,
+                          prompts=[PROMPTS15[(i + j) % 3] for j in range(DIT_SERVE_BATCH)],
+                          seed=201 + i, cache_plan=DEFAULT_COMPOSED_PLAN) for i in range(2)]
+    serve15(pipe, reqs[:1], **cfg)                 # warm-up: GEMM choices, allocator
+    torch.cuda.synchronize()
+    tel = Telemetry()
+    reset_launch_counts()
+    alone = serve15(pipe, reqs[:1], telemetry=tel, **cfg)[0]
+    counts = launch_counts()
+    planned = planned_launches("simple_dit", model, DEFAULT_COMPOSED_PLAN, STEPS)
+    expected = {k: planned.get(k, 0) for k in counts}
+    log(f"  15e one composed request alone: launches {counts}, planned {expected}")
+    check(counts == expected, "15e: a composed request launches as phase 14's plan implies")
+    pair = serve15(pipe, reqs, **cfg)
+    alone_b = serve15(pipe, reqs[1:], **cfg)[0]
+    solo = solo15(pipe, reqs[0])
+    res = {"launches": counts, "planned": expected,
+           "bit_equal_alone": [bool(np.array_equal(pair[0].samples, alone.samples)),
+                               bool(np.array_equal(pair[1].samples, alone_b.samples))],
+           "max_diff_solo": float(np.abs(alone.samples - solo).max()),
+           "spatial_steps": tel.counter("serving/spatial_steps").value,
+           "refresh_steps": tel.counter("serving/cache_refresh_steps").value,
+           "reused_steps": tel.counter("serving/cache_reused_steps").value}
+    log(f"  15e two composed requests in bucket 2: bit-equal alone {res['bit_equal_alone']}, "
+        f"max |alone - solo generate_samples| {res['max_diff_solo']:.3g}; steps refresh "
+        f"{res['refresh_steps']:.0f} / spatial {res['spatial_steps']:.0f} / reuse "
+        f"{res['reused_steps']:.0f}")
+    check(all(res["bit_equal_alone"]), "15e: each request equals itself alone in bucket 2")
+    check(bool(np.isfinite(pair[0].samples).all()), "15e: samples finite")
+    return res
+
+
+def serving_paths(dev, phase4: dict) -> dict:
+    """Phase 15: the serving subsystem on phase 4's UNet and phase 6's DiT."""
+    from flaxdiff_tpu_torch.models import Unet
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.serving import PoissonWorkloadSpec, build_workload
+    model, _, _ = serving_model(dev, random_state(Unet(**UNET, device="cpu"), 0))
+    pipe = serving15_pipeline(dev, model, RESOLUTION, 3, CosineNoiseSchedule(1000),
+                              EpsilonPredictionTransform())
+    workload = build_workload(PoissonWorkloadSpec(n_requests=SERVE15_REQUESTS,
+                                                  rate_hz=SERVE15_RATE, seed=SERVE15_SEED,
+                                                  mix=MIX15))
+    out, t = {}, time.perf_counter()
+    for key, fn in (("identity", lambda: serving_identity(dev, pipe)),
+                    ("replay", lambda: serving_replay(dev, pipe, workload, phase4)),
+                    ("chaos", lambda: serving_chaos(dev, pipe, workload)),
+                    ("frontdoor", lambda: serving_frontdoor(dev, pipe, workload))):
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+    del model, pipe
+    torch.cuda.empty_cache()
+    out["cached"] = serving_cached(dev)
+    out["cached"]["phase_s"] = time.perf_counter() - t
+    return out
+
+
 # kernel-name fragments -> the layer they belong to, first match wins
 FAMILIES = [(fam, frag) for fam, frags in KERNEL_SYMBOLS.items() for frag in frags] + [
     ("conv", "conv"), ("conv", "fprop"), ("conv", "implicit"),
@@ -3438,6 +3939,24 @@ def main() -> int:
         f"({mt['inception']['busy_ms']:.3f} busy), FID of {FID_SAMPLES} {mt['fid']['total_s']:.3f} s "
         f"(sqrtm {mt['fid']['sqrtm_share']:.0%}); phase 14 {cache['phase_s']:.1f} s on {smi}")
 
+    torch.cuda.empty_cache()
+
+    log(f"phase 15: the serving subsystem: phase 4's UNet behind ServingScheduler (bucket "
+        f"identity, a seeded Poisson replay twice, chaos, two replicas behind the FrontDoor) and "
+        f"DiT-B/2 under the composed plan")
+    t15 = time.perf_counter()
+    serving = serving_paths(dev, traj)
+    serving["phase_s"] = time.perf_counter() - t15
+    rp = serving["replay"]["replays"][1]
+    r8 = serving["replay"]["bucket8_round"]
+    log(f"serving: warm replay of {SERVE15_REQUESTS} requests at {SERVE15_RATE} Hz, latency p50 "
+        f"{rp['summary']['latency_ms']['p50']:.1f} ms p99 {rp['summary']['latency_ms']['p99']:.1f} "
+        f"ms, {rp['summary']['throughput_rps']:.3f} requests/s, occupancy {rp['occupancy']:.3f}; "
+        f"a bucket-8 round {r8['wall_ms']:.1f} ms wall, busy "
+        + ("not measured" if r8["busy_ms"] is None else
+           f"{r8['busy_ms']:.1f} ms ({r8['idle_share']:.0%} idle)")
+        + f"; phase 15 {serving['phase_s']:.1f} s on {smi}")
+
     cache_launches = lambda key: {k: sum(r["launches"][k] for r in cache["serving"][key].values())
                                   for k in REPLACES}
     paths = {"unet_serving": traj, "unet_training": train, "dit_serving": dit_traj,
@@ -3449,7 +3968,9 @@ def main() -> int:
              **{f"{key}_serving": r for key, r in families["serving"].items()},
              **{f"{key}_cached_serving": {"launches": cache_launches(key)}
                 for key in CACHED_FAMILIES},
-             "unet_cli_val_metrics": cache["metrics"]["cli"]}
+             "unet_cli_val_metrics": cache["metrics"]["cli"],
+             "unet_serving_scheduler": serving["replay"],
+             "dit_cached_serving_scheduler": serving["cached"]}
     kernels, summary = [], []
     for kname in REPLACES:
         mine = [c for c in cases if c["name"] == kname]
@@ -3477,6 +3998,7 @@ def main() -> int:
               "dit_trajectory": dit_traj, "dit_training": dit_train,
               "samplers": samplers_res, "edm_training": edm_train, "cli": cli,
               "families": families, "options": options, "t2v": t2v, "cache": cache,
+              "serving": serving,
               "total_s": time.perf_counter() - t0}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

@@ -1,4 +1,5 @@
-from .common import DiffusionSampler, GivenNoise, NoiseSource, Sampler, get_timestep_spacing
+from .common import (DiffusionSampler, GivenNoise, NoiseSource, RowNoise, Sampler,
+                     get_timestep_spacing)
 from .ddim import DDIMSampler
 from .ddpm import DDPMSampler, SimpleDDPMSampler
 from .euler import EulerAncestralSampler, EulerSampler, SimplifiedEulerSampler
@@ -25,7 +26,8 @@ def get_sampler(name: str, **kwargs) -> Sampler:
     return SAMPLER_REGISTRY[name](**kwargs)
 
 
-__all__ = ["DiffusionSampler", "GivenNoise", "NoiseSource", "Sampler", "get_timestep_spacing",
+__all__ = ["DiffusionSampler", "GivenNoise", "NoiseSource", "RowNoise", "Sampler",
+           "get_timestep_spacing",
            "DDIMSampler", "DDPMSampler", "SimpleDDPMSampler", "EulerSampler",
            "SimplifiedEulerSampler", "EulerAncestralSampler", "HeunSampler",
            "MultiStepDPMSampler", "RK4Sampler", "SAMPLER_REGISTRY", "get_sampler"]

@@ -12,8 +12,14 @@ picks its forward on the host from the plan's numpy row: record or reuse
 under a `CachePlan`, record_ref, spatial or reuse under a `ComposedPlan`;
 the taps (and the score reference) are carried across steps.
 
-Not ported yet: the serving chunk, terminal and trajectory-input programs
-(ROADMAP.md A13). Capturing the loop in a CUDA graph is later work.
+The serving programs (``make_chunk_program``, ``make_cached_chunk_program``,
+``make_terminal_program``) advance a batch of
+requests by one round of continuous batching: the batch axis holds each
+request's block of samples, every step takes per-sample t vectors and a
+live mask, and each row draws from its own `NoiseSource` (`RowNoise`), so a
+batched request follows its solo trajectory. A round reads nothing back
+from the card and has static shapes for its program key, so it could be
+captured as a CUDA graph (later work, ROADMAP.md A1).
 """
 from __future__ import annotations
 
@@ -121,6 +127,36 @@ class GivenNoise(NoiseSource):
                              f"asked {tuple(shape)}")
         self.used += 1
         return a
+
+
+class RowNoise(NoiseSource):
+    """The draws of a serving round: row j's k samples from its own source
+    on the steps it is live; zeros for a padding row and for a step past a
+    row's last, which keep the row's source where its solo run leaves it.
+    The round sets `live` (per row, host bools) before each step."""
+
+    def __init__(self, sources, k: int, device=None):
+        self.sources = list(sources)
+        self.k = int(k)
+        self.device = device
+        self.live = [True] * len(self.sources)
+
+    def normal(self, shape):
+        rest = tuple(shape[1:])
+        if shape[0] != self.k * len(self.sources):
+            raise ValueError(f"draw of {tuple(shape)} for {len(self.sources)} rows of {self.k}")
+        parts = [src.normal((self.k,) + rest) if src is not None and live
+                 else torch.zeros((self.k,) + rest, device=self.device)
+                 for src, live in zip(self.sources, self.live)]
+        return torch.cat(parts)
+
+
+def select_rows(act: torch.Tensor, new: Any, old: Any) -> Any:
+    """`new` where the [B] mask `act` is set, else `old`, leaf by leaf over
+    tuples and lists of [B, ...] tensors (a sampler's state)."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(bcast_right(act, new.ndim), new, old)
+    return type(new)(select_rows(act, a, b) for a, b in zip(new, old))
 
 
 class Sampler:
@@ -236,6 +272,37 @@ class DiffusionSampler:
 
         return denoise
 
+    def _mode_denoisers(self, cond, uncond, carry: dict) -> dict:
+        """The cached loop's denoisers by mode, each reading and writing the
+        one `carry` of taps (and the score reference): {True: record, False:
+        reuse} under a `CachePlan`, {CODE_REFRESH: record_ref, CODE_SPATIAL:
+        spatial, CODE_REUSE: reuse} under a `ComposedPlan`."""
+        fns = self.cache_fns
+
+        def record(x, t, c):
+            raw, carry["taps"] = fns[0](x, t, c)
+            return raw
+
+        def reuse(x, t, c):
+            return fns[1](x, t, c, carry["taps"])
+
+        if not self.spatial_active:
+            return {True: self._denoise_fn(cond, uncond, record),
+                    False: self._denoise_fn(cond, uncond, reuse)}
+        from ..ops.spatialcache import CODE_REFRESH, CODE_REUSE, CODE_SPATIAL
+
+        def record_ref(x, t, c):
+            raw, carry["taps"], carry["ref"] = fns.record_ref(x, t, c)
+            return raw
+
+        def spatial(x, t, c):
+            raw, carry["taps"], carry["ref"] = fns.spatial(x, t, c, carry["taps"], carry["ref"])
+            return raw
+
+        return {CODE_REFRESH: self._denoise_fn(cond, uncond, record_ref),
+                CODE_SPATIAL: self._denoise_fn(cond, uncond, spatial),
+                CODE_REUSE: self._denoise_fn(cond, uncond, reuse)}
+
     def _step_denoisers(self, cond, uncond, num_steps: int):
         """One `denoise` per step of the trajectory. Uncached: the plain one
         for every step. Cached: the step's mode from the plan's host row
@@ -249,32 +316,9 @@ class DiffusionSampler:
         give ``lax.scan`` a carry shape."""
         if not self.cache_active:
             return [self._denoise_fn(cond, uncond)] * num_steps
-        fns, carry = self.cache_fns, {}
-
-        def record(x, t, c):
-            raw, carry["taps"] = fns[0](x, t, c)
-            return raw
-
-        def reuse(x, t, c):
-            return fns[1](x, t, c, carry["taps"])
-
+        modes = self._mode_denoisers(cond, uncond, {})
         if not self.spatial_active:
-            modes = {True: self._denoise_fn(cond, uncond, record),
-                     False: self._denoise_fn(cond, uncond, reuse)}
             return [modes[bool(f)] for f in self.cache_plan.flags(num_steps)]
-        from ..ops.spatialcache import CODE_REFRESH, CODE_REUSE, CODE_SPATIAL
-
-        def record_ref(x, t, c):
-            raw, carry["taps"], carry["ref"] = fns.record_ref(x, t, c)
-            return raw
-
-        def spatial(x, t, c):
-            raw, carry["taps"], carry["ref"] = fns.spatial(x, t, c, carry["taps"], carry["ref"])
-            return raw
-
-        modes = {CODE_REFRESH: self._denoise_fn(cond, uncond, record_ref),
-                 CODE_SPATIAL: self._denoise_fn(cond, uncond, spatial),
-                 CODE_REUSE: self._denoise_fn(cond, uncond, reuse)}
         return [modes[int(c)] for c in self.cache_plan.step_codes(num_steps)]
 
     def _inpaint_inputs(self, reference, mask, shape):
@@ -381,6 +425,119 @@ class DiffusionSampler:
             x0 = mask * x0 + (1.0 - mask) * known
         return x0
 
+    # -- serving programs ------------------------------------------------------
+    # Builders for the serving engine's continuous-batching rounds
+    # (serving/engine.py), which owns the program cache and its hit and miss
+    # counters. The batch axis holds R rows of k samples each (a request's
+    # num_samples). Per round the engine uploads one [round_steps, 4, R*k]
+    # tensor `meta`: each sample's t_cur, t_next, global step index and live
+    # flag (1 while the row has steps left), and passes `live`, the same
+    # flags per row on the host, for the draws. A step past a row's last
+    # keeps its carry (x, sampler state, cache carry) unchanged.
 
-__all__ = ["DiffusionSampler", "GivenNoise", "NoiseSource", "Sampler",
-           "get_timestep_spacing"]
+    def trajectory_inputs(self, num_steps: int, start: Optional[float] = None,
+                          end: float = 0.0) -> Tuple[torch.Tensor, float]:
+        """Host-side per-request constants of the serving programs:
+        ([num_steps, 2] f32 (t_cur, t_next) pairs on the CPU, the terminal
+        step value), the spacing the solo loop steps through."""
+        steps = get_timestep_spacing(self.timestep_spacing, num_steps, self.schedule.timesteps,
+                                     start, end, schedule=self.schedule)
+        return torch.stack([steps[:-1], steps[1:]], dim=1), float(steps[-1])
+
+    def _round(self, round_steps: int, step_denoise):
+        """The loop every chunk program shares: `step_denoise(i)` is step
+        i's denoiser over the whole batch."""
+        sampler, schedule = self.sampler, self.schedule
+
+        def run(x, noise, meta, live, state):
+            for i in range(round_steps):
+                noise.live = live[i]
+                x_n, s_n = sampler.step(step_denoise(i), x, meta[i, 0], meta[i, 1], noise,
+                                        state, schedule, meta[i, 2])
+                act = meta[i, 3] > 0
+                x = torch.where(bcast_right(act, x.ndim), x_n, x)
+                state = select_rows(act, s_n, state)
+            return x, state
+
+        return run
+
+    def make_chunk_program(self, round_steps: int):
+        """One round: advance every row by up to `round_steps` of ITS OWN
+        trajectory, one model call per step over the whole batch (with CFG,
+        [cond; uncond] stacked as in the solo loop).
+
+        program(x, noise, meta, live, cond, uncond, state) -> (x, state)
+          x       [R*k, ...]    the rows' carries
+          noise   RowNoise       each row's own draws
+          meta    [round_steps, 4, R*k] on the device (see above)
+          live    [round_steps][R] host bools
+          cond, uncond  [R*k, ...] or None
+          state   the sampler's state, every leaf [R*k, ...]
+        """
+        @torch.inference_mode()
+        def program(x, noise, meta, live, cond, uncond, state):
+            denoise = self._denoise_fn(cond, uncond)
+            return self._round(round_steps, lambda i: denoise)(x, noise, meta, live, state)
+
+        return program
+
+    def make_cached_chunk_program(self, round_steps: int):
+        """A round under a `CachePlan` or a `ComposedPlan` (the timestep
+        cache, or timestep x spatial):
+
+        program(x, noise, meta, live, conds, carries, state, modes)
+          conds    per real row, its (cond, uncond) at its solo batch
+          carries  per real row, its cache carry (a dict of taps)
+          modes    [round_steps] host ints: under a `CachePlan` 1 refresh
+                   (record), 0 reuse; under a `ComposedPlan` its codes
+                   (CODE_REFRESH / CODE_SPATIAL / CODE_REUSE), the score
+                   reference riding each row's carry beside its taps
+
+        The spatial step's token scores average over its batch, so each row
+        runs its own model calls, at its solo batch (k, or 2k with CFG), with
+        its own carry; the sampler's math still runs over the whole batch. A
+        row only calls the model on its live steps (a dead step would
+        overwrite its carry), and a step's mode is the round's, shared by
+        every row, as in the JAX engine."""
+        @torch.inference_mode()
+        def program(x, noise, meta, live, conds, carries, state, modes):
+            k = x.shape[0] // len(live[0])
+            rows = [self._mode_denoisers(c, u, carry) for (c, u), carry in zip(conds, carries)]
+
+            def step_denoise(i):
+                def denoise(x_all, t_all):
+                    x0s, epss = [], []
+                    for j, row in enumerate(rows):
+                        sl = slice(j * k, (j + 1) * k)
+                        if live[i][j]:
+                            x0, eps = row[modes[i]](x_all[sl], t_all[sl])
+                        else:
+                            x0 = eps = torch.zeros_like(x_all[sl])
+                        x0s.append(x0)
+                        epss.append(eps)
+                    pad = x_all.shape[0] - len(rows) * k
+                    if pad:
+                        x0s.append(torch.zeros_like(x_all[:pad]))
+                        epss.append(torch.zeros_like(x_all[:pad]))
+                    return torch.cat(x0s), torch.cat(epss)
+                return denoise
+
+            return self._round(round_steps, step_denoise)(x, noise, meta, live, state)
+
+        return program
+
+    def make_terminal_program(self):
+        """The solo loop's terminal denoise for rows whose trajectory just
+        ended, each at its OWN terminal step value (spacings of different
+        NFE need not end on the same value): program(x, t_term, cond,
+        uncond) -> x0 before the codec and the clip."""
+        @torch.inference_mode()
+        def program(x, t_term, cond, uncond):
+            x0, _ = self._denoise_fn(cond, uncond)(x, t_term)
+            return x0
+
+        return program
+
+
+__all__ = ["DiffusionSampler", "GivenNoise", "NoiseSource", "RowNoise", "Sampler",
+           "get_timestep_spacing", "select_rows"]

@@ -1,0 +1,53 @@
+"""Serving subsystem of the port (counterpart of ``flaxdiff_tpu/serving``):
+a batched sampler scheduler in front of `DiffusionInferencePipeline`, on
+the pipeline's device (docs/SERVING.md).
+
+    scheduler    thread-safe queue -> micro-batch rounds with
+                 continuous admission (per-row NFE masking), bucketed
+                 padding, bounded in-flight dispatch, deadline
+                 shedding, fault-isolated rounds
+    engine       program cache over the pipeline's DiffusionSampler
+                 round programs, keyed so repeat traffic builds nothing;
+                 per-request device carries and draws
+    supervision  fault taxonomy (`ServingFault`/`classify`), engine
+                 supervision/rebuild (`EngineSupervisor`), brownout
+                 degradation (`BrownoutPolicy`)
+    replica      one health-tracked scheduler unit (HEALTHY/DEGRADED/
+                 REBUILDING/DEAD) inside a pool
+    frontdoor    `FrontDoor.submit()` over a `ReplicaPool`: health-
+                 checked least-loaded routing, replica failover with a
+                 cross-replica attempt budget, hedged retries, pool-
+                 wide admission + brownout
+    loadgen      seeded Poisson workload build + replay, plus the
+                 multi-tenant open-loop harness for the front door
+
+SLO metrics ride the telemetry registry under `serving/*` and
+`frontdoor/*`.
+"""
+from .engine import (DEFAULT_BATCH_BUCKETS, RequestState,
+                     SamplerProgramEngine, bucket_up, nfe_bucket)
+from .frontdoor import (FrontDoor, FrontDoorConfig, HedgePolicy,
+                        ReplicaPool, build_pool)
+from .loadgen import (OpenLoopSpec, PoissonWorkloadSpec, TenantSpec,
+                      build_open_loop, build_workload, replay,
+                      run_open_loop)
+from .replica import (DEAD, DEGRADED, HEALTHY, REBUILDING, Replica,
+                      ReplicaHealthConfig)
+from .request import (DeadlineExceeded, SampleRequest, SampleResult,
+                      SchedulerClosed, ServingFuture)
+from .scheduler import MS_BUCKET_BOUNDS, SchedulerConfig, ServingScheduler
+from .supervision import (BrownoutConfig, BrownoutPolicy, DeviceLost,
+                          EngineSupervisor, ServingFault, classify)
+
+__all__ = [
+    "BrownoutConfig", "BrownoutPolicy", "DEAD", "DEFAULT_BATCH_BUCKETS",
+    "DEGRADED", "DeadlineExceeded", "DeviceLost", "EngineSupervisor",
+    "FrontDoor", "FrontDoorConfig", "HEALTHY", "HedgePolicy",
+    "MS_BUCKET_BOUNDS", "OpenLoopSpec", "PoissonWorkloadSpec",
+    "REBUILDING", "Replica", "ReplicaHealthConfig", "ReplicaPool",
+    "RequestState", "SampleRequest", "SampleResult",
+    "SamplerProgramEngine", "SchedulerClosed", "SchedulerConfig",
+    "ServingFault", "ServingFuture", "ServingScheduler", "bucket_up",
+    "build_open_loop", "build_pool", "build_workload", "classify",
+    "nfe_bucket", "replay", "run_open_loop",
+]

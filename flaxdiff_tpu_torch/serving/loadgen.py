@@ -1,0 +1,393 @@
+"""Seeded load generation + replay against a scheduler or front door
+(counterpart of ``flaxdiff_tpu/serving/loadgen.py``).
+
+One seeded `numpy` Generator drives everything — inter-arrival gaps
+(exponential), template choice, and per-request seeds — so a spec
+builds the *identical* workload every time, the same list as the JAX
+package's `build_workload` gives: `chip_smoke.py` replays one list twice
+to show that the warm program cache builds nothing, and tests assert
+replay determinism outright.
+
+Two harnesses share that determinism contract:
+
+- `build_workload` + `replay`: the original single-stream Poisson
+  replay (closed set of futures, one submitting thread).
+- `OpenLoopSpec`/`TenantSpec` + `build_open_loop` + `run_open_loop`:
+  the multi-worker OPEN-loop harness for the front door
+  (serving/frontdoor.py). Each tenant emits its own deterministic
+  arrival stream in one of three shapes — `poisson` (flat),
+  `ramp`/`diurnal` (rate swells to `peak_factor`× and back, the
+  diurnal daily curve compressed into the run), `burst` (bursts of
+  `burst_len` back-to-back arrivals separated by idle gaps) — and the
+  merged stream is submitted open-loop by `workers` threads on the
+  arrival clock: a slow pool makes requests PILE UP rather than
+  slowing the offered load, which is what exposes brownout/admission
+  behaviour. The report carries per-tenant SLO attainment (fraction
+  of a tenant's requests that completed within its `slo_ms`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .request import DeadlineExceeded, SampleRequest, SampleResult
+from .supervision import ServingFault
+
+
+@dataclasses.dataclass
+class PoissonWorkloadSpec:
+    """`n_requests` arrivals at `rate_hz` (exponential gaps), each
+    request drawn from `mix` (SampleRequest kwargs templates) with a
+    per-request seed — all from one seeded generator."""
+    n_requests: int = 32
+    rate_hz: float = 4.0
+    seed: int = 0
+    mix: Sequence[Dict[str, Any]] = (
+        {"resolution": 64, "diffusion_steps": 16, "sampler": "ddim"},)
+
+
+def build_workload(spec: PoissonWorkloadSpec
+                   ) -> List[Tuple[float, SampleRequest]]:
+    """[(arrival_offset_s, request)] — deterministic in `spec`."""
+    rng = np.random.default_rng(spec.seed)
+    out: List[Tuple[float, SampleRequest]] = []
+    t = 0.0
+    for _ in range(spec.n_requests):
+        t += float(rng.exponential(1.0 / spec.rate_hz))
+        template = dict(spec.mix[int(rng.integers(len(spec.mix)))])
+        template.setdefault("seed", int(rng.integers(2 ** 31)))
+        out.append((t, SampleRequest(**template)))
+    return out
+
+
+def _pct(xs: List[float], q: float) -> Optional[float]:
+    return float(np.percentile(np.asarray(xs), q)) if xs else None
+
+
+def replay(scheduler, workload: List[Tuple[float, SampleRequest]],
+           speed: float = 1.0, timeout_s: float = 300.0) -> Dict[str, Any]:
+    """Submit the workload on its arrival clock (scaled by `speed`),
+    wait for every future, and summarize SLO stats. Shed requests
+    (deadline / overload) are counted, not errors."""
+    t0 = time.perf_counter()
+    futures = []
+    for offset, req in workload:
+        delay = offset / speed - (time.perf_counter() - t0)
+        if delay > 0:
+            time.sleep(delay)
+        futures.append(scheduler.submit(req))
+    results: List[SampleResult] = []
+    shed = faulted = errors = 0
+    for fut in futures:
+        try:
+            results.append(fut.result(timeout=timeout_s))
+        except DeadlineExceeded:
+            shed += 1
+        except ServingFault:
+            # typed terminal fault (quarantine / retries exhausted /
+            # device lost without a rebuild path) — the future
+            # RESOLVED, it was not stranded
+            faulted += 1
+        except Exception:
+            errors += 1
+    wall = time.perf_counter() - t0
+    # recovery accounting (docs/SERVING.md "Failure semantics"):
+    # completions that rode at least one retry, and their tail latency
+    recovered = [r for r in results if r.attempts > 0]
+
+    lat = [r.latency_ms for r in results]
+    samples = sum(int(np.asarray(r.samples).shape[0]) for r in results)
+    return {
+        "requests": len(workload),
+        "completed": len(results),
+        "shed": shed,
+        "faulted": faulted,
+        "errors": errors,
+        "recovered": len(recovered),
+        "recovered_p99_ms": _pct([r.latency_ms for r in recovered], 99),
+        "degraded": sum(1 for r in results if r.degraded),
+        "wall_s": round(wall, 3),
+        "throughput_rps": round(len(results) / wall, 3) if wall else None,
+        "samples_per_s": round(samples / wall, 3) if wall else None,
+        "latency_ms": {
+            "p50": _pct(lat, 50), "p99": _pct(lat, 99),
+            "mean": float(np.mean(lat)) if lat else None,
+            "max": max(lat) if lat else None,
+        },
+        "queue_ms_mean": float(np.mean([r.queue_ms for r in results]))
+        if results else None,
+        "compile_ms_mean": float(np.mean([r.compile_ms for r in results]))
+        if results else None,
+        "device_ms_mean": float(np.mean([r.device_ms for r in results]))
+        if results else None,
+        # NFE-normalized device cost: the serving-side analogue of the
+        # bench diffcache stage's per-step number — a cached replay of
+        # the same workload should drop this, same stage that guards it
+        "device_ms_per_step_mean": float(np.mean(
+            [r.device_ms / max(1, r.request.diffusion_steps)
+             for r in results])) if results else None,
+        "rounds_mean": float(np.mean([r.rounds for r in results]))
+        if results else None,
+    }
+
+
+# -- multi-worker open-loop harness (front door) -----------------------------
+
+@dataclasses.dataclass
+class TenantSpec:
+    """One tenant's deterministic traffic stream.
+
+    shape: "poisson" (flat rate_hz), "ramp"/"diurnal" (rate swells
+      from rate_hz to peak_factor*rate_hz at the stream's midpoint and
+      back — sin^2 profile), "burst" (groups of `burst_len` arrivals
+      at peak_factor*rate_hz separated by `burst_idle_s` of silence).
+    slo_ms: the tenant's latency objective — a request attains it when
+      it completes with latency_ms <= slo_ms (shed/faulted/errored
+      requests never attain).
+    seed: per-tenant generator seed; None derives one from the pool
+      spec's seed + tenant index, so adding a tenant never perturbs
+      the others' streams.
+    """
+    name: str = "default"
+    n_requests: int = 32
+    rate_hz: float = 4.0
+    shape: str = "poisson"
+    peak_factor: float = 4.0
+    burst_len: int = 8
+    burst_idle_s: float = 2.0
+    mix: Sequence[Dict[str, Any]] = (
+        {"resolution": 64, "diffusion_steps": 16, "sampler": "ddim"},)
+    slo_ms: float = 60_000.0
+    seed: Optional[int] = None
+
+
+@dataclasses.dataclass
+class OpenLoopSpec:
+    """A set of tenants sharing one front door; `seed` derives every
+    tenant's generator (unless the tenant pins its own)."""
+    tenants: Sequence[TenantSpec] = (TenantSpec(),)
+    seed: int = 0
+
+
+def _tenant_arrivals(t: TenantSpec, rng) -> List[float]:
+    """Deterministic arrival offsets for one tenant (seconds)."""
+    if t.shape not in ("poisson", "ramp", "diurnal", "burst"):
+        raise ValueError(f"unknown traffic shape {t.shape!r}")
+    out: List[float] = []
+    clock = 0.0
+    for k in range(t.n_requests):
+        if t.shape in ("ramp", "diurnal"):
+            frac = k / max(1, t.n_requests - 1)
+            rate = t.rate_hz * (1.0 + (t.peak_factor - 1.0)
+                                * math.sin(math.pi * frac) ** 2)
+            clock += float(rng.exponential(1.0 / rate))
+        elif t.shape == "burst":
+            if k and k % max(1, t.burst_len) == 0:
+                clock += t.burst_idle_s
+            clock += float(rng.exponential(
+                1.0 / (t.rate_hz * t.peak_factor)))
+        else:
+            clock += float(rng.exponential(1.0 / t.rate_hz))
+        out.append(clock)
+    return out
+
+
+def build_open_loop(spec: OpenLoopSpec
+                    ) -> List[Tuple[float, str, SampleRequest]]:
+    """[(arrival_offset_s, tenant_name, request)] merged across
+    tenants, time-sorted — deterministic in `spec`."""
+    merged: List[Tuple[float, str, SampleRequest]] = []
+    for i, t in enumerate(spec.tenants):
+        seed = t.seed if t.seed is not None \
+            else spec.seed * 1_000_003 + i
+        rng = np.random.default_rng(seed)
+        for offset in _tenant_arrivals(t, rng):
+            template = dict(t.mix[int(rng.integers(len(t.mix)))])
+            template.setdefault("seed", int(rng.integers(2 ** 31)))
+            # tenant attribution rides ON the request (accounting-only
+            # fields, never part of the engine group key): the door's
+            # online SLO engine charges the right error budget without
+            # any side-channel between loadgen and the door
+            template.setdefault("tenant", t.name)
+            template.setdefault("slo_ms", t.slo_ms)
+            merged.append((offset, t.name, SampleRequest(**template)))
+    merged.sort(key=lambda x: (x[0], x[1]))
+    return merged
+
+
+TENANT_SLO_FILENAME = "tenant_slo.json"
+TENANT_SLO_SCHEMA_VERSION = 1
+
+
+def tenant_slo_summary(report: Dict[str, Any]) -> Dict[str, Any]:
+    """The diffable per-tenant core of an open-loop report: fixed key
+    set, sorted tenants, deterministic rounding — what a diff of two
+    runs needs to say 'tenant A's attainment regressed', and nothing
+    timing-jittery."""
+    tenants: Dict[str, Any] = {}
+    for name in sorted(report.get("tenants", {})):
+        row = report["tenants"][name]
+        lat = row.get("latency_ms") or {}
+        att = row.get("slo_attainment")
+        tenants[name] = {
+            "requests": int(row.get("requests", 0)),
+            "completed": int(row.get("completed", 0)),
+            "shed": int(row.get("shed", 0)),
+            "faulted": int(row.get("faulted", 0)),
+            "errors": int(row.get("errors", 0)),
+            "slo_ms": row.get("slo_ms"),
+            "attainment": None if att is None else round(float(att), 6),
+            "p50_ms": (None if lat.get("p50") is None
+                       else round(float(lat["p50"]), 3)),
+            "p99_ms": (None if lat.get("p99") is None
+                       else round(float(lat["p99"]), 3)),
+        }
+    return {"schema_version": TENANT_SLO_SCHEMA_VERSION,
+            "tenants": tenants}
+
+
+def write_tenant_slo(report: Dict[str, Any], directory: str) -> str:
+    """Write the per-tenant SLO summary as a BYTE-STABLE artifact
+    (`tenant_slo.json`): sorted keys, fixed rounding, 2-space indent,
+    trailing newline, atomic rename. The same report serializes to the
+    same bytes every time (contract-tested), so artifact diffs only
+    ever show real attainment movement."""
+    doc = tenant_slo_summary(report)
+    payload = json.dumps(doc, sort_keys=True, indent=2) + "\n"
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, TENANT_SLO_FILENAME)
+    tmp = path + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        f.write(payload)
+    os.replace(tmp, path)
+    return path
+
+
+def _submit_worker(door, items, t0: float, speed: float, sink: list,
+                   lock: threading.Lock) -> None:
+    """One open-loop submitter: fires its slice of the merged stream
+    on the arrival clock regardless of how fast the pool drains."""
+    for offset, tenant, req in items:
+        delay = offset / speed - (time.perf_counter() - t0)
+        if delay > 0:
+            time.sleep(delay)
+        fut = door.submit(req)
+        with lock:
+            sink.append((tenant, req, fut))
+
+
+def run_open_loop(door, spec: OpenLoopSpec, workers: int = 2,
+                  speed: float = 1.0, timeout_s: float = 300.0,
+                  workload: Optional[List[Tuple[float, str,
+                                                SampleRequest]]] = None,
+                  artifact_dir: Optional[str] = None
+                  ) -> Dict[str, Any]:
+    """Drive the merged tenant streams at the front door with
+    `workers` open-loop submitter threads; wait for every future and
+    report overall + per-tenant SLO attainment. Pass `workload` to
+    replay a pre-built (e.g. already-inspected) stream;
+    `artifact_dir` additionally writes the byte-stable per-tenant
+    summary (`write_tenant_slo`) there."""
+    if workload is None:
+        workload = build_open_loop(spec)
+    slo_by_tenant = {t.name: t.slo_ms for t in spec.tenants}
+    n_workers = max(1, min(workers, len(workload) or 1))
+    # round-robin partition keeps every worker's slice time-sorted
+    slices: List[List[Tuple[float, str, SampleRequest]]] = [
+        workload[i::n_workers] for i in range(n_workers)]
+    sink: List[Tuple[str, SampleRequest, Any]] = []
+    lock = threading.Lock()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(
+        target=_submit_worker, args=(door, s, t0, speed, sink, lock),
+        name=f"loadgen-w{i}", daemon=True)
+        for i, s in enumerate(slices)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+
+    per: Dict[str, Dict[str, Any]] = {
+        t.name: {"requests": 0, "completed": 0, "shed": 0,
+                 "faulted": 0, "errors": 0, "attained": 0,
+                 "latencies": []}
+        for t in spec.tenants}
+    all_lat: List[float] = []
+    completed = shed = faulted = errors = 0
+    for tenant, _req, fut in sink:
+        row = per.setdefault(tenant, {
+            "requests": 0, "completed": 0, "shed": 0, "faulted": 0,
+            "errors": 0, "attained": 0, "latencies": []})
+        row["requests"] += 1
+        try:
+            res = fut.result(timeout=timeout_s)
+        except DeadlineExceeded:
+            row["shed"] += 1
+            shed += 1
+            continue
+        except ServingFault:
+            row["faulted"] += 1
+            faulted += 1
+            continue
+        except Exception:
+            row["errors"] += 1
+            errors += 1
+            continue
+        completed += 1
+        row["completed"] += 1
+        row["latencies"].append(res.latency_ms)
+        all_lat.append(res.latency_ms)
+        if res.latency_ms <= slo_by_tenant.get(tenant, float("inf")):
+            row["attained"] += 1
+    wall = time.perf_counter() - t0
+
+    tenants: Dict[str, Any] = {}
+    for name, row in per.items():
+        lats = row.pop("latencies")
+        n = row["requests"]
+        tenants[name] = {
+            **row,
+            "slo_ms": slo_by_tenant.get(name),
+            "slo_attainment": row["attained"] / n if n else None,
+            "latency_ms": {"p50": _pct(lats, 50), "p99": _pct(lats, 99),
+                           "mean": (sum(lats) / len(lats)
+                                    if lats else None)},
+        }
+    # per-tenant SLO rows into the door's telemetry stream, so the
+    # attainment table can be rendered post hoc from the records alone
+    tel = getattr(door, "telemetry", None)
+    if tel is not None:
+        for name, row in tenants.items():
+            tel.write_record({
+                "type": "tenant_slo", "tenant": name,
+                "requests": row["requests"],
+                "completed": row["completed"], "shed": row["shed"],
+                "faulted": row["faulted"], "errors": row["errors"],
+                "slo_ms": row["slo_ms"],
+                "slo_attainment": row["slo_attainment"],
+                "p50_ms": row["latency_ms"]["p50"],
+                "p99_ms": row["latency_ms"]["p99"]})
+    if artifact_dir is not None:
+        write_tenant_slo({"tenants": tenants}, artifact_dir)
+    return {
+        "requests": len(workload),
+        "workers": n_workers,
+        "completed": completed,
+        "shed": shed,
+        "faulted": faulted,
+        "errors": errors,
+        "wall_s": round(wall, 3),
+        "throughput_rps": round(completed / wall, 3) if wall else None,
+        "latency_ms": {"p50": _pct(all_lat, 50), "p99": _pct(all_lat, 99),
+                       "mean": (sum(all_lat) / len(all_lat)
+                                if all_lat else None),
+                       "max": max(all_lat) if all_lat else None},
+        "tenants": tenants,
+    }

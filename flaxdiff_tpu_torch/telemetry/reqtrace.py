@@ -1,0 +1,310 @@
+"""Request-scoped tracing for the serving layer (counterpart of
+``flaxdiff_tpu/telemetry/reqtrace.py``).
+
+The serving histograms (`serving/{latency,queue,compile,device}_ms`) say
+how the fleet does in aggregate; this module follows one `SampleRequest`
+from submit through admission, queue wait, every round it rode (program
+key, bucket, live steps, cache-plan codes), the terminal denoise and
+completion.
+
+Tracing is host-side bookkeeping only: every timestamp is a
+`time.perf_counter()` the dispatch and completion threads already take, no
+device value is read, and the scheduler's `_block_until_ready` /
+`_device_get` seams are called exactly as often as in an untraced run. On a
+hub without a trace recorder every call is a no-op returning None.
+
+Per traced request: a `req.queue` span (submit to first dispatch) and a
+`req.serve` span (first dispatch to samples on the host) on a per-trace
+lane, shared `serve.round` / `serve.finalize` spans on the dispatch lane,
+and one `request_trace` record whose `queue_ms + compile_ms + device_ms ==
+latency_ms` holds by construction (all four come from the same three
+timestamps).
+"""
+from __future__ import annotations
+
+import itertools
+import os
+from typing import Any, Dict, List, Optional
+
+# Chrome-trace lane ids: rounds/finalize on one fixed dispatch lane,
+# each request on its own small lane so Perfetto stacks them readably.
+DISPATCH_TID = 900_000
+_REQ_TID_BASE = 100_000
+_REQ_TID_SPAN = 100_000
+
+
+class RequestTrace:
+    """Host-side accumulator for one request's trace (cheap: a list of
+    dicts appended by the dispatch thread, emitted once at completion)."""
+
+    __slots__ = ("trace_id", "seq", "submit_s", "summary", "rounds",
+                 "outcome", "events", "hop", "spans", "tid_fixed")
+
+    def __init__(self, trace_id: str, seq: int, submit_s: float,
+                 summary: Dict[str, Any], hop: str = "req",
+                 tid_fixed: Optional[int] = None):
+        self.trace_id = trace_id
+        self.seq = seq
+        self.submit_s = submit_s
+        self.summary = summary
+        # which hop of the serving path emitted this trace ("door",
+        # "r0", ... ). A propagated trace (see RequestTracer.begin
+        # `parent`) keeps the MINTING hop's trace id and lane but its
+        # own hop label, so one Chrome lane carries door + replica
+        # spans for the same request, each attributable.
+        self.hop = hop
+        self.tid_fixed = tid_fixed
+        self.rounds: List[Dict[str, Any]] = []
+        # recovery events (round_fault/requeued/quarantined/rebuild/
+        # brownout, serving/supervision.py) — kept separate from
+        # `rounds` so round_detail still counts dispatched rounds 1:1
+        self.events: List[Dict[str, Any]] = []
+        # door phase spans (RequestTracer.hop_span): exact segments of
+        # the door timeline whose per-name sums land in the row's
+        # `phase_ms` and reconcile with latency_ms by construction
+        self.spans: List[Dict[str, Any]] = []
+        self.outcome: Optional[str] = None
+
+    @property
+    def tid(self) -> int:
+        if self.tid_fixed is not None:
+            return self.tid_fixed
+        return _REQ_TID_BASE + (self.seq % _REQ_TID_SPAN)
+
+
+def _phase_sums(spans: List[Dict[str, Any]]) -> Dict[str, float]:
+    """Per-span-name millisecond sums, UNROUNDED — the reconciliation
+    identity (non-hedge phases sum to latency_ms) must survive into
+    the JSONL row exactly as constructed."""
+    out: Dict[str, float] = {}
+    for s in spans:
+        out[s["span"]] = out.get(s["span"], 0.0) + s["ms"]
+    return dict(sorted(out.items()))
+
+
+def _req_summary(req) -> Dict[str, Any]:
+    return {
+        "sampler": str(getattr(req, "sampler", "?")),
+        "nfe": int(getattr(req, "diffusion_steps", 0)),
+        "resolution": int(getattr(req, "resolution", 0)),
+        "num_samples": int(getattr(req, "num_samples", 0)),
+        "guidance": float(getattr(req, "guidance_scale", 0.0)),
+        "seed": int(getattr(req, "seed", 0)),
+    }
+
+
+class RequestTracer:
+    """Mints trace ids at submit and emits per-request spans + JSONL
+    rows through the telemetry hub. All methods no-op (and `begin`
+    returns None) when the hub has no trace recorder, so the scheduler
+    carries the tracer unconditionally."""
+
+    def __init__(self, telemetry, prefix: str = "req"):
+        # `prefix` namespaces the minted trace ids: the front door and
+        # each replica scheduler carry their OWN tracer over one shared
+        # hub, and a door-level trace must never collide with a
+        # replica-level one for the same request
+        self.telemetry = telemetry
+        self.prefix = prefix
+        self._seq = itertools.count()
+        self._pid = os.getpid()
+
+    @property
+    def enabled(self) -> bool:
+        return (self.telemetry is not None
+                and self.telemetry.recorder is not None)
+
+    def context(self, tr: Optional[RequestTrace]
+                ) -> Optional[Dict[str, Any]]:
+        """Portable trace context for cross-hop propagation: what the
+        front door hands `Replica.submit` so the replica scheduler's
+        spans join the door-minted trace (same id, same Chrome lane)."""
+        if tr is None:
+            return None
+        return {"trace_id": tr.trace_id, "tid": tr.tid}
+
+    # -- lifecycle ----------------------------------------------------------
+    def begin(self, req, submit_s: float,
+              parent: Optional[Dict[str, Any]] = None
+              ) -> Optional[RequestTrace]:
+        """Mint a trace at submit time; None on a disabled hub. With
+        `parent` (a `context()` dict propagated from an upstream hop)
+        the trace ADOPTS the parent's id and lane instead of minting —
+        one trace id then spans front door -> replica -> serving
+        rounds, and every span stays attributable via its `hop` arg."""
+        if not self.enabled:
+            return None
+        seq = next(self._seq)
+        if parent is not None:
+            tr = RequestTrace(str(parent["trace_id"]), seq, submit_s,
+                              _req_summary(req), hop=self.prefix,
+                              tid_fixed=parent.get("tid"))
+        else:
+            tr = RequestTrace(f"{self.prefix}-{self._pid}-{seq}", seq,
+                              submit_s, _req_summary(req),
+                              hop=self.prefix)
+        self.telemetry.recorder.instant_at(
+            "req.submit", submit_s, cat="serving",
+            args={"trace_id": tr.trace_id, "hop": tr.hop,
+                  **tr.summary}, tid=tr.tid)
+        return tr
+
+    def shed(self, tr: Optional[RequestTrace], reason: str,
+             at_s: float) -> None:
+        """A request dropped before compute (deadline, queue-full, bad
+        request): close its trace with the shed outcome so the timeline
+        shows WHERE admission lost it."""
+        if tr is None or not self.enabled:
+            return
+        tr.outcome = f"shed:{reason}"
+        rec = self.telemetry.recorder
+        rec.event_at("req.queue", tr.submit_s, at_s, cat="serving",
+                     args={"trace_id": tr.trace_id,
+                           "outcome": tr.outcome}, tid=tr.tid)
+        self.telemetry.write_record({
+            "type": "request_trace", "trace_id": tr.trace_id,
+            "hop": tr.hop, "outcome": tr.outcome,
+            "queue_ms": (at_s - tr.submit_s) * 1e3, **tr.summary})
+
+    def note(self, tr: Optional[RequestTrace], kind: str, at_s: float,
+             **args) -> None:
+        """Attach one recovery event (retry/quarantine/brownout/
+        rebuild-interrupt, serving/supervision.py) to a request's
+        trace: an instant on the request's lane plus a row in the
+        trace's `recovery` list, so every recovery step is attributable
+        in the drill-down."""
+        if tr is None or not self.enabled:
+            return
+        tr.events.append({"event": kind, **args})
+        self.telemetry.recorder.instant_at(
+            f"req.{kind}", at_s, cat="serving",
+            args={"trace_id": tr.trace_id, **args}, tid=tr.tid)
+
+    def fail(self, state, outcome: str, at_s: float) -> None:
+        """A request resolved with a typed fault (ServingFault): close
+        its trace with the fault outcome, same row shape as `shed` but
+        carrying the attempt count and recovery events."""
+        tr = getattr(state, "trace", None)
+        if tr is None or not self.enabled:
+            return
+        tr.outcome = outcome
+        rec = self.telemetry.recorder
+        rec.event_at("req.queue", tr.submit_s, at_s, cat="serving",
+                     args={"trace_id": tr.trace_id,
+                           "outcome": outcome}, tid=tr.tid)
+        row = {"type": "request_trace", "trace_id": tr.trace_id,
+               "hop": tr.hop, "outcome": outcome,
+               "queue_ms": (at_s - tr.submit_s) * 1e3,
+               "attempts": int(getattr(state, "attempts", 0)),
+               **tr.summary}
+        if tr.spans:
+            row["phase_ms"] = _phase_sums(tr.spans)
+        if tr.events:
+            row["recovery"] = list(tr.events)
+        self.telemetry.write_record(row)
+
+    def hop_span(self, tr: Optional[RequestTrace], name: str,
+                 t0_s: float, t1_s: float, **args) -> None:
+        """One door-phase span (`door.route` / `door.attempt` /
+        `door.failover` / `door.hedge`) on the request's lane. The
+        front door closes these at timestamps SHARED with the next
+        segment's open (and with the delivery timestamp that feeds the
+        `frontdoor/latency_ms` histogram), so the non-overlapping
+        phases tile [submit, delivery] exactly and the row's `phase_ms`
+        sums reconcile with latency_ms by construction. `door.hedge`
+        is the one overlapping span (a concurrent arm) — reported, but
+        excluded from the tiling identity."""
+        if tr is None or not self.enabled:
+            return
+        tr.spans.append({"span": name, "ms": (t1_s - t0_s) * 1e3,
+                         **args})
+        self.telemetry.recorder.event_at(
+            name, t0_s, t1_s, cat="serving",
+            args={"trace_id": tr.trace_id, **args}, tid=tr.tid)
+
+    def rebuild(self, t0_s: float, t1_s: float,
+                args: Optional[Dict[str, Any]] = None) -> None:
+        """Engine supervision span on the dispatch lane: drain +
+        rebuild + prewarm after device loss."""
+        if not self.enabled:
+            return
+        self.telemetry.recorder.event_at(
+            "serve.rebuild", t0_s, t1_s, cat="serving",
+            args=args or {}, tid=DISPATCH_TID)
+
+    # -- dispatch-side spans (dispatch thread; host timestamps only) --------
+    def round(self, rows, info: Optional[Dict[str, Any]], t0: float,
+              t1: float, round_no: int) -> None:
+        """One micro-batch round: ONE shared `serve.round` span on the
+        dispatch lane + a per-participating-request round record (the
+        same dict, it is immutable once emitted) for the drill-down."""
+        if not self.enabled:
+            return
+        detail: Dict[str, Any] = {"round": int(round_no),
+                                  "ms": round((t1 - t0) * 1e3, 3)}
+        if info:
+            detail.update(info)
+        self.telemetry.recorder.event_at(
+            "serve.round", t0, t1, cat="serving", args=detail,
+            tid=DISPATCH_TID)
+        for r in rows:
+            tr = getattr(r, "trace", None)
+            if tr is not None:
+                tr.rounds.append(detail)
+
+    def finalize(self, rows, info: Optional[Dict[str, Any]], t0: float,
+                 t1: float) -> None:
+        """Terminal denoise + decode of the rows that completed."""
+        if not self.enabled:
+            return
+        detail: Dict[str, Any] = {"ms": round((t1 - t0) * 1e3, 3),
+                                  "rows": len(rows)}
+        if info:
+            detail.update(info)
+        self.telemetry.recorder.event_at(
+            "serve.finalize", t0, t1, cat="serving", args=detail,
+            tid=DISPATCH_TID)
+
+    # -- completion (completion thread, after the blessed host sync) --------
+    def complete(self, state, queue_ms: float, compile_ms: float,
+                 device_ms: float, latency_ms: float,
+                 ready_s: float) -> None:
+        """Emit the request's spans and its `request_trace` JSONL row.
+        Called with the SAME decomposition the `SampleResult` carries,
+        so per-request rows sum exactly to what the serving histograms
+        observed."""
+        tr = getattr(state, "trace", None)
+        if tr is None or not self.enabled:
+            return
+        tr.outcome = "ok"
+        first_dispatch_s = tr.submit_s + queue_ms / 1e3
+        rec = self.telemetry.recorder
+        rec.event_at("req.queue", tr.submit_s, first_dispatch_s,
+                     cat="serving",
+                     args={"trace_id": tr.trace_id}, tid=tr.tid)
+        rec.event_at("req.serve", first_dispatch_s, ready_s,
+                     cat="serving",
+                     args={"trace_id": tr.trace_id, "hop": tr.hop,
+                           "compile_ms": round(compile_ms, 3),
+                           "device_ms": round(device_ms, 3),
+                           "rounds": int(state.rounds)}, tid=tr.tid)
+        row = {
+            "type": "request_trace", "trace_id": tr.trace_id,
+            "hop": tr.hop, "outcome": "ok",
+            "queue_ms": queue_ms, "compile_ms": compile_ms,
+            "device_ms": device_ms, "latency_ms": latency_ms,
+            "rounds": int(state.rounds),
+            "round_detail": list(tr.rounds), **tr.summary}
+        if tr.spans:
+            row["phase_ms"] = _phase_sums(tr.spans)
+        # recovery provenance (serving/supervision.py): retried or
+        # degraded completions say so in their own row
+        attempts = int(getattr(state, "attempts", 0))
+        if attempts:
+            row["attempts"] = attempts
+        degraded = tuple(getattr(state, "degraded", ()) or ())
+        if degraded:
+            row["degraded"] = list(degraded)
+        if tr.events:
+            row["recovery"] = list(tr.events)
+        self.telemetry.write_record(row)

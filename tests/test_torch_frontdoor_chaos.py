@@ -1,0 +1,501 @@
+"""The port's front door over a pool of replicas, on the CPU (the JAX
+package's ``tests/test_frontdoor_chaos.py`` cases).
+
+- killing a replica mid-flight strands no door future: each resolves with
+  a result, `DeadlineExceeded`, `SchedulerClosed`, or a typed
+  `ServingFault`;
+- failed-over completions are bit-identical to fault-free runs
+  (deterministic replay from the request's seed on ANOTHER replica);
+- when ALL replicas die, every pending and later submit resolves with
+  `ServingFault(kind="pool_exhausted")`;
+- a hedge can only improve latency, never change the answer;
+- under a pool kill, the SURVIVING replica serves the failed-over traffic
+  without building a program (prewarm covered it).
+
+Pool mechanics run on the torch-free `FakeEngine` of `test_torch_serving`;
+the bit-identity bar on the port's tiny pipeline.
+"""
+import time
+
+import numpy as np
+import pytest
+
+from flaxdiff_tpu_torch import resilience as R
+from flaxdiff_tpu_torch.serving import (DeadlineExceeded, FrontDoor,
+                                  FrontDoorConfig, HedgePolicy, Replica,
+                                  ReplicaPool, SampleRequest,
+                                  SchedulerClosed, SchedulerConfig,
+                                  ServingFault, ServingScheduler)
+from flaxdiff_tpu_torch.serving.replica import DEAD, HEALTHY, REBUILDING
+from flaxdiff_tpu_torch.serving.supervision import BrownoutConfig
+from flaxdiff_tpu_torch.telemetry import Telemetry, TraceRecorder
+from test_torch_serving import FakeEngine
+from test_torch_serving_chaos import _assert_identical, _real_reqs, tiny_pipe  # noqa: F401
+from test_torch_unet import one_torch_thread  # noqa: F401 (autouse)
+
+pytestmark = pytest.mark.chaos
+
+
+def _replica(name, tel, delay=0.0, engine=None, **cfg_kwargs):
+    eng = engine or FakeEngine(step_delay_s=delay)
+    cfg_kwargs = {"round_steps": 4, "batch_buckets": (2,), **cfg_kwargs}
+    sched = ServingScheduler(engine=eng, config=SchedulerConfig(
+        **cfg_kwargs), telemetry=tel, autostart=True)
+    return Replica(name, sched), eng
+
+
+def _door(replicas, tel, **door_kwargs):
+    return FrontDoor(ReplicaPool(replicas), telemetry=tel,
+                     config=FrontDoorConfig(**door_kwargs))
+
+
+def _reqs(n, nfe=4, base_seed=100):
+    return [SampleRequest(resolution=8, diffusion_steps=nfe,
+                          sampler="ddim", seed=base_seed + i)
+            for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+def test_least_loaded_routing_spreads_across_replicas():
+    """Back-to-back submits alternate replicas: load() counts the
+    queued entry the instant submit returns, so the routing key is
+    deterministic even before any dispatch thread runs."""
+    tel = Telemetry(enabled=False)
+    (r0, e0), (r1, e1) = (_replica("r0", tel, delay=0.05),
+                          _replica("r1", tel, delay=0.05))
+    door = _door([r0, r1], tel)
+    reqs = _reqs(4)
+    futs = [door.submit(r) for r in reqs]
+    outs = [f.result(timeout=30) for f in futs]
+    door.close()
+    for r, o in zip(reqs, outs):
+        assert np.all(o.samples == float(r.seed))
+    assert len(e0.prepared) == 2 and len(e1.prepared) == 2
+    snap = tel.registry.snapshot()
+    assert snap["frontdoor/requests_in"] == 4
+    assert snap["frontdoor/requests_ok"] == 4
+    assert snap["frontdoor/routed"] == 4
+
+
+def test_routing_skips_dead_and_rebuilding_replicas():
+    tel = Telemetry(enabled=False)
+    (r0, _), (r1, _) = _replica("r0", tel), _replica("r1", tel)
+    pool = ReplicaPool([r0, r1])
+    assert pool.route().name == "r0"            # tie -> name order
+    r0.kill("test")
+    assert r0.health() == DEAD
+    assert pool.route().name == "r1"
+    r1.scheduler.supervisor.set_state(2)        # REBUILDING
+    assert r1.health() == REBUILDING
+    assert pool.route().name == "r1"            # last resort, not DEAD
+    r1.scheduler.supervisor.set_state(0)
+    assert r1.health() == HEALTHY
+    pool.close(drain=False)
+
+
+def test_fault_rate_ewma_degrades_routing_preference():
+    tel = Telemetry(enabled=False)
+    (r0, _), (r1, _) = _replica("r0", tel), _replica("r1", tel)
+    for _ in range(8):
+        r0.note_outcome(False)
+    assert r0.health() == "degraded"
+    pool = ReplicaPool([r0, r1])
+    assert pool.route().name == "r1"            # HEALTHY beats DEGRADED
+    for _ in range(16):
+        r0.note_outcome(True)                   # EWMA decays back
+    assert r0.health() == HEALTHY
+    pool.close(drain=False)
+
+
+# ---------------------------------------------------------------------------
+# replica kill -> failover: zero stranded, bit-exact replay
+# ---------------------------------------------------------------------------
+
+def test_replica_kill_midflight_fails_over_zero_stranded():
+    tel = Telemetry(enabled=False)
+    (r0, _), (r1, _) = (_replica("r0", tel, delay=0.2),
+                        _replica("r1", tel, delay=0.2))
+    door = _door([r0, r1], tel)
+    reqs = _reqs(6)
+    futs = [door.submit(r) for r in reqs]
+    time.sleep(0.05)                            # r0's share is in flight
+    r0.kill("chaos")
+    outs = [f.result(timeout=60) for f in futs]
+    door.close()
+    for r, o in zip(reqs, outs):                # zero stranded, bit-exact
+        assert np.all(o.samples == float(r.seed))
+    snap = tel.registry.snapshot()
+    assert snap["frontdoor/failovers"] >= 1
+    assert snap["frontdoor/requests_ok"] == 6
+    assert snap.get("frontdoor/pool_exhausted", 0) == 0
+
+
+def test_replica_lost_fault_site_kills_chosen_replica():
+    """The deterministic chaos lever: a per-key `serving.replica_lost`
+    plan kills replica r0 at the 2nd submission poll — after r0 took
+    the first request — and the door fails it over."""
+    tel = Telemetry(enabled=False)
+    (r0, _), (r1, _) = (_replica("r0", tel, delay=0.2),
+                        _replica("r1", tel, delay=0.2))
+    door = _door([r0, r1], tel)
+    reqs = _reqs(4)
+    plan = R.FaultPlan([R.FaultSpec("serving.replica_lost",
+                                    per_key=True, match="replica:r0:",
+                                    at=(2,), error="flag")], seed=0)
+    with plan.installed():
+        futs = [door.submit(r) for r in reqs]
+        outs = [f.result(timeout=60) for f in futs]
+    door.close()
+    assert r0.health() == DEAD
+    for r, o in zip(reqs, outs):
+        assert np.all(o.samples == float(r.seed))
+    snap = tel.registry.snapshot()
+    assert snap["frontdoor/replica_lost"] == 1
+    assert snap["frontdoor/requests_ok"] == 4
+
+
+def test_all_replicas_dead_pool_exhausted_never_stranded():
+    tel = Telemetry(enabled=False)
+    (r0, _), (r1, _) = (_replica("r0", tel, delay=0.5),
+                        _replica("r1", tel, delay=0.5))
+    door = _door([r0, r1], tel)
+    # nfe 16 / round_steps 4: nobody can finish in the single round a
+    # non-draining close still lets land, so every future must resolve
+    # via the typed pool-exhausted path
+    futs = [door.submit(r) for r in _reqs(4, nfe=16)]
+    time.sleep(0.05)
+    r0.kill("chaos")
+    r1.kill("chaos")
+    for f in futs:                              # resolve typed, no hang
+        with pytest.raises(ServingFault) as ei:
+            f.result(timeout=60)
+        assert ei.value.kind == "pool_exhausted"
+    # a FRESH submit on the dead pool fails fast, also typed
+    with pytest.raises(ServingFault) as ei:
+        door.submit(_reqs(1)[0]).result(timeout=10)
+    assert ei.value.kind == "pool_exhausted"
+    door.close()
+    assert tel.registry.snapshot()["frontdoor/pool_exhausted"] >= 5
+
+
+def test_cross_replica_attempt_budget_bounds_failover_loop():
+    """Replicas that keep failing but stay routable must not loop
+    forever: the door's attempt budget (TOTAL submissions) converts
+    the churn into a typed pool_exhausted."""
+    tel = Telemetry(enabled=False)
+    (r0, _), (r1, _) = _replica("r0", tel), _replica("r1", tel)
+    door = _door([r0, r1], tel, max_attempts=3)
+    plan = R.FaultPlan([R.FaultSpec("serving.fetch",
+                                    at=tuple(range(1, 200)))], seed=0)
+    with plan.installed():
+        fut = door.submit(_reqs(1)[0])
+        with pytest.raises(ServingFault) as ei:
+            fut.result(timeout=60)
+    door.close()
+    assert ei.value.kind == "pool_exhausted"
+    assert ei.value.attempts == 3
+    snap = tel.registry.snapshot()
+    assert snap["frontdoor/failovers"] == 2     # budget = 3 submissions
+
+
+def test_terminal_poisoned_fault_relays_without_failover():
+    """A deterministically-poisoned request fails identically on any
+    replica: the door relays the conviction instead of burning the
+    pool's retry budget re-proving it."""
+    tel = Telemetry(enabled=False)
+    (r0, _), (r1, _) = _replica("r0", tel), _replica("r1", tel)
+    door = _door([r0, r1], tel)
+    reqs = _reqs(4, base_seed=5)                # seeds 5..8
+    plan = R.FaultPlan([R.FaultSpec("serving.round", per_key=True,
+                                    match="seed:7:", prob=1.0)], seed=0)
+    with plan.installed():
+        futs = [door.submit(r) for r in reqs]
+        results = {}
+        for r, f in zip(reqs, futs):
+            try:
+                results[r.seed] = f.result(timeout=60)
+            except ServingFault as e:
+                results[r.seed] = e
+    door.close()
+    assert isinstance(results[7], ServingFault)
+    assert results[7].kind == "poisoned"
+    for seed in (5, 6, 8):
+        assert np.all(results[seed].samples == float(seed))
+    assert tel.registry.snapshot().get("frontdoor/failovers", 0) == 0
+
+
+# ---------------------------------------------------------------------------
+# hedged retries: first set wins, identical answer
+# ---------------------------------------------------------------------------
+
+def test_hedge_fires_first_set_wins_identical_result():
+    tel = Telemetry(enabled=False)
+    # the slow replica wins the idle-pool routing tie by name; the
+    # hedge then lands on the fast one and beats it home
+    (slow, _), (fast, feng) = (_replica("a_slow", tel, delay=1.0),
+                               _replica("b_fast", tel, delay=0.01))
+    door = _door([slow, fast], tel,
+                 hedge=HedgePolicy(after_ms=50.0,
+                                   min_observations=1000))
+    t0 = time.perf_counter()
+    out = door.submit(_reqs(1, base_seed=2)[0]).result(timeout=30)
+    hedged_ms = (time.perf_counter() - t0) * 1e3
+    door.close()
+    assert np.all(out.samples == 2.0)           # identical answer
+    assert len(feng.prepared) == 1              # hedge arm ran on fast
+    assert hedged_ms < 900                      # beat the 2s slow path
+    snap = tel.registry.snapshot()
+    assert snap["frontdoor/hedges"] == 1
+    assert snap["frontdoor/hedge_wins"] == 1
+
+
+def test_no_hedge_below_threshold_or_single_replica():
+    tel = Telemetry(enabled=False)
+    (r0, _), (r1, _) = _replica("r0", tel), _replica("r1", tel)
+    door = _door([r0, r1], tel,
+                 hedge=HedgePolicy(after_ms=5_000.0,
+                                   min_observations=1000))
+    for f in [door.submit(r) for r in _reqs(3)]:
+        f.result(timeout=30)
+    door.close()
+    assert tel.registry.snapshot().get("frontdoor/hedges", 0) == 0
+
+
+def test_scheduler_cancel_removes_queued_request():
+    """The hedge-loser reap primitive: a QUEUED request cancels
+    (typed), an unknown future does not."""
+    tel = Telemetry(enabled=False)
+    eng = FakeEngine()
+    sched = ServingScheduler(engine=eng, config=SchedulerConfig(
+        round_steps=4, batch_buckets=(2,)), telemetry=tel,
+        autostart=False)
+    f1, f2 = sched.submit(_reqs(1)[0]), sched.submit(_reqs(1, 4, 50)[0])
+    assert sched.cancel(f2) is True
+    assert sched.cancel(f2) is False            # already gone
+    with pytest.raises(SchedulerClosed, match="cancelled"):
+        f2.result(timeout=1)
+    sched.start()
+    assert f1.result(timeout=30) is not None
+    sched.close()
+    assert tel.registry.snapshot()["serving/cancelled"] == 1
+
+
+# ---------------------------------------------------------------------------
+# pool-level admission + brownout + deadline
+# ---------------------------------------------------------------------------
+
+def test_door_admission_bound_sheds_typed():
+    tel = Telemetry(enabled=False)
+    (r0, _), = (_replica("r0", tel, delay=1.0),)
+    door = _door([r0], tel, max_pending=2)
+    futs = [door.submit(r) for r in _reqs(3)]
+    with pytest.raises(DeadlineExceeded, match="front door queue full"):
+        futs[2].result(timeout=1)
+    for f in futs[:2]:
+        f.result(timeout=60)
+    door.close()
+    assert tel.registry.snapshot()["frontdoor/shed"] == 1
+
+
+def test_pool_brownout_driven_by_pool_wide_pressure():
+    """Brownout tiers at the door key off TOTAL pool load over TOTAL
+    live capacity — per-replica brownout is off, so every degraded
+    flag here came from the pool-wide policy."""
+    tel = Telemetry(enabled=False)
+    mk = lambda n: _replica(n, tel, delay=0.1, max_queue=8,
+                            brownout=None)
+    (r0, _), (r1, _) = mk("r0"), mk("r1")
+    door = _door([r0, r1], tel,
+                 brownout=BrownoutConfig(queue_soft=0.2, queue_heavy=2.0,
+                                         queue_critical=2.0, nfe_cap=4,
+                                         force_plan=None))
+    reqs = [SampleRequest(resolution=8, diffusion_steps=16,
+                          sampler="ddim", seed=300 + i)
+            for i in range(10)]
+    outs = [f.result(timeout=60) for f in [door.submit(r) for r in reqs]]
+    door.close()
+    degraded = [o for o in outs if o.degraded]
+    assert degraded, "pool pressure should have degraded admissions"
+    for o in degraded:
+        assert "nfe_capped" in o.degraded
+    assert any(not o.degraded for o in outs)    # early submits full-NFE
+    snap = tel.registry.snapshot()
+    assert snap["serving/brownout_requests"] == len(degraded)
+
+
+def test_door_deadline_enforced_across_failovers():
+    """Each arm's replica clock restarts at routing time; only the
+    door sees the request's true age, so the door's own deadline check
+    must fire."""
+    tel = Telemetry(enabled=False)
+    (r0, _), = (_replica("r0", tel, delay=1.0),)
+    door = _door([r0], tel)
+    fut = door.submit(SampleRequest(resolution=8, diffusion_steps=4,
+                                    sampler="ddim", seed=9,
+                                    deadline_s=0.15))
+    with pytest.raises(DeadlineExceeded, match="front door"):
+        fut.result(timeout=30)
+    door.close()
+    assert tel.registry.snapshot()["frontdoor/shed"] == 1
+
+
+def test_close_nondraining_resolves_pending_door_futures():
+    tel = Telemetry(enabled=False)
+    (r0, _), = (_replica("r0", tel, delay=1.0),)
+    door = _door([r0], tel)
+    futs = [door.submit(r) for r in _reqs(3)]
+    door.close(drain=False, timeout=30)
+    for f in futs:
+        with pytest.raises((SchedulerClosed, ServingFault)):
+            f.result(timeout=10)
+    with pytest.raises(SchedulerClosed):        # post-close submit
+        door.submit(_reqs(1)[0]).result(timeout=1)
+
+
+# ---------------------------------------------------------------------------
+# open-loop multi-tenant harness
+# ---------------------------------------------------------------------------
+
+_TINY_MIX = ({"resolution": 8, "diffusion_steps": 4,
+              "sampler": "ddim"},)
+
+
+def test_open_loop_harness_reports_per_tenant_slo():
+    from flaxdiff_tpu_torch.serving import (OpenLoopSpec, TenantSpec,
+                                      run_open_loop)
+    tel = Telemetry(enabled=False)
+    (r0, _), (r1, _) = _replica("r0", tel), _replica("r1", tel)
+    door = _door([r0, r1], tel)
+    spec = OpenLoopSpec(tenants=(
+        TenantSpec(name="steady", n_requests=6, rate_hz=200.0,
+                   shape="poisson", mix=_TINY_MIX),
+        TenantSpec(name="bursty", n_requests=6, rate_hz=200.0,
+                   shape="burst", burst_len=3, burst_idle_s=0.01,
+                   mix=_TINY_MIX),
+    ), seed=7)
+    rep = run_open_loop(door, spec, workers=3, timeout_s=60)
+    door.close()
+    assert rep["requests"] == 12 and rep["completed"] == 12
+    assert rep["shed"] == rep["faulted"] == rep["errors"] == 0
+    assert set(rep["tenants"]) == {"steady", "bursty"}
+    for t in rep["tenants"].values():
+        assert t["requests"] == 6
+        assert t["slo_attainment"] == 1.0
+        assert t["latency_ms"]["p99"] >= t["latency_ms"]["p50"]
+    assert rep["throughput_rps"] > 0
+
+
+def test_open_loop_workload_deterministic_and_sorted():
+    from flaxdiff_tpu_torch.serving import (OpenLoopSpec, TenantSpec,
+                                      build_open_loop)
+    spec = OpenLoopSpec(tenants=(
+        TenantSpec(name="a", n_requests=5, rate_hz=100.0,
+                   shape="diurnal", mix=_TINY_MIX),
+        TenantSpec(name="b", n_requests=5, rate_hz=100.0, shape="ramp",
+                   mix=_TINY_MIX)), seed=3)
+    w1, w2 = build_open_loop(spec), build_open_loop(spec)
+    assert [(o, t, r.seed) for o, t, r in w1] \
+        == [(o, t, r.seed) for o, t, r in w2]
+    assert all(w1[i][0] <= w1[i + 1][0] for i in range(len(w1) - 1))
+    # independent per-tenant streams: dropping tenant b leaves a's
+    # arrivals untouched
+    solo = build_open_loop(OpenLoopSpec(tenants=(spec.tenants[0],),
+                                        seed=3))
+    assert [x for x in w1 if x[1] == "a"] == solo
+
+
+def test_open_loop_rejects_unknown_shape():
+    from flaxdiff_tpu_torch.serving import (OpenLoopSpec, TenantSpec,
+                                      build_open_loop)
+    with pytest.raises(ValueError, match="unknown traffic shape"):
+        build_open_loop(OpenLoopSpec(tenants=(
+            TenantSpec(shape="bogus", mix=_TINY_MIX),)))
+
+
+# ---------------------------------------------------------------------------
+# tracing: door-scope rows + health timeline on a real hub
+# ---------------------------------------------------------------------------
+
+def test_door_traces_and_health_timeline():
+    tel = Telemetry(recorder=TraceRecorder())
+    (r0, _), (r1, _) = (_replica("r0", tel, delay=0.1),
+                        _replica("r1", tel, delay=0.1))
+    door = _door([r0, r1], tel)
+    futs = [door.submit(r) for r in _reqs(2)]
+    for f in futs:
+        f.result(timeout=30)
+    r0.kill("chaos")
+    time.sleep(0.3)                             # monitor logs the flip
+    door.close()
+    recs = tel.records()
+    # trace propagation: the replica scheduler adopts the
+    # door-minted id, so every request_trace row carries the door's
+    # trace id and rows are told apart by their `hop` instead
+    door_rows = [r for r in recs if r.get("type") == "request_trace"
+                 and r["hop"] == "door"]
+    rep_rows = [r for r in recs if r.get("type") == "request_trace"
+                and r["hop"] != "door"]
+    assert len(door_rows) == 2 and len(rep_rows) == 2
+    assert all(r["trace_id"].startswith("door-") for r in rep_rows)
+    assert ({r["trace_id"] for r in rep_rows}
+            == {r["trace_id"] for r in door_rows})
+    for t in door_rows:
+        assert t["outcome"] == "ok"
+        kinds = [e["event"] for e in t["recovery"]]
+        assert "route" in kinds
+        # door-scope identity: queue + compile + device == latency
+        total = t["queue_ms"] + t["compile_ms"] + t["device_ms"]
+        assert total == pytest.approx(t["latency_ms"], abs=0.5)
+        # door-phase tiling: route + attempts + failovers == latency
+        # EXACTLY (shared timestamps; hedge is excluded by name)
+        phases = t["phase_ms"]
+        tiled = sum(ms for name, ms in phases.items()
+                    if name != "door.hedge")
+        assert tiled == pytest.approx(t["latency_ms"], abs=1e-6)
+        assert "door.route" in phases and "door.attempt" in phases
+    health = [r for r in recs if r.get("type") == "frontdoor_health"]
+    assert {h["replica"] for h in health} >= {"r0", "r1"}
+    assert any(h["replica"] == "r0" and h["health"] == "dead"
+               for h in health)
+
+
+# ---------------------------------------------------------------------------
+# real-engine acceptance: failover bit-identity + survivor builds nothing
+# ---------------------------------------------------------------------------
+
+def test_real_pool_failover_bit_identical_survivor_builds_nothing(
+        tiny_pipe):
+    """Kill one of two real replicas mid-traffic via the fault site: every
+    request completes bit-identical to a fault-free run, and the SURVIVOR
+    serves the failed-over traffic without building a program (per-replica
+    hubs keep the cache counters attributable)."""
+    tels = [Telemetry() for _ in range(2)]
+    door_tel = Telemetry()
+    replicas = []
+    for i, t in enumerate(tels):
+        sched = ServingScheduler(
+            pipeline=tiny_pipe, telemetry=t, autostart=True,
+            config=SchedulerConfig(round_steps=2, batch_buckets=(2,)))
+        replicas.append(Replica(f"r{i}", sched))
+    door = FrontDoor(ReplicaPool(replicas), telemetry=door_tel)
+    reqs = _real_reqs()
+    door.prewarm(reqs)                          # every replica warm
+    miss0 = [t.registry.snapshot().get("serving/program_cache_misses",
+                                       0) for t in tels]
+    plan = R.FaultPlan([R.FaultSpec("serving.replica_lost",
+                                    per_key=True, match="replica:r0:",
+                                    at=(2,), error="flag")], seed=0)
+    with plan.installed():
+        futs = [door.submit(r) for r in reqs]
+        outs = [f.result(timeout=300) for f in futs]
+    door.close()
+    assert replicas[0].health() == DEAD
+    _assert_identical(tiny_pipe, reqs, outs, round_steps=2, batch_buckets=(2,))
+    # survivor r1 built nothing for the failed-over traffic
+    miss1 = tels[1].registry.snapshot().get(
+        "serving/program_cache_misses", 0)
+    assert miss1 - miss0[1] == 0
+    assert door_tel.registry.snapshot()["frontdoor/requests_ok"] == 2

@@ -1112,3 +1112,119 @@ def test_cached_dit_request_never_syncs_and_launches_as_planned(cuda, kind):
     assert counts == {k: {"flash_fwd": 1, "ln_mod": 2, "gate_res": 2}.get(k, 0) * blocks
                       for k in counts}
     assert bool(torch.isfinite(x0).all())
+
+
+# --- the serving scheduler -------------------------------------------------------------
+
+def _serving_pipe(cuda):
+    """A small bf16 text-free DiT behind the port's pipeline, on the card."""
+    from flaxdiff_tpu_torch.inference import DiffusionInferencePipeline
+    from flaxdiff_tpu_torch.models import SimpleDiT
+    from flaxdiff_tpu_torch.predictors import VPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    model = SimpleDiT(output_channels=4, patch_size=2, emb_features=128, num_layers=3,
+                      num_heads=2, in_channels=4, dtype="bfloat16", device=cuda)
+    _random_weights(model)
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    return DiffusionInferencePipeline(model, params, CosineNoiseSchedule(1000),
+                                      VPredictionTransform(), device=cuda)
+
+
+def _serving_requests():
+    from flaxdiff_tpu_torch.serving import SampleRequest
+    return [SampleRequest(resolution=16, channels=4, diffusion_steps=n, sampler=s, seed=seed,
+                          use_ema=False)
+            for n, s, seed in ((5, "euler_ancestral", 1), (8, "euler_ancestral", 2),
+                               (3, "euler_ancestral", 3))]
+
+
+def _serve(pipe, reqs, **cfg):
+    from flaxdiff_tpu_torch.serving import SchedulerConfig, ServingScheduler
+    from flaxdiff_tpu_torch.telemetry import Telemetry
+    sched = ServingScheduler(pipeline=pipe, telemetry=Telemetry(), autostart=False,
+                             config=SchedulerConfig(**cfg))
+    futs = [sched.submit(r) for r in reqs]
+    sched.start()
+    outs = [f.result(timeout=300) for f in futs]
+    sched.close()
+    return [o.samples for o in outs]
+
+
+def test_scheduler_round_never_syncs_on_the_card(cuda):
+    """One engine round and its terminal program under sync debug mode
+    "error": the step table goes up pinned and non-blocking, nothing is read
+    back. The rows' carries were prepared before."""
+    from flaxdiff_tpu_torch.serving import SamplerProgramEngine, ServingFuture
+    from flaxdiff_tpu_torch.telemetry import Telemetry
+    pipe = _serving_pipe(cuda)
+    engine = SamplerProgramEngine(pipe, telemetry=Telemetry())
+    reqs = _serving_requests()
+
+    def rows():
+        return [engine.prepare(r, ServingFuture(), 0.0, 0.0) for r in reqs]
+
+    warm = rows()                       # builds, GEMM choices, pinned blocks
+    while warm:
+        done, _ = engine.advance(warm, 4, 4)
+        if done:
+            engine.finalize(done, 4)
+        warm = [r for r in warm if r.remaining > 0]
+    torch.cuda.synchronize()
+    live = rows()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        done, _ = engine.advance(live, 4, 4)
+        out, _ = engine.finalize(done, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [r.req.seed for r in done] == [3]
+    assert tuple(out.shape) == (1, 1, 16, 16, 4) and bool(torch.isfinite(out).all())
+
+
+def test_batched_request_is_bit_equal_alone_in_its_bucket_on_the_card(cuda):
+    """cuBLAS and cuDNN may pick another algorithm at another batch size, so
+    the card's contract is the same bucket: each request batched with two
+    others (a padding row, rows ending in different rounds) equals itself
+    served alone in bucket 4."""
+    import numpy as np
+    pipe = _serving_pipe(cuda)
+    reqs = _serving_requests()
+    batched = _serve(pipe, reqs, round_steps=3, batch_buckets=(4,))
+    for r, out in zip(reqs, batched):
+        alone = _serve(pipe, [r], round_steps=3, batch_buckets=(4,))[0]
+        assert np.array_equal(out, alone), r.seed
+        solo = pipe.generate_samples(num_samples=1, resolution=16, channels=4,
+                                     diffusion_steps=r.diffusion_steps, sampler=r.sampler,
+                                     seed=r.seed, use_ema=False)
+        assert np.abs(out - solo).max() < 0.1, r.seed     # bf16 at another batch
+
+
+def test_padding_row_leaves_the_generator_where_solo_leaves_it_on_the_card(cuda):
+    """A padding row and the dead steps of a finished row draw nothing: each
+    request's CUDA generator ends where its solo trajectory leaves it."""
+    from flaxdiff_tpu_torch.device import make_generator
+    from flaxdiff_tpu_torch.samplers import NoiseSource
+    from flaxdiff_tpu_torch.serving import SchedulerConfig, ServingScheduler
+    from flaxdiff_tpu_torch.telemetry import Telemetry
+    pipe = _serving_pipe(cuda)
+    gens = {}
+
+    def factory(req):
+        gens[req.seed] = make_generator(req.seed, cuda)
+        return NoiseSource(gens[req.seed])
+
+    reqs = _serving_requests()
+    sched = ServingScheduler(pipeline=pipe, telemetry=Telemetry(), autostart=False,
+                             noise_factory=factory,
+                             config=SchedulerConfig(round_steps=4, batch_buckets=(4,)))
+    futs = [sched.submit(r) for r in reqs]
+    sched.start()
+    for f in futs:
+        f.result(timeout=300)
+    sched.close()
+    for r in reqs:
+        solo = make_generator(r.seed, cuda)
+        pipe.get_sampler(r.sampler).generate_samples(
+            num_samples=1, resolution=16, channels=4, diffusion_steps=r.diffusion_steps,
+            generator=solo)
+        assert torch.equal(gens[r.seed].get_state(), solo.get_state()), r.seed
