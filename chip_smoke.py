@@ -5,12 +5,14 @@
 
 Phases; any failure exits non-zero and prints no result line.
   1. Print the card's name and power limit; build the CUDA kernels from
-     flaxdiff_tpu_torch/csrc with nvcc for sm_90a; print each kernel's
-     registers, the registers and spills of every wgmma instantiation and,
-     where cuobjdump exists, their HGMMA (wgmma) and HMMA (mma.sync) counts.
+     flaxdiff_tpu_torch/csrc with nvcc for sm_90a and the native library
+     (packed-record reader, PNG unfilter) from flaxdiff_tpu_torch/native
+     with g++; print each kernel's registers, the registers and spills of
+     every wgmma instantiation and, where cuobjdump exists, their HGMMA
+     (wgmma) and HMMA (mma.sync) counts.
      Fails if any kernel instantiation spills, if ptxas serialised a wgmma
      (warning C7520), or if one holds no HGMMA or any HMMA.
-  2. Hold each of the sixteen kernels against its plain PyTorch version on
+  2. Hold each of the eighteen kernels against its plain PyTorch version on
      the card: the forward kernels at the serving paths' shapes, the backward
      kernels at the training paths' (bf16, plus one f32 case each with TF32
      off, one f16 case each at a shape a bf16 case times, under the bf16
@@ -30,7 +32,12 @@ Phases; any failure exits non-zero and prints no result line.
      statistics kernels' partials must be bit-equal from launch to launch,
      the wide forward's lse bit-equal across its column chunks, and the
      attention dispatch at head dim 160 (padded to 256) within the flash
-     limits, forward and backward, in bf16.
+     limits, forward and backward, in bf16. The batch-invariant linear
+     and convolution (bi_gemm, bi_conv: the served route's Dense and
+     ConvLayer, fault C6) at phase 4's shapes, a ragged row count, element-
+     wise loads, f16 and f32, against their plain versions run in f32; and
+     each gives a sample the same bits at batch 2, 4, 8 and 16 and in three
+     orders.
   3. The full-width UNet at 64x64 in f32, on the card (kernels) and on the
      CPU (plain versions), with the same random weights: a forward, short
      CFG trajectories at 32x32 (DDIM-3 and euler_ancestral-4 on the cosine
@@ -61,7 +68,7 @@ Phases; any failure exits non-zero and prints no result line.
   7. DiT training: DiffusionTrainer.train_step, batch 32, bf16 over f32
      params, AdamW 1e-4, EMA 0.999, 3 warm-up and 20 timed steps, with the
      same checks as phase 5.
-  8. Every sampler on phase 4's model, weights and inputs, 50 steps each:
+  8. Every sampler on phase 4's model, weights and inputs, 25 steps each:
      ddpm, simple_ddpm, euler, simple_euler, euler_ancestral, heun and
      multistep_dpm (orders 2, 3) on the cosine schedule; euler, heun and rk4
      on the KarrasVE ramp (sigma_max 80) with EDM preconditioning and karras
@@ -165,9 +172,8 @@ Phases; any failure exits non-zero and prints no result line.
      and Euler-ancestral-50 batched in bucket 4 (rounds of 10 steps), and
      two multistep DPM requests admitted at different offsets, all on x0
      before the clip (random eps weights saturate the samples): each of the
-     five alone in bucket 1 bit-equal to the solo generate_samples; each
-     batched bit-equal to itself alone in bucket 4 and within TOL15 of the
-     solo call; one round under sync debug "error".
+     five alone in bucket 1 and batched in bucket 4 bit-equal to the solo
+     generate_samples; one round under sync debug "error".
      (b) a seeded Poisson replay (32 requests at 8 Hz, buckets 1/2/4/8,
      max_inflight 2) twice after prewarm: latency p50/p99, requests/s,
      images/s, occupancy, program-cache hit rate, shed and backpressure
@@ -175,16 +181,23 @@ Phases; any failure exits non-zero and prints no result line.
      model calls (launches zeroed just before); one bucket-8 round's
      launched, wall and busy ms and idle share beside phase 4's. (c) (b)'s
      workload in (b)'s buckets under a FaultPlan (a round fault, a fetch
-     fault, a device loss): every request completes within TOL15 of its
-     fault-free run (requeues move it to other buckets and positions), every
-     fault fires and is recovered; its first 6 requests in bucket 1 under
-     the same plan, each bit-equal to its fault-free run;
-     requeued, quarantined and rebuild counts. (d) two replicas behind the
+     fault, a device loss): every request completes bit-equal to its
+     fault-free run and to its solo generate_samples (requeues move it to
+     other buckets, positions and mates), every fault fires and is
+     recovered; requeued, quarantined and rebuild counts. (d) two replicas behind the
      FrontDoor with serving.replica_lost killing one mid-replay: every
      future resolves, the failovers counted. (e) DiT-B/2 (phase 6's) under
      the composed default plan through the scheduler: a request bit-equal to
      itself alone in its bucket, its launches the plan's (phase 14's
-     planned_launches).
+     planned_launches), its distance to the solo call printed.
+  16. The packed-shard data feed: 4 shards of 128 PNG images at phase 10's
+     128x128, written by the port's write_image_dataset; the reader's
+     decoded records/s on one host thread; phase 10's CLI run (40 steps)
+     with --dataset packed_shards --dataset_path '<dir>/shard-*.rec', its
+     images/s beside phase 10's, every loss finite, and a resume from step
+     20 bit-equal to the uninterrupted run.
+Every inference-mode path's launches include bi_gemm's and bi_conv's, one
+per routed Dense and ConvLayer call (counted by a module pre-hook).
 The lines before the last are the kernels' JSON record and the card's
 name and power limit; the last is {"ok": true, "device": {...}}. With
 --record, the full record (every case, the model checks, both paths and
@@ -367,7 +380,14 @@ REPLACES = {
     "ln_mod_bwd": "flaxdiff_tpu/ops/fused_adaln.py:161",
     "gate_res": "flaxdiff_tpu/ops/fused_adaln.py:380",
     "gate_res_bwd": "flaxdiff_tpu/ops/fused_adaln.py:386",
+    # no TPU kernel: XLA's dot_general and conv under flax's nn.Dense and
+    # nn.Conv (the ConvLayer), which the port's served route replaces with
+    # batch-invariant kernels (fault C6)
+    "bi_gemm": "none (XLA dot_general, nn.Dense at flaxdiff_tpu/models/common.py:80)",
+    "bi_conv": "none (XLA conv, nn.Conv at flaxdiff_tpu/models/common.py:165)",
 }
+# the batch-invariant kernels: served paths only, no backward
+BI_KERNELS = ("bi_gemm", "bi_conv")
 # the __global__ functions each wrapper launches, as the profiler names them
 KERNEL_SYMBOLS = {name: (name + "_kernel",) for name in REPLACES}
 KERNEL_SYMBOLS.update(flash_fwd=("flash_fwd_wgmma_kernel", "flash_fwd_fma_kernel"),
@@ -380,7 +400,9 @@ KERNEL_SYMBOLS.update(flash_fwd=("flash_fwd_wgmma_kernel", "flash_fwd_fma_kernel
                       flash_bwd_dkv_wide=("flash_bwd_dkv_wide_wgmma_kernel",
                                           "flash_bwd_dkv_wide_fma_kernel"),
                       ln_mod=("ln_mod_fwd_kernel", "ln_mod_fwd_rows_kernel"),
-                      gate_res=("gate_res_fwd_kernel",))
+                      gate_res=("gate_res_fwd_kernel",),
+                      bi_gemm=("bi_gemm_mma_kernel", "bi_gemm_fma_kernel"),
+                      bi_conv=("bi_conv_mma_kernel", "bi_conv_fma_kernel"))
 # the 16-bit paths that must run on wgmma (HGMMA in the built library)
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                  "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_split_wgmma_kernel",
@@ -403,6 +425,8 @@ SOURCES = {
     "ln_mod_bwd": "flaxdiff_tpu_torch/csrc/adaln.cu",
     "gate_res": "flaxdiff_tpu_torch/csrc/adaln.cu",
     "gate_res_bwd": "flaxdiff_tpu_torch/csrc/adaln.cu",
+    "bi_gemm": "flaxdiff_tpu_torch/csrc/bi_gemm.cu",
+    "bi_conv": "flaxdiff_tpu_torch/csrc/bi_conv.cu",
 }
 
 # (dense bf16 flop/s, f32 flop/s outside the tensor cores, bytes/s), NVIDIA's
@@ -422,6 +446,38 @@ def log(*args):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+# calls of the Dense and ConvLayer modules that take a batch-invariant kernel
+# (under inference mode, on the card) since the last reset_counts(), counted
+# by a forward pre-hook on every module that main() installs: the launches of
+# bi_gemm and bi_conv each path must show. A call counts here, a launch in
+# the wrapper, so equal counts show every routed call launched its kernel once.
+ROUTE_CALLS = {name: 0 for name in BI_KERNELS}
+
+
+def _route_hook(module, args):
+    kernel = getattr(module, "batch_invariant_kernel", None)
+    if kernel and torch.is_inference_mode_enabled() and args and args[0].is_cuda:
+        ROUTE_CALLS[kernel] += 1
+
+
+def install_route_census():
+    return torch.nn.modules.module.register_module_forward_pre_hook(_route_hook)
+
+
+def reset_counts() -> None:
+    """Zero the kernels' launch counters and the routed calls."""
+    from flaxdiff_tpu_torch.ops import reset_launch_counts
+    reset_launch_counts()
+    for name in ROUTE_CALLS:
+        ROUTE_CALLS[name] = 0
+
+
+def routed(expected: dict) -> dict:
+    """`expected` launches with the batch-invariant kernels' from the routed
+    calls counted since the last reset_counts()."""
+    return {**expected, **ROUTE_CALLS}
 
 
 def peaks(name: str):
@@ -624,7 +680,7 @@ def kernel_cases(dev, peak):
                                                    groupnorm_bwd_stats_plain, groupnorm_finalize,
                                                    groupnorm_normalize, groupnorm_normalize_plain,
                                                    groupnorm_stats, groupnorm_stats_plain,
-                                                   rows_per_block)
+                                                   rows_per_block, stats_rows_per_block)
     bf16_rate, f32_rate, byte_rate = peak
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *shape, dtype: torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
@@ -753,7 +809,7 @@ def kernel_cases(dev, peak):
         x = randn(b, hw, c, dtype=dtype) * 2.0 + 0.5
         scale = torch.rand(c, generator=gen, device=dev) + 0.5
         bias = randn(c, dtype=torch.float32) * 0.1
-        rows = rows_per_block(b, hw, c)
+        rows, bwd_rows = stats_rows_per_block(hw, c), rows_per_block(b, hw, c)
         nblk = -(-hw // rows)
         esz, n = x.element_size(), b * hw * c
         rtol = HALF_RTOL.get(dtype, 1e-5)
@@ -791,7 +847,8 @@ def kernel_cases(dev, peak):
             continue
         g = randn(b, hw, c, dtype=dtype)
         gs, cs = groupnorm_bwd_stats(x, g, mean, rstd, scale, bias, True)
-        gs_ref, cs_ref = groupnorm_bwd_stats_plain(x, g, mean, rstd, scale, bias, True, rows)
+        gs_ref, cs_ref = groupnorm_bwd_stats_plain(x, g, mean, rstd, scale, bias, True, bwd_rows)
+        bwd_nblk = -(-hw // bwd_rows)
         torch.cuda.synchronize()
         # f32 sums of up to 1024 rows a channel and block, in another order:
         # up to 1.4e-7 of the largest sum per element and 1.8e-7 RMS on an
@@ -801,8 +858,9 @@ def kernel_cases(dev, peak):
         record("gn_bwd_stats", (b, hw, c), dtype,
                {"group_sums": read(gs, gs_ref), "channel_sums": read(cs, cs_ref)},
                lambda: groupnorm_bwd_stats(x, g, mean, rstd, scale, bias, True),
-               lambda: groupnorm_bwd_stats_plain(x, g, mean, rstd, scale, bias, True, rows),
-               16.0 * n, 2 * esz * n + 8 * b * 8 + 8 * c + 4 * b * nblk * 2 * (8 + c))
+               lambda: groupnorm_bwd_stats_plain(x, g, mean, rstd, scale, bias, True,
+                                                 bwd_rows),
+               16.0 * n, 2 * esz * n + 8 * b * 8 + 8 * c + 4 * b * bwd_nblk * 2 * (8 + c))
         s, _, _ = groupnorm_bwd_finalize(gs_ref, cs_ref, hw)
         dx = groupnorm_bwd_dx(x, g, mean, rstd, scale, bias, s, True)
         dx_ref = groupnorm_bwd_dx_plain(x, g, mean, rstd, scale, bias, s, True)
@@ -844,6 +902,7 @@ def kernel_cases(dev, peak):
                24.0 * n, esz * 5 * n)
         del proj, dout, out, ref
     adaln_cases(randn, gen, record)
+    bi_cases(randn, gen, record)
     return cases, yardsticks
 
 
@@ -852,14 +911,14 @@ def dispatch_check(randn) -> None:
     cross-attention to the text in bf16: forward and dq, dk, dv against the
     plain versions at the true head dim, under the flash bf16 limits, with
     one launch of each flash kernel."""
-    from flaxdiff_tpu_torch.ops import dot_product_attention, launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import dot_product_attention, launch_counts
     from flaxdiff_tpu_torch.ops.flash_attention import (flash_bwd_dkv_plain, flash_bwd_dq_plain,
                                                         flash_delta, flash_fwd_plain)
     b, heads, d, lq = SERVE_BATCH, WIDE_LEVEL["heads"], WIDE_LEVEL["dim_head"], WIDE_LEVEL["side"] ** 2
     q = randn(b, lq, heads, d, dtype=BF16).requires_grad_()
     k, v = (randn(b, TEXT_LEN, heads, d, dtype=BF16).requires_grad_() for _ in range(2))
     do = randn(b, lq, heads, d, dtype=BF16)
-    reset_launch_counts()
+    reset_counts()
     out = dot_product_attention(q, k, v)
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
@@ -909,6 +968,123 @@ def gn_yardstick(b, hw, c, dtype, pair_ms, randn, backward: bool):
         f"{ms:.4f} ms; {pair} at [{b},{hw},{c}] {pair_ms:.4f} ms")
     return dict(call=what, note="no SiLU, NCHW", shape=[b, c, side, side], dtype=str(dtype)[6:],
                 ms=ms, pair=pair, pair_ms=pair_ms)
+
+
+# the batch-invariant kernels at phase 4's shapes (a CFG call, batch 2, at
+# 256^2): bi_gemm (batch, rows a sample, K, N, dtype): level 2's GEGLU input
+# (4096 tokens), level 3's (1024), the text's keys and values (77 rows,
+# ragged), the time embedding (1 row), DiT-B/2's MLP input (phase 6: 8 x 256
+# tokens), a K that is no multiple of 8 (the element-wise loads), f16 and f32
+BI_GEMM_CASES = [(2, 4096, 256, 2048, BF16), (2, 1024, 512, 4096, BF16),
+                 (2, TEXT_LEN, TEXT_DIM, 512, BF16), (2, 1, 512, 512, BF16),
+                 (2 * DIT_SERVE_BATCH, DIT_TOKENS, DIT_WIDTH, 4 * DIT_WIDTH, BF16),
+                 (3, 111, 100, 70, BF16), (2, 4096, 256, 2048, F16), (2, 1024, 512, 512, F32)]
+# bi_conv (batch, side, Cin, Cout, kernel, stride, padding, dtype): the UNet's
+# 3x3 convs at levels 0 and 3, conv_in (3 channels: element-wise loads), the
+# stride-2 downsample (SAME pads 0 low, 1 high), a 1x1 skip, conv_out in f32,
+# level 2 in f16, and DiT-B/2's patch embedding (2x2 at stride 2, VALID)
+BI_CONV_CASES = [(2, 256, 64, 64, 3, 1, "SAME", BF16), (2, 32, 512, 512, 3, 1, "SAME", BF16),
+                 (2, 256, 3, 64, 3, 1, "SAME", BF16), (2, 256, 64, 64, 3, 2, "SAME", BF16),
+                 (2, 128, 64, 128, 1, 1, "SAME", BF16), (2, 256, 64, 3, 3, 1, "SAME", F32),
+                 (2, 64, 256, 256, 3, 1, "SAME", F16),
+                 (2 * DIT_SERVE_BATCH, DIT_RES, DIT_CH, DIT_WIDTH, 2, 2, "VALID", BF16)]
+BI_ORDERS = 16   # the per-sample bit check's largest batch
+
+
+def bi_reading(out, x, w, b, plain) -> dict:
+    """The kernel against its plain version run in f32 on the same inputs
+    (TF32 off) and rounded to the output's dtype: the kernel sums in f32 in
+    another order, then rounds once, so a 16-bit output is at most one ulp
+    off (rtol), beside a few f32 ulps of the sum (atol, of max|ref|). The
+    16-bit library calls are no yardstick here: cuDNN's 3x3 algorithms
+    (Winograd transforms) read 2 bf16 ulps off the f32 result."""
+    ref = plain(x.float(), w.float(), None if b is None else b.float()).to(out.dtype)
+    scale = float(ref.float().abs().max())
+    if out.dtype in HALF_RTOL:
+        return compare(out, ref, atol=1e-4 * scale, rtol=HALF_RTOL[out.dtype],
+                       rms_rel=1e-2 * HALF_SCALE[out.dtype])
+    return compare(out, ref, atol=1e-5 * scale, rtol=1e-5, rms_rel=1e-5)
+
+
+def bi_same_bits(op, x, what: str) -> dict:
+    """Each sample of `x` [16, ...] through `op` gives the same bits at batch
+    2, 4 and 8 as at 16, and at 16 in three other orders."""
+    gen = torch.Generator(device=x.device).manual_seed(16)
+    ref = op(x)
+    n = x.shape[0]
+    orders = {"reversed": torch.arange(n - 1, -1, -1, device=x.device),
+              "halves swapped": torch.cat([torch.arange(n // 2, n), torch.arange(n // 2)]).to(x.device),
+              "shuffled": torch.randperm(n, generator=gen, device=x.device)}
+    moved = {f"batch {b}": int((op(x[:b]) != ref[:b]).flatten(1).any(1).sum()) for b in (2, 4, 8)}
+    moved.update({order: int((op(x[perm]) != ref[perm]).flatten(1).any(1).sum())
+                  for order, perm in orders.items()})
+    torch.cuda.synchronize()
+    log(f"  {what}: samples whose bits moved {moved}")
+    check(not any(moved.values()), f"{what}: a sample's bits follow its batch: {moved}")
+    return moved
+
+
+def bi_cases(randn, gen, record):
+    """The batch-invariant linear and convolution against their plain
+    versions (one library call per sample), timed beside one library call
+    over the whole batch, and each sample's bits across batch sizes and
+    orders (bf16, f16, f32)."""
+    import torch.nn.functional as F
+
+    from flaxdiff_tpu_torch.ops.batch_invariant import (bi_conv2d, bi_conv2d_plain, bi_linear,
+                                                        bi_linear_plain, conv_output_size)
+    checked = set()
+    for batch, tokens, k, n, dtype in BI_GEMM_CASES:
+        x = randn(batch, tokens, k, dtype=dtype)
+        w = randn(n, k, dtype=dtype) * k ** -0.5
+        b = randn(n, dtype=dtype)
+        out = bi_linear(x, w, b)
+        reading = bi_reading(out, x, w, b, bi_linear_plain)
+        torch.cuda.synchronize()
+        esz, rows = x.element_size(), batch * tokens
+        record("bi_gemm", (batch, tokens, k, n), dtype, {"out": reading},
+               lambda: bi_linear(x, w, b), lambda: bi_linear_plain(x, w, b),
+               2.0 * rows * k * n, esz * (rows * k + n * k + rows * n + n),
+               library=lambda: F.linear(x, w, b))
+        if dtype not in checked:
+            checked.add(dtype)
+            xs = randn(BI_ORDERS, 77, k, dtype=dtype)
+            bi_same_bits(lambda t: bi_linear(t, w, b), xs, f"bi_gemm [{BI_ORDERS},77,{k}]x[{k},{n}] "
+                         f"{str(dtype).replace('torch.', '')}")
+        del x, w, b, out
+    checked = set()
+    for batch, side, cin, cout, ksz, stride, pad, dtype in BI_CONV_CASES:
+        x = randn(batch, side, side, cin, dtype=dtype)
+        w = randn(cout, cin, ksz, ksz, dtype=dtype) * (cin * ksz * ksz) ** -0.5
+        w = w.contiguous(memory_format=torch.channels_last)
+        b = randn(cout, dtype=dtype)
+        if pad == "SAME":
+            total = max((-(-side // stride) - 1) * stride + ksz - side, 0)
+            p = (total // 2, total - total // 2)
+        else:
+            p = (0, 0)
+        pads, strides = (p, p), (stride, stride)
+        out = bi_conv2d(x, w, b, strides, pads)
+        reading = bi_reading(out, x, w, b, lambda *t: bi_conv2d_plain(*t, strides, pads))
+        torch.cuda.synchronize()
+        o = conv_output_size(side, ksz, stride, p)
+        esz = x.element_size()
+        library = None
+        if p[0] == p[1]:
+            xc = x.permute(0, 3, 1, 2)
+            library = lambda: F.conv2d(xc, w, b, stride=strides, padding=p[0])
+        record("bi_conv", (batch, side, side, cin, cout, ksz, stride), dtype,
+               {"out": reading}, lambda: bi_conv2d(x, w, b, strides, pads),
+               lambda: bi_conv2d_plain(x, w, b, strides, pads),
+               2.0 * batch * o * o * cout * cin * ksz * ksz,
+               esz * (x.numel() + w.numel() + batch * o * o * cout + cout), library=library)
+        if dtype not in checked and ksz == 3:
+            checked.add(dtype)
+            xs = randn(BI_ORDERS, 32, 32, cin, dtype=dtype)
+            bi_same_bits(lambda t: bi_conv2d(t, w, b, strides, pads), xs,
+                         f"bi_conv [{BI_ORDERS},32,32,{cin}] -> {cout}, 3x3 "
+                         f"{str(dtype).replace('torch.', '')}")
+        del x, w, b, out
 
 
 def adaln_cases(randn, gen, record):
@@ -1135,7 +1311,7 @@ def wide_block_check(dev, w: dict, expected_launches=None) -> dict:
     within 1e-3 of its max|g|, the key biases' (zero by the math) below 1e-6
     of the largest. With `expected_launches`, the launch counters, zeroed
     just before the card's forward and backward, must read those launches."""
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.models.attention import TransformerBlock
 
     rng = np.random.default_rng(6)
@@ -1149,7 +1325,7 @@ def wide_block_check(dev, w: dict, expected_launches=None) -> dict:
         state = random_state(block, 6) if state is None else state
         block.load_state_dict(state)
         xs, cs = (torch.from_numpy(a).to(where).requires_grad_() for a in (x, ctx))
-        reset_launch_counts()
+        reset_counts()
         out = block(xs, cs)
         named = list(block.named_parameters())
         grads = torch.autograd.grad(out, [t for _, t in named] + [xs, cs],
@@ -1183,7 +1359,7 @@ def wide_block_check(dev, w: dict, expected_launches=None) -> dict:
     if expected_launches is not None:
         expected = {k: expected_launches.get(k, 0) for k in counts}
         log(f"  launches {counts}, expected {expected}")
-        check(counts == expected, f"the {w['heads']} x {w['dim_head']} block ran its kernels")
+        check(counts == routed(expected), f"the {w['heads']} x {w['dim_head']} block ran its kernels")
     return res
 
 
@@ -1272,7 +1448,7 @@ def serving_model(dev, state):
 
 def main_path(dev, state):
     from flaxdiff_tpu_torch.device import make_generator
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
     from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
     from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
@@ -1287,7 +1463,7 @@ def main_path(dev, state):
     run(2, 0)                      # warm-up: cuDNN algorithm choice, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out = run(STEPS, 1)
     torch.cuda.synchronize()
@@ -1295,7 +1471,7 @@ def main_path(dev, state):
     counts = launch_counts()
     expected = {k: PER_FORWARD.get(k, 0) * (STEPS + 1) for k in counts}
     log(f"  launches {counts}, expected {expected}")
-    check(counts == expected, "every attention, GEGLU and GroupNorm call ran its kernel")
+    check(counts == routed(expected), "every attention, GEGLU and GroupNorm call ran its kernel")
     check(tuple(out.shape) == (1, RESOLUTION, RESOLUTION, 3), f"output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "samples finite")
     check(float(out.abs().max()) <= 1.0, "samples clipped to [-1, 1]")
@@ -1334,7 +1510,7 @@ def run_training(dev, model, schedule, shape, per_step, transform=None,
     noise and timesteps lower after the steps than before them (EDM's
     per-step loss swings 1-4x with its log-normal sigma draws, far more than
     23 steps move it)."""
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
     from flaxdiff_tpu_torch.trainer import (AdamW, DiffusionTrainer, TrainerConfig,
                                             TrainStepConfig, make_loss_builder)
@@ -1361,7 +1537,7 @@ def run_training(dev, model, schedule, shape, per_step, transform=None,
             probe = lambda: float(build(batches[0], *draws)(trainer.state.model))
             fixed_before = probe()
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     losses = [trainer.train_step(batches[i % 4]) for i in range(WARMUP)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1376,7 +1552,7 @@ def run_training(dev, model, schedule, shape, per_step, transform=None,
     steps = WARMUP + TIMED
     expected = {k: steps * per_step.get(k, 0) for k in counts}
     log(f"  launches {counts}, expected {expected}")
-    check(counts == expected, "every forward and backward kernel ran once per call per step")
+    check(counts == routed(expected), "every forward and backward kernel ran once per call per step")
     losses = [float(x) for x in losses]
     log("  losses " + " ".join(f"{x:.5f}" for x in losses))
     check(all(math.isfinite(x) for x in losses), "every loss finite")
@@ -1446,7 +1622,7 @@ def cli_path(dev, per_step: dict) -> dict:
 
     from flaxdiff_tpu_torch import train
     from flaxdiff_tpu_torch.inference import DiffusionInferencePipeline
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.trainer import Checkpointer
 
     root = tempfile.mkdtemp(prefix="flaxdiff_cli_")
@@ -1454,7 +1630,7 @@ def cli_path(dev, per_step: dict) -> dict:
     try:
         whole, resumed, poisoned = (os.path.join(root, n) for n in ("whole", "resumed", "poison"))
         torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         hist = train.main(cli_args(whole, CLI_STEPS, dev))
         torch.cuda.synchronize()
@@ -1462,7 +1638,7 @@ def cli_path(dev, per_step: dict) -> dict:
         counts = launch_counts()
         expected = {k: CLI_STEPS * per_step.get(k, 0) for k in counts}
         log(f"  launches {counts}, expected {expected}")
-        check(counts == expected, "every forward and backward kernel ran once per call per step")
+        check(counts == routed(expected), "every forward and backward kernel ran once per call per step")
         log("  window losses " + " ".join(f"{x:.5f}" for x in hist["loss"]))
         check(hist["steps"] == list(range(CLI_LOG_EVERY, CLI_STEPS + 1, CLI_LOG_EVERY))
               and all(math.isfinite(x) for x in hist["loss"]), "every window loss finite")
@@ -1484,11 +1660,11 @@ def cli_path(dev, per_step: dict) -> dict:
             f"written in {ckpt['write_s']:.3f} s")
 
         copy_run(whole, resumed, CLI_SAVE_EVERY)
-        reset_launch_counts()
+        reset_counts()
         hist = train.main(cli_args(resumed, CLI_STEPS, dev))
         counts = launch_counts()
         half = CLI_STEPS - CLI_SAVE_EVERY
-        check(counts == {k: half * per_step.get(k, 0) for k in counts},
+        check(counts == routed({k: half * per_step.get(k, 0) for k in counts}),
               f"the resumed run launched every kernel once per call for {half} steps")
         a, _ = Checkpointer(whole).restore(CLI_STEPS)
         b, _ = Checkpointer(resumed).restore(CLI_STEPS)
@@ -1526,12 +1702,12 @@ def cli_path(dev, per_step: dict) -> dict:
             resolution=TRAIN_RES, diffusion_steps=steps, sampler="ddim",
             guidance_scale=GUIDANCE, prompts=CLI_PROMPTS, seed=1)
         request(2)                 # warm-up: cuDNN's choices, the allocator
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         out = request(STEPS)
         req_wall = time.perf_counter() - t0
         counts = launch_counts()
-        check(counts == {k: PER_FORWARD.get(k, 0) * (STEPS + 1) for k in counts},
+        check(counts == routed({k: PER_FORWARD.get(k, 0) * (STEPS + 1) for k in counts}),
               "the pipeline's request launched PER_FORWARD x 51 kernels")
         check(out.shape == (2, TRAIN_RES, TRAIN_RES, 3) and bool(np.isfinite(out).all())
               and float(np.abs(out).max()) <= 1.0, f"samples {out.shape}, finite, in [-1, 1]")
@@ -1618,7 +1794,7 @@ def options_path(dev, per_step: dict, phase10: dict, phase5: dict) -> dict:
     import tempfile
 
     from flaxdiff_tpu_torch import train
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.trainer import Checkpointer
 
     root = tempfile.mkdtemp(prefix="flaxdiff_cli12_")
@@ -1627,7 +1803,7 @@ def options_path(dev, per_step: dict, phase10: dict, phase5: dict) -> dict:
         whole, resumed, poisoned = (os.path.join(root, n) for n in ("whole", "resumed", "poison"))
         trajectory, runs = [], []
         torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         with recorded_scale(trajectory, runs):
             hist = train.main(cli12_args(whole, dev, os.path.join(root, "profile")))
@@ -1639,7 +1815,7 @@ def options_path(dev, per_step: dict, phase10: dict, phase5: dict) -> dict:
         expected = {k: CLI12_STEPS * per_step.get(k, 0) + (STEPS + 1) * PER_FORWARD.get(k, 0)
                     for k in counts}
         log(f"  launches {counts}, expected {expected}")
-        check(counts == expected, "every f16 forward and backward kernel ran once per call per "
+        check(counts == routed(expected), "every f16 forward and backward kernel ran once per call per "
               "micro-step, and the forward kernels once per call of the validation grid")
         traj = torch.stack(trajectory).cpu().tolist()
         scales, fins = [s for s, _ in traj], [int(f) for _, f in traj]
@@ -1730,10 +1906,10 @@ def options_path(dev, per_step: dict, phase10: dict, phase5: dict) -> dict:
         torch.cuda.empty_cache()
 
         copy_run(whole, resumed, CLI12_RESUME_AT)
-        reset_launch_counts()
+        reset_counts()
         hist = train.main(cli12_args(resumed, dev, os.path.join(root, "profile_resumed")))
         rest = CLI12_STEPS - CLI12_RESUME_AT
-        check(launch_counts() == {k: rest * per_step.get(k, 0) for k in counts},
+        check(launch_counts() == routed({k: rest * per_step.get(k, 0) for k in counts}),
               f"the resumed run launched every kernel once per call for {rest} micro-steps")
         a, _ = Checkpointer(whole).restore(CLI12_STEPS)
         b, _ = Checkpointer(resumed).restore(CLI12_STEPS)
@@ -1885,16 +2061,19 @@ SAMPLER_REQUESTS += [(f"{name}_karras", name, {}, "karras", "karras")
                      for name in ("euler", "heun", "rk4")]
 SAMPLER_REQUESTS += [("ddim_inpaint", "ddim", {}, "cosine", "linear")]
 CALLS_PER_STEP = {"heun": 2, "rk4": 4}
+# 25 steps a request (once 50): a call's time and launches do not
+# depend on the count, and the script must stay inside two thirds of its limit
+SAMPLER_STEPS = 25
 
 
 def sampler_paths(dev, state):
     """Every sampler at phase 4's full width (bf16, batch 1, CFG 3.0, the
-    77x768 text), one 50-step request each, the launch counters zeroed just
-    before each and read just after: PER_FORWARD x its model calls (50 x
+    77x768 text), one SAMPLER_STEPS-step request each, the launch counters
+    zeroed just before each and read just after: PER_FORWARD x its model calls (steps x
     calls a step + the terminal one). The inpainting request generates the
     left half and keeps the right half of a reference, exactly."""
     from flaxdiff_tpu_torch.device import make_generator
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.predictors import (EpsilonPredictionTransform,
                                                KarrasPredictionTransform)
     from flaxdiff_tpu_torch.samplers import DiffusionSampler, get_sampler
@@ -1917,18 +2096,18 @@ def sampler_paths(dev, state):
                                    timestep_spacing=spacing, device=dev)
         inpaint = dict(inpaint_reference=reference, inpaint_mask=mask) \
             if request.endswith("inpaint") else {}
-        calls = STEPS * CALLS_PER_STEP.get(name, 1) + 1
+        calls = SAMPLER_STEPS * CALLS_PER_STEP.get(name, 1) + 1
         torch.cuda.synchronize()
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         out = sampler.generate_samples(num_samples=1, resolution=RESOLUTION,
-                                       diffusion_steps=STEPS, generator=make_generator(9, dev),
+                                       diffusion_steps=SAMPLER_STEPS, generator=make_generator(9, dev),
                                        conditioning=cond, unconditional=uncond, **inpaint)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
         expected = {k: PER_FORWARD.get(k, 0) * calls for k in counts}
-        check(counts == expected, f"{request}: launches {counts}, expected {expected}")
+        check(counts == routed(expected), f"{request}: launches {counts}, expected {expected}")
         check(tuple(out.shape) == shape, f"{request}: output shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), f"{request}: samples finite")
         check(float(out.abs().max()) <= 1.0, f"{request}: samples clipped to [-1, 1]")
@@ -2020,7 +2199,7 @@ def dit_serving_path(dev, state):
     with a 77x768 text context and zeros as the null context."""
     from flaxdiff_tpu_torch.device import make_generator
     from flaxdiff_tpu_torch.models import SimpleDiT
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
     from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
     from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
@@ -2042,7 +2221,7 @@ def dit_serving_path(dev, state):
     run(2, 0)                      # warm-up: GEMM algorithm choice, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out = run(STEPS, 1)
     torch.cuda.synchronize()
@@ -2050,7 +2229,7 @@ def dit_serving_path(dev, state):
     counts = launch_counts()
     expected = {k: DIT_PER_FORWARD.get(k, 0) * (STEPS + 1) for k in counts}
     log(f"  launches {counts}, expected {expected}")
-    check(counts == expected, "every LayerNorm + modulate, gated residual and attention call "
+    check(counts == routed(expected), "every LayerNorm + modulate, gated residual and attention call "
           "ran its kernel")
     check(tuple(out.shape) == (b, DIT_RES, DIT_RES, DIT_CH), f"output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "samples finite")
@@ -2172,7 +2351,7 @@ def family_serving(dev, key: str, state) -> dict:
     must read the family's per-call census x 51. Then one CFG call as
     launched from Python beside its busy time as a CUDA graph."""
     from flaxdiff_tpu_torch.device import make_generator
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
     from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
 
@@ -2188,14 +2367,14 @@ def family_serving(dev, key: str, state) -> dict:
         generator=make_generator(seed, dev), conditioning=cond, unconditional=uncond)
     run(2, 0)                      # warm-up: GEMM and conv algorithm choice, allocator
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out = run(STEPS, 1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     expected = {k: per_forward.get(k, 0) * (STEPS + 1) for k in counts}
-    check(counts == expected, f"{key}: launches {counts}, expected {expected}")
+    check(counts == routed(expected), f"{key}: launches {counts}, expected {expected}")
     check(tuple(out.shape) == (1, side, side, ch), f"{key}: output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), f"{key}: samples finite")
     check(float(out.abs().max()) <= 1.0, f"{key}: samples clipped to [-1, 1]")
@@ -2484,7 +2663,7 @@ def t2v_serving(dev, state: dict) -> dict:
     is plain PyTorch). Then the decode alone, and one CFG call as launched
     beside its busy time as a CUDA graph."""
     from flaxdiff_tpu_torch.device import make_generator
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
     from flaxdiff_tpu_torch.samplers import DDIMSampler, DiffusionSampler
     from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
@@ -2504,7 +2683,7 @@ def t2v_serving(dev, state: dict) -> dict:
     run(2, 0)                      # warm-up: GEMM and conv algorithm choice, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out = run(STEPS, 1)
     torch.cuda.synchronize()
@@ -2512,7 +2691,7 @@ def t2v_serving(dev, state: dict) -> dict:
     counts = launch_counts()
     expected = {k: T2V_PER_FORWARD.get(k, 0) * (STEPS + 1) for k in counts}
     log(f"  launches {counts}, expected {expected}")
-    check(counts == expected, "every attention, GEGLU and GroupNorm call of T2V ran its kernel")
+    check(counts == routed(expected), "every attention, GEGLU and GroupNorm call of T2V ran its kernel")
     shape = (1, T2V_FRAMES, T2V_PIXELS, T2V_PIXELS, 3)
     check(tuple(out.shape) == shape, f"decoded clip {tuple(out.shape)}, want {shape}")
     check(bool(torch.isfinite(out).all()) and float(out.abs().max()) <= 1.0,
@@ -2543,7 +2722,7 @@ def t2v_training(dev) -> dict:
     Every loss finite; the launch counters, zeroed just before, read the
     forward and backward kernels once per call per step."""
     from flaxdiff_tpu_torch.inference import build_model
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
     from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
     from flaxdiff_tpu_torch.trainer import AdamW, DiffusionTrainer, TrainerConfig
@@ -2564,7 +2743,7 @@ def t2v_training(dev) -> dict:
                     np.float32)).to(dev)} for _ in range(4)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    reset_counts()
     losses = [trainer.train_step(batches[i % 4]) for i in range(T2V_WARMUP)]
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2578,7 +2757,7 @@ def t2v_training(dev) -> dict:
     per_step = {**T2V_PER_FORWARD, **T2V_PER_BACKWARD}
     expected = {k: steps * per_step.get(k, 0) for k in counts}
     log(f"  launches {counts}, expected {expected}")
-    check(counts == expected, "every forward and backward kernel ran once per call per step")
+    check(counts == routed(expected), "every forward and backward kernel ran once per call per step")
     losses = [float(x) for x in losses]
     log("  losses " + " ".join(f"{x:.5f}" for x in losses))
     check(all(math.isfinite(x) for x in losses), "every loss finite")
@@ -2623,7 +2802,7 @@ def cli13_path(dev) -> dict:
     from flaxdiff_tpu_torch import train
     from flaxdiff_tpu_torch.inference import DiffusionInferencePipeline
     from flaxdiff_tpu_torch.models import SDVAE
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
 
     root = tempfile.mkdtemp(prefix="flaxdiff_cli13_")
     res = {}
@@ -2631,14 +2810,14 @@ def cli13_path(dev) -> dict:
         npz, run_dir = os.path.join(root, "sd_vae.npz"), os.path.join(root, "run")
         np.savez(npz, **{k: v.numpy() for k, v in sd_vae("cpu", seed=6).diffusers_state_dict()
                          .items()})
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         hist = train.main(cli13_args(run_dir, npz, dev))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
         per_step = {**PER_FORWARD, **PER_BACKWARD}
-        check(counts == {k: CLI13_STEPS * per_step.get(k, 0) for k in counts},
+        check(counts == routed({k: CLI13_STEPS * per_step.get(k, 0) for k in counts}),
               f"the latent CLI run launched every kernel once per call per step: {counts}")
         log("  window losses " + " ".join(f"{x:.5f}" for x in hist["loss"]))
         check(all(math.isfinite(x) for x in hist["loss"]) and hist["checkpoint"]["step"] ==
@@ -2655,12 +2834,12 @@ def cli13_path(dev) -> dict:
             resolution=T2V_PIXELS, diffusion_steps=steps, sampler="ddim",
             guidance_scale=GUIDANCE, prompts=CLI_PROMPTS, seed=1)
         request(2)
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         out = request(STEPS)
         req_wall = time.perf_counter() - t0
         serve_counts = launch_counts()
-        check(serve_counts == {k: PER_FORWARD.get(k, 0) * (STEPS + 1) for k in serve_counts},
+        check(serve_counts == routed({k: PER_FORWARD.get(k, 0) * (STEPS + 1) for k in serve_counts}),
               "the latent pipeline's request launched PER_FORWARD x 51 kernels")
         check(out.shape == (2, T2V_PIXELS, T2V_PIXELS, 3) and bool(np.isfinite(out).all())
               and float(np.abs(out).max()) <= 1.0, f"decoded samples {out.shape}, finite, in [-1, 1]")
@@ -2966,7 +3145,7 @@ def cached_serving(dev, key: str, model, cond, uncond, plans: dict) -> dict:
     (the same initial noise) against the uncached one."""
     from flaxdiff_tpu_torch.device import make_generator
     from flaxdiff_tpu_torch.inference import DiffusionInferencePipeline
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
     from flaxdiff_tpu_torch.samplers import NoiseSource, get_timestep_spacing
     from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
@@ -2986,7 +3165,7 @@ def cached_serving(dev, key: str, model, cond, uncond, plans: dict) -> dict:
             generator=make_generator(seed, dev), conditioning=cond, unconditional=uncond)
         request(2, 0)              # warm-up: GEMM choices at the cached shapes, allocator
         torch.cuda.synchronize()
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         out = request(STEPS, 1)
         torch.cuda.synchronize()
@@ -2994,7 +3173,7 @@ def cached_serving(dev, key: str, model, cond, uncond, plans: dict) -> dict:
         counts = launch_counts()
         planned = planned_launches(key, model, plan, STEPS)
         expected = {k: planned.get(k, 0) for k in counts}
-        check(counts == expected, f"{key} {name}: launches {counts}, expected {expected}")
+        check(counts == routed(expected), f"{key} {name}: launches {counts}, expected {expected}")
         check(tuple(out.shape) == (batch, side, side, ch) and bool(torch.isfinite(out).all()),
               f"{key} {name}: samples {tuple(out.shape)}, finite")
         busy = busy_ms(lambda: request(STEPS, 1))
@@ -3110,7 +3289,7 @@ def metrics_paths(dev) -> dict:
     from flaxdiff_tpu_torch.device import make_generator
     from flaxdiff_tpu_torch.metrics import FIDComputer, fid, make_inception_extractor
     from flaxdiff_tpu_torch.utils import to_unit_float
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
 
     res = {}
     extractor = make_inception_extractor(seed=0, device=dev)
@@ -3164,7 +3343,7 @@ def metrics_paths(dev) -> dict:
             "--val_every", str(CLI14_VAL_EVERY), "--val_steps", str(CLI14_VAL_STEPS),
             "--val_metrics", "psnr,ssim,fid"]
         buf = io.StringIO()
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             hist = train.main(argv)
@@ -3218,15 +3397,7 @@ PROMPTS15 = ["a watercolor of a lighthouse at dawn", "a macro photo of frost on 
 MIX15 = [dict(resolution=RESOLUTION, channels=3, guidance_scale=GUIDANCE, use_ema=False,
               diffusion_steps=n, sampler=s, prompts=[p])
          for (n, s), p in zip(((25, "ddim"), (50, "ddim"), (50, "euler_ancestral")), PROMPTS15)]
-CHAOS15_EXACT, CHAOS15_EXACT_SPEED, DOOR15_REQUESTS = 6, 4.0, 16
-# a request served in another bucket than its reference, or at another
-# position among other mates, runs through the convolution algorithms cuDNN
-# picks for that batch, whose bf16 sums round differently: its x0 before
-# the clip is held to TOL15 x max(1, max|ref|). Each side may be as far from
-# the f32 trajectory as bf16 takes a request (the bf16 solo call against the
-# f32 model's: 1.9e-2-2.4e-2 of max, scripts/row_position_probe.py on an
-# H100), so two of them may be twice that apart.
-TOL15 = 5e-2
+DOOR15_REQUESTS = 16
 
 
 def serving15_pipeline(dev, model, side: int, ch: int, schedule, transform):
@@ -3307,9 +3478,9 @@ def solo15(pipe, r):
 def serving_identity(dev, pipe) -> dict:
     """15a, on x0 before the clip (`preclip`): each request alone in bucket 1
     (CFG batch 2, the solo call's own batch) bit-equal to the solo
-    generate_samples; three requests batched in bucket 4 bit-equal to each
-    alone in bucket 4 and within TOL15 of the solo call; multistep DPM at two
-    offsets; one round under sync debug "error"."""
+    generate_samples; three requests batched in bucket 4 bit-equal to the solo
+    call; multistep DPM at two offsets, the same; one round under sync debug
+    "error"."""
     from flaxdiff_tpu_torch.serving import SampleRequest, SamplerProgramEngine, ServingFuture
     from flaxdiff_tpu_torch.telemetry import Telemetry
     reqs = [SampleRequest(**dict(MIX15[i], seed=101 + i)) for i in range(3)]
@@ -3340,15 +3511,13 @@ def serving_identity(dev, pipe) -> dict:
         cfg = dict(round_steps=SERVE15_ROUND, batch_buckets=(4,))
         batched = serve15(pipe, reqs, **cfg)
         for r, o in zip(reqs, batched):
-            alone = serve15(pipe, [r], **cfg)[0]
             row = res["requests"][name(r)]
-            row.update(bit_equal_alone=bool(np.array_equal(o.samples, alone.samples)),
+            row.update(bit_equal_solo_bucket4=bool(np.array_equal(o.samples, solos[r.seed])),
                        rel_diff_solo=rel15(o.samples, solos[r.seed]), rounds=o.rounds)
-            log(f"  15a {name(r)} batched in bucket 4: bit-equal alone in bucket 4 "
-                f"{row['bit_equal_alone']}, {o.rounds} rounds, x0 against the solo call "
-                f"{row['rel_diff_solo']:.3g} of max (limit {TOL15})")
-            check(row["bit_equal_alone"], f"15a {name(r)}: batched equals itself alone in bucket 4")
-            check(row["rel_diff_solo"] <= TOL15, f"15a {name(r)}: bucket 4 within {TOL15} of solo")
+            log(f"  15a {name(r)} batched in bucket 4: {o.rounds} rounds, bit-equal to the solo "
+                f"call {row['bit_equal_solo_bucket4']} ({row['rel_diff_solo']:.3g} of max)")
+            check(row["bit_equal_solo_bucket4"],
+                  f"15a {name(r)}: bucket 4 equals the solo generate_samples bit for bit")
 
         # multistep DPM: B admitted one round after A, at A's offset 10
         eng = SamplerProgramEngine(pipe, telemetry=Telemetry())
@@ -3370,17 +3539,15 @@ def serving_identity(dev, pipe) -> dict:
 
         together = run({0: ms[0], 1: ms[1]})
         for r in ms:
-            alone = run({0: r})[r.seed]
             row = res["requests"][name(r)]
-            row.update(bit_equal_alone=bool(np.array_equal(together[r.seed], alone)),
+            row.update(bit_equal_solo_bucket4=bool(np.array_equal(
+                           together[r.seed].reshape(solos[r.seed].shape), solos[r.seed])),
                        rel_diff_solo=rel15(together[r.seed], solos[r.seed]))
             log(f"  15a {name(r)} (admitted at offset "
-                f"{0 if r is ms[0] else SERVE15_ROUND}) in bucket 4: bit-equal alone "
-                f"{row['bit_equal_alone']}, x0 against the solo call {row['rel_diff_solo']:.3g} "
-                f"of max (limit {TOL15})")
-            check(row["bit_equal_alone"], f"15a multistep seed {r.seed}: equals itself alone")
-            check(row["rel_diff_solo"] <= TOL15,
-                  f"15a multistep seed {r.seed}: bucket 4 within {TOL15} of solo")
+                f"{0 if r is ms[0] else SERVE15_ROUND}) in bucket 4: bit-equal to the solo call "
+                f"{row['bit_equal_solo_bucket4']} ({row['rel_diff_solo']:.3g} of max)")
+            check(row["bit_equal_solo_bucket4"],
+                  f"15a multistep seed {r.seed}: bucket 4 equals the solo call bit for bit")
 
     # one round under sync debug "error": prepared before, launched inside
     rows = [eng.prepare(r, ServingFuture(), 0.0, 0.0) for r in reqs[:2]]
@@ -3426,7 +3593,7 @@ def bucket8_round(engine, phase4: dict) -> dict:
 
 def serving_replay(dev, pipe, workload, phase4: dict) -> dict:
     """15b: the seeded Poisson replay twice after prewarm."""
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.serving import SampleRequest, SchedulerConfig, ServingScheduler, replay
     from flaxdiff_tpu_torch.telemetry import Telemetry
     tel = Telemetry()
@@ -3459,7 +3626,7 @@ def serving_replay(dev, pipe, workload, phase4: dict) -> dict:
             before = {n: tel.counter(f"serving/{n}").value for n in names}
             if i == 1:
                 torch.cuda.synchronize()
-                reset_launch_counts()
+                reset_counts()
                 calls.update(model=0, finalize=0)
             summary = replay(sched, workload, timeout_s=600)
             d = {n: tel.counter(f"serving/{n}").value - before[n] for n in names}
@@ -3489,7 +3656,7 @@ def serving_replay(dev, pipe, workload, phase4: dict) -> dict:
           f"+ {calls['finalize']} terminal calls")
     expected = {k: PER_FORWARD.get(k, 0) * model_calls for k in counts}
     log(f"  15b warm replay launches {counts}, expected {expected}")
-    check(counts == expected, "15b: every model call of the warm replay ran its kernels")
+    check(counts == routed(expected), "15b: every model call of the warm replay ran its kernels")
     round8 = bucket8_round(sched.engine, phase4)
     return {"prewarm": warm, "replays": runs, "launches": counts, "model_calls": model_calls,
             "terminal_calls": calls["finalize"], "bucket8_round": round8}
@@ -3521,52 +3688,47 @@ def chaos15(pipe, workload, cfg, speed: float, chaos: bool):
 
 def serving_chaos(dev, pipe, workload) -> dict:
     """15c: bench.py:stage_serve's FaultPlan over 15b's workload in 15b's
-    buckets, and over its first CHAOS15_EXACT requests in bucket 1. Every
-    request completes and every fault fires and is recovered. The faults'
-    requeues and conviction's probe rounds move a request into other
-    buckets and among other mates, so in 15b's buckets a request's x0 is
-    held to TOL15 of its fault-free run; in bucket 1 it keeps its batch and
-    its position, and is held bit for bit."""
+    buckets. Every request completes and every fault fires and is
+    recovered. The faults' requeues and conviction's probe rounds move a
+    request into other buckets, positions and mates; each is held bit for
+    bit to its fault-free run and to its solo generate_samples."""
     from flaxdiff_tpu_torch.serving import SchedulerConfig
     # no brownout: after a fault it caps the NFE of the requests admitted in
     # its cooldown (degrade before shed), a different request by design
-    res = {}
-    for key, buckets, work, speed in (
-            ("bucketed", SERVE15_BUCKETS, workload, 1.0),
-            ("bucket1", (1,), workload[:CHAOS15_EXACT], CHAOS15_EXACT_SPEED)):
-        cfg = SchedulerConfig(round_steps=SERVE15_ROUND, batch_buckets=buckets,
-                              max_inflight=2, brownout=None)
-        clean, _ = chaos15(pipe, work, cfg, speed, chaos=False)
-        faulted, snap = chaos15(pipe, work, cfg, speed, chaos=True)
-        failed = [type(r).__name__ for r in clean + faulted if isinstance(r, Exception)]
-        check(not failed, f"15c {key}: every request completed ({failed})")
-        rels = [rel15(b.samples, a.samples) for a, b in zip(clean, faulted)]
-        row = {k: snap.get(f"serving/{k}", 0.0) for k in
-               ("requeued", "quarantined", "supervisor_rebuilds", "round_faults",
-                "fetch_faults", "device_lost", "probe_rounds")}
-        row.update(requests=len(work), buckets=list(buckets),
-                   bit_equal=sum(bool(np.array_equal(a.samples, b.samples))
-                                 for a, b in zip(clean, faulted)),
-                   max_rel_diff=max(rels), retried=sum(r.attempts > 0 for r in faulted),
-                   recovered_p99_ms=float(np.percentile(
-                       [r.latency_ms for r in faulted if r.attempts > 0] or [0.0], 99)))
-        res[key] = row
-        log(f"  15c chaos in buckets {buckets}: {len(work)} completed, {row['bit_equal']} "
-            f"bit-equal to the fault-free run, x0 within {row['max_rel_diff']:.3g} of max "
-            f"(limit {TOL15 if key == 'bucketed' else 0}); round faults "
-            f"{row['round_faults']:.0f}, fetch faults {row['fetch_faults']:.0f}, device lost "
-            f"{row['device_lost']:.0f}; requeued {row['requeued']:.0f}, quarantined "
-            f"{row['quarantined']:.0f}, rebuilds {row['supervisor_rebuilds']:.0f}, probe rounds "
-            f"{row['probe_rounds']:.0f}")
-        check(row["supervisor_rebuilds"] == 1 and row["round_faults"] >= 1
-              and row["fetch_faults"] == 1, f"15c {key}: every fault fired and was recovered")
-        if key == "bucketed":
-            check(row["max_rel_diff"] <= TOL15,
-                  f"15c: every request within {TOL15} of its fault-free result")
-        else:
-            check(row["bit_equal"] == len(work),
-                  "15c: in bucket 1 every request bit-equal to its fault-free result")
-    return res
+    cfg = SchedulerConfig(round_steps=SERVE15_ROUND, batch_buckets=SERVE15_BUCKETS,
+                          max_inflight=2, brownout=None)
+    clean, _ = chaos15(pipe, workload, cfg, 1.0, chaos=False)
+    faulted, snap = chaos15(pipe, workload, cfg, 1.0, chaos=True)
+    failed = [type(r).__name__ for r in clean + faulted if isinstance(r, Exception)]
+    check(not failed, f"15c: every request completed ({failed})")
+    with preclip():
+        solos = [solo15(pipe, r) for _, r in workload]
+    row = {k: snap.get(f"serving/{k}", 0.0) for k in
+           ("requeued", "quarantined", "supervisor_rebuilds", "round_faults",
+            "fetch_faults", "device_lost", "probe_rounds")}
+    row.update(requests=len(workload), buckets=list(SERVE15_BUCKETS),
+               bit_equal=sum(bool(np.array_equal(a.samples, b.samples))
+                             for a, b in zip(clean, faulted)),
+               bit_equal_solo=sum(bool(np.array_equal(b.samples, s))
+                                  for b, s in zip(faulted, solos)),
+               max_rel_diff_solo=max(rel15(b.samples, s) for b, s in zip(faulted, solos)),
+               retried=sum(r.attempts > 0 for r in faulted),
+               recovered_p99_ms=float(np.percentile(
+                   [r.latency_ms for r in faulted if r.attempts > 0] or [0.0], 99)))
+    log(f"  15c chaos in buckets {SERVE15_BUCKETS}: {len(workload)} completed, "
+        f"{row['bit_equal']} bit-equal to the fault-free run, {row['bit_equal_solo']} to the "
+        f"solo call (x0 within {row['max_rel_diff_solo']:.3g} of max); round faults "
+        f"{row['round_faults']:.0f}, fetch faults {row['fetch_faults']:.0f}, device lost "
+        f"{row['device_lost']:.0f}; requeued {row['requeued']:.0f}, quarantined "
+        f"{row['quarantined']:.0f}, rebuilds {row['supervisor_rebuilds']:.0f}, probe rounds "
+        f"{row['probe_rounds']:.0f}, retried {row['retried']}")
+    check(row["supervisor_rebuilds"] == 1 and row["round_faults"] >= 1
+          and row["fetch_faults"] == 1, "15c: every fault fired and was recovered")
+    check(row["bit_equal"] == len(workload),
+          "15c: every request bit-equal to its fault-free result")
+    check(row["bit_equal_solo"] == len(workload),
+          "15c: every request bit-equal to its solo generate_samples")
+    return {"bucketed": row}
 
 
 def serving_frontdoor(dev, pipe, workload) -> dict:
@@ -3611,7 +3773,7 @@ def serving_frontdoor(dev, pipe, workload) -> dict:
 def serving_cached(dev) -> dict:
     """15e: DiT-B/2 under the composed default plan through the scheduler."""
     from flaxdiff_tpu_torch.models import SimpleDiT
-    from flaxdiff_tpu_torch.ops import launch_counts, reset_launch_counts
+    from flaxdiff_tpu_torch.ops import launch_counts
     from flaxdiff_tpu_torch.ops.spatialcache import DEFAULT_COMPOSED_PLAN
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
     from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
@@ -3630,13 +3792,13 @@ def serving_cached(dev) -> dict:
     serve15(pipe, reqs[:1], **cfg)                 # warm-up: GEMM choices, allocator
     torch.cuda.synchronize()
     tel = Telemetry()
-    reset_launch_counts()
+    reset_counts()
     alone = serve15(pipe, reqs[:1], telemetry=tel, **cfg)[0]
     counts = launch_counts()
     planned = planned_launches("simple_dit", model, DEFAULT_COMPOSED_PLAN, STEPS)
     expected = {k: planned.get(k, 0) for k in counts}
     log(f"  15e one composed request alone: launches {counts}, planned {expected}")
-    check(counts == expected, "15e: a composed request launches as phase 14's plan implies")
+    check(counts == routed(expected), "15e: a composed request launches as phase 14's plan implies")
     pair = serve15(pipe, reqs, **cfg)
     alone_b = serve15(pipe, reqs[1:], **cfg)[0]
     solo = solo15(pipe, reqs[0])
@@ -3681,6 +3843,104 @@ def serving_paths(dev, phase4: dict) -> dict:
     out["cached"] = serving_cached(dev)
     out["cached"]["phase_s"] = time.perf_counter() - t
     return out
+
+
+# --- phase 16: the packed-shard data feed --------------------------------------------
+
+DATA16_SHARDS, DATA16_PER_SHARD = 4, 128
+
+
+def data16_images(n: int, side: int, seed: int) -> np.ndarray:
+    """[n, side, side, 3] uint8: smooth seeded fields (bilinear from 8x8)
+    with a little noise, so PNG's filters and deflate see photo-like rows."""
+    rng = np.random.default_rng(seed)
+    coarse = torch.from_numpy(rng.random((n, 3, 8, 8), dtype=np.float32) * 255.0)
+    fine = torch.nn.functional.interpolate(coarse, size=(side, side), mode="bilinear",
+                                           align_corners=False)
+    fine = fine.permute(0, 2, 3, 1).numpy() + rng.normal(0.0, 4.0, (n, side, side, 3))
+    return fine.clip(0, 255).astype(np.uint8)
+
+
+def data16_args(checkpoint_dir: str, total_steps: int, dev, pattern: str) -> list:
+    args = cli_args(checkpoint_dir, total_steps, dev)
+    at = args.index("--dataset")
+    return args[:at + 1] + ["packed_shards", "--dataset_path", pattern] + args[at + 2:]
+
+
+def data_paths(dev, per_step: dict, phase10: dict) -> dict:
+    """Phase 16: phase 10's CLI run over packed shards written by the port's
+    write_image_dataset (PNG through the port's codec), with one resume."""
+    import tempfile
+
+    from flaxdiff_tpu_torch import train
+    from flaxdiff_tpu_torch.data import ShardedPackedRecordSource, write_image_dataset
+    from flaxdiff_tpu_torch.ops import launch_counts
+    from flaxdiff_tpu_torch.trainer import Checkpointer
+
+    root = tempfile.mkdtemp(prefix="flaxdiff_data_")
+    res = {}
+    try:
+        n = DATA16_SHARDS * DATA16_PER_SHARD
+        images = data16_images(n, TRAIN_RES, 16)
+        captions = [CLI_PROMPTS[i % 2] for i in range(n)]
+        os.makedirs(os.path.join(root, "data"))
+        t0 = time.perf_counter()
+        for s in range(DATA16_SHARDS):
+            part = slice(s * DATA16_PER_SHARD, (s + 1) * DATA16_PER_SHARD)
+            write_image_dataset(os.path.join(root, "data", f"shard-{s}.rec"), images[part],
+                                captions[part])
+        write_s = time.perf_counter() - t0
+        pattern = os.path.join(root, "data", "shard-*.rec")
+        nbytes = sum(os.path.getsize(os.path.join(root, "data", f)) for f in
+                     os.listdir(os.path.join(root, "data")))
+        src = ShardedPackedRecordSource(pattern=pattern).get_source()
+        check(len(src) == n, f"16: {len(src)} records in {DATA16_SHARDS} shards, {n} written")
+        t0 = time.perf_counter()
+        decoded = [src[i] for i in range(n)]
+        read_s = time.perf_counter() - t0
+        check(all(np.array_equal(r["image"], img) for r, img in zip(decoded, images)),
+              "16: every record decodes to the image written")
+        res["shards"] = {"records": n, "bytes": nbytes, "write_s": write_s,
+                         "decoded_records_per_s": n / read_s}
+        log(f"  {DATA16_SHARDS} shards of {DATA16_PER_SHARD} PNG images at {TRAIN_RES}x"
+            f"{TRAIN_RES}: {nbytes / 2 ** 20:.1f} MiB written in {write_s:.2f} s; the reader "
+            f"decodes {n / read_s:.0f} records/s on one host thread")
+        del decoded
+
+        whole, resumed = (os.path.join(root, k) for k in ("whole", "resumed"))
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = train.main(data16_args(whole, CLI_STEPS, dev, pattern))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        expected = {k: CLI_STEPS * per_step.get(k, 0) for k in counts}
+        check(counts == routed(expected), "16: every forward and backward kernel ran once per "
+                                          "call per step")
+        check(all(math.isfinite(x) for x in hist["loss"]), "16: every window loss finite")
+        steady = [TRAIN_BATCH * 1e3 / ips for ips in hist["imgs_per_sec"][1:]]
+        res["fit"] = {"wall_s": wall, "ms_per_step": float(np.median(steady)),
+                      "images_per_s": TRAIN_BATCH * 1e3 / float(np.median(steady)),
+                      "losses": hist["loss"], "launches": counts,
+                      "phase10_images_per_s": phase10["fit"]["images_per_s"]}
+        log(f"  fit over packed shards: {res['fit']['ms_per_step']:.3f} ms per step, "
+            f"{res['fit']['images_per_s']:.1f} images/s (phase 10's synthetic source "
+            f"{phase10['fit']['images_per_s']:.1f}); window losses "
+            + " ".join(f"{x:.5f}" for x in hist["loss"]))
+
+        copy_run(whole, resumed, CLI_SAVE_EVERY)
+        train.main(data16_args(resumed, CLI_STEPS, dev, pattern))
+        a, _ = Checkpointer(whole).restore(CLI_STEPS)
+        b, _ = Checkpointer(resumed).restore(CLI_STEPS)
+        keys = ("params", "ema", "exp_avg", "exp_avg_sq")
+        res["resume"] = {"bit_equal": all(torch.equal(a[k], b[k]) for k in keys),
+                         "max_abs_diff": {k: float((a[k] - b[k]).abs().max()) for k in keys}}
+        log(f"  resumed from step {CLI_SAVE_EVERY} to {CLI_STEPS}: bit-equal "
+            f"{res['resume']['bit_equal']}")
+        check(res["resume"]["bit_equal"], "16: the resumed run equals the uninterrupted one")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
 
 
 # kernel-name fragments -> the layer they belong to, first match wins
@@ -3761,8 +4021,15 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     _build.library()
     log(f"  built {lib.name} in {build_s:.1f} s")
+    # the packed-record reader and the PNG unfilter (phase 16), with g++
+    from flaxdiff_tpu_torch import native
+    t1 = time.perf_counter()
+    native.library()
+    native_build_s = time.perf_counter() - t1
+    log(f"  built {native.build().name} in {native_build_s:.1f} s")
     ptxas = log_registers((lib.parent / "build.log").read_text())
     hgmma = log_hgmma(lib)
+    install_route_census()
 
     log("phase 2: kernels against their plain versions")
     cases, yardsticks = kernel_cases(dev, peaks(name))
@@ -3824,7 +4091,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
-    log(f"phase 8: every sampler, {STEPS} steps + CFG {GUIDANCE} at {RESOLUTION}x{RESOLUTION}, "
+    log(f"phase 8: every sampler, {SAMPLER_STEPS} steps + CFG {GUIDANCE} at {RESOLUTION}x{RESOLUTION}, "
         f"bf16")
     t8 = time.perf_counter()
     samplers_res = sampler_paths(dev, unet_state)
@@ -3957,6 +4224,18 @@ def main() -> int:
            f"{r8['busy_ms']:.1f} ms ({r8['idle_share']:.0%} idle)")
         + f"; phase 15 {serving['phase_s']:.1f} s on {smi}")
 
+    torch.cuda.empty_cache()
+
+    log(f"phase 16: the packed-shard data feed: phase 10's CLI over {DATA16_SHARDS} shards of "
+        f"{DATA16_PER_SHARD} PNG images, a resume")
+    t16 = time.perf_counter()
+    data = data_paths(dev, {**PER_FORWARD, **PER_BACKWARD}, cli)
+    data["phase_s"] = time.perf_counter() - t16
+    log(f"data feed: fit over packed shards {data['fit']['images_per_s']:.1f} images/s (phase "
+        f"10's synthetic source {cli['fit']['images_per_s']:.1f}), the reader "
+        f"{data['shards']['decoded_records_per_s']:.0f} decoded records/s on one host thread; "
+        f"phase 16 {data['phase_s']:.1f} s on {smi}")
+
     cache_launches = lambda key: {k: sum(r["launches"][k] for r in cache["serving"][key].values())
                                   for k in REPLACES}
     paths = {"unet_serving": traj, "unet_training": train, "dit_serving": dit_traj,
@@ -3970,7 +4249,8 @@ def main() -> int:
                 for key in CACHED_FAMILIES},
              "unet_cli_val_metrics": cache["metrics"]["cli"],
              "unet_serving_scheduler": serving["replay"],
-             "dit_cached_serving_scheduler": serving["cached"]}
+             "dit_cached_serving_scheduler": serving["cached"],
+             "unet_cli_packed_shards": data["fit"]}
     kernels, summary = [], []
     for kname in REPLACES:
         mine = [c for c in cases if c["name"] == kname]
@@ -3991,14 +4271,15 @@ def main() -> int:
         check(kernel["launches"] > 0, f"{kname} launched on a main path")
         summary.append(kernel)
         kernels.append({**kernel, "cases": mine})
-    record = {"device": name, "nvidia_smi": smi, "build_s": build_s, "ptxas": ptxas,
+    record = {"device": name, "nvidia_smi": smi, "build_s": build_s,
+              "native_build_s": native_build_s, "ptxas": ptxas,
               "hgmma": hgmma,
               "kernels": kernels, "yardsticks": yardsticks,
               "model": model_res, "trajectory": traj, "training": train, "dit_model": dit_res,
               "dit_trajectory": dit_traj, "dit_training": dit_train,
               "samplers": samplers_res, "edm_training": edm_train, "cli": cli,
               "families": families, "options": options, "t2v": t2v, "cache": cache,
-              "serving": serving,
+              "serving": serving, "data": data,
               "total_s": time.perf_counter() - t0}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

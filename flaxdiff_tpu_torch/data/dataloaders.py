@@ -7,7 +7,7 @@ from typing import Any, Dict, Iterator
 
 import numpy as np
 
-from .dataset_map import MediaDataset
+from .sources.base import MediaDataset
 
 
 def iterate_batches(dataset: MediaDataset, batch_size: int, seed: int = 0,
@@ -20,7 +20,8 @@ def iterate_batches(dataset: MediaDataset, batch_size: int, seed: int = 0,
     index) alone, so `start_batch` resumes it exactly where an interrupted
     run left off: a resumed training run sees the batches the uninterrupted
     one would have."""
-    source, n = dataset.source, len(dataset.source)
+    source = dataset.get_source()
+    n = len(source)
     per_epoch = n // batch_size
     if per_epoch == 0:
         raise ValueError(f"{n} records are fewer than one batch of {batch_size}")

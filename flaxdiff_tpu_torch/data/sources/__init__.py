@@ -1,3 +1,4 @@
+from .base import DataAugmenter, DataSource, MediaDataset
 from .images import ImageAugmenter, MemoryImageSource
 
-__all__ = ["ImageAugmenter", "MemoryImageSource"]
+__all__ = ["DataAugmenter", "DataSource", "ImageAugmenter", "MediaDataset", "MemoryImageSource"]

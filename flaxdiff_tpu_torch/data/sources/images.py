@@ -9,11 +9,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .base import DataAugmenter, DataSource
+
 
 @dataclasses.dataclass
-class MemoryImageSource:
+class MemoryImageSource(DataSource):
     """Records {"image": [H, W, C] uint8, "text": caption} over in-memory
-    images and labels (flaxdiff_tpu/data/sources/images.py:67-87, 56-63)."""
+    images and labels (flaxdiff_tpu/data/sources/images.py:67-87, 56-63).
+    It is its own indexable source."""
 
     images: np.ndarray                       # [N, H, W, C] uint8
     labels: Optional[Sequence[str]] = None
@@ -21,6 +24,9 @@ class MemoryImageSource:
     def __post_init__(self):
         if self.labels is not None and len(self.labels) != len(self.images):
             raise ValueError("labels length must match images")
+
+    def get_source(self, path_override: Optional[str] = None) -> "MemoryImageSource":
+        return self
 
     def __len__(self) -> int:
         return len(self.images)
@@ -45,7 +51,7 @@ def _resize(image: np.ndarray, size: int) -> np.ndarray:
 
 
 @dataclasses.dataclass
-class ImageAugmenter:
+class ImageAugmenter(DataAugmenter):
     """resize -> horizontal flip with probability 1/2 -> the caption passed
     through (flaxdiff_tpu/data/sources/images.py:188-225, without caption
     templates or in-loader tokenizing)."""
@@ -53,7 +59,8 @@ class ImageAugmenter:
     image_size: int = 64
     horizontal_flip: bool = True
 
-    def create_transform(self) -> Callable[[Dict[str, Any], np.random.Generator], Dict[str, Any]]:
+    def create_transform(self, **kwargs) -> Callable[[Dict[str, Any], np.random.Generator],
+                                                    Dict[str, Any]]:
         def transform(record: Dict[str, Any], rng: np.random.Generator) -> Dict[str, Any]:
             image = np.asarray(record["image"])
             if image.ndim == 2:

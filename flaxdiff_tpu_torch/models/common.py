@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.batch_invariant import bi_conv2d, bi_linear
 from ..ops.fused_norm import fused_groupnorm_silu
 
 
@@ -49,7 +50,11 @@ def _same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
 
 
 class Dense(nn.Module):
-    """``nn.Dense``: y = x W^T + b over the last axis, computed in `dtype`."""
+    """``nn.Dense``: y = x W^T + b over the last axis, computed in `dtype`.
+    Under inference mode (every serving path) it runs ``bi_linear``, whose
+    rows do not depend on the batch; autograd runs ``F.linear``."""
+
+    batch_invariant_kernel = "bi_gemm"
 
     def __init__(self, in_features: int, features: int, dtype=None, device=None,
                  init_scale: float = 1.0, init_mode: str = "fan_avg"):
@@ -61,6 +66,8 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(self.dtype, x)
+        if torch.is_inference_mode_enabled():
+            return bi_linear(x.to(dt).contiguous(), self.weight.to(dt), self.bias.to(dt))
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -93,6 +100,12 @@ class ConvLayer(nn.Module):
     - ``w_conv``: raises. The JAX package cannot build its weight-standardised
       convolution (``nn.map_variables`` is handed a module instance at
       flaxdiff_tpu/models/common.py:119), so the port has nothing to match.
+
+    Under inference mode (every serving path) a ``conv`` with no groups and
+    no dilation runs ``bi_conv2d``, whose samples do not depend on the batch;
+    ``conv_transpose``, grouped and dilated convolutions (the depthwise half
+    of ``separable``) keep the library there too, and may still move with
+    their batch on the card (fault C6's rest, ROADMAP.md).
     """
 
     def __init__(self, in_features: int, features: int,
@@ -133,6 +146,13 @@ class ConvLayer(nn.Module):
         _variance_scaling_(self.weight, in_features // groups * kh * kw, features * kh * kw,
                            init_scale, init_mode)
 
+    @property
+    def batch_invariant_kernel(self) -> Optional[str]:
+        """The kernel this layer runs under inference mode, or None where it
+        stays on the library."""
+        plain = self.conv_type == "conv" and self.groups == 1 and self.dilation == 1
+        return "bi_conv" if plain else None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.conv_type == "separable":
             return self.pointwise(self.depthwise(x))
@@ -142,9 +162,12 @@ class ConvLayer(nn.Module):
         if self.conv_type == "conv_transpose":
             return self._transpose(x, bias)
         span = lambda k: (k - 1) * self.dilation + 1
-        (ph0, ph1), (pw0, pw1) = ((0, 0), (0, 0)) if self.padding == "VALID" else (
+        (ph0, ph1), (pw0, pw1) = pads = ((0, 0), (0, 0)) if self.padding == "VALID" else (
             _same_padding(x.shape[1], span(self.kernel_size[0]), self.strides[0]),
             _same_padding(x.shape[2], span(self.kernel_size[1]), self.strides[1]))
+        if torch.is_inference_mode_enabled() and self.batch_invariant_kernel:
+            weight = self.weight.to(dtype=dt, memory_format=torch.channels_last)
+            return bi_conv2d(x.contiguous(), weight, bias, self.strides, pads)
         if ph0 == ph1 and pw0 == pw1:
             padding = (ph0, pw0)
         else:

@@ -5,11 +5,14 @@ plain version for CPU tensors; it counts its launches in ``.launches``. The
 differentiable ops (``flash_attention``, ``fused_groupnorm_silu``,
 ``fused_geglu``, ``fused_ln_modulate``/``fused_ln_modulate2``,
 ``fused_gate_residual``) are ``torch.autograd.Function``s over those
-wrappers, whose backward runs the backward kernels.
+wrappers, whose backward runs the backward kernels. The batch-invariant
+``bi_linear`` and ``bi_conv2d`` run under inference mode only and have no
+backward (``BATCH_INVARIANT``).
 """
 from __future__ import annotations
 
 from .attention import dot_product_attention
+from .batch_invariant import bi_conv2d, bi_linear
 from .flash_attention import (FlashAttentionFn, flash_attention, flash_bwd_dkv,
                               flash_bwd_dkv_wide, flash_bwd_dq, flash_bwd_dq_wide, flash_fwd,
                               flash_fwd_wide)
@@ -38,7 +41,11 @@ KERNEL_WRAPPERS = {
     "ln_mod_bwd": ln_modulate_bwd,
     "gate_res": gate_residual_fwd,
     "gate_res_bwd": gate_residual_bwd,
+    "bi_gemm": bi_linear,
+    "bi_conv": bi_conv2d,
 }
+# the inference-only kernels: no backward, no autograd Function
+BATCH_INVARIANT = ("bi_gemm", "bi_conv")
 
 
 def launch_counts() -> dict[str, int]:
@@ -50,7 +57,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["dot_product_attention", "flash_attention", "flash_bwd_dkv", "flash_bwd_dkv_wide",
+__all__ = ["BATCH_INVARIANT", "bi_conv2d", "bi_linear", "dot_product_attention", "flash_attention", "flash_bwd_dkv", "flash_bwd_dkv_wide",
            "flash_bwd_dq", "flash_bwd_dq_wide", "flash_fwd", "flash_fwd_wide",
            "fused_gate_residual", "fused_geglu", "fused_groupnorm_silu",
            "fused_ln_modulate", "fused_ln_modulate2", "gate_residual_bwd", "gate_residual_fwd",

@@ -21,18 +21,30 @@ import torch
 from . import _build
 
 _MAX_CHANNELS = 4096
-# the statistics kernels' blocks, forward (B4) and backward (B6): up to two
-# for each of the H100's 132 SMs (each kernel holds two at once), each of at
-# least 8192 elements. At [16, 16384, 64] a thread then sums 32 rows, at
-# [2, 65536, 64] 16, before the block reduces them
+# the statistics kernels' blocks: the backward's (B6) up to two for each of
+# the H100's 132 SMs (each kernel holds two at once), each of at least 8192
+# elements. At [16, 16384, 64] a thread then sums 32 rows, at
+# [2, 65536, 64] 16, before the block reduces them. The forward's (B4) are
+# counted per sample: up to 132 a sample (the serving batch of 2 fills the
+# card two deep, as the backward's rule would; a training batch of 16 at
+# [16384, 64] runs 2048 blocks, 2.7x slower than the 264 of a rule that
+# follows the batch, PERF.md)
 _STATS_BLOCKS = 2 * 132
 _STATS_MIN_ELEMS = 8192
 
 
+def stats_rows_per_block(hw: int, c: int) -> int:
+    """Rows of one block of the forward statistics kernel (B4), from a
+    sample's shape alone: a sample's sums take the same blocks whatever the
+    batch, so a served request's bits do not follow its bucket (fault C6).
+    The plain version on the CPU sums the same blocks."""
+    nblk = max(1, min(_STATS_BLOCKS // 2, hw * c // _STATS_MIN_ELEMS))
+    return max(1, -(-hw // nblk))
+
+
 def rows_per_block(b: int, hw: int, c: int) -> int:
-    """Rows of one block of the statistics kernels, forward (B4) and
-    backward (B6), from the shape alone, so the plain versions on the CPU
-    sum the same blocks."""
+    """Rows of one block of the backward statistics kernel (B6), from the
+    shape alone, so the plain version on the CPU sums the same blocks."""
     nblk = max(1, min(_STATS_BLOCKS // b, hw * c // _STATS_MIN_ELEMS))
     return max(1, -(-hw // nblk))
 
@@ -73,11 +85,11 @@ def _check_x(x: torch.Tensor, groups: int) -> None:
 
 
 def groupnorm_stats(x: torch.Tensor, groups: int) -> torch.Tensor:
-    """The statistics kernel (B4): per block of ``rows_per_block`` rows of
-    a contiguous [B, HW, C] tensor, [B, nblk, 2, G] f32 partials."""
+    """The statistics kernel (B4): per block of ``stats_rows_per_block`` rows
+    of a contiguous [B, HW, C] tensor, [B, nblk, 2, G] f32 partials."""
     _check_x(x, groups)
     b, hw, c = x.shape
-    rows = rows_per_block(b, hw, c)
+    rows = stats_rows_per_block(hw, c)
     if x.device.type == "cpu":
         return groupnorm_stats_plain(x, groups, rows)
     _build.require_cuda(x)
@@ -97,19 +109,21 @@ groupnorm_stats.launches = 0
 def groupnorm_finalize(partial: torch.Tensor, hw: int, c: int, eps: float
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Welford/Chan merge of the block partials -> (mean, rstd), [B, G] f32
-    (flaxdiff_tpu/ops/fused_norm.py:295-311)."""
+    (flaxdiff_tpu/ops/fused_norm.py:295-311). The blocks are summed along a
+    contiguous last axis, each (sample, group) its own row: on the card the
+    order of a row's sum then does not follow the batch."""
     b, nblk, _, groups = partial.shape
-    rows = rows_per_block(b, hw, c)
+    rows = stats_rows_per_block(hw, c)
     cg = c // groups
     n_rows = torch.clamp(
         hw - rows * torch.arange(nblk, device=partial.device, dtype=torch.float32),
         max=float(rows))
-    n_b = n_rows[None, :, None] * cg
+    n_b = n_rows * cg                                         # [nblk]
     n = float(hw * cg)
-    gsum_b, m2_b = partial[:, :, 0], partial[:, :, 1]
-    mean = gsum_b.sum(dim=1) / n
+    gsum_b, m2_b = partial.permute(0, 2, 3, 1).contiguous().unbind(1)   # [B, G, nblk] each
+    mean = gsum_b.sum(dim=-1) / n
     mean_b = gsum_b / n_b
-    m2 = (m2_b + n_b * (mean_b - mean[:, None, :]) ** 2).sum(dim=1)
+    m2 = (m2_b + n_b * (mean_b - mean[..., None]) ** 2).sum(dim=-1)
     rstd = torch.rsqrt((m2 / n).clamp_min(0.0) + eps)
     return mean, rstd
 

@@ -25,11 +25,10 @@ generator seeded with the request's seed on the pipeline's device, drawn
 in the solo loop's order: the initial noise, then each step's). Rows never
 interact: a padding row, or a step past a row's last, draws zeros and
 keeps its carry. So a batched request follows its solo trajectory: in
-bucket 1 it is bit-identical to `DiffusionInferencePipeline.generate_samples`
-with the same arguments (on the CPU and on the card); in larger buckets
-it is up to the rounding of the batch's kernels, which on the card
-depends on the bucket's size and the row's position and mates (the
-determinism contract in `request.py`).
+every bucket it is bit-identical to
+`DiffusionInferencePipeline.generate_samples` with the same arguments, on
+the CPU and on the card, since no kernel of the served route lets a row's
+bits follow its batch (the determinism contract in `request.py`).
 """
 from __future__ import annotations
 

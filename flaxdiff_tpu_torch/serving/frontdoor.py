@@ -14,8 +14,8 @@ The door owns what no single scheduler can:
 - **Replica failover**: a request whose replica dies (killed, closed,
   scheduler thread death) or exhausts its local retries is re-routed
   to a surviving replica and replays from scratch — `SampleRequest`
-  carries seed/NFE/plan, and the determinism contract (`request.py`)
-  says how far the replay's bits match. A cross-replica attempt budget bounds the loop; when it runs
+  carries seed/NFE/plan, so the replay is bit-exact (the determinism
+  contract, `request.py`). A cross-replica attempt budget bounds the loop; when it runs
   out, or no routable replica remains (ALL replicas dead), the door
   future resolves with `ServingFault(kind="pool_exhausted")` — never
   stranded.
@@ -25,9 +25,9 @@ The door owns what no single scheduler can:
   `ServingFuture` (its existing semantics ARE the hedge primitive); the
   loser is cancelled if still queued (`ServingScheduler.cancel`) and
   its late result is harmlessly ignored otherwise. Deterministic seeds
-  make both arms the same request (bit-identical in bucket 1, on the
-  card elsewhere within the determinism contract's bf16 spread), so a
-  hedge improves latency, not the answer (chaos-tested).
+  make both arms the same request, bit for bit in any bucket (the
+  determinism contract), so a hedge improves latency, not the answer
+  (chaos-tested).
 - **Pool-level admission + coordinated brownout**: one door-level
   pending bound (`max_pending`, shed with `DeadlineExceeded` like the
   scheduler door), plus a shared `BrownoutPolicy` driven by POOL-WIDE

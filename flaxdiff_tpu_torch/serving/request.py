@@ -9,20 +9,18 @@ may differ within a group because the engine masks each row to its own
 trajectory length.
 
 Determinism contract: a request's samples follow its own fields (seed
-included); what it is batched with, padded to or preempted by changes at
-most the rounding of its batch's kernels. Bit for bit:
-- in bucket 1 (its solo batch) a request is the solo
-  `DiffusionInferencePipeline.generate_samples` call with the same
-  arguments, on the CPU (`tests/test_torch_serving.py`) and on the card
-  (`chip_smoke.py` phase 15a);
-- on the CPU it is itself alone in the same bucket at any position.
-On the card, in a larger bucket its bits depend on the bucket's size and
-on its position and mates (cuDNN picks its bf16 convolution algorithms by
-batch, and some positions round differently). A request that a requeue, a
-probe round, a failover or a hedge moves to another bucket or position
-differs within the spread of bf16 itself: `chip_smoke.py` holds x0 before
-the clip to 5e-2 of its largest value (phases 15a, 15c), twice the bf16
-UNet's difference to f32 (`scripts/row_position_probe.py`; PERF.md §7).
+included) and nothing else. Whatever its bucket, its position in it and
+its mates, a request is bit for bit the solo
+`DiffusionInferencePipeline.generate_samples` call with the same
+arguments, on the CPU (`tests/test_torch_serving.py`,
+`tests/test_torch_serving_chaos.py`) and on the card (`chip_smoke.py`
+phases 15a and 15c): under inference mode the models' Dense and ConvLayer
+run batch-invariant kernels (`ops/batch_invariant.py`), and the hand-written
+kernels compute each sample apart. So a requeue, a probe round, a failover
+or a hedge replays a request exactly. The contract covers those routes;
+grouped, dilated and transposed convolutions and UNet3D's temporal
+convolution stay on the library and may still move with their batch on the
+card (fault C6's rest, ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -107,8 +105,8 @@ class SampleResult:
     rounds     scheduler rounds the request participated in
     attempts   failed dispatch attempts that were retried before this
                result (0 on the healthy path) — each retry replayed
-               the trajectory from the request's seed (bit-exact where
-               the determinism contract above says so)
+               the trajectory from the request's seed, bit-exact (the
+               determinism contract above)
     degraded   brownout flags ("nfe_capped", "plan_forced", ...) when
                admission degraded the request instead of shedding it
                (docs/SERVING.md "Failure semantics"); empty otherwise

@@ -512,9 +512,9 @@ class ServingScheduler:
                         penalize: bool = True) -> None:
         """Re-enter failed-but-innocent requests into the queue for a
         replay from scratch (`SampleRequest` carries seed, NFE, and
-        cache plan — `prepare` reconstructs the whole carry); bit-exact
-        in bucket 1, and on the card elsewhere only up to the bucket and
-        position it lands in (the determinism contract in `request.py`).
+        cache plan — `prepare` reconstructs the whole carry): bit-exact
+        in whatever bucket and position it lands in (the determinism
+        contract in `request.py`).
         With `penalize`, the attempt counts against the bounded retry
         budget and the re-dispatch waits out the policy's backoff;
         rebuild interruptions requeue unpenalized (the device fault was

@@ -3,6 +3,11 @@
     python -m flaxdiff_tpu_torch.train --dataset synthetic --text_encoder hash \\
         --image_size 64 --batch_size 16 --total_steps 1000 --checkpoint_dir ckpt/run
 
+``--dataset packed_shards --dataset_path 'shards/*.rec'`` trains on packed-record
+shards (``data.write_image_dataset`` writes them; images must be PNG), and
+``--dataset combined_aesthetic --dataset_path ROOT`` on the JAX registry's
+production mix under ROOT.
+
 It trains on the card (``--device cpu`` for the CPU), checkpoints every
 ``--save_every`` steps, writes ``pipeline_config.json`` (and the hash
 encoder's table, ``hash_table.npy``) beside the checkpoints, and resumes
@@ -44,7 +49,12 @@ import torch
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="flaxdiff_tpu_torch trainer")
-    p.add_argument("--dataset", default="synthetic", choices=["synthetic"])
+    p.add_argument("--dataset", default="synthetic",
+                   help="a name in the port's dataset registry: synthetic, packed_shards, "
+                        "combined_aesthetic")
+    p.add_argument("--dataset_path", default=None,
+                   help="the dataset's root: packed_shards' glob of shard files, "
+                        "combined_aesthetic's mount root")
     p.add_argument("--image_size", type=int, default=64)
     p.add_argument("--num_frames", type=int, default=0,
                    help="refused above 0: the video sources are ROADMAP.md A9's rest")
@@ -123,7 +133,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--sampler", default="euler_ancestral")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="torch device; default: CUDA")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    _refuse_dataset(p, args.dataset)
+    return args
+
+
+def _refuse_dataset(parser: argparse.ArgumentParser, name: str) -> None:
+    """Exit naming the ROADMAP.md item of a dataset the port lacks."""
+    from .data import DATASET_REGISTRY, UNPORTED_DATASETS
+    if name.startswith("online:"):
+        parser.error(f"--dataset {name}: the online loader fetches over HTTP "
+                     "(ROADMAP.md A11's rest)")
+    if name in UNPORTED_DATASETS:
+        parser.error(f"--dataset {name}: {UNPORTED_DATASETS[name]}")
+    if name not in DATASET_REGISTRY:
+        parser.error(f"--dataset {name}: unknown; the port's registry holds "
+                     f"{sorted(DATASET_REGISTRY)}")
 
 
 @dataclasses.dataclass
@@ -223,7 +248,9 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
     conditions = [ConditionalInputConfig(encoder=encoder)] if encoder is not None else []
     input_config = DiffusionInputConfig("sample", (args.image_size, args.image_size, 3),
                                         conditions)
-    dataset = get_dataset(args.dataset, image_size=args.image_size)
+    # --dataset_path is the registry entry's root (train.py:370-375)
+    dataset = get_dataset(args.dataset, image_size=args.image_size,
+                          **({"root": args.dataset_path} if args.dataset_path else {}))
 
     model_kwargs = json.loads(args.model_config)
     model_kwargs.setdefault("dtype", args.dtype)

@@ -61,10 +61,13 @@ SYMBOLS = {"fwd": "flash_fwd_", "dq": "flash_bwd_dq_", "gn_stats": "gn_stats_ker
 
 
 def stats_rows(fn, b, hw, c, backward: bool) -> int:
-    """The checkout's rows of a statistics block: rows_per_block(b, hw, c)
-    for both passes; older checkouts have rows_per_block(hw, c) for the
-    forward and bwd_rows_per_block(b, hw, c), or the forward's, for the
-    backward."""
+    """The checkout's rows of a statistics block: stats_rows_per_block(hw, c)
+    for the forward and rows_per_block(b, hw, c) for the backward; before
+    that rows_per_block(b, hw, c) for both passes; older checkouts have
+    rows_per_block(hw, c) for the forward and bwd_rows_per_block(b, hw, c),
+    or the forward's, for the backward."""
+    if hasattr(fn, "stats_rows_per_block"):
+        return fn.rows_per_block(b, hw, c) if backward else fn.stats_rows_per_block(hw, c)
     if len(inspect.signature(fn.rows_per_block).parameters) == 3:
         return fn.rows_per_block(b, hw, c)
     rule = getattr(fn, "bwd_rows_per_block", None)

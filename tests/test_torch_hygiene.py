@@ -178,10 +178,39 @@ def test_differentiable_ops_record_their_function():
         "ln_mod": (ops.fused_ln_modulate, ops.LNModulateFn),
         "gate_res": (ops.fused_gate_residual, ops.GateResidualFn),
     }
-    assert set(differentiable) == {k for k in ops.KERNEL_WRAPPERS if "bwd" not in k}
+    # the batch-invariant kernels run under inference mode only: no backward
+    assert set(differentiable) == {k for k in ops.KERNEL_WRAPPERS
+                                   if "bwd" not in k and k not in ops.BATCH_INVARIANT}
     for name, (op, function) in differentiable.items():
         args, kwargs = _cpu_inputs(name)
         out = op(*args, **kwargs)
         assert isinstance(out.grad_fn, function._backward_cls), (name, out.grad_fn)
         grads = torch.autograd.grad(out.sum(), args)
         assert all(g is not None and torch.isfinite(g).all() for g in grads), name
+
+
+def _string_constants(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.value
+
+
+def test_no_port_file_builds_from_the_jax_package():
+    """The port keeps its own copies of what it compiles: every native and
+    CUDA source it builds lies in the port, no C++ or CUDA source includes
+    a file outside it, and no module names a path into the JAX package as
+    a path (a bare "flaxdiff_tpu" component or a source file under it)."""
+    from flaxdiff_tpu_torch import native
+    from flaxdiff_tpu_torch.ops import _build
+    sources = list(native.SOURCES) + _build._sources()
+    assert sources and all(p.resolve().is_relative_to(PACKAGE) for p in sources)
+    for path in sorted(PACKAGE.rglob("*.c*")):
+        if path.suffix in (".cpp", ".cu", ".cuh"):
+            for line in path.read_text().splitlines():
+                if line.startswith("#include"):
+                    assert ".." not in line and "flaxdiff_tpu/" not in line, (path, line)
+    for path in sorted(PACKAGE.rglob("*.py")):
+        for text in _string_constants(ast.parse(path.read_text())):
+            assert text != "flaxdiff_tpu", path
+            assert not (text.startswith("flaxdiff_tpu/") and text.endswith(
+                (".cpp", ".cu", ".so", "/"))), (path, text)

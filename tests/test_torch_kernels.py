@@ -33,7 +33,7 @@ from flaxdiff_tpu_torch.ops import (KERNEL_WRAPPERS, dot_product_attention, flas
                                     launch_counts, reset_launch_counts)
 from flaxdiff_tpu_torch.ops.attention import eager_attention
 from flaxdiff_tpu_torch.ops.flash_attention import flash_fwd_plain
-from flaxdiff_tpu_torch.ops.fused_norm import rows_per_block
+from flaxdiff_tpu_torch.ops.fused_norm import rows_per_block, stats_rows_per_block
 from test_torch_unet import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 on both sides: the two differ only in summation order and in the
@@ -175,11 +175,11 @@ def test_groupnorm_silu_plain_matches_pallas_kernel(shape, groups, apply_silu, m
 ])
 def test_groupnorm_stats_plain_matches_pallas_kernel(shape, groups, mean):
     """The statistics kernel's plain version (B4's blocks of
-    ``rows_per_block`` rows) against the TPU kernel ``_gn_stats_kernel``,
+    ``stats_rows_per_block`` rows) against the TPU kernel ``_gn_stats_kernel``,
     interpreted over the same blocks: per block, the group sums and second
     moments around the block's group mean."""
     b, hw, c = shape
-    rows = rows_per_block(b, hw, c)
+    rows = stats_rows_per_block(hw, c)
     nblk = -(-hw // rows)
     assert nblk > 1 and hw % rows
     rng = np.random.default_rng(hw + c)
