@@ -35,9 +35,11 @@ Phases; any failure exits non-zero and prints no result line.
      limits, forward and backward, in bf16. The batch-invariant linear
      and convolution (bi_gemm, bi_conv: the served route's Dense and
      ConvLayer, fault C6) at phase 4's shapes, a ragged row count, element-
-     wise loads, f16 and f32, against their plain versions run in f32; and
-     each gives a sample the same bits at batch 2, 4, 8 and 16 and in three
-     orders.
+     wise loads, f16 and f32, against their plain versions run in f32, each
+     case's route (gemm_route, conv_route: the wgmma tiles, mma.sync, FMA,
+     the narrow f32 conv) printed; and, once for every route and dtype,
+     each gives a sample the same bits at batch 16 as at batch 1-15
+     (77-token rows) or 1, 2, 4 and 8 (32x32 images) and in three orders.
   3. The full-width UNet at 64x64 in f32, on the card (kernels) and on the
      CPU (plain versions), with the same random weights: a forward, short
      CFG trajectories at 32x32 (DDIM-3 and euler_ancestral-4 on the cosine
@@ -95,8 +97,8 @@ Phases; any failure exits non-zero and prints no result line.
      built through build_model: the UNet's ref_arch (pure attention, dim_head
      = C / heads), UViT, SimpleUDiT, SimpleMMDiT, HierarchicalMMDiT and the
      hybrid SSM DiT with 2D fusion (FAMILIES11): (a) each f32 forward, batch
-     1, card against CPU within 1e-3 x max(1, max|ref|); (b) one DDIM-50 +
-     CFG 3.0 request each in bf16, launches exactly the family's census x 51,
+     1, card against CPU within 1e-3 x max(1, max|ref|); (b) one DDIM-25 +
+     CFG 3.0 request each in bf16, launches exactly the family's census x 26,
      wall, ms per call and one call's busy and idle shares as a CUDA graph;
      (c) SimpleMMDiT's and the hybrid's f32 train step card against CPU
      (loss to 1e-5 relative, each gradient to 1e-3 of its max|g|), and 3 + 20
@@ -153,7 +155,7 @@ Phases; any failure exits non-zero and prints no result line.
      refresh_every=1 request to the uncached one; PSNR and SSIM of 16 pairs
      at 256x256 within 1e-4 relative; InceptionV3's features of 4 images
      grown from 256x256 and 4 shrunk from 512x512 within 1e-4 x max|ref|.
-     (b) bf16 DDIM-50 + CFG 3.0 requests of DiT-B/2 at batch 4 under every
+     (b) bf16 DDIM-25 + CFG 3.0 requests of DiT-B/2 at batch 4 under every
      plan of docs/CACHING.md's table, and of SimpleUDiT and SimpleMMDiT
      (phase 11's) uncached and under the composed default: wall, ms per
      call, device busy time (profiler sum) and idle share, the launches of
@@ -401,13 +403,14 @@ KERNEL_SYMBOLS.update(flash_fwd=("flash_fwd_wgmma_kernel", "flash_fwd_fma_kernel
                                           "flash_bwd_dkv_wide_fma_kernel"),
                       ln_mod=("ln_mod_fwd_kernel", "ln_mod_fwd_rows_kernel"),
                       gate_res=("gate_res_fwd_kernel",),
-                      bi_gemm=("bi_gemm_mma_kernel", "bi_gemm_fma_kernel"),
-                      bi_conv=("bi_conv_mma_kernel", "bi_conv_fma_kernel"))
+                      bi_gemm=("bi_gemm_wgmma_kernel", "bi_gemm_mma_kernel", "bi_gemm_fma_kernel"),
+                      bi_conv=("bi_conv_wgmma_kernel", "bi_conv_mma_kernel", "bi_conv_narrow_kernel",
+                               "bi_conv_fma_kernel"))
 # the 16-bit paths that must run on wgmma (HGMMA in the built library)
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                  "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_split_wgmma_kernel",
                  "flash_fwd_wide_wgmma_kernel", "flash_bwd_dq_wide_wgmma_kernel",
-                 "flash_bwd_dkv_wide_wgmma_kernel")
+                 "flash_bwd_dkv_wide_wgmma_kernel", "bi_gemm_wgmma_kernel", "bi_conv_wgmma_kernel")
 SOURCES = {
     "flash_fwd": "flaxdiff_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_dq": "flaxdiff_tpu_torch/csrc/flash_bwd.cu",
@@ -583,14 +586,18 @@ def passes(reading: dict) -> bool:
 
 
 def instantiation(mangled: str) -> str:
-    """'flash_fwd_wgmma_kernel bf16 D64 NC2' from a wgmma kernel's mangled
-    name (template arguments: dtype and, where the kernel has them, head dim
-    and consumer warpgroups; the wide kernels take the dtype only)."""
+    """'flash_fwd_wgmma_kernel bf16 D64 NC2' or 'bi_conv_wgmma_kernel bf16
+    128x64' from a wgmma kernel's mangled name (template arguments: dtype
+    and, where the kernel has them, head dim and consumer warpgroups, or the
+    batch-invariant kernels' tile width under their 128 rows; the wide
+    kernels take the dtype only)."""
     m = re.search("(" + "|".join(WGMMA_KERNELS) + r")I(6__half|13__nv_bfloat16)(?:Li(\d+)E)?"
                   r"(?:Li(\d+)E)?", mangled)
     if not m:
         return mangled
     dtype = "f16" if m.group(2) == "6__half" else "bf16"
+    if m.group(1).startswith("bi_"):
+        return f"{m.group(1)} {dtype} 128x{m.group(3)}"
     d = f" D{m.group(3)}" if m.group(3) else ""
     nc = f" NC{m.group(4)}" if m.group(4) else ""
     return f"{m.group(1)} {dtype}{d}{nc}"
@@ -717,6 +724,7 @@ def kernel_cases(dev, peak):
         log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
             + (f", library {library_ms:.4f} ms" if library_ms is not None else "") + rate_note)
         cases.append(case)
+        return case
 
     for b, lq, lk, heads, d, dtype in FLASH_FWD_CASES + WIDE_FWD_CASES:
         # head dims above 256 take the wide kernels (their own rows)
@@ -972,21 +980,27 @@ def gn_yardstick(b, hw, c, dtype, pair_ms, randn, backward: bool):
 
 # the batch-invariant kernels at phase 4's shapes (a CFG call, batch 2, at
 # 256^2): bi_gemm (batch, rows a sample, K, N, dtype): level 2's GEGLU input
-# (4096 tokens), level 3's (1024), the text's keys and values (77 rows,
-# ragged), the time embedding (1 row), DiT-B/2's MLP input (phase 6: 8 x 256
+# (4096 tokens), its q/k/v projection and feed-forward output, level 3's
+# GEGLU input (1024), the text's keys and values (77 rows, ragged), the time
+# embedding (1 row) and its projection at level 0 (64 outputs: half of a
+# 128-column tile) in bf16 and f16, DiT-B/2's MLP input (phase 6: 8 x 256
 # tokens), a K that is no multiple of 8 (the element-wise loads), f16 and f32
-BI_GEMM_CASES = [(2, 4096, 256, 2048, BF16), (2, 1024, 512, 4096, BF16),
+BI_GEMM_CASES = [(2, 4096, 256, 2048, BF16), (2, 4096, 256, 512, BF16),
+                 (2, 4096, 1024, 256, BF16), (2, 1024, 512, 4096, BF16),
                  (2, TEXT_LEN, TEXT_DIM, 512, BF16), (2, 1, 512, 512, BF16),
+                 (2, 1, 512, 64, BF16), (2, 1, 512, 64, F16),
                  (2 * DIT_SERVE_BATCH, DIT_TOKENS, DIT_WIDTH, 4 * DIT_WIDTH, BF16),
                  (3, 111, 100, 70, BF16), (2, 4096, 256, 2048, F16), (2, 1024, 512, 512, F32)]
 # bi_conv (batch, side, Cin, Cout, kernel, stride, padding, dtype): the UNet's
-# 3x3 convs at levels 0 and 3, conv_in (3 channels: element-wise loads), the
-# stride-2 downsample (SAME pads 0 low, 1 high), a 1x1 skip, conv_out in f32,
-# level 2 in f16, and DiT-B/2's patch embedding (2x2 at stride 2, VALID)
-BI_CONV_CASES = [(2, 256, 64, 64, 3, 1, "SAME", BF16), (2, 32, 512, 512, 3, 1, "SAME", BF16),
+# 3x3 convs at levels 0-3, conv_in (3 channels: element-wise loads), the
+# stride-2 downsample (SAME pads 0 low, 1 high), a 1x1 skip, conv_out in f32
+# (the narrow kernel), levels 2 and 3 in f16, and DiT-B/2's patch embedding
+# (2x2 at stride 2, VALID)
+BI_CONV_CASES = [(2, 256, 64, 64, 3, 1, "SAME", BF16), (2, 128, 128, 128, 3, 1, "SAME", BF16),
+                 (2, 64, 256, 256, 3, 1, "SAME", BF16), (2, 32, 512, 512, 3, 1, "SAME", BF16),
                  (2, 256, 3, 64, 3, 1, "SAME", BF16), (2, 256, 64, 64, 3, 2, "SAME", BF16),
                  (2, 128, 64, 128, 1, 1, "SAME", BF16), (2, 256, 64, 3, 3, 1, "SAME", F32),
-                 (2, 64, 256, 256, 3, 1, "SAME", F16),
+                 (2, 64, 256, 256, 3, 1, "SAME", F16), (2, 32, 512, 512, 3, 1, "SAME", F16),
                  (2 * DIT_SERVE_BATCH, DIT_RES, DIT_CH, DIT_WIDTH, 2, 2, "VALID", BF16)]
 BI_ORDERS = 16   # the per-sample bit check's largest batch
 
@@ -1006,16 +1020,16 @@ def bi_reading(out, x, w, b, plain) -> dict:
     return compare(out, ref, atol=1e-5 * scale, rtol=1e-5, rms_rel=1e-5)
 
 
-def bi_same_bits(op, x, what: str) -> dict:
-    """Each sample of `x` [16, ...] through `op` gives the same bits at batch
-    2, 4 and 8 as at 16, and at 16 in three other orders."""
+def bi_same_bits(op, x, what: str, batches=(1, 2, 4, 8)) -> dict:
+    """Each sample of `x` [16, ...] through `op` gives the same bits at each
+    of `batches` as at 16, and at 16 in three other orders."""
     gen = torch.Generator(device=x.device).manual_seed(16)
     ref = op(x)
     n = x.shape[0]
     orders = {"reversed": torch.arange(n - 1, -1, -1, device=x.device),
               "halves swapped": torch.cat([torch.arange(n // 2, n), torch.arange(n // 2)]).to(x.device),
               "shuffled": torch.randperm(n, generator=gen, device=x.device)}
-    moved = {f"batch {b}": int((op(x[:b]) != ref[:b]).flatten(1).any(1).sum()) for b in (2, 4, 8)}
+    moved = {f"batch {b}": int((op(x[:b]) != ref[:b]).flatten(1).any(1).sum()) for b in batches}
     moved.update({order: int((op(x[perm]) != ref[perm]).flatten(1).any(1).sum())
                   for order, perm in orders.items()})
     torch.cuda.synchronize()
@@ -1027,17 +1041,23 @@ def bi_same_bits(op, x, what: str) -> dict:
 def bi_cases(randn, gen, record):
     """The batch-invariant linear and convolution against their plain
     versions (one library call per sample), timed beside one library call
-    over the whole batch, and each sample's bits across batch sizes and
-    orders (bf16, f16, f32)."""
+    over the whole batch, with the route each case takes (gemm_route,
+    conv_route), and each sample's bits across batch sizes and orders once
+    for every route and dtype (bf16, f16, f32): the linear's 77-token rows at
+    batch 1-15, the convolution's 32x32 images at batch 1, 2, 4 and 8."""
     import torch.nn.functional as F
 
-    from flaxdiff_tpu_torch.ops.batch_invariant import (bi_conv2d, bi_conv2d_plain, bi_linear,
-                                                        bi_linear_plain, conv_output_size)
+    from flaxdiff_tpu_torch.ops.batch_invariant import (ROUTES, bi_conv2d, bi_conv2d_plain,
+                                                        bi_linear, bi_linear_plain, conv_output_size,
+                                                        conv_route, gemm_route)
+    dname = lambda dtype: str(dtype).replace("torch.", "")
     checked = set()
     for batch, tokens, k, n, dtype in BI_GEMM_CASES:
         x = randn(batch, tokens, k, dtype=dtype)
         w = randn(n, k, dtype=dtype) * k ** -0.5
         b = randn(n, dtype=dtype)
+        route = ROUTES[gemm_route(n, k, dtype)]
+        log(f"  bi_gemm [{batch},{tokens},{k}]x[{k},{n}] {dname(dtype)}: route {route}")
         out = bi_linear(x, w, b)
         reading = bi_reading(out, x, w, b, bi_linear_plain)
         torch.cuda.synchronize()
@@ -1045,14 +1065,17 @@ def bi_cases(randn, gen, record):
         record("bi_gemm", (batch, tokens, k, n), dtype, {"out": reading},
                lambda: bi_linear(x, w, b), lambda: bi_linear_plain(x, w, b),
                2.0 * rows * k * n, esz * (rows * k + n * k + rows * n + n),
-               library=lambda: F.linear(x, w, b))
-        if dtype not in checked:
-            checked.add(dtype)
+               library=lambda: F.linear(x, w, b))["route"] = route
+        # a column tile that N fills only in part (the time embedding's
+        # 64 outputs) gets a bit check of its own
+        key = ("bi_gemm", dtype, route, n % 128 == 0)
+        if key not in checked:
+            checked.add(key)
             xs = randn(BI_ORDERS, 77, k, dtype=dtype)
-            bi_same_bits(lambda t: bi_linear(t, w, b), xs, f"bi_gemm [{BI_ORDERS},77,{k}]x[{k},{n}] "
-                         f"{str(dtype).replace('torch.', '')}")
+            bi_same_bits(lambda t: bi_linear(t, w, b), xs,
+                         f"bi_gemm [{BI_ORDERS},77,{k}]x[{k},{n}] {dname(dtype)} {route}",
+                         batches=range(1, BI_ORDERS))
         del x, w, b, out
-    checked = set()
     for batch, side, cin, cout, ksz, stride, pad, dtype in BI_CONV_CASES:
         x = randn(batch, side, side, cin, dtype=dtype)
         w = randn(cout, cin, ksz, ksz, dtype=dtype) * (cin * ksz * ksz) ** -0.5
@@ -1064,6 +1087,9 @@ def bi_cases(randn, gen, record):
         else:
             p = (0, 0)
         pads, strides = (p, p), (stride, stride)
+        route = ROUTES[conv_route(cin, cout, ksz, ksz, strides, dtype)]
+        log(f"  bi_conv [{batch},{side}^2,{cin}->{cout}] {ksz}x{ksz}/{stride} {dname(dtype)}: "
+            f"route {route}")
         out = bi_conv2d(x, w, b, strides, pads)
         reading = bi_reading(out, x, w, b, lambda *t: bi_conv2d_plain(*t, strides, pads))
         torch.cuda.synchronize()
@@ -1077,13 +1103,14 @@ def bi_cases(randn, gen, record):
                {"out": reading}, lambda: bi_conv2d(x, w, b, strides, pads),
                lambda: bi_conv2d_plain(x, w, b, strides, pads),
                2.0 * batch * o * o * cout * cin * ksz * ksz,
-               esz * (x.numel() + w.numel() + batch * o * o * cout + cout), library=library)
-        if dtype not in checked and ksz == 3:
-            checked.add(dtype)
+               esz * (x.numel() + w.numel() + batch * o * o * cout + cout),
+               library=library)["route"] = route
+        if ("bi_conv", dtype, route) not in checked:
+            checked.add(("bi_conv", dtype, route))
             xs = randn(BI_ORDERS, 32, 32, cin, dtype=dtype)
             bi_same_bits(lambda t: bi_conv2d(t, w, b, strides, pads), xs,
-                         f"bi_conv [{BI_ORDERS},32,32,{cin}] -> {cout}, 3x3 "
-                         f"{str(dtype).replace('torch.', '')}")
+                         f"bi_conv [{BI_ORDERS},32,32,{cin}] -> {cout}, {ksz}x{ksz}/{stride} "
+                         f"{dname(dtype)} {route}")
         del x, w, b, out
 
 
@@ -2294,6 +2321,9 @@ FAMILIES11 = {
     "hybrid_ssm_2d": ("hybrid_ssm+2d", LATENT, (DIT_RES, DIT_CH), "linear",
                       {"ln_mod": 6, "gate_res": 6, "flash_fwd": 3}),
 }
+# phase 11's requests: 25 steps (once 50), as phase 8's; a call's time and
+# launches do not depend on the count
+STEPS11 = 25
 MMDIT_PER_BACKWARD = {"ln_mod_bwd": 12, "gate_res_bwd": 24, "flash_bwd_dq": 12,
                       "flash_bwd_dkv": 12}
 
@@ -2346,9 +2376,9 @@ def family_forward_check(dev, key: str, state, cpu) -> dict:
 
 
 def family_serving(dev, key: str, state) -> dict:
-    """(b) One DDIM-50 + CFG 3.0 request in bf16, batch 1 with the 77x768
+    """(b) One DDIM-25 + CFG 3.0 request in bf16, batch 1 with the 77x768
     text and a zeros null context; the launch counters, zeroed just before,
-    must read the family's per-call census x 51. Then one CFG call as
+    must read the family's per-call census x 26. Then one CFG call as
     launched from Python beside its busy time as a CUDA graph."""
     from flaxdiff_tpu_torch.device import make_generator
     from flaxdiff_tpu_torch.ops import launch_counts
@@ -2369,23 +2399,23 @@ def family_serving(dev, key: str, state) -> dict:
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    out = run(STEPS, 1)
+    out = run(STEPS11, 1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    expected = {k: per_forward.get(k, 0) * (STEPS + 1) for k in counts}
+    expected = {k: per_forward.get(k, 0) * (STEPS11 + 1) for k in counts}
     check(counts == routed(expected), f"{key}: launches {counts}, expected {expected}")
     check(tuple(out.shape) == (1, side, side, ch), f"{key}: output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), f"{key}: samples finite")
     check(float(out.abs().max()) <= 1.0, f"{key}: samples clipped to [-1, 1]")
-    res = {"wall_s": wall, "forwards": STEPS + 1, "ms_per_forward": wall * 1e3 / (STEPS + 1),
-           "launches_per_call": {k: v // (STEPS + 1) for k, v in counts.items() if v},
+    res = {"wall_s": wall, "forwards": STEPS11 + 1, "ms_per_forward": wall * 1e3 / (STEPS11 + 1),
+           "launches_per_call": {k: v // (STEPS11 + 1) for k, v in counts.items() if v},
            "launches": counts}
     x = torch.randn(2, side, side, ch, device=dev)
     ctx = torch.cat([cond, uncond]).to(dev)
     res["breakdown"] = forward_breakdown(lambda: model(x, torch.full((2,), 500.0, device=dev), ctx),
                                          f"{key}, batch 2 of {side}x{side}x{ch}")
-    log(f"  {key}: DDIM-{STEPS} + CFG wall {wall:.3f} s ({res['ms_per_forward']:.2f} ms per "
+    log(f"  {key}: DDIM-{STEPS11} + CFG wall {wall:.3f} s ({res['ms_per_forward']:.2f} ms per "
         f"call), launches per call {res['launches_per_call']}")
     del model
     return res
@@ -2885,9 +2915,12 @@ def t2v_paths(dev) -> dict:
 # 14a's spatial keep on DiT-B/2: k = round(256 / 8) = 32 tokens through the deep trunk
 CACHE_KEEP, CACHE_K = 0.125, 32
 CACHE_TRAJ_STEPS = 10
+# 14b's requests and 14c's validation: 25 steps (once 50); each plan's
+# launches and counters are computed for the count
+STEPS14 = 25
 # 14c: Inception's timed batch, FID's sample counts, the CLI's run
 INCEPTION_BATCH, FID_SAMPLES, FID_SIDE = 32, 64, 256
-CLI14_STEPS, CLI14_VAL_EVERY, CLI14_VAL_STEPS = 10, 5, 50
+CLI14_STEPS, CLI14_VAL_EVERY, CLI14_VAL_STEPS = 10, 5, STEPS14
 # the blocks of one call of each cached family (12 DiT blocks; the U-DiT's
 # 6 downs, mid and 6 ups), its launches a block (an MMDiT block: one
 # two-view LayerNorm + modulate) and the blocks a reuse call runs for each
@@ -3138,7 +3171,7 @@ def inception_state(seed: int) -> dict:
 
 
 def cached_serving(dev, key: str, model, cond, uncond, plans: dict) -> dict:
-    """14b: one DDIM-50 + CFG 3.0 request in bf16 per plan through the
+    """14b: one DDIM-25 + CFG 3.0 request in bf16 per plan through the
     pipeline's sampler for that plan: its wall, ms per call, device busy time
     (profiler sum) and idle share, the launches (zeroed just before) against
     the plan's arithmetic, and the trajectory PSNR of its pre-clip endpoint
@@ -3155,7 +3188,7 @@ def cached_serving(dev, key: str, model, cond, uncond, plans: dict) -> dict:
                                       EpsilonPredictionTransform(), device=dev)
     batch = cond.shape[0]
     x_init = torch.randn(batch, side, side, ch, generator=make_generator(9, dev), device=dev)
-    spacing = get_timestep_spacing("linear", STEPS, 1000, device=dev)
+    spacing = get_timestep_spacing("linear", STEPS14, 1000, device=dev)
     cond_d, uncond_d = cond.to(dev), uncond.to(dev)
     res, base = {}, None
     for name, plan in plans.items():
@@ -3167,23 +3200,23 @@ def cached_serving(dev, key: str, model, cond, uncond, plans: dict) -> dict:
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        out = request(STEPS, 1)
+        out = request(STEPS14, 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
-        planned = planned_launches(key, model, plan, STEPS)
+        planned = planned_launches(key, model, plan, STEPS14)
         expected = {k: planned.get(k, 0) for k in counts}
         check(counts == routed(expected), f"{key} {name}: launches {counts}, expected {expected}")
         check(tuple(out.shape) == (batch, side, side, ch) and bool(torch.isfinite(out).all()),
               f"{key} {name}: samples {tuple(out.shape)}, finite")
-        busy = busy_ms(lambda: request(STEPS, 1))
+        busy = busy_ms(lambda: request(STEPS14, 1))
         with torch.inference_mode():
             end = ds.run_loop(x_init, spacing, NoiseSource(make_generator(3, dev)), cond_d,
                               uncond_d).float()
         check(bool(torch.isfinite(end).all()), f"{key} {name}: pre-clip endpoint finite")
         if base is None:
             base = end
-        row = {"wall_s": wall, "ms_per_call": wall * 1e3 / (STEPS + 1), "launches": counts,
+        row = {"wall_s": wall, "ms_per_call": wall * 1e3 / (STEPS14 + 1), "launches": counts,
                "busy_ms": busy, "idle_share": None if busy is None else 1.0 - busy / (wall * 1e3),
                "psnr_db": trajectory_psnr(end, base), "plan": None if plan is None else repr(plan)}
         res[name] = row
@@ -3230,10 +3263,10 @@ def cache_serving_paths(dev, state, phase11: dict) -> dict:
     read = lambda: {n: global_telemetry().counter(f"diffcache/{n}").value for n in names}
     before = read()
     samples = pipe.generate_samples(num_samples=b, resolution=DIT_RES, channels=DIT_CH,
-                                    diffusion_steps=STEPS, sampler="ddim", use_ema=False,
+                                    diffusion_steps=STEPS14, sampler="ddim", use_ema=False,
                                     cache_plan=DEFAULT_COMPOSED_PLAN)
     delta = {n: read()[n] - before[n] for n in names}
-    counts = DEFAULT_COMPOSED_PLAN.counts(STEPS)
+    counts = DEFAULT_COMPOSED_PLAN.counts(STEPS14)
     check(delta == {"requests": 1, "spatial_requests": 1, "refresh_steps": counts["refresh"],
                     "spatial_steps": counts["spatial"], "reused_steps": counts["reused"]},
           f"the diffcache counters {delta}")
@@ -3241,7 +3274,7 @@ def cache_serving_paths(dev, state, phase11: dict) -> dict:
     out["pipeline_counters"] = delta
     log(f"  pipeline.generate_samples(cache_plan=DEFAULT_COMPOSED_PLAN): counters {delta}")
 
-    spacing = get_timestep_spacing("linear", STEPS, 1000, device=dev)
+    spacing = get_timestep_spacing("linear", STEPS14, 1000, device=dev)
     x = torch.randn(b, DIT_RES, DIT_RES, DIT_CH, generator=make_generator(4, dev), device=dev)
     cond_d, uncond_d = cond.to(dev), uncond.to(dev)
     for label, plan in (("timestep", DEFAULT_CACHE_PLAN), ("composed", DEFAULT_COMPOSED_PLAN)):
@@ -3256,7 +3289,7 @@ def cache_serving_paths(dev, state, phase11: dict) -> dict:
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         check(bool(torch.isfinite(end).all()), f"the {label} trajectory under sync debug")
-        log(f"  DDIM-{STEPS} + CFG under the {label} default plan ran under sync debug mode "
+        log(f"  DDIM-{STEPS14} + CFG under the {label} default plan ran under sync debug mode "
             f"\"error\": no host sync")
     out["sync_debug_clean"] = True
     del model, pipe
@@ -3374,7 +3407,7 @@ def cache_paths(dev, phase11: dict) -> dict:
     out["metrics_card_vs_cpu"] = metric_card_vs_cpu(dev)
     out["a_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    log(f"  14b: DDIM-{STEPS} + CFG {GUIDANCE} in bf16 under docs/CACHING.md's plans")
+    log(f"  14b: DDIM-{STEPS14} + CFG {GUIDANCE} in bf16 under docs/CACHING.md's plans")
     t0 = time.perf_counter()
     out["serving"] = cache_serving_paths(dev, state, phase11)
     out["b_s"] = time.perf_counter() - t0
@@ -4129,7 +4162,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
-    log(f"phase 11: every model family at full width: card against CPU, DDIM-{STEPS} + CFG "
+    log(f"phase 11: every model family at full width: card against CPU, DDIM-{STEPS11} + CFG "
         f"{GUIDANCE} in bf16, SimpleMMDiT and the hybrid SSM DiT's train steps, remat, the S5 "
         f"scan")
     t11 = time.perf_counter()
@@ -4137,7 +4170,7 @@ def main() -> int:
     families["phase_s"] = time.perf_counter() - t11
     for key, r in families["serving"].items():
         bd = r["breakdown"]
-        log(f"family {key}: DDIM-{STEPS} CFG {GUIDANCE} batch 1 bf16 wall {r['wall_s']:.3f} s "
+        log(f"family {key}: DDIM-{STEPS11} CFG {GUIDANCE} batch 1 bf16 wall {r['wall_s']:.3f} s "
             f"({r['ms_per_forward']:.2f} ms per call), one call busy {bd['busy_ms']:.3f} ms as a "
             f"graph ({bd['idle_share']:.0%} idle) on {smi}")
     mm = families["mmdit_training"]
@@ -4189,14 +4222,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log(f"phase 14: the training-free caches on DiT-B/2, SimpleUDiT and SimpleMMDiT (card against "
-        f"CPU, DDIM-{STEPS} + CFG {GUIDANCE} under docs/CACHING.md's plans), PSNR, SSIM, FID with "
+        f"CPU, DDIM-{STEPS14} + CFG {GUIDANCE} under docs/CACHING.md's plans), PSNR, SSIM, FID with "
         f"InceptionV3, the CLI's --val_metrics")
     t14 = time.perf_counter()
     cache = cache_paths(dev, families["serving"])
     cache["phase_s"] = time.perf_counter() - t14
     for key in CACHED_FAMILIES:
         for plan, r in cache["serving"][key].items():
-            log(f"cache {key} {plan}: DDIM-{STEPS} CFG {GUIDANCE} bf16 wall {r['wall_s']:.3f} s "
+            log(f"cache {key} {plan}: DDIM-{STEPS14} CFG {GUIDANCE} bf16 wall {r['wall_s']:.3f} s "
                 f"({r['ms_per_call']:.2f} ms per call), busy "
                 + ("not measured" if r["busy_ms"] is None else
                    f"{r['busy_ms']:.3f} ms ({r['idle_share']:.0%} idle)")

@@ -16,13 +16,13 @@
 // the call has, where the row sits, or what the other rows hold. Zero
 // padding past K, M or N adds exact zeros to no accumulator that is written.
 //
-// Bound on the H100: operations at the served models' shapes (a 3x3 conv at
-// 64-512 channels does 2 * 9 * C flops per output element against ~4 bytes).
-// The 16-bit path runs on the tensor cores through mma.sync m16n8k16 (a
-// 128 x 128 block tile, eight warps of 64 x 32, operands staged through a
-// two-stage cp.async ring in padded shared memory and read with ldmatrix).
-// wgmma, which the card needs for its full rate, is later work (ROADMAP.md).
-// f32 runs by FMA on a 64 x 64 tile, 4 x 4 outputs a thread.
+// These are the routes the Hopper loop (bi_wgmma.cuh) does not take: the
+// 16-bit path for shapes TMA cannot tile (K or N not a multiple of 8, a
+// convolution with a stride, or input channels not a multiple of 64) runs on
+// the tensor cores through mma.sync m16n8k16 (a 128 x 128 block tile, eight
+// warps of 64 x 32, operands staged through a two-stage cp.async ring in
+// padded shared memory and read with ldmatrix); f32 runs by FMA on a 64 x 64
+// tile, 4 x 4 outputs a thread.
 #pragma once
 
 #include "common.cuh"

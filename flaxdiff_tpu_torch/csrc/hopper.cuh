@@ -1,6 +1,7 @@
-// Hopper (sm_90a) machinery shared by the flash-attention kernels: shared-
-// memory matrix descriptors and the warpgroup matrix multiply (wgmma), the
-// mbarrier pipeline helpers, the tensor memory accelerator's (TMA) 4-D tile
+// Hopper (sm_90a) machinery shared by the flash-attention kernels and the
+// batch-invariant GEMM and convolution (bi_wgmma.cuh): shared-memory matrix
+// descriptors and the warpgroup matrix multiply (wgmma), the mbarrier
+// pipeline helpers, the tensor memory accelerator's (TMA) 2-D and 4-D tile
 // load and store, and the host-side encoding of the tensor maps they read.
 // Inline PTX throughout (PTX ISA 8.0: wgmma, mbarrier, cp.async.bulk.tensor).
 //
@@ -360,6 +361,26 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+// Box (c0, c1) of a 2-D tensor map into shared memory, as tma_load_4d.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Box (c0, c1) from shared memory to a 2-D tensor, as tma_store_4d.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // Generic-proxy writes to shared memory made visible to TMA's reads.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -430,6 +451,28 @@ inline int encode_bhld_wide(CUtensorMap* map, const void* ptr, int dtype, int ba
                             int heads, int d, int64_t sb, int64_t sl, int64_t sh, int box_rows) {
   return encode_bhld_map(map, ptr, dtype, batch, len, heads, d, sb, sl, sh, box_rows,
                          chunk_cols<64>(), tma_swizzle<64>());
+}
+
+// The tensor map of a 16-bit tensor of `rank` (2 to 4) dimensions, dims[0]
+// contiguous, the byte strides of dims 1 .. rank - 1 in `strides`, boxes of
+// box[0 .. rank - 1] elements. Returns cuTensorMapEncodeTiled's CUresult (0 on success).
+inline int encode_tiled(CUtensorMap* map, const void* ptr, int dtype, int rank,
+                        const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                        CUtensorMapSwizzle swizzle) {
+  const CUtensorMapDataType type =
+      dtype == kFloat16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  cuuint64_t d[4], s[3];
+  cuuint32_t b[4], e[4];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    b[i] = static_cast<cuuint32_t>(box[i]);
+    e[i] = 1u;
+    if (i + 1 < rank) s[i] = static_cast<cuuint64_t>(strides[i]);
+  }
+  return static_cast<int>(cuTensorMapEncodeTiled(
+      map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(ptr), d, s, b, e,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
 // Error code a launcher returns when a tensor map cannot be encoded: above

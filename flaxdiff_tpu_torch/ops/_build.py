@@ -52,8 +52,8 @@ _SIGNATURES = {
     "ln_mod_bwd": [_P] * 9 + [_I, _I, _I, _I64, _I, _I, _I, _P],
     "gate_res_fwd": [_P] * 4 + [_I64, _I, _I, _I64, _I, _P],
     "gate_res_bwd": [_P] * 5 + [_I, _I, _I, _I64, _I, _I, _P],
-    "bi_gemm": [_P] * 4 + [_I64, _I, _I, _I, _P],
-    "bi_conv": [_P] * 4 + [_I] * 14 + [_P],
+    "bi_gemm": [_P] * 4 + [_I64, _I, _I, _I, _I, _P],
+    "bi_conv": [_P] * 4 + [_I] * 15 + [_P],
 }
 
 

@@ -15,7 +15,15 @@ scheduler's rounds), where cuBLAS's and cuDNN's algorithm choice made a row's
 bits follow its batch (fault C6, ROADMAP.md). Training keeps ``F.linear`` and
 ``F.conv2d``. Each kernel keeps one f32 sum per output over k in a fixed
 order, with a tile shape that never depends on the row count
-(``csrc/bi_mma.cuh``).
+(``csrc/bi_wgmma.cuh``, ``csrc/bi_mma.cuh``).
+
+Which kernel variant a call runs (its route) is picked here, by
+``gemm_route(n, k, dtype)`` and ``conv_route(cin, cout, kh, kw, stride,
+dtype)``: pure functions of the weight's shape, the convolution's
+per-sample geometry and the dtype, which take no row count and no batch, so
+a sample solo and in any bucket takes one route. The C entry points take the
+route's code and return an error for a code that does not fit the call; a
+wrapper raises on it and never falls back to another variant.
 
 The plain versions, which run for CPU tensors, make one ``F.linear`` or
 ``F.conv2d`` call per sample along the leading batch axis: each sample runs
@@ -33,6 +41,57 @@ import torch.nn.functional as F
 from . import _build
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
+
+# The kernel variants (codes shared with csrc/bi_wgmma.cuh's BiRoute)
+MMA, FMA, NARROW, WGMMA_128X128, WGMMA_128X64 = range(5)
+ROUTES = {MMA: "mma", FMA: "fma", NARROW: "narrow", WGMMA_128X128: "wgmma_128x128",
+          WGMMA_128X64: "wgmma_128x64"}
+HALF = (torch.bfloat16, torch.float16)
+# the narrow f32 convolution's shared memory (W and one input row segment of
+# 128 output pixels, csrc/bi_conv.cu narrow_smem_bytes) stays within this
+# (NARROW_SMEM_MAX there)
+NARROW_SMEM = 96 * 1024
+
+
+def gemm_route(n: int, k: int, dtype: torch.dtype) -> int:
+    """The variant ``bi_linear`` runs for x [*, k] W^T, W [n, k]: bf16 and
+    f16 take the wgmma loop where TMA can tile the operands (k and n
+    multiples of 8), on 128 x 128 tiles; other 16-bit shapes take mma.sync,
+    f32 the FMA kernel."""
+    if dtype not in HALF:
+        return FMA
+    if k % 8 or n % 8:
+        return MMA
+    return WGMMA_128X128
+
+
+def _narrow_smem_bytes(cin: int, cout: int, kh: int, kw: int) -> int:
+    cp = 4 if cout <= 4 else 8
+    return 4 * (kh * kw * cin * cp + (128 + kw - 1) * (cin + 4))
+
+
+def conv_route(cin: int, cout: int, kh: int, kw: int, stride: Sequence[int],
+               dtype: torch.dtype) -> int:
+    """The variant ``bi_conv2d`` runs for a conv of cin -> cout channels, a
+    kh x kw kernel and `stride`: bf16 and f16 at stride 1 with cin a
+    multiple of 64 and cout of 8 take the wgmma loop, on 128 x 128 tiles,
+    128 x 64 up to 64 outputs (the UNet's level 0); other 16-bit convs
+    (conv_in, a stride, a patch embedding) take mma.sync. f32 to at most 8 channels at stride 1 (the UNet's conv_out)
+    takes the narrow direct kernel, other f32 convs the FMA kernel."""
+    unit = tuple(stride) == (1, 1)
+    if dtype not in HALF:
+        narrow = (unit and cout <= 8 and cin % 4 == 0
+                  and _narrow_smem_bytes(cin, cout, kh, kw) <= NARROW_SMEM)
+        return NARROW if narrow else FMA
+    if not unit or cin % 64 or cout % 8:
+        return MMA
+    return WGMMA_128X64 if cout <= 64 else WGMMA_128X128
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself, or a copy where its data does not start on 16 bytes (TMA's
+    and the 16-byte loads' alignment; the copy changes no bit of a result)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def bi_linear_plain(x: torch.Tensor, w: torch.Tensor,
@@ -68,9 +127,10 @@ def bi_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None
         return out
     if m >= 2 ** 31 - 256:
         raise ValueError(f"bi_linear: {m} rows, the kernel takes fewer than 2^31")
+    x, w = _aligned(x), _aligned(w)
     err = _build.library().bi_gemm(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(), m, n, k,
-        _build.dtype_code(x), _build.stream_handle(x.device))
+        _build.dtype_code(x), gemm_route(n, k, x.dtype), _build.stream_handle(x.device))
     _build.check(err, "bi_gemm")
     bi_linear.launches += 1
     return out
@@ -128,10 +188,11 @@ def bi_conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     out = torch.empty(batch, oh, ow, cout, dtype=x.dtype, device=x.device)
     if batch == 0:
         return out
+    x, wk = _aligned(x), _aligned(wk)
     err = _build.library().bi_conv(
         x.data_ptr(), wk.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
         batch, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, pt, pl, _build.dtype_code(x),
-        _build.stream_handle(x.device))
+        conv_route(cin, cout, kh, kw, (sh, sw), x.dtype), _build.stream_handle(x.device))
     _build.check(err, "bi_conv")
     bi_conv2d.launches += 1
     return out

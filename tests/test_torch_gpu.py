@@ -1261,14 +1261,20 @@ def test_padding_row_leaves_the_generator_where_solo_leaves_it_on_the_card(cuda)
 # --- the batch-invariant linear and convolution (fault C6) ----------------------------
 
 # (batch, rows a sample, K, N): the text's keys (77 rows), a ragged row count
-# past one tile, one row, a K that is no multiple of 8 (element-wise loads)
-BI_LINEAR_SHAPES = [(2, 77, 768, 512), (3, 129, 256, 2048), (1, 1, 512, 512), (4, 33, 100, 70)]
+# past one tile, one row, a K that is no multiple of 8 (element-wise loads),
+# a K past one 64-wide tile with a tail (72) and N a multiple of 8 but not of
+# 64 (the wgmma loop's zero-filled edges), the UNet's level-0 time-embedding
+# projection (64 outputs: half of a 128-column tile)
+BI_LINEAR_SHAPES = [(2, 77, 768, 512), (3, 129, 256, 2048), (1, 1, 512, 512), (4, 33, 100, 70),
+                    (3, 65, 72, 1096), (2, 1, 512, 64)]
 # (batch, side, Cin, Cout, kernel, stride, padding): 3x3 SAME, 3 input
 # channels (element-wise loads), stride 2 (SAME pads 0 low, 1 high), 1x1, a
-# 2x2 patch embedding at stride 2, VALID
+# 2x2 patch embedding at stride 2, VALID; a deep 3x3 (K 4608), a side past one 128-pixel tile row, conv_out's 3 outputs (the narrow
+# f32 kernel; mma.sync in 16 bits) on a side past one 128-pixel segment
 BI_CONV_SHAPES = [(2, 16, 64, 64, 3, 1, "SAME"), (2, 17, 3, 32, 3, 1, "SAME"),
                   (2, 16, 32, 64, 3, 2, "SAME"), (2, 9, 64, 128, 1, 1, "SAME"),
-                  (3, 16, 4, 96, 2, 2, "VALID")]
+                  (3, 16, 4, 96, 2, 2, "VALID"), (2, 8, 512, 512, 3, 1, "SAME"),
+                  (1, 130, 64, 192, 3, 1, "SAME"), (2, 130, 64, 3, 3, 1, "SAME")]
 # against the plain version run in f32 on the same inputs and rounded to the
 # output dtype: f32 sums in another order, then one rounding (atol relative to
 # max|ref|, rtol one output ulp). The 16-bit library calls are no yardstick:
@@ -1345,3 +1351,40 @@ def test_bi_kernels_give_each_sample_the_same_bits_in_any_batch(cuda, dtype):
         for perm in orders:
             perm = perm.to(cuda)
             assert torch.equal(op(t[perm]), ref[perm])
+
+
+# (Cin, Cout, kernel): one conv of each route the served UNet takes at 16
+# bits (128 x 64 for 64 outputs, 128 x 128 for more and for a deep 3x3, on wgmma;
+# conv_in's 3 channels on mma.sync) and conv_out's f32 narrow route
+BI_ROUTE_CONVS = [(64, 64, 3), (512, 512, 3), (64, 128, 1), (3, 64, 3), (64, 3, 3)]
+
+
+@pytest.mark.parametrize("dtype", BI_DTYPES, ids=str)
+@pytest.mark.parametrize("conv", BI_ROUTE_CONVS, ids=str)
+def test_bi_conv_routes_give_each_sample_the_same_bits_in_any_batch(cuda, conv, dtype):
+    """Every route of bi_conv2d: a sample's bits at batch 1, 2, 4 and 8 and
+    at 16 in three other orders are its bits at 16."""
+    cin, cout, k = conv
+    x, w, b, stride, pads, _ = _bi_conv_operands(cuda, 16, 12, cin, cout, k, 1, "SAME", dtype)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    op = lambda a: bi_conv2d(a, w, b, stride, pads)
+    ref = op(x)
+    for n in (1, 2, 4, 8):
+        assert torch.equal(op(x[:n]), ref[:n]), n
+    for perm in (torch.arange(15, -1, -1), torch.randperm(16, generator=gen)):
+        perm = perm.to(cuda)
+        assert torch.equal(op(x[perm]), ref[perm])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("n", [64, 512, 2048], ids=str)
+def test_bi_linear_gives_77_token_rows_the_same_bits_at_batch_1_to_16(cuda, n, dtype):
+    """77-token samples start at every offset of a 64-row wgmma tile as the
+    batch grows: each sample's bits at batch 1-15 are its bits at 16 (64
+    outputs fill half of a 128-column tile)."""
+    x = _randn(cuda, 16, 77, 256, dtype=dtype, seed=8)
+    w = (_randn(cuda, n, 256, seed=9) * 256 ** -0.5).to(dtype)
+    b = _randn(cuda, n, dtype=dtype, seed=10)
+    ref = bi_linear(x, w, b)
+    for batch in range(1, 16):
+        assert torch.equal(bi_linear(x[:batch], w, b), ref[:batch]), batch
