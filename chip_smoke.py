@@ -110,9 +110,9 @@ Phases; any failure exits non-zero and prints no result line.
      directory removed after: phase 10's run in float16 (flax's dynamic
      loss scale, through the f16 kernels) with MultiSteps(4) over lamb,
      the monitored step every 10 micro-steps, a 16-slot loss ring, the
-     gate counter, a validation grid (euler_ancestral-50 + CFG 3.0, 8
-     samples) between its two chunks of 20 micro-steps and a torch.profiler
-     window, 40 micro-steps with saves every 10. The launch counters must
+     gate counter, a validation grid (euler_ancestral-25 + CFG 3.0, 8
+     samples) between its chunks of 20 and 12 micro-steps and a
+     torch.profiler window, 32 micro-steps with saves every 10. The launch counters must
      read the step's kernels once per call per micro-step plus the grid's
      forward kernels; prints the scale and fin_steps after every micro-step,
      the skipped ones, ms per micro-step beside phase 10's step, busy time
@@ -130,19 +130,20 @@ Phases; any failure exits non-zero and prints no result line.
      middle, 4 heads: head dims 80, 160 and 320, the last through the wide
      flash kernels) with random weights, a 77x1024 text context, over the
      SD VAE (the JAX defaults, random weights). (a) f32, card against CPU,
-     on 4 frames of 16x16x4 latents: the forward, DDIM-3 + CFG, one latent
+     on 4 frames of 16x16x4 latents: the forward, DDIM-2 + CFG, one latent
      train step's loss and gradients with the codec encoding 128x128 frames
      inside the step, the codec's encode mean and decode, and remat bit-equal
-     to the plain forward in bf16; (b) DDIM-50 + CFG 3.0, batch 1, 16 frames
+     to the plain forward in bf16; (b) DDIM-25 + CFG 3.0, batch 1, 16 frames
      of 32x32x4 in bf16, decoded to 16 x 256x256x3: the request's wall, ms
      per call, the decode's time, one call's busy and idle shares, and the
-     launch counters at T2V_PER_FORWARD x 51; (c) 3 + 10 DiffusionTrainer
+     launch counters at T2V_PER_FORWARD x 26; (c) 3 + 5 DiffusionTrainer
      train_steps at batch 2 clips of 16 x 256x256x3 pixels through the codec,
      bf16 over f32 params: losses finite, the kernels launched once per call
      per step, ms per step, clips/s, peak memory; (d) the CLI with
      --autoencoder sd_vae over a random full-width SD VAE saved as an npz:
-     phase 10's UNet on 256x256 images, 10 steps and a save, then
-     from_checkpoint(autoencoder=...) serving 2 prompts decoded to 256x256.
+     phase 10's UNet on 256x256 images, 5 steps and a save, then
+     from_checkpoint(autoencoder=...) serving 2 prompts (DDIM-25) decoded to
+     256x256.
      Phase 2 also holds the flash kernels at phase 13's attention shapes and
      at batch x heads above 65535 (fault C5: 131072 at head dim 32, 65600 at
      320).
@@ -198,8 +199,31 @@ Phases; any failure exits non-zero and prints no result line.
      with --dataset packed_shards --dataset_path '<dir>/shard-*.rec', its
      images/s beside phase 10's, every loss finite, and a resume from step
      20 bit-equal to the uninterrupted run.
+  17. The run's telemetry. (a) Phase 10's CLI run (UNet-text-128, batch 16,
+     bf16) for 32 steps with --telemetry_dir, --telemetry_sample_every 4,
+     --prometheus_textfile, --registry and --run_name, and one device-profile
+     window of 4 steps opened through the trainer's profile_trigger: every
+     file the JAX CLI writes is there and parses, scripts/diagnose_run.py
+     --json exits 0 on the directory, productive plus badput lies within 5%
+     of the fit's wall clock, MFU is reported against the card's peak and
+     lies in (0, 1), the window's family sums equal its kernel total within
+     1%, the train step has one program row whose FLOPs equal 16 x the same
+     step's count at batch 1 on the CPU (flash's backward products included),
+     every kernel ran once per call per step; prints ms per step beside phase 10's, the goodput fraction,
+     the phase split, MFU, peak memory and the top families. (b) Phase 4's
+     UNet-text-256 served by ServingScheduler under an enabled hub with the
+     profiler armed for one round: DDIM-10 requests in buckets 4 and 1, one
+     program row per cache miss, each request bit-equal to its solo call (x0
+     before the clip); then a forced rebuild (serving.device_lost) dumps one
+     incident bundle and every request stays bit-equal. (c) The KL
+     autoencoder trainer at the JAX defaults' widths (64/128/256, latent 4,
+     8 groups): f32 card against CPU on 2 images of 64x64 (loss 1e-5
+     relative, every gradient 1e-3 of its max|g|), then 3 + 10 bf16 steps at
+     batch 8 of 256x256: B4-B7 once per GroupNorm call per step, ms per
+     step, images/s, peak memory.
 Every inference-mode path's launches include bi_gemm's and bi_conv's, one
-per routed Dense and ConvLayer call (counted by a module pre-hook).
+per routed Dense and ConvLayer call (counted by a module pre-hook). Each
+phase's seconds (phase_s) are printed before the kernels' line.
 The lines before the last are the kernels' JSON record and the card's
 name and power limit; the last is {"ok": true, "device": {...}}. With
 --record, the full record (every case, the model checks, both paths and
@@ -1754,15 +1778,15 @@ def cli_path(dev, per_step: dict) -> dict:
 
 # phase 10's run with train.py's training options: float16 (flax's dynamic
 # loss scale), MultiSteps(4) over lamb, the monitored step every 10 steps, a
-# 16-slot loss ring, the gate counter, a validation grid (euler_ancestral-50
-# + CFG) between the two chunks of 20 steps, and a profiler window; saves
+# 16-slot loss ring, the gate counter, a validation grid (euler_ancestral-25
+# + CFG) between the chunks of 20 and 12 steps, and a profiler window; saves
 # every 10 steps, so the resume can start at 30, inside an accumulation
-CLI12_STEPS, CLI12_SAVE_EVERY, CLI12_RESUME_AT, CLI12_ACCUM = 40, 10, 30, 4
-CLI12_VAL_EVERY, CLI12_VAL_STEPS, CLI12_RING, CLI12_CADENCE = 20, 50, 16, 10
+CLI12_STEPS, CLI12_SAVE_EVERY, CLI12_RESUME_AT, CLI12_ACCUM = 32, 10, 30, 4
+CLI12_VAL_EVERY, CLI12_VAL_STEPS, CLI12_RING, CLI12_CADENCE = 20, 25, 16, 10
 # the card-vs-CPU check of the same chain in f32 (phase 3's UNet at 32x32,
 # batch 2): MultiSteps(2) over lamb with the scale growing every 2 finite
-# steps, a NaN batch at step 4 of 5
-CHAIN_STEPS, CHAIN_NAN_AT, CHAIN_RES = 5, 3, 32
+# steps, a NaN batch at step 4 of 4
+CHAIN_STEPS, CHAIN_NAN_AT, CHAIN_RES = 4, 3, 32
 
 
 def with_flags(args: list, **flags) -> list:
@@ -1837,10 +1861,10 @@ def options_path(dev, per_step: dict, phase10: dict, phase5: dict) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
-        # one validation grid at step 20: euler_ancestral-50 calls the model
-        # STEPS + 1 times, as phase 8 counts it
-        expected = {k: CLI12_STEPS * per_step.get(k, 0) + (STEPS + 1) * PER_FORWARD.get(k, 0)
-                    for k in counts}
+        # one validation grid at step 20: euler_ancestral-25 calls the model
+        # CLI12_VAL_STEPS + 1 times, as phase 8 counts it
+        expected = {k: CLI12_STEPS * per_step.get(k, 0)
+                    + (CLI12_VAL_STEPS + 1) * PER_FORWARD.get(k, 0) for k in counts}
         log(f"  launches {counts}, expected {expected}")
         check(counts == routed(expected), "every f16 forward and backward kernel ran once per call per "
               "micro-step, and the forward kernels once per call of the validation grid")
@@ -1859,7 +1883,10 @@ def options_path(dev, per_step: dict, phase10: dict, phase5: dict) -> dict:
         check(landed + len(skipped) == CLI12_STEPS, f"every micro-step either landed or was "
               f"skipped: {landed} + {len(skipped)}")
         check(all(math.isfinite(x) for x in hist["loss"]), "every window loss finite")
-        check(hist["steps"] == [16, 20, 36, 40], f"ring windows {hist['steps']}")
+        # the ring is read every 16 micro-steps of a chunk and at its end
+        windows = [s for a, b in ((0, CLI12_VAL_EVERY), (CLI12_VAL_EVERY, CLI12_STEPS))
+                   for s in range(a + CLI12_RING, b, CLI12_RING)] + [CLI12_VAL_EVERY, CLI12_STEPS]
+        check(hist["steps"] == sorted(windows), f"ring windows {hist['steps']}")
         check(len(hist["numerics"]) == CLI12_STEPS // CLI12_CADENCE
               and all(row["numerics/skipped"] in (0.0, 1.0) for row in hist["numerics"]),
               "a monitored step every 10 micro-steps")
@@ -2559,7 +2586,11 @@ T2V = dict(output_channels=4, emb_features=1280, feature_depths=(320, 640, 1280,
            heads=4, in_channels=4, context_dim=1024)
 T2V_CTX = (77, 1024)
 T2V_FRAMES, T2V_SIDE, T2V_PIXELS = 16, 32, 256
-T2V_TRAIN_BATCH, T2V_WARMUP, T2V_TIMED = 2, 3, 10
+T2V_TRAIN_BATCH, T2V_WARMUP, T2V_TIMED = 2, 3, 5
+# 13a's trajectory, card against CPU (the CPU side is most of its time)
+T2V_CHECK_STEPS = 2
+# 13b's and 13d's requests: DDIM-25 (phase 4's DDIM-50 at half the depth)
+STEPS13 = 25
 # launches of one forward: 21 level blocks (8 down, the middle, 12 up) of two
 # GroupNorm + SiLU each; 16 of them attend (levels 0-2 and the middle): self,
 # cross and temporal attention and a GEGLU each, levels 0 and 1 through the
@@ -2572,7 +2603,7 @@ T2V_PER_BACKWARD = {"flash_bwd_dq": 30, "flash_bwd_dkv": 30, "flash_bwd_dq_wide"
                     "gn_bwd_dx": 42}
 # 13d: phase 10's UNet on the SD VAE's 32x32x4 latents of 256x256 images
 CLI13_MODEL = {k: v for k, v in CLI_MODEL.items() if k not in ("in_channels", "output_channels")}
-CLI13_STEPS, CLI13_BATCH = 10, 16
+CLI13_STEPS, CLI13_BATCH = 5, 16
 
 
 def t2v_state(seed: int) -> dict:
@@ -2619,7 +2650,7 @@ def sd_vae(where, seed: int = 5, dtype=None):
 def t2v_card_vs_cpu(dev, state: dict) -> dict:
     """13a: T2V and the SD VAE in f32, card (kernels) against CPU (plain
     versions), the same weights, inputs and draws, on 4 frames of 16x16x4
-    latents (128x128 pixels): the forward, a DDIM-3 + CFG trajectory from
+    latents (128x128 pixels): the forward, a DDIM-2 + CFG trajectory from
     t = 333, one latent train step's loss and gradients (the codec encoding
     inside the step), the codec's encode mean and decode; then remat=True
     bit-equal to remat=False in bf16 on the card."""
@@ -2644,10 +2675,11 @@ def t2v_card_vs_cpu(dev, state: dict) -> dict:
     check(bool(torch.isfinite(out).all()), "T2V forward output finite")
     check(err <= 1e-3 * scale, f"T2V forward: error {err} above {1e-3 * scale}")
     res = {"forward_f32_err": err, "forward_f32_scale": scale, "cpu_forward_s": cpu_s}
-    res["ddim3"] = trajectory_check(((dev, gpu), ("cpu", cpu)),
-                                    f"DDIM-3 + CFG [1, {frames}, {side}, {side}, 4] f32 from t=333",
-                                    CosineNoiseSchedule, EpsilonPredictionTransform(),
-                                    DDIMSampler(), 3, init_samples=x, cond=ctx, start_step=333.0)
+    res["ddim"] = trajectory_check(((dev, gpu), ("cpu", cpu)),
+                                   f"DDIM-{T2V_CHECK_STEPS} + CFG [1, {frames}, {side}, {side}, 4] "
+                                   "f32 from t=333", CosineNoiseSchedule,
+                                   EpsilonPredictionTransform(), DDIMSampler(), T2V_CHECK_STEPS,
+                                   init_samples=x, cond=ctx, start_step=333.0)
 
     codecs = (sd_vae(dev), sd_vae("cpu"))
     pixels = rng.uniform(-1, 1, (1, frames, 8 * side, 8 * side, 3)).astype(np.float32)
@@ -2687,9 +2719,9 @@ def t2v_card_vs_cpu(dev, state: dict) -> dict:
 
 
 def t2v_serving(dev, state: dict) -> dict:
-    """13b: DDIM-50 + CFG 3.0, batch 1, a clip of 16 frames of 32x32x4
+    """13b: DDIM-25 + CFG 3.0, batch 1, a clip of 16 frames of 32x32x4
     latents in bf16, decoded by the SD VAE to 16 x 256x256x3; the launch
-    counters, zeroed just before, must read T2V_PER_FORWARD x 51 (the codec
+    counters, zeroed just before, must read T2V_PER_FORWARD x 26 (the codec
     is plain PyTorch). Then the decode alone, and one CFG call as launched
     beside its busy time as a CUDA graph."""
     from flaxdiff_tpu_torch.device import make_generator
@@ -2715,11 +2747,11 @@ def t2v_serving(dev, state: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    out = run(STEPS, 1)
+    out = run(STEPS13, 1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    expected = {k: T2V_PER_FORWARD.get(k, 0) * (STEPS + 1) for k in counts}
+    expected = {k: T2V_PER_FORWARD.get(k, 0) * (STEPS13 + 1) for k in counts}
     log(f"  launches {counts}, expected {expected}")
     check(counts == routed(expected), "every attention, GEGLU and GroupNorm call of T2V ran its kernel")
     shape = (1, T2V_FRAMES, T2V_PIXELS, T2V_PIXELS, 3)
@@ -2729,9 +2761,9 @@ def t2v_serving(dev, state: dict) -> dict:
     latents = torch.randn(1, T2V_FRAMES, T2V_SIDE, T2V_SIDE, 4, device=dev)
     with torch.inference_mode():
         decode_ms = time_ms(lambda: codec.decode(latents), 3)
-    res = {"wall_s": wall, "forwards": STEPS + 1, "ms_per_forward": wall * 1e3 / (STEPS + 1),
+    res = {"wall_s": wall, "forwards": STEPS13 + 1, "ms_per_forward": wall * 1e3 / (STEPS13 + 1),
            "decode_ms": decode_ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches_per_call": {k: v // (STEPS + 1) for k, v in counts.items() if v},
+           "launches_per_call": {k: v // (STEPS13 + 1) for k, v in counts.items() if v},
            "launches": counts, "sample_std": float(out.float().std())}
     x = torch.randn(2, T2V_FRAMES, T2V_SIDE, T2V_SIDE, 4, device=dev)
     ctx = torch.cat([cond, uncond]).to(dev)
@@ -2825,8 +2857,8 @@ def cli13_path(dev) -> dict:
     """13d: the CLI with --autoencoder sd_vae over a random full-width SD VAE
     written as diffusers-named weights to an npz in a temporary directory
     (removed after): phase 10's UNet on 32x32x4 latents of 256x256 synthetic
-    images, 10 steps and a save; then from_checkpoint(autoencoder=...) serves
-    2 prompts, DDIM-50 + CFG, decoded to 256x256."""
+    images, 5 steps and a save; then from_checkpoint(autoencoder=...) serves
+    2 prompts, DDIM-25 + CFG, decoded to 256x256."""
     import tempfile
 
     from flaxdiff_tpu_torch import train
@@ -2866,19 +2898,19 @@ def cli13_path(dev) -> dict:
         request(2)
         reset_counts()
         t0 = time.perf_counter()
-        out = request(STEPS)
+        out = request(STEPS13)
         req_wall = time.perf_counter() - t0
         serve_counts = launch_counts()
-        check(serve_counts == routed({k: PER_FORWARD.get(k, 0) * (STEPS + 1) for k in serve_counts}),
-              "the latent pipeline's request launched PER_FORWARD x 51 kernels")
+        check(serve_counts == routed({k: PER_FORWARD.get(k, 0) * (STEPS13 + 1) for k in serve_counts}),
+              "the latent pipeline's request launched PER_FORWARD x 26 kernels")
         check(out.shape == (2, T2V_PIXELS, T2V_PIXELS, 3) and bool(np.isfinite(out).all())
               and float(np.abs(out).max()) <= 1.0, f"decoded samples {out.shape}, finite, in [-1, 1]")
         res["serving"] = {"wall_s": req_wall, "launches": serve_counts,
-                          "ms_per_call": req_wall * 1e3 / (STEPS + 1)}
+                          "ms_per_call": req_wall * 1e3 / (STEPS13 + 1)}
         res["launches"] = {k: counts[k] + serve_counts[k] for k in counts}
         log(f"  CLI: {CLI13_STEPS} steps in {wall:.2f} s with the build (last window "
             f"{res['fit']['ms_per_step_last_window']:.3f} ms per step); from_checkpoint: "
-            f"DDIM-{STEPS} CFG {GUIDANCE} for {CLI_PROMPTS} decoded to {T2V_PIXELS}x{T2V_PIXELS}: "
+            f"DDIM-{STEPS13} CFG {GUIDANCE} for {CLI_PROMPTS} decoded to {T2V_PIXELS}x{T2V_PIXELS}: "
             f"wall {req_wall:.3f} s")
         del pipe
     finally:
@@ -2895,7 +2927,7 @@ def t2v_paths(dev) -> dict:
         f"parameters, drawn in {time.perf_counter() - t0:.1f} s")
     out["card_vs_cpu"] = t2v_card_vs_cpu(dev, state)
     torch.cuda.empty_cache()
-    log(f"  13b: DDIM-{STEPS} + CFG {GUIDANCE}, batch 1, {T2V_FRAMES} frames of "
+    log(f"  13b: DDIM-{STEPS13} + CFG {GUIDANCE}, batch 1, {T2V_FRAMES} frames of "
         f"{T2V_SIDE}x{T2V_SIDE}x4, bf16, SD VAE decode")
     out["serving"] = t2v_serving(dev, state)
     del state
@@ -3976,10 +4008,329 @@ def data_paths(dev, per_step: dict, phase10: dict) -> dict:
     return res
 
 
-# kernel-name fragments -> the layer they belong to, first match wins
-FAMILIES = [(fam, frag) for fam, frags in KERNEL_SYMBOLS.items() for frag in frags] + [
-    ("conv", "conv"), ("conv", "fprop"), ("conv", "implicit"),
-    ("gemm", "gemm"), ("gemm", "cutlass"), ("gemm", "nvjet"), ("gemm", "sm90_xmma")]
+# --- phase 17: the run's telemetry ------------------------------------------------
+
+# 17a: phase 10's CLI run with every telemetry flag, windows of 8 steps, the
+# device phase sampled every 4th step, one device-profile window of 4 steps
+# opened through the trainer's profile_trigger (armed at the first window)
+TEL17_STEPS, TEL17_LOG_EVERY, TEL17_SAMPLE, TEL17_PROFILE = 32, 8, 4, 4
+# 17b: phase 4's served UNet, DDIM-10 requests in buckets 1 and 4
+SERVE17_STEPS, SERVE17_ROUND = 10, 10
+# 17c: the KL autoencoder at the JAX defaults' widths
+AE17 = dict(latent_channels=4, block_channels=(64, 128, 256), layers_per_block=2, norm_groups=8)
+AE17_BATCH, AE17_SIDE, AE17_WARMUP, AE17_TIMED, AE17_LR = 8, 256, 3, 10, 1e-4
+AE17_CHECK_BATCH, AE17_CHECK_SIDE, AE17_SEED = 2, 64, 17
+TEL17_FILES = ("telemetry.jsonl", "goodput.json", "trace.json", "programs.jsonl",
+               "devprof.jsonl")
+
+
+def _jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def telemetry_cli_path(dev, phase10: dict) -> dict:
+    """17a (see the module docstring)."""
+    import dataclasses
+    import tempfile
+
+    from flaxdiff_tpu_torch import train
+    from flaxdiff_tpu_torch.ops import launch_counts
+    from flaxdiff_tpu_torch.profiling import device_peak_flops, model_flops
+    from flaxdiff_tpu_torch.telemetry import read_registry
+    from flaxdiff_tpu_torch.trainer import ModelRegistry
+
+    root = tempfile.mkdtemp(prefix="flaxdiff_tel17_")
+    res: dict = {}
+    make_run = train.make_run
+    try:
+        run_dir, tel = os.path.join(root, "run"), os.path.join(root, "tel")
+        prom, reg, trigger = (os.path.join(root, n) for n in ("m.prom", "registry.json", "go"))
+        open(trigger, "w").close()
+        fit_wall = []
+
+        def armed(argv):
+            run = make_run(argv)
+            t = run.trainer
+            t.config = dataclasses.replace(t.config, profile_trigger=trigger,
+                                           profile_steps=TEL17_PROFILE)
+            fit = t.fit
+
+            def timed_fit(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fit(*a, **k)
+                finally:
+                    fit_wall.append(time.perf_counter() - t0)
+
+            t.fit = timed_fit
+            return run
+
+        train.make_run = armed
+        args = with_flags(cli_args(run_dir, TEL17_STEPS, dev), log_every=str(TEL17_LOG_EVERY),
+                          save_every=str(TEL17_STEPS), telemetry_dir=tel,
+                          telemetry_sample_every=str(TEL17_SAMPLE), prometheus_textfile=prom,
+                          registry=reg, run_name="phase17")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        hist = train.main(args)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        per_step = {**PER_FORWARD, **PER_BACKWARD}
+        check(counts == routed({k: TEL17_STEPS * per_step.get(k, 0) for k in counts}),
+              f"17a: every kernel ran once per call per step under telemetry ({counts})")
+        for name in TEL17_FILES:
+            path = os.path.join(tel, name)
+            check(os.path.exists(path), f"17a: {name} written")
+            (_jsonl if name.endswith(".jsonl") else lambda p: json.load(open(p)))(path)
+        for path in (prom, reg, os.path.join(run_dir, "train_log.jsonl")):
+            check(os.path.exists(path) and os.path.getsize(path) > 0, f"17a: {path} written")
+        diag = subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "scripts", "diagnose_run.py"), tel, "--json"], capture_output=True,
+            text=True, timeout=120)
+        check(diag.returncode == 0, f"17a: scripts/diagnose_run.py --json exits 0 "
+                                    f"({diag.stderr[-400:]})")
+        report = json.loads(diag.stdout)
+        gp = hist["goodput"]
+        accounted = gp["productive_s"] + sum(gp["badput_s"].values())
+        wall = fit_wall[0]
+        check(abs(accounted - wall) <= 0.05 * wall,
+              f"17a: productive + badput {accounted:.3f} s within 5% of the fit's {wall:.3f} s")
+        peak = device_peak_flops(dev)
+        mfus = [m for m in hist["mfu"] if m is not None]
+        check(peak is not None and len(mfus) == len(hist["mfu"]) and all(0 < m < 1 for m in mfus),
+              f"17a: MFU reported against the card's peak ({peak}) and in (0, 1): {hist['mfu']}")
+        rows = read_registry(os.path.join(tel, "programs.jsonl"))
+        check([r["kind"] for r in rows] == ["train_step"] and rows[0]["flops_jaxpr"] > 0,
+              f"17a: one program row for the train step ({[r['kind'] for r in rows]})")
+        # the card's count holds flash's backward products, which autograd
+        # runs on its device thread: the same step at batch 1 counted on the
+        # CPU, where every product runs on the caller's thread, x the batch
+        cpu_run = make_run(with_flags(cli_args(os.path.join(root, "cpu"), 1, "cpu"),
+                                      batch_size=1, dtype="float32"))
+        stream = cpu_run.batches(0)
+        cpu_flops = model_flops(cpu_run.trainer.train_step, next(stream))
+        stream.close()
+        del cpu_run, stream
+        check(rows[0]["flops_jaxpr"] == TRAIN_BATCH * cpu_flops,
+              f"17a: the train step's {rows[0]['flops_jaxpr']:.6g} FLOPs on the card equal "
+              f"{TRAIN_BATCH} x its {cpu_flops:.6g} at batch 1 on the CPU")
+        dev_rows = [r for r in _jsonl(os.path.join(tel, "devprof.jsonl"))
+                    if r.get("type") == "devprof"]
+        check(len(dev_rows) == 1, f"17a: one device-profile window ({len(dev_rows)})")
+        row = dev_rows[0]
+        fam_ms = sum(v["ms"] for v in row["families"].values())
+        check(abs(fam_ms - row["device_total_ms"]) <= 0.01 * max(row["device_total_ms"], 1e-9),
+              f"17a: the window's family sums {fam_ms:.3f} ms equal its kernel total "
+              f"{row['device_total_ms']:.3f} ms")
+        phases = [r for r in _jsonl(os.path.join(tel, "telemetry.jsonl"))
+                  if r.get("type") == "step_phases"]
+        split = {k: sum(r.get(k, 0.0) for r in phases)
+                 for k in ("host", "device", "data_wait", "checkpoint", "profile", "other")}
+        best = ModelRegistry(reg).best_run("loss")
+        check(best is not None and best["run"] == "phase17" and best["step"] == TEL17_STEPS,
+              "17a: the run is recorded in the registry at its last step")
+        windows = [TRAIN_BATCH * 1e3 / ips for ips in hist["imgs_per_sec"]]
+        total = max(sum(split.values()), 1e-9)
+        res = {"fit_wall_s": wall, "goodput": gp, "accounted_s": accounted,
+               "goodput_fraction": gp["productive_s"] / accounted, "window_ms_per_step": windows,
+               # the windows after the compile window and the profiled one
+               "ms_per_step": float(np.median(windows[2:])),
+               "phase10_ms_per_step": phase10["fit"]["ms_per_step"], "mfu": hist["mfu"],
+               "peak_flops": peak, "phase_split_s": split,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "devprof": {k: row.get(k) for k in ("status", "device_events", "device_total_ms",
+                                                     "device_ms_per_step", "families",
+                                                     "top_other_ms", "measured_mfu",
+                                                     "roofline_verdict", "steps")},
+               "program": {k: rows[0].get(k) for k in ("compile_ms", "flops_jaxpr",
+                                                       "measured_mfu", "hbm_peak_bytes")},
+               "report_keys": sorted(report), "launches": counts}
+        top = sorted(row["families"].items(), key=lambda kv: -kv[1]["ms"])[:5]
+        log(f"  17a: {res['ms_per_step']:.3f} ms per step with telemetry (windows "
+            + " ".join(f"{x:.3f}" for x in windows) + f"; phase 10 without: "
+            f"{res['phase10_ms_per_step']:.3f}), goodput {res['goodput_fraction']:.1%} of "
+            f"{accounted:.3f} s (fit wall {wall:.3f} s; badput "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(gp["badput_s"].items()))
+            + "), phases " + ", ".join(f"{k} {v / total:.1%}" for k, v in split.items())
+            + ", MFU " + " ".join(f"{m:.3f}" for m in mfus) + f" of {peak} FLOP/s, peak "
+            f"{res['peak_mem_gib']:.2f} GiB; devprof window {row['status']}, "
+            f"{row['device_events']} kernels, {row['device_total_ms']:.3f} ms over "
+            f"{row['steps']} steps, measured MFU {row.get('measured_mfu')}; top families "
+            + ", ".join(f"{k} {v['ms']:.3f} ms" for k, v in top))
+    finally:
+        train.make_run = make_run
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def serving_telemetry(dev) -> dict:
+    """17b (see the module docstring)."""
+    import tempfile
+
+    from flaxdiff_tpu_torch import resilience as R
+    from flaxdiff_tpu_torch.models import Unet
+    from flaxdiff_tpu_torch.ops import launch_counts
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.serving import SampleRequest, SchedulerConfig, ServingScheduler
+    from flaxdiff_tpu_torch.telemetry import (DeviceProfiler, Telemetry, list_incidents,
+                                              read_registry)
+
+    model, _, _ = serving_model(dev, random_state(Unet(**UNET, device="cpu"), 0))
+    pipe = serving15_pipeline(dev, model, RESOLUTION, 3, CosineNoiseSchedule(1000),
+                              EpsilonPredictionTransform())
+    reqs = [SampleRequest(**dict(MIX15[i % 3], diffusion_steps=SERVE17_STEPS, sampler="ddim",
+                                 seed=171 + i)) for i in range(4)]
+    root = tempfile.mkdtemp(prefix="flaxdiff_serve17_")
+    res: dict = {}
+    try:
+        with R.use_event_log(R.EventLog("phase17")), preclip():
+            solos = [solo15(pipe, r) for r in reqs]
+            tel = Telemetry.create(os.path.join(root, "tel"))
+            prof = DeviceProfiler(tel.devprof_path, window=1, metrics=tel.registry)
+            prof.arm()
+            cfg = SchedulerConfig(round_steps=SERVE17_ROUND, batch_buckets=(1, 4))
+            sched = ServingScheduler(pipeline=pipe, telemetry=tel, autostart=False,
+                                     config=cfg, profiler=prof)
+            reset_counts()
+            futs = [sched.submit(r) for r in reqs[:3]]
+            sched.start()
+            outs = [f.result(timeout=600) for f in futs]
+            outs.append(sched.submit(reqs[3]).result(timeout=600))
+            sched.close()
+            torch.cuda.synchronize()
+            if prof.active():          # a retried window with no round left to close it
+                prof.close()
+            counts = launch_counts()
+            misses = tel.registry.snapshot()["serving/program_cache_misses"]
+            rows = read_registry(os.path.join(root, "tel", "programs.jsonl"))
+            check(len(rows) == misses and misses >= 2,
+                  f"17b: one program row per cache miss ({len(rows)} rows, {misses:.0f} misses)")
+            check(all(r["flops_jaxpr"] and r["flops_jaxpr"] > 0 for r in rows),
+                  "17b: every program row carries its model FLOPs")
+            bit = [bool(np.array_equal(o.samples, s)) for o, s in zip(outs, solos)]
+            check(all(bit), f"17b: every request bit-equal to its solo call ({bit})")
+            check(all(counts[k] > 0 for k in ("flash_fwd", "geglu", "gn_stats", "gn_norm",
+                                               "bi_gemm", "bi_conv")),
+                  f"17b: the served route ran its kernels ({counts})")
+            res.update(programs=len(rows), misses=misses, bit_equal=sum(bit),
+                       kinds=sorted({r["kind"] for r in rows}), launches=counts,
+                       devprof=[{k: r.get(k) for k in ("status", "device_events",
+                                                       "device_total_ms", "families")}
+                                for r in prof.rows],
+                       compile_ms={r["kind"] + ":" + r["key"].split(",")[1]: r["compile_ms"]
+                                   for r in rows})
+            # a forced rebuild: the device lost at the first round
+            plan = R.FaultPlan([R.FaultSpec("serving.device_lost", at=(1,), times=1,
+                                            error="flag")], seed=0)
+            sched = ServingScheduler(pipeline=pipe, telemetry=tel, autostart=False, config=cfg)
+            with plan.installed():
+                futs = [sched.submit(r) for r in reqs]
+                sched.start()
+                again = [f.result(timeout=600) for f in futs]
+                sched.close()
+            tel.close()
+            incidents = [os.path.basename(p) for p in list_incidents(os.path.join(root, "tel"))]
+            rebuilds = tel.registry.snapshot().get("serving/supervisor_rebuilds", 0)
+            check(rebuilds == 1 and incidents == ["incident-001-engine_rebuild.json"],
+                  f"17b: one rebuild, one incident bundle ({rebuilds}, {incidents})")
+            bit = [bool(np.array_equal(o.samples, s)) for o, s in zip(again, solos)]
+            check(all(bit), f"17b: every request across the rebuild bit-equal to its solo call")
+            with open(list_incidents(os.path.join(root, "tel"))[0]) as f:
+                bundle = json.load(f)
+            res.update(incidents=incidents, rebuilds=rebuilds,
+                       bundle={"records": len(bundle["records"]), "ledger": len(bundle["ledger"]),
+                               "trace_ids": len(bundle["trace_ids"])})
+        log(f"  17b: {res['programs']} program rows for {res['misses']:.0f} cache misses "
+            f"({res['kinds']}), first-call ms {res['compile_ms']}, {res['bit_equal']} of "
+            f"{len(reqs)} requests bit-equal to their solo calls; the armed profiler's window "
+            f"{res['devprof']}; a forced rebuild: {res['incidents']} ({res['bundle']})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model, pipe
+    return res
+
+
+def ae_trainer(dev, dtype=None):
+    from flaxdiff_tpu_torch.models import KLAutoEncoder
+    from flaxdiff_tpu_torch.trainer import AdamW, AutoEncoderTrainer, AutoEncoderTrainerConfig
+    vae = KLAutoEncoder.create(AE17_SEED, **AE17, dtype=dtype, device=dev)
+    return AutoEncoderTrainer(vae, AdamW(AE17_LR), AutoEncoderTrainerConfig(kl_weight=1e-6),
+                              device=dev)
+
+
+def autoencoder_training(dev) -> dict:
+    """17c (see the module docstring)."""
+    from flaxdiff_tpu_torch.models.common import FusedGroupNormSiLU
+    from flaxdiff_tpu_torch.ops import launch_counts
+
+    # f32, card against CPU: the loss and every gradient with the same noise
+    rng = np.random.default_rng(AE17_SEED)
+    x = torch.from_numpy(rng.uniform(-1, 1, (AE17_CHECK_BATCH, AE17_CHECK_SIDE,
+                                             AE17_CHECK_SIDE, 3)).astype(np.float32))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        t = ae_trainer(where)
+        noise = torch.from_numpy(rng.standard_normal(t.noise_shape(x)).astype(np.float32)) \
+            if where == dev else out[dev][2]
+        loss, _, _ = t.loss(x.to(where), noise.to(where))
+        out[where] = (float(loss.detach()), t.state.grads(loss).cpu(), noise)
+        layout = t.state.layout
+    (gl, gg, _), (cl, cg, _) = out[dev], out[torch.device("cpu")]
+    rel = abs(gl - cl) / abs(cl)
+    worst = max(float((gg[o:o + s.numel()] - cg[o:o + s.numel()]).abs().max())
+                / max(float(cg[o:o + s.numel()].abs().max()), 1e-30) for _, o, s in layout)
+    log(f"  17c card vs CPU f32, batch {AE17_CHECK_BATCH} at {AE17_CHECK_SIDE}^2: loss {gl:.6f} / "
+        f"{cl:.6f} ({rel:.2e} relative), worst gradient {worst:.2e} of its max|g|")
+    check(rel <= 1e-5, f"17c: the loss within 1e-5 relative ({rel:.3g})")
+    check(worst <= 1e-3, f"17c: every gradient within 1e-3 of its max|g| ({worst:.3g})")
+
+    trainer = ae_trainer(dev, "bfloat16")
+    per = sum(isinstance(m, FusedGroupNormSiLU) for m in trainer.state.model.modules())
+    batches = [{"sample": torch.from_numpy(np.random.default_rng(i).integers(
+        0, 256, (AE17_BATCH, AE17_SIDE, AE17_SIDE, 3), dtype=np.uint8)).to(dev)}
+        for i in range(4)]
+    losses = [trainer.train_step(batches[i % 4])["loss"] for i in range(AE17_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(AE17_TIMED):
+        losses.append(trainer.train_step(batches[i % 4])["loss"])
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / AE17_TIMED
+    counts = launch_counts()
+    losses = torch.stack(losses).cpu().tolist()
+    expected = {k: per * AE17_TIMED if k in ("gn_stats", "gn_norm", "gn_bwd_stats", "gn_bwd_dx")
+                else 0 for k in counts}
+    check(counts == expected, f"17c: B4-B7 once per GroupNorm call per step ({counts}, "
+                              f"expected {expected})")
+    check(all(math.isfinite(v) for v in losses), "17c: every loss finite")
+    res = {"ms_per_step": ms, "images_per_s": AE17_BATCH * 1e3 / ms,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "losses": losses,
+           "launches": counts, "gn_calls_per_forward": per, "card_vs_cpu":
+               {"loss_rel": rel, "worst_grad_of_max": worst}}
+    log(f"  17c: KL autoencoder {AE17['block_channels']} at {AE17_SIDE}^2, batch {AE17_BATCH}, "
+        f"bf16: {ms:.3f} ms per step, {res['images_per_s']:.1f} images/s, peak "
+        f"{res['peak_mem_gib']:.2f} GiB; launches {counts}")
+    del trainer
+    return res
+
+
+def telemetry_paths(dev, phase10: dict) -> dict:
+    """Phase 17: 17a, 17b, 17c, each with its own phase_s."""
+    out, t = {}, time.perf_counter()
+    for key, fn in (("cli", lambda: telemetry_cli_path(dev, phase10)),
+                    ("serving", lambda: serving_telemetry(dev)),
+                    ("autoencoder", lambda: autoencoder_training(dev))):
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+    return out
 
 
 def forward_breakdown(call, what: str):
@@ -3998,11 +4349,14 @@ def forward_breakdown(call, what: str):
 
 
 def family_profile(call, training: bool = False) -> dict:
-    """Device time of one call by kernel family, from torch.profiler. The
-    profiler's CUPTI tracing sometimes delivers no device events at all; this
-    breakdown only explains the busy time measured above, so it is then
+    """Device time of one call by kernel family, from torch.profiler, named
+    by the package's own classifier (``telemetry.devprof.kernel_family``).
+    The profiler's CUPTI tracing sometimes delivers no device events at all;
+    this breakdown only explains the busy time measured above, so it is then
     reported as not measured instead of failing the run."""
     from torch.profiler import ProfilerActivity, profile
+
+    from flaxdiff_tpu_torch.telemetry.devprof import summarize_kernels
 
     for attempt in range(3):
         mode = contextlib.nullcontext() if training else torch.inference_mode()
@@ -4016,17 +4370,13 @@ def family_profile(call, training: bool = False) -> dict:
     else:
         log("  device time by kernel family: not measured")
         return {"kernels": None, "ms_by_family": None, "top_other_ms": None}
-    by_family, other = {}, {}
-    for ev in events:
-        ms = ev.time_range.elapsed_us() / 1e3
-        fam = next((f for f, frag in FAMILIES if frag in ev.name.lower()), "other")
-        by_family[fam] = by_family.get(fam, 0.0) + ms
-        if fam == "other":
-            other[ev.name[:80]] = other.get(ev.name[:80], 0.0) + ms
+    summary = summarize_kernels((ev.name, ev.time_range.elapsed_us(), None, None)
+                                for ev in events)
     top = lambda d, n: dict(sorted(d.items(), key=lambda kv: -kv[1])[:n])
-    out = {"kernels": len(events), "ms_by_family": top(by_family, len(by_family)),
-           "top_other_ms": top(other, 8)}
-    log(f"  profiler: {len(events)} kernels, {sum(by_family.values()):.3f} ms; "
+    by_family = {f: v["us"] / 1e3 for f, v in summary["families"].items()}
+    out = {"kernels": summary["device_events"], "ms_by_family": top(by_family, len(by_family)),
+           "top_other_ms": {k: v / 1e3 for k, v in top(summary["top_other_us"], 8).items()}}
+    log(f"  profiler: {out['kernels']} kernels, {sum(by_family.values()):.3f} ms; "
         + ", ".join(f"{k} {v:.3f}" for k, v in out["ms_by_family"].items()))
     for name, ms in out["top_other_ms"].items():
         log(f"    other: {ms:.3f} ms {name}")
@@ -4045,9 +4395,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    starts = {}
+    stamp = lambda phase: starts.setdefault(phase, time.perf_counter())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
+    stamp("1")
     log(f"phase 1: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     lib = _build.build()
@@ -4064,12 +4417,14 @@ def main() -> int:
     hgmma = log_hgmma(lib)
     install_route_census()
 
+    stamp("2")
     log("phase 2: kernels against their plain versions")
     cases, yardsticks = kernel_cases(dev, peaks(name))
     torch.cuda.empty_cache()
 
     from flaxdiff_tpu_torch.models import Unet
     unet_state = random_state(Unet(**UNET, device="cpu"), 0)
+    stamp("3")
     log("phase 3: full-width UNet, card against CPU")
     model_res = model_checks(dev, unet_state)
     model_res["wide_block"] = wide_block_check(dev, WIDE_LEVEL)
@@ -4077,6 +4432,7 @@ def main() -> int:
     model_res["unet3d_block"] = wide_block_check(dev, UNET3D_LEVEL, UNET3D_BLOCK)
     torch.cuda.empty_cache()
 
+    stamp("4")
     log(f"phase 4: DDIM-{STEPS} + CFG {GUIDANCE} at {RESOLUTION}x{RESOLUTION}, bf16")
     traj = main_path(dev, unet_state)
     log(f"trajectory: DDIM-{STEPS} CFG {GUIDANCE} {RESOLUTION}x{RESOLUTION} batch 1 bf16 "
@@ -4084,6 +4440,7 @@ def main() -> int:
         f"peak {traj['peak_mem_gib']:.2f} GiB on {smi}")
     torch.cuda.empty_cache()
 
+    stamp("5")
     log(f"phase 5: DiffusionTrainer.train_step, batch {TRAIN_BATCH} at {TRAIN_RES}x{TRAIN_RES}, "
         f"bf16, {WARMUP} + {TIMED} steps")
     train = training_path(dev)
@@ -4099,10 +4456,12 @@ def main() -> int:
     # mostly inside the clip
     for key in ("final_proj.weight", "final_proj.bias"):
         state[key] *= 0.1
+    stamp("3b")
     log("phase 3b: full-width DiT-B/2, card against CPU")
     dit_res = dit_model_checks(dev, state)
     torch.cuda.empty_cache()
 
+    stamp("6")
     log(f"phase 6: DiT-B/2 DDIM-{STEPS} + CFG {GUIDANCE}, batch {DIT_SERVE_BATCH} of "
         f"{DIT_RES}x{DIT_RES}x{DIT_CH}, bf16")
     dit_traj = dit_serving_path(dev, state)
@@ -4114,6 +4473,7 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
 
+    stamp("7")
     log(f"phase 7: DiT-B/2 DiffusionTrainer.train_step, batch {DIT_TRAIN_BATCH} of "
         f"{DIT_RES}x{DIT_RES}x{DIT_CH}, bf16, {WARMUP} + {TIMED} steps")
     dit_train = dit_training_path(dev)
@@ -4124,6 +4484,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
+    stamp("8")
     log(f"phase 8: every sampler, {SAMPLER_STEPS} steps + CFG {GUIDANCE} at {RESOLUTION}x{RESOLUTION}, "
         f"bf16")
     t8 = time.perf_counter()
@@ -4135,6 +4496,7 @@ def main() -> int:
     del unet_state
     torch.cuda.empty_cache()
 
+    stamp("9")
     log(f"phase 9: EDM DiffusionTrainer.train_step, batch {TRAIN_BATCH} at "
         f"{TRAIN_RES}x{TRAIN_RES}, bf16, {WARMUP} + {TIMED} steps")
     t9 = time.perf_counter()
@@ -4146,6 +4508,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
+    stamp("10")
     log(f"phase 10: the training CLI, batch {TRAIN_BATCH} at {TRAIN_RES}x{TRAIN_RES}, bf16, "
         f"{CLI_STEPS} steps, resume, a NaN batch, DDIM-{STEPS} + CFG from the checkpoint")
     t10 = time.perf_counter()
@@ -4162,6 +4525,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
+    stamp("11")
     log(f"phase 11: every model family at full width: card against CPU, DDIM-{STEPS11} + CFG "
         f"{GUIDANCE} in bf16, SimpleMMDiT and the hybrid SSM DiT's train steps, remat, the S5 "
         f"scan")
@@ -4180,6 +4544,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
+    stamp("12")
     log(f"phase 12: the training CLI with train.py's options, batch {TRAIN_BATCH} at "
         f"{TRAIN_RES}x{TRAIN_RES}, float16 with the loss scale, MultiSteps({CLI12_ACCUM}) over "
         f"lamb, {CLI12_STEPS} micro-steps, resume at {CLI12_RESUME_AT}, a NaN batch; the f32 "
@@ -4203,14 +4568,15 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
+    stamp("13")
     log(f"phase 13: latent video diffusion, UNet3D at ModelScope T2V's widths over SD VAE "
-        f"latents: card against CPU, DDIM-{STEPS} + CFG {GUIDANCE} decoded, training through the "
+        f"latents: card against CPU, DDIM-{STEPS13} + CFG {GUIDANCE} decoded, training through the "
         f"codec, the CLI with --autoencoder sd_vae")
     t13 = time.perf_counter()
     t2v = t2v_paths(dev)
     t2v["phase_s"] = time.perf_counter() - t13
     ts, tt = t2v["serving"], t2v["training"]
-    log(f"T2V serving: DDIM-{STEPS} CFG {GUIDANCE} batch 1, {T2V_FRAMES} frames {T2V_SIDE}x"
+    log(f"T2V serving: DDIM-{STEPS13} CFG {GUIDANCE} batch 1, {T2V_FRAMES} frames {T2V_SIDE}x"
         f"{T2V_SIDE}x4 bf16, wall {ts['wall_s']:.3f} s ({ts['ms_per_forward']:.2f} ms per call), "
         f"SD VAE decode to {T2V_PIXELS}x{T2V_PIXELS} {ts['decode_ms']:.3f} ms, one call busy "
         f"{ts['breakdown']['busy_ms']:.3f} ms as a graph ({ts['breakdown']['idle_share']:.0%} idle)"
@@ -4221,6 +4587,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
+    stamp("14")
     log(f"phase 14: the training-free caches on DiT-B/2, SimpleUDiT and SimpleMMDiT (card against "
         f"CPU, DDIM-{STEPS14} + CFG {GUIDANCE} under docs/CACHING.md's plans), PSNR, SSIM, FID with "
         f"InceptionV3, the CLI's --val_metrics")
@@ -4241,6 +4608,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
+    stamp("15")
     log(f"phase 15: the serving subsystem: phase 4's UNet behind ServingScheduler (bucket "
         f"identity, a seeded Poisson replay twice, chaos, two replicas behind the FrontDoor) and "
         f"DiT-B/2 under the composed plan")
@@ -4259,6 +4627,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
+    stamp("16")
     log(f"phase 16: the packed-shard data feed: phase 10's CLI over {DATA16_SHARDS} shards of "
         f"{DATA16_PER_SHARD} PNG images, a resume")
     t16 = time.perf_counter()
@@ -4268,6 +4637,19 @@ def main() -> int:
         f"10's synthetic source {cli['fit']['images_per_s']:.1f}), the reader "
         f"{data['shards']['decoded_records_per_s']:.0f} decoded records/s on one host thread; "
         f"phase 16 {data['phase_s']:.1f} s on {smi}")
+
+    stamp("17")
+    log(f"phase 17: the run's telemetry: phase 10's CLI with every telemetry flag and a device-"
+        f"profile window, phase 4's UNet served under an enabled hub with a forced rebuild, the KL "
+        f"autoencoder trainer at {AE17['block_channels']}")
+    tel17 = telemetry_paths(dev, cli)
+    phase17_s = sum(r["phase_s"] for r in tel17.values())
+    log(f"phase 17 {phase17_s:.1f} s (17a {tel17['cli']['phase_s']:.1f}, 17b "
+        f"{tel17['serving']['phase_s']:.1f}, 17c {tel17['autoencoder']['phase_s']:.1f}) on {smi}")
+    stamp("end")
+    order = list(starts)
+    phase_s = {a: starts[b] - starts[a] for a, b in zip(order, order[1:])}
+    log("phase_s " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
 
     cache_launches = lambda key: {k: sum(r["launches"][k] for r in cache["serving"][key].values())
                                   for k in REPLACES}
@@ -4283,7 +4665,9 @@ def main() -> int:
              "unet_cli_val_metrics": cache["metrics"]["cli"],
              "unet_serving_scheduler": serving["replay"],
              "dit_cached_serving_scheduler": serving["cached"],
-             "unet_cli_packed_shards": data["fit"]}
+             "unet_cli_packed_shards": data["fit"],
+             "unet_cli_telemetry": tel17["cli"], "unet_serving_telemetry": tel17["serving"],
+             "autoencoder_training": tel17["autoencoder"]}
     kernels, summary = [], []
     for kname in REPLACES:
         mine = [c for c in cases if c["name"] == kname]
@@ -4312,7 +4696,7 @@ def main() -> int:
               "dit_trajectory": dit_traj, "dit_training": dit_train,
               "samplers": samplers_res, "edm_training": edm_train, "cli": cli,
               "families": families, "options": options, "t2v": t2v, "cache": cache,
-              "serving": serving, "data": data,
+              "serving": serving, "data": data, "telemetry": tel17, "phase_s": phase_s,
               "total_s": time.perf_counter() - t0}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

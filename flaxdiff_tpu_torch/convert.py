@@ -160,3 +160,11 @@ def train_state_from_flax(flax_state: Any, model: nn.Module, tx: Any):
     state.step = int(np.asarray(adam[0].count))
     state.count.fill_(state.step)
     return state
+
+
+def autoencoder_trainer_from_flax(flax_state: Any, trainer: Any):
+    """Load a JAX ``AutoEncoderTrainer``'s state (its ``.state``: params
+    {"encoder", "decoder"}, EMA and adamw's moments and count) into the
+    port's ``AutoEncoderTrainer`` in place; returns the trainer."""
+    trainer.state = train_state_from_flax(flax_state, trainer.state.model, trainer.state.tx)
+    return trainer

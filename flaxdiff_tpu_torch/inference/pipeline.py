@@ -12,8 +12,9 @@ training-free caches (a ``CachePlan``, ``SpatialPlan`` or ``ComposedPlan``;
 docs/CACHING.md) and counts its steps on the global hub's ``diffcache/*``
 counters.
 
-It runs on the card unless given ``device="cpu"``. Not ported:
-``from_wandb_run``, ``from_registry`` and the rest of the telemetry.
+``from_registry`` loads the best run of a ``ModelRegistry``. It runs on the
+card unless given ``device="cpu"``. ``from_wandb_run`` is not ported: wandb
+is not installed on the port's machines.
 """
 from __future__ import annotations
 
@@ -148,6 +149,29 @@ class DiffusionInferencePipeline:
         return DiffusionInferencePipeline.from_config(
             config, named(state["params"]), named(state["ema"]),
             hash_table=_load_table(checkpoint_dir), device=device, autoencoder=autoencoder)
+
+    @staticmethod
+    def from_registry(registry_path: str, metric: str = "loss", device: DeviceLike = None,
+                      autoencoder=None) -> "DiffusionInferencePipeline":
+        """The best run for `metric` of a ``ModelRegistry`` (its
+        ``registry.json``, as either package writes it): the checkpoint of the
+        step that achieved the best value while it is still on disk (a
+        rotated-out step warns and loads the newest)."""
+        from ..trainer.checkpoints import Checkpointer
+        from ..trainer.registry import ModelRegistry
+        best = ModelRegistry(registry_path).best_run(metric)
+        if best is None:
+            raise FileNotFoundError(f"registry {registry_path} has no best run for metric "
+                                    f"{metric!r}")
+        ck = Checkpointer(best["checkpoint_dir"])
+        steps = ck.all_steps()
+        ck.close()
+        step = best.get("step") if best.get("step") in steps else None
+        if step is None and best.get("step") is not None:
+            warnings.warn(f"registry best step {best['step']} no longer on disk under "
+                          f"{best['checkpoint_dir']}; loading latest", stacklevel=2)
+        return DiffusionInferencePipeline.from_checkpoint(
+            best["checkpoint_dir"], step=step, device=device, autoencoder=autoencoder)
 
     @staticmethod
     def from_flax_export(export_dir: str, device: DeviceLike = None,

@@ -55,4 +55,4 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the true head dim's scale; F.pad and the slice carry dq, dk, dv back
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     q, k, v = (F.pad(t, (0, width - d)) for t in (q, k, v))
-    return flash_attention(q, k, v, scale=scale)[..., :d]
+    return flash_attention(q, k, v, scale=scale, model_head_dim=d)[..., :d]

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .. import profiling
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -115,6 +116,13 @@ def bi_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None
         raise ValueError(f"bi_linear: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"b {None if b is None else tuple(b.shape)}")
     _check_dtypes(x, w, b)
+    if profiling.live_counters:
+        with profiling.count_product(2.0 * x.numel() * w.shape[0]):
+            return _bi_linear(x, w, b)
+    return _bi_linear(x, w, b)
+
+
+def _bi_linear(x, w, b):
     if x.device.type == "cpu":
         return bi_linear_plain(x, w, b)
     _build.require_cuda(x, w, *([] if b is None else [b]))
@@ -170,6 +178,20 @@ def bi_conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     if b is not None and b.shape != w.shape[:1]:
         raise ValueError(f"bi_conv2d: bias {tuple(b.shape)} for {w.shape[0]} outputs")
     _check_dtypes(x, w, b)
+    if profiling.live_counters:
+        with profiling.count_product(_conv_flops(x, w, stride, padding)):
+            return _bi_conv2d(x, w, b, stride, padding)
+    return _bi_conv2d(x, w, b, stride, padding)
+
+
+def _conv_flops(x, w, stride, padding) -> float:
+    """2 x output elements x input channels x kernel taps."""
+    oh = conv_output_size(x.shape[1], w.shape[2], stride[0], padding[0])
+    ow = conv_output_size(x.shape[2], w.shape[3], stride[1], padding[1])
+    return 2.0 * x.shape[0] * max(oh, 0) * max(ow, 0) * w.numel()
+
+
+def _bi_conv2d(x, w, b, stride, padding):
     if x.device.type == "cpu":
         return bi_conv2d_plain(x, w, b, stride, padding)
     _build.require_cuda(x, w, *([] if b is None else [b]))

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .. import profiling
 
 HEAD_DIMS = (32, 64, 128, 256)
 # above 256 the wide kernels take any multiple of WIDE_STEP; each block
@@ -294,8 +295,15 @@ class FlashAttentionFn(torch.autograd.Function):
     above 256 take the wide kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = _kernels(q.shape[-1])[0](q, k, v, scale)
+    def forward(ctx, q, k, v, scale, model_head_dim=None):
+        ctx.model_head_dim = q.shape[-1] if model_head_dim is None else model_head_dim
+        fwd = _kernels(q.shape[-1])[0]
+        if profiling.live_counters:
+            flops = profiling.attention_flops(q, k, ctx.model_head_dim, backward=False)
+            with profiling.count_product(flops):
+                out, lse = fwd(q, k, v, scale)
+        else:
+            out, lse = fwd(q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         ctx.mark_non_differentiable(lse)
@@ -303,17 +311,28 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = flash_delta(out, do)
-        _, bwd_dq, bwd_dkv = _kernels(q.shape[-1])
-        dq = bwd_dq(q, k, v, do, lse, delta, ctx.scale)
-        dk, dv = bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
-        return dq, dk, dv, None
+        saved = ctx.saved_tensors
+        if profiling.live_counters:
+            flops = profiling.attention_flops(saved[0], saved[1], ctx.model_head_dim,
+                                              backward=True)
+            with profiling.count_product(flops):
+                return _flash_backward(ctx.scale, do, *saved)
+        return _flash_backward(ctx.scale, do, *saved)
+
+
+def _flash_backward(scale, do, q, k, v, out, lse):
+    """The dq and dk/dv kernels from the forward's saved tensors."""
+    do = do.contiguous()
+    delta = flash_delta(out, do)
+    _, bwd_dq, bwd_dkv = _kernels(q.shape[-1])
+    dq = bwd_dq(q, k, v, do, lse, delta, scale)
+    dk, dv = bwd_dkv(q, k, v, do, lse, delta, scale)
+    return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: Optional[float] = None, return_lse: bool = False):
+                    scale: Optional[float] = None, return_lse: bool = False,
+                    model_head_dim: Optional[int] = None):
     """softmax(scale * q k^T) v over [B, L, H, D] tensors; with
     ``return_lse`` also the per-row logsumexp [B, H, Lq] (f32).
 
@@ -321,10 +340,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     two backward kernels when autograd asks. CUDA tensors launch the
     kernels, CPU tensors take the plain versions; anything the kernels
     cannot take (a head dim outside HEAD_DIMS that is not a multiple of 64
-    above 256) raises, on every device."""
+    above 256) raises, on every device. `model_head_dim`: the head dim
+    before zero-padding, at which a ``profiling.FlopCounter`` counts the
+    call (default: q's)."""
     _check(q, k, v)
     if padded_head_dim(q.shape[-1]) != q.shape[-1]:
         raise ValueError(f"head dim {q.shape[-1]}: the flash kernels take {HEAD_DIMS} and "
                          f"multiples of {WIDE_STEP} above {HEAD_DIMS[-1]}")
-    out, lse = FlashAttentionFn.apply(q, k, v, scale)
+    out, lse = FlashAttentionFn.apply(q, k, v, scale, model_head_dim)
     return (out, lse) if return_lse else out

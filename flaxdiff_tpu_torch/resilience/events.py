@@ -3,7 +3,8 @@
 that every recovery path flows through. Every event lands in an
 `EventLog`, counted by (kind, site) and mirrored to the
 ``flaxdiff_tpu_torch.resilience`` stdlib logger. The serving layer records its faults, rebuilds and replica
-losses here.
+losses here; subscribers (the flight recorder, `attach_resilience`) see each
+event as it is recorded.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import dataclasses
 import logging
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 log = logging.getLogger("flaxdiff_tpu_torch.resilience")
 
@@ -65,6 +66,7 @@ class EventLog:
         self._lock = threading.RLock()
         self._events: List[ResilienceEvent] = []
         self._counts: Dict[Tuple[str, str], int] = {}
+        self._subscribers: List[Callable[[ResilienceEvent], None]] = []
         self._keep = keep
         self._dropped = 0
 
@@ -78,10 +80,27 @@ class EventLog:
                 self._events.pop(0)
                 self._dropped += 1
             self._counts[(kind, site)] = self._counts.get((kind, site), 0) + 1
+            subs = list(self._subscribers)
         log.warning("resilience[%s] %s@%s%s%s", self.name, kind, site,
                     f" step={step}" if step is not None else "",
                     f": {detail}" if detail else "")
+        for fn in subs:
+            try:
+                fn(ev)
+            except Exception:   # a broken sink must never break recovery
+                log.exception("resilience subscriber failed")
         return ev
+
+    def subscribe(self, fn: Callable[[ResilienceEvent], None]) -> None:
+        """Call `fn(event)` after every record (the flight recorder, the
+        logger's ``attach_resilience``); a raising subscriber is logged."""
+        with self._lock:
+            self._subscribers.append(fn)
+
+    def unsubscribe(self, fn: Callable[[ResilienceEvent], None]) -> None:
+        with self._lock:
+            if fn in self._subscribers:
+                self._subscribers.remove(fn)
 
     # -- queries -------------------------------------------------------------
     def events(self, kind: Optional[str] = None,

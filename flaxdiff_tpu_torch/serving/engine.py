@@ -17,7 +17,9 @@ algorithm choice, the allocator's first blocks), which `prewarm` takes off
 the request path. Hits and misses are counted at
 `serving/program_cache_hits` / `serving/program_cache_misses`. Kinds:
 "chunk" (uncached), "chunk_cached" (timestep cache), "chunk_spatial"
-(timestep x spatial cache), "terminal".
+(timestep x spatial cache), "terminal". Under a hub with a program
+registry (``Telemetry.create``) each miss's first call runs inside the
+FLOP counter and registers one ``programs.jsonl`` row under its key.
 
 Batching model: the batch axis holds requests, each row a block of the
 request's `num_samples` samples with its own `NoiseSource` (by default a
@@ -38,7 +40,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..device import make_generator
+from ..profiling import FlopCounter
 from ..samplers.common import NoiseSource, RowNoise
+from ..telemetry.programs import peak_allocated
 from ..utils import clip_images
 from .request import SampleRequest, ServingFuture
 
@@ -240,6 +244,30 @@ class SamplerProgramEngine:
     def program_cache_size(self) -> int:
         return len(self._programs)
 
+    def _first_call(self, miss: bool, call):
+        """(the program's output, its model FLOPs): a miss under a hub with
+        a program registry runs inside ``profiling.FlopCounter``; any other
+        call runs bare (FLOPs None)."""
+        if not miss or getattr(self.telemetry, "programs", None) is None:
+            return call(), None
+        with FlopCounter() as counter:
+            out = call()
+        return out, counter.total
+
+    def _register_evidence(self, kind: str, group: tuple, bucket: int, scan_steps: int,
+                           compile_s: float, flops: Optional[float]) -> None:
+        """The program evidence registry's row of a program, called only on
+        a cache miss right after its first call: its dispatch key, the
+        first call's wall ms (as ``SampleResult.compile_ms``), its model
+        FLOPs and the allocator's peak. No registry on the hub (the
+        disabled default): no work."""
+        reg = getattr(self.telemetry, "programs", None)
+        if reg is None:
+            return
+        reg.record(kind, self._program_key(kind, group, bucket, scan_steps),
+                   compile_ms=compile_s * 1e3, flops_jaxpr=flops,
+                   hbm_peak_bytes=peak_allocated(self.device))
+
     # -- request admission ----------------------------------------------------
     def _sampler_for(self, req: SampleRequest):
         return self.pipeline.get_sampler(req.sampler, req.guidance_scale,
@@ -380,7 +408,8 @@ class SamplerProgramEngine:
             program, miss = self._get_program(
                 kind, group, bucket, round_steps,
                 lambda: ds.make_chunk_program(round_steps))
-            x_n, state_n = program(x, noise, meta, live, cond, uncond, state)
+            (x_n, state_n), flops = self._first_call(
+                miss, lambda: program(x, noise, meta, live, cond, uncond, state))
         else:
             spatial = ds.spatial_active
             kind = "chunk_spatial" if spatial else "chunk_cached"
@@ -389,10 +418,13 @@ class SamplerProgramEngine:
                 kind, group, bucket, round_steps,
                 lambda: ds.make_cached_chunk_program(round_steps))
             conds = [(r.cond, r.uncond) for r in rows]
-            x_n, state_n = program(x, noise, meta, live, conds, [r.taps for r in rows], state,
-                                   want)
+            (x_n, state_n), flops = self._first_call(
+                miss, lambda: program(x, noise, meta, live, conds, [r.taps for r in rows],
+                                      state, want))
             self._count_cache_steps(rows, n_act, want, spatial)
         compile_s = (time.perf_counter() - t0) if miss else 0.0
+        if miss:
+            self._register_evidence(kind, group, bucket, round_steps, compile_s, flops)
         self.last_round_info = {
             "kind": kind,
             "key": str(self._program_key(kind, group, bucket, round_steps)),
@@ -449,8 +481,10 @@ class SamplerProgramEngine:
         program, miss = self._get_program(
             "terminal", group, bucket, 0, lambda: ds.make_terminal_program())
         t0 = time.perf_counter()
-        x0 = program(x, t_term, cond, uncond)
+        x0, flops = self._first_call(miss, lambda: program(x, t_term, cond, uncond))
         compile_s = (time.perf_counter() - t0) if miss else 0.0
+        if miss:
+            self._register_evidence("terminal", group, bucket, 0, compile_s, flops)
         self.last_finalize_info = {
             "kind": "terminal",
             "key": str(self._program_key("terminal", group, bucket, 0)),

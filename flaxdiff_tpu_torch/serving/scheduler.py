@@ -197,7 +197,7 @@ class ServingScheduler:
     def __init__(self, pipeline=None, engine=None,
                  config: Optional[SchedulerConfig] = None,
                  telemetry=None, autostart: bool = True,
-                 engine_factory=None, noise_factory=None):
+                 engine_factory=None, noise_factory=None, profiler=None):
         if telemetry is None:
             from ..telemetry import global_telemetry
             telemetry = global_telemetry()
@@ -223,6 +223,11 @@ class ServingScheduler:
         # performs the IDENTICAL seam-counted host syncs as an untraced
         # one (counting-mock tested) — tracing is host bookkeeping only
         self.tracer = RequestTracer(telemetry)
+        # device-profile hook (telemetry/devprof.py DeviceProfiler): polled
+        # once a dispatch round with the round number, host bookkeeping only
+        # (window open and close, the trace's parse), never touching the
+        # program cache; None costs one attribute check a round
+        self.profiler = profiler
         self.supervisor = EngineSupervisor(telemetry)
         self.brownout = (BrownoutPolicy(self.config.brownout, telemetry)
                          if self.config.brownout is not None else None)
@@ -638,6 +643,10 @@ class ServingScheduler:
         for r in guilty:
             self.telemetry.counter("serving/quarantined").inc()
             self.tracer.note(r.trace, "quarantined", _now())
+            # a spike of these inside the flight recorder's window is an
+            # incident (telemetry/flightrec.py)
+            record_event("quarantine", "serving.quarantine",
+                         detail=f"convicted after {exc!r}")
             self._fail_state(r, ServingFault(
                 f"request convicted by solo re-run after a batch "
                 f"fault: {exc!r}", kind="poisoned", request=r.orig_req,
@@ -798,6 +807,9 @@ class ServingScheduler:
                 self._round_no += 1
                 self._last_served[gk] = self._round_no
 
+            if self.profiler is not None:
+                # outside the lock: a closing window parses its trace
+                self.profiler.poll_round(self._round_no)
             bucket = bucket_up(len(rows), buckets)
             round_steps = cfg.round_steps or nfe_bucket(
                 max(r.remaining for r in rows))

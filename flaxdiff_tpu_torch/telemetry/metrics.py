@@ -5,14 +5,20 @@ histograms over fixed bucket bounds, and the registry with its series cap.
 Histograms hold one count per fixed bucket, never raw samples; past
 `max_series` distinct names the registry hands out a shared no-op
 instrument and counts the loss in `telemetry/dropped_series`. Recording is
-a lock and a float add. The exporters (JSONL, Prometheus, the trainer's
-loggers) are ROADMAP.md A14.
+a lock and a float add. The exporters are dumb sinks over one flat
+``{name: float}`` snapshot: JSONL (the system of record
+``scripts/diagnose_run.py`` reads), a Prometheus textfile (tmp + atomic
+rename, the node-exporter textfile-collector convention) and a fan-out into
+the trainer's loggers.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 # Seconds-scale latency bounds. The last implicit bucket is +inf.
 DEFAULT_BUCKET_BOUNDS: Tuple[float, ...] = (
@@ -224,3 +230,96 @@ class MetricsRegistry:
         if dropped:
             out["telemetry/dropped_series"] = float(dropped)
         return out
+
+
+class JsonlExporter:
+    """One JSON object per export into `telemetry.jsonl` — the default
+    system of record (`scripts/diagnose_run.py` ingests this stream).
+    `write` takes raw records (per-step phase rows, pod aggregates);
+    `export` wraps a registry snapshot as a `"metrics"` record."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(os.path.abspath(path)) or ".",
+                    exist_ok=True)
+        self.path = path
+        self._fh = open(path, "a", buffering=1)
+        self._lock = threading.Lock()
+
+    def write(self, record: Dict[str, object]) -> None:
+        rec = {"_time": time.time(), **record}
+        with self._lock:
+            self._fh.write(json.dumps(rec) + "\n")
+
+    def export(self, snapshot: Dict[str, float],
+               step: Optional[int] = None) -> None:
+        rec: Dict[str, object] = {"type": "metrics"}
+        if step is not None:
+            rec["step"] = int(step)
+        rec.update(snapshot)
+        self.write(rec)
+
+    def close(self) -> None:
+        with self._lock:
+            if not self._fh.closed:
+                self._fh.close()
+
+
+def _prom_name(name: str) -> str:
+    out = []
+    for ch in name:
+        out.append(ch if ch.isalnum() or ch in "_:" else "_")
+    s = "".join(out)
+    return ("_" + s) if s and s[0].isdigit() else s
+
+
+class PrometheusTextfileExporter:
+    """Writes the snapshot in Prometheus text exposition format to one
+    file, atomically (tmp + rename) — the node-exporter
+    textfile-collector convention, so a sidecar scraper never reads a
+    half-written file. Every value is exposed as a gauge; histogram
+    sub-stats arrive pre-flattened from the registry snapshot."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(os.path.abspath(path)) or ".",
+                    exist_ok=True)
+        self.path = path
+
+    def export(self, snapshot: Dict[str, float],
+               step: Optional[int] = None) -> None:
+        lines: List[str] = []
+        if step is not None:
+            lines.append(f"flaxdiff_step {int(step)}")
+        for name in sorted(snapshot):
+            v = snapshot[name]
+            if not isinstance(v, (int, float)) or not math.isfinite(v):
+                continue
+            lines.append(f"flaxdiff_{_prom_name(name)} {float(v)}")
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        os.replace(tmp, self.path)
+
+    def write(self, record: Dict[str, object]) -> None:
+        pass    # raw records are JSONL-only
+
+    def close(self) -> None:
+        pass
+
+
+class LoggerExporter:
+    """Fans the snapshot into an existing trainer logger (JsonlLogger /
+    MultiLogger) so telemetry rides the run's normal
+    tracking stream. The logger's lifecycle stays with its owner."""
+
+    def __init__(self, logger):
+        self.logger = logger
+
+    def export(self, snapshot: Dict[str, float],
+               step: Optional[int] = None) -> None:
+        self.logger.log(dict(snapshot), step=step)
+
+    def write(self, record: Dict[str, object]) -> None:
+        pass    # structured raw records stay in the telemetry stream
+
+    def close(self) -> None:
+        pass    # owned by the caller (train.py closes it)

@@ -11,7 +11,7 @@ model's top-level names (``time_proj`` is ``TimeProjection_0``), so the aux
 has the JAX step's keys.
 
 The anomaly detector and its actions other than ``warn`` are ROADMAP.md
-A14; nothing here acts on the aux.
+A14's second half; nothing here acts on the aux.
 """
 from __future__ import annotations
 

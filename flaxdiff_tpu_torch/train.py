@@ -26,6 +26,16 @@ validation grid from the EMA params between chunks of the fit, scored by
 InceptionV3 features, pytorch-FID's weights from ``--inception_weights``,
 seeded random ones without), and
 ``--profile_dir`` writes a torch.profiler trace of a few steps.
+``--telemetry_dir DIR`` writes the run's telemetry there (``telemetry.jsonl``:
+phase rows, metric snapshots, the cross-host aggregate; ``goodput.json``;
+``trace.json``; ``programs.jsonl``; incident bundles; ``devprof.jsonl`` when
+the trainer's ``profile_cadence`` or ``profile_trigger`` opens device-profile
+windows), sampled every ``--telemetry_sample_every`` steps, and
+``--prometheus_textfile`` a Prometheus textfile beside it; read the directory
+with ``python scripts/diagnose_run.py DIR``. The run logs to
+``<checkpoint_dir>/train_log.jsonl`` and ends by recording itself in the
+model registry (``--registry``, default ``<checkpoint_dir>/../registry.json``)
+under ``--run_name``.
 ``--autoencoder kl_vae|sd_vae`` trains in a codec's latent space (``sd_vae``
 with ``--autoencoder_opts '{"npz": "sd_vae.npz"}'`` loads converted weights;
 without, both codecs take random weights from ``{"seed": N}``); serve such a
@@ -37,6 +47,7 @@ Only what is ported is accepted; any other flag of ``train.py`` is refused
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -100,6 +111,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--log_every", type=int, default=100)
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of a few steps of each fit chunk here")
+    p.add_argument("--telemetry_dir", default=None,
+                   help="enable the telemetry: phase rows, metric snapshots and the "
+                        "cross-host aggregate in telemetry.jsonl, the goodput account in "
+                        "goodput.json, host spans in trace.json, the program registry in "
+                        "programs.jsonl, device-profile rows in devprof.jsonl; one event "
+                        "synchronize per sampled step. Read it with scripts/diagnose_run.py")
+    p.add_argument("--telemetry_sample_every", type=int, default=1,
+                   help="with --telemetry_dir, close the device phase every N-th step only; "
+                        "off-sample steps add no host sync")
+    p.add_argument("--prometheus_textfile", default=None,
+                   help="also export the telemetry snapshot to this path in Prometheus text "
+                        "format (atomic rename). Requires --telemetry_dir")
     p.add_argument("--pipeline_depth", type=int, default=2,
                    help="steps dispatched ahead of the card at most; 0: no bound")
     p.add_argument("--no_nonfinite_gate", action="store_true",
@@ -118,7 +141,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="every N steps run the monitored step (global and per-module grad "
                         "and param norms, update ratios, non-finite counts); 0 disables")
     p.add_argument("--anomaly_action", default="warn", choices=["warn", "skip_step", "rollback"],
-                   help="only warn is ported (ROADMAP.md A14)")
+                   help="only warn is ported (skip_step and rollback: ROADMAP.md A14's "
+                        "second half)")
     p.add_argument("--val_every", type=int, default=0, help="0 disables in-loop validation")
     p.add_argument("--val_samples", type=int, default=8)
     p.add_argument("--val_steps", type=int, default=200)
@@ -131,6 +155,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "scripts/convert_inception_weights.py (standard FID; seeded random "
                         "features otherwise)")
     p.add_argument("--sampler", default="euler_ancestral")
+    p.add_argument("--registry", default=None,
+                   help="path to registry.json for cross-run best tracking "
+                        "(default: <checkpoint_dir>/../registry.json)")
+    p.add_argument("--run_name", default=None,
+                   help="the run's name in the registry (default: the checkpoint dir's name)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="torch device; default: CUDA")
     args = p.parse_args(argv)
@@ -163,6 +192,9 @@ class Run:
     start_step: int
     batches: Callable[[int], Iterator[Dict[str, Any]]]
     validate: Optional[Callable[[int], Dict[str, Any]]] = None
+    telemetry: Any = None
+    logger: Any = None
+    validator: Any = None
 
 
 # --val_metrics name -> its EvaluationMetric factory in metrics/
@@ -176,7 +208,10 @@ def _refuse_unported(args: argparse.Namespace) -> None:
                          "yet (ROADMAP.md queue B)")
     if args.anomaly_action != "warn":
         raise SystemExit(f"--anomaly_action {args.anomaly_action}: the anomaly detector's "
-                         "actions are ROADMAP.md A14; only warn is ported")
+                         "actions with the NaN provenance probe are ROADMAP.md A14's second "
+                         "half; only warn is ported")
+    if args.prometheus_textfile and not args.telemetry_dir:
+        raise SystemExit("--prometheus_textfile requires --telemetry_dir")
     if args.num_frames:
         raise SystemExit(f"--num_frames {args.num_frames}: the video and audio-video sources "
                          "read clips with OpenCV and ffmpeg (ROADMAP.md A9's rest)")
@@ -206,7 +241,9 @@ def _refuse_unported(args: argparse.Namespace) -> None:
 def make_run(argv: Optional[List[str]] = None) -> Run:
     """Parse `argv`, build the data, model, optimizer chain and trainer,
     restore the newest checkpoint of ``--checkpoint_dir`` if there is one,
-    and write the pipeline config and hash table beside it."""
+    and write the pipeline config and hash table beside it; the run's
+    logger (``train_log.jsonl``) and, with ``--telemetry_dir``, its
+    telemetry hub."""
     from .data import get_dataset, iterate_batches, prefetch_map
     from .device import resolve_device
     from .inference.pipeline import HASH_TABLE_FILENAME, save_pipeline_config
@@ -225,6 +262,20 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
     _refuse_unported(args)
     device = resolve_device(args.device)
     os.makedirs(args.checkpoint_dir, exist_ok=True)
+
+    from .trainer.logging import make_logger
+    logger = make_logger(jsonl_path=os.path.join(args.checkpoint_dir, "train_log.jsonl"))
+    telemetry = None
+    if args.telemetry_dir:
+        # a world of one over the in-memory transport keeps a single-host run
+        # on the aggregation path of a multi-host one (train.py:548-557); main
+        # makes the hub process-global, so layers without plumbing land on it
+        from .resilience.coordination import InMemoryTransport
+        from .telemetry import Telemetry
+        telemetry = Telemetry.create(args.telemetry_dir,
+                                     transport=InMemoryTransport.make_world(1)[0],
+                                     prometheus_textfile=args.prometheus_textfile,
+                                     logger=logger, device=device)
 
     autoencoder = None
     if args.autoencoder:
@@ -286,12 +337,16 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
                       gate_nonfinite=not args.no_nonfinite_gate,
                       numerics_cadence=args.numerics_cadence, loss_ring=args.loss_ring,
                       gate_counter=args.gate_counter, flat_params=args.flat_params,
-                      profile_dir=args.profile_dir),
+                      profile_dir=args.profile_dir,
+                      telemetry_sample_every=args.telemetry_sample_every),
         null_cond=null_cond, device=device, checkpointer=ckpt, policy=policy,
-        autoencoder=autoencoder)
+        autoencoder=autoencoder, telemetry=telemetry)
     start = 0
     if ckpt.latest_step() is not None:
-        start = trainer.restore_checkpoint()
+        restore = (telemetry.goodput.measure_badput("restart") if telemetry is not None
+                   else contextlib.nullcontext())
+        with restore:
+            start = trainer.restore_checkpoint()
         print(f"resumed from step {start}; training up to --total_steps {args.total_steps} "
               f"({max(args.total_steps - start, 0)} more), where the JAX train.py would "
               f"train {args.total_steps} more")
@@ -316,7 +371,7 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
         return prefetch_map(encode_text, iterate_batches(dataset, args.batch_size, args.seed,
                                                          start_batch=step), depth=2)
 
-    validate = None
+    validate = validator = None
     if args.val_every:
         from . import metrics
         val_metrics = []
@@ -348,7 +403,7 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
                     "samples": Validator.to_uint8(result["samples"]),
                     "metrics": result["metrics"]}
 
-    return Run(args, trainer, start, batches, validate)
+    return Run(args, trainer, start, batches, validate, telemetry, logger, validator)
 
 
 def _merge(total: Dict[str, Any], hist: Dict[str, Any], offset: int) -> None:
@@ -378,35 +433,90 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ``--val_every``, ``validation``: each grid's step, wall time, uint8
     samples and metrics. With ``--val_every`` the fit runs in chunks that
     end at multiples of it, a validation grid after each but the last
-    (train.py:772-810)."""
+    (train.py:772-810). Windows, validation metrics and grids and
+    resilience events go to the run's logger; the run ends recorded in the
+    model registry (train.py:833-850) and, with ``--telemetry_dir``, with a
+    last snapshot and the goodput line."""
+    from .telemetry import set_global_telemetry
+    from .trainer.logging import attach_resilience
+    from .trainer.registry import ModelRegistry
     run = make_run(argv)
-    args, trainer = run.args, run.trainer
+    args, trainer, tel, logger = run.args, run.trainer, run.telemetry, run.logger
+    detach = attach_resilience(logger)
+    prev_tel = set_global_telemetry(tel) if tel is not None else None
+    run_name = args.run_name or os.path.basename(os.path.normpath(args.checkpoint_dir))
     hist: Dict[str, Any] = {}
     remaining, done = args.total_steps - run.start_step, 0
-    while done < remaining:
-        step = run.start_step + done
-        end = min((step // args.val_every + 1) * args.val_every, args.total_steps) \
-            if args.val_every else args.total_steps
+    try:
+        while done < remaining:
+            step = run.start_step + done
+            end = min((step // args.val_every + 1) * args.val_every, args.total_steps) \
+                if args.val_every else args.total_steps
 
-        def log(s, loss, metrics, at=step):
-            print(json.dumps({"step": at + s, "loss": loss,
-                              **{k: v for k, v in metrics.items() if k != "window_losses"}}))
+            def log(s, loss, metrics, at=step):
+                print(json.dumps({"step": at + s, "loss": loss,
+                                  **{k: v for k, v in metrics.items() if k != "window_losses"}}))
+                logger.log({"loss": loss, **metrics}, step=at + s)
 
-        chunk = trainer.fit(run.batches(step), total_steps=end - step,
-                            save_every=args.save_every, callbacks=[log])
-        for row in chunk.get("numerics", []):
-            print(json.dumps(row))
-        _merge(hist, chunk, done)
-        done += end - step
-        if chunk["preempted"]:
-            break
-        if run.validate is not None and done < remaining:
-            result = run.validate(run.start_step + done)
-            hist.setdefault("validation", []).append(result)
-            print(json.dumps({"step": result["step"], "val/wall_s": result["wall_s"],
-                              **{f"val/{k}": v for k, v in result["metrics"].items()}}))
-    trainer.checkpointer.close()
-    hist["checkpoint"] = dict(trainer.checkpointer.last_save)
+            chunk = trainer.fit(run.batches(step), total_steps=end - step,
+                                save_every=args.save_every, callbacks=[log])
+            for row in chunk.get("numerics", []):
+                print(json.dumps(row))
+            _merge(hist, chunk, done)
+            done += end - step
+            if chunk["preempted"]:
+                break
+            if run.validate is not None and done < remaining:
+                scope = contextlib.ExitStack()
+                if tel is not None:
+                    scope.enter_context(tel.span("validation", cat="eval",
+                                                 args={"step": run.start_step + done}))
+                    scope.enter_context(tel.goodput.measure_badput("eval"))
+                with scope:
+                    result = run.validate(run.start_step + done)
+                hist.setdefault("validation", []).append(result)
+                print(json.dumps({"step": result["step"], "val/wall_s": result["wall_s"],
+                                  **{f"val/{k}": v for k, v in result["metrics"].items()}}))
+                logger.log({f"val/{k}": v for k, v in result["metrics"].items()},
+                           step=result["step"])
+                logger.log_images("val/samples", result["samples"], step=result["step"])
+        trainer.checkpointer.close()
+        hist["checkpoint"] = dict(trainer.checkpointer.last_save)
+        final_step = trainer.state.step
+        if "final_loss" in hist:
+            logger.log({"final_loss": hist["final_loss"]}, step=final_step)
+            # the run and its best metrics across runs (train.py:833-850),
+            # at the step whose checkpoint holds them
+            final_metrics, directions = {"loss": hist["final_loss"]}, {"loss": False}
+            if run.validator is not None:
+                for m in run.validator.metrics:
+                    if m.name in run.validator.tracker.best:
+                        final_metrics[m.name] = run.validator.tracker.best[m.name]
+                        directions[m.name] = m.higher_is_better
+            reg_path = args.registry or os.path.join(
+                os.path.dirname(os.path.abspath(args.checkpoint_dir)), "registry.json")
+            became_best = ModelRegistry(reg_path).register_run(
+                run_name, checkpoint_dir=args.checkpoint_dir, step=final_step,
+                metrics=final_metrics, metric_directions=directions,
+                config={"architecture": args.architecture, "schedule": args.schedule,
+                        "dataset": args.dataset})
+            logger.log({f"registry/best_{k}": v for k, v in became_best.items()},
+                       step=final_step)
+        if tel is not None:
+            tel.export(step=final_step)
+    finally:
+        detach()
+        logger.finish()
+        if tel is not None:
+            tel.close()
+            set_global_telemetry(prev_tel)
+    if tel is not None:
+        t = tel.goodput.totals()
+        if t["goodput_fraction"] is not None:
+            print(f"goodput: {t['goodput_fraction']:.1%} of {t['total_s']:.1f} s "
+                  f"(badput {t['badput_total_s']:.1f} s: "
+                  + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(t["badput_s"].items()))
+                  + f") over {t['incarnations']} incarnation(s)")
     print(f"done: step {trainer.state.step}, final loss {hist.get('final_loss', float('nan')):.4f}")
     return hist
 

@@ -17,7 +17,7 @@ waits for the copies, writes the files and drops the oldest steps beyond
 there or at the next save.
 
 Not ported: ``torch.distributed.checkpoint`` sharding, coordinated commits,
-the step ledger, retries and verification (ROADMAP.md A12, A14).
+the step ledger, retries and verification (ROADMAP.md A12, A14's second half).
 """
 from __future__ import annotations
 

@@ -5,11 +5,16 @@ CFG-dropout mask there (and, for latent diffusion, the codec's posterior
 noise), runs the step, and drives the fit loop with
 checkpoints, resume, preemption, abnormal-loss rollback, the float16 loss
 scale, the monitored step at the numerics cadence, the loss ring, the gate
-counter and a profiler window.
+counter, a profiler window and, under an enabled telemetry hub, the run's
+telemetry: phase timing (sampled every ``telemetry_sample_every`` steps),
+goodput attribution, the MFU meter, memory gauges at log cadence, device
+profile windows (``profile_cadence`` / ``profile_trigger``) and the program
+registry's rows of the step and its monitored twin.
 
-Not ported (ROADMAP.md A14): telemetry (phases, goodput, MFU), the anomaly
-detector and its actions other than ``warn``, the NaN provenance probe,
-automated profile windows, the watchdog, elastic worlds and the data plane.
+Not ported (ROADMAP.md A14's second half): the anomaly detector's actions
+other than ``warn`` (``skip_step``, ``rollback``) with the NaN provenance
+probe, the watchdog, elastic worlds and coordinated restarts, and the data
+plane.
 """
 from __future__ import annotations
 
@@ -28,8 +33,13 @@ from torch import nn
 from ..data.prefetch import prefetch_to_device
 from ..device import DeviceLike, make_generator, resolve_device
 from ..predictors import PredictionTransform
+from ..resilience.events import record_event
+from ..profiling import FlopCounter, MFUMeter, device_peak_flops, mfu
 from ..schedulers.common import NoiseSchedule
+from ..telemetry import global_telemetry
+from ..telemetry.memory import MemoryMonitor
 from ..telemetry.numerics import NumericsConfig, flatten_aux
+from ..telemetry.programs import peak_allocated
 from ..typing import Policy
 from .checkpoints import Checkpointer
 from .loss_scale import DynamicScale
@@ -74,12 +84,39 @@ class TrainerConfig:
     profile_dir: Optional[str] = None
     profile_at_step: int = 10
     profile_steps: int = 5
+    # device-profile windows (telemetry/devprof.py) under an enabled hub:
+    # > 0 opens a torch.profiler window of `profile_steps` steps every
+    # `profile_cadence` steps, parsed into a devprof.jsonl row reconciled
+    # with the step's program row; the window's cost is `profile` badput
+    profile_cadence: int = 0
+    # when this file exists at a log step it is consumed and one window
+    # opens at the next step
+    profile_trigger: Optional[str] = None
+    # under an enabled hub, the step's device time is closed (an event
+    # synchronize) on every N-th step only; off-sample steps add no sync
+    telemetry_sample_every: int = 1
+
+# a first step no slower than this many median steady steps did not pay
+# a build (the kernels were already built): its compile badput is moved
+# back to productive at the end of the fit (the JAX package's ratio)
+_COMPILE_RECLASS_RATIO = 2.0
 
 
 def _fetch_losses(window: Sequence[torch.Tensor]) -> list[float]:
     """The window's losses on the host: one device-to-host copy, the fit
     loop's only wait on the card between windows."""
     return torch.stack(list(window)).cpu().tolist()
+
+
+def _settle(event: torch.cuda.Event) -> None:
+    """Wait for the card to reach `event`: a sampled step's device close
+    under telemetry (the counterpart of ``block_until_ready``)."""
+    event.synchronize()
+
+
+def _batch_signature(batch: Mapping[str, Any]) -> str:
+    return ",".join(f"['{k}']{tuple(v.shape)}" for k, v in sorted(batch.items())
+                    if k in ("sample", "cond") and hasattr(v, "shape"))
 
 
 class DiffusionTrainer:
@@ -93,16 +130,19 @@ class DiffusionTrainer:
                  null_cond: Optional[torch.Tensor] = None, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None,
                  checkpointer: Optional[Checkpointer] = None, policy: Optional[Policy] = None,
-                 autoencoder=None):
+                 autoencoder=None, telemetry=None):
         """`policy`: the mixed-precision policy; a float16 compute dtype
         keeps a dynamic loss scale in the state (trainer.py:335-339).
         `autoencoder`: latent diffusion, the codec frozen and moved to the
-        trainer's device; batches stay pixels and are encoded in the step."""
+        trainer's device; batches stay pixels and are encoded in the step.
+        `telemetry`: a ``telemetry.Telemetry`` hub (default: the
+        process-global one, disabled unless replaced)."""
         if config.gate_counter and not config.gate_nonfinite:
             raise ValueError("gate_counter counts the in-graph gate's activations — it requires "
                              "gate_nonfinite")
         self.device = resolve_device(device)
         self.config = config
+        self.telemetry = telemetry
         self.schedule = schedule.to(self.device)
         self.autoencoder = None if autoencoder is None else autoencoder.to(self.device)
         scale = None
@@ -263,18 +303,63 @@ class DiffusionTrainer:
         `save_every` steps (not right after a rollback) and at the end;
         SIGTERM saves and returns with ``preempted`` set, and the previous
         handler is restored on the way out. Up to `pipeline_depth` + 2
-        batches of `data` may be taken but unused when fit returns."""
+        batches of `data` may be taken but unused when fit returns.
+
+        Telemetry: every step's wall time is split into phases (``host``,
+        ``data_wait``, ``device``, ``checkpoint``, ``numerics``,
+        ``profile``, ``other``) and booked to the hub's goodput account
+        (the first step and the monitored twin's first: ``compile``; later
+        steps productive; ``data_stall``, ``checkpoint_commit``,
+        ``numerics``, ``profile``); ``history["goodput"]`` is this fit's
+        delta. Under an enabled hub a sampled step (every
+        ``telemetry_sample_every``-th, the first, each log step) closes its
+        device phase by synchronising a CUDA event recorded after it; its
+        phase row goes to ``telemetry.jsonl``; the first step runs under
+        ``profiling.FlopCounter`` for the model FLOPs behind the MFU
+        (``history["mfu"]`` by window, ``mfu_device`` in the callbacks'
+        metrics) and the program rows; memory gauges, the cross-host
+        aggregate and a metrics snapshot go out at log cadence; profile
+        windows open at ``profile_cadence`` or the ``profile_trigger``
+        file. A disabled hub adds no sync, no file and no profiler."""
         cfg = self.config
-        history: Dict[str, Any] = {"steps": [], "loss": [], "imgs_per_sec": [],
+        history: Dict[str, Any] = {"steps": [], "loss": [], "imgs_per_sec": [], "mfu": [],
                                    "preempted": False,
                                    "saves": {"started": 0, "skipped_exists": 0}}
         if cfg.numerics_cadence > 0:
             history.update(numerics=[], skipped_steps=0)
         if cfg.gate_counter:
             history["gate_activations"] = []
+
+        # telemetry: phases and goodput always (host clocks only); the device
+        # closes, rows, FLOPs, gauges and profile windows under an enabled hub
+        tel = self.telemetry if self.telemetry is not None else global_telemetry()
+        timed = tel.enabled
+        cuda = self.device.type == "cuda"
+        peak = device_peak_flops(self.device) if timed else None
+        device_meter = MFUMeter(peak_flops=peak) if timed else None
+        timer = tel.step_timer(mfu_meter=device_meter,
+                               sample_every=max(cfg.telemetry_sample_every, 1))
+        goodput = tel.goodput
+        gp_base_prod, gp_base_bad = goodput.raw_counters()
+        memory = MemoryMonitor(self.device) if timed else None
+        devprof = None
+        if timed and tel.devprof_path and (cfg.profile_cadence > 0
+                                           or cfg.profile_trigger is not None):
+            from ..telemetry.devprof import DeviceProfiler
+            devprof = DeviceProfiler(tel.devprof_path, cadence=cfg.profile_cadence,
+                                     window=max(cfg.profile_steps, 1),
+                                     trigger_path=cfg.profile_trigger, metrics=tel.registry,
+                                     cuda=cuda)
+        compile_busies: list = []
+        steady_busies: list = []
+        # the program rows: FLOPs counted on each program's first call
+        programs: Dict[str, Dict[str, Any]] = {}
+        flops: Optional[float] = None
+
         if cfg.restore_at_start and self.checkpointer is not None \
                 and self.checkpointer.latest_step() is not None:
-            self.restore_checkpoint()
+            with goodput.measure_badput("restart"):
+                self.restore_checkpoint()
 
         def save() -> None:
             if self.checkpointer is not None:
@@ -316,20 +401,100 @@ class DiffusionTrainer:
         def close_profiler() -> None:
             nonlocal profiler
             if cuda:
-                torch.cuda.synchronize()
+                torch.cuda.synchronize(self.device)
             profiler.__exit__(None, None, None)
             path = os.path.join(cfg.profile_dir, f"trace_step{state.step}.json")
             profiler.export_chrome_trace(path)
             history["profile_trace"] = path
             profiler = None
 
-        cuda = self.device.type == "cuda"
+        def run_step(kind: str, fn, batch):
+            """One call of the step; a program's first call under an
+            enabled hub runs inside the FLOP counter and is timed for its
+            row."""
+            if not timed or kind in programs:
+                return fn(batch)
+            t0 = time.perf_counter()
+            with FlopCounter() as counter:
+                out = fn(batch)
+            programs[kind] = {"flops": counter.total, "host_s": time.perf_counter() - t0,
+                              "key": f"{kind}:{_batch_signature(batch)}", "step": i + 1}
+            return out
+
+        def register_programs() -> None:
+            """One program row per step program run so far (the JAX
+            trainer's first log window), its compile_ms the first call's
+            busy time (the build, the allocator's warm-up, the library's
+            algorithm choice)."""
+            if tel.programs is None:
+                return
+            for kind, info in programs.items():
+                if (kind, info["key"]) in tel.programs:
+                    continue
+                busy = info.get("busy_s", info["host_s"])
+                tel.programs.record(kind, info["key"], compile_ms=busy * 1e3,
+                                    flops_jaxpr=info["flops"],
+                                    hbm_peak_bytes=peak_allocated(self.device),
+                                    extra={"first_call_step": info["step"]})
+
+        def settle_step(idx: int, compile_step: bool) -> Dict[str, float]:
+            """Close the step's phases, write its row when sampled, and book
+            its wall time to the goodput account."""
+            phases = timer.end_step()
+            if timed and timer.last_row is not None:
+                tel.record_step(timer.last_row)
+            busy = phases.get("host", 0.0) + phases.get("device", 0.0) + phases.get("other", 0.0)
+            if compile_step:
+                goodput.record_badput("compile", busy)
+                compile_busies.append(busy)
+                for info in programs.values():
+                    if info["step"] == idx + 1:
+                        info["busy_s"] = busy
+            else:
+                goodput.record_productive(busy)
+                if len(steady_busies) < 512:
+                    steady_busies.append(busy)
+            goodput.record_badput("data_stall", phases.get("data_wait", 0.0))
+            goodput.record_badput("numerics", phases.get("numerics", 0.0))
+            goodput.record_badput("profile", phases.get("profile", 0.0))
+            goodput.record_badput("checkpoint_commit", phases.get("checkpoint", 0.0))
+            return phases
+
+        def reclassify_warm_compile() -> None:
+            """A first step no slower than _COMPILE_RECLASS_RATIO x the median
+            steady step built nothing: its busy time goes back to productive,
+            with a ``warm_compile_reclassified`` event (needs 3 steady
+            steps)."""
+            if not compile_busies or len(steady_busies) < 3:
+                return
+            med = sorted(steady_busies)[len(steady_busies) // 2]
+            for busy in compile_busies:
+                if busy <= _COMPILE_RECLASS_RATIO * max(med, 1e-9):
+                    moved = goodput.reattribute("compile", busy)
+                    if moved > 0:
+                        record_event("warm_compile_reclassified", "train.step",
+                                     detail=f"first-step busy {busy:.3f}s ~ steady median "
+                                            f"{med:.3f}s: nothing built; re-attributed "
+                                            f"productive")
+            compile_busies.clear()
+
+        def close_devprof(at_step: Optional[int]) -> None:
+            if cuda:
+                torch.cuda.current_stream(self.device).synchronize()
+            inflight.clear()
+            register_programs()
+            key = programs.get("train_step", {}).get("key")
+            devprof.close(at_step, kind="train_step", key=key, programs=tel.programs)
+
         upload = prefetch_to_device(data, self.device, depth=max(cfg.pipeline_depth, 1))
         window: list[torch.Tensor] = []
         inflight: list[torch.cuda.Event] = []
         losses, steps_in_window, t0 = [], 0, time.perf_counter()
+        monitored_compiled = False
+        i = 0
         try:
-            batch = next(upload) if total_steps > 0 else None
+            with goodput.measure_badput("data_stall"):
+                batch = next(upload) if total_steps > 0 else None
             for i in range(total_steps):
                 if stop[0]:
                     history["preempted"] = True
@@ -346,31 +511,59 @@ class DiffusionTrainer:
                         close_profiler()
                 monitored = (self._step_monitored is not None
                              and (i + 1) % cfg.numerics_cadence == 0)
-                if monitored:
-                    loss, aux = self.train_step_monitored(batch)
-                else:
-                    loss = self.train_step(batch)
+                compile_step = i == 0 or (monitored and not monitored_compiled)
+                log_step = (i + 1) % fetch_every == 0 or i == total_steps - 1
+                timer.begin_step(i + 1)
+                if compile_step or log_step:
+                    # these steps wait on the card anyway: an exact sample
+                    timer.mark_sampled()
+                if devprof is not None:
+                    if devprof.should_close(i + 1):
+                        with timer.phase("profile"):
+                            close_devprof(i + 1)
+                    elif devprof.should_open(i + 1):
+                        with timer.phase("profile"):
+                            devprof.open(i + 1)
+                with timer.phase("host"):
+                    if monitored:
+                        loss, aux = run_step("train_step_monitored",
+                                             self.train_step_monitored, batch)
+                        monitored_compiled = True
+                    else:
+                        loss = run_step("train_step", self.train_step, batch)
                 if not ring_n:
                     window.append(loss)
                 bsz = batch["sample"].shape[0]
-                if cuda and cfg.pipeline_depth > 0:
+                done = None
+                if cuda and (cfg.pipeline_depth > 0 or (timed and timer.sampled)):
                     done = torch.cuda.Event()
                     done.record()
+                if cuda and cfg.pipeline_depth > 0:
                     inflight.append(done)
                     while len(inflight) > cfg.pipeline_depth:
                         oldest = inflight.pop(0)
                         if not oldest.query():
                             oldest.synchronize()
                 if i + 1 < total_steps:
-                    batch = next(upload)
+                    with timer.phase("data_wait"):
+                        batch = next(upload)
+                if timed and timer.sampled and done is not None:
+                    # the device close: the device phase is the card's time
+                    # still owed for every step since the last sample
+                    with timer.phase("device"):
+                        _settle(done)
+                    inflight.clear()
                 if monitored:
                     # the one wait a cadence step pays: its aux
-                    flat = flatten_aux(aux)
-                    history["numerics"].append({"step": state.step, **flat})
-                    history["skipped_steps"] += int(flat.get("numerics/skipped", 0.0) > 0)
+                    with timer.phase("numerics"):
+                        flat = flatten_aux(aux)
+                        history["numerics"].append({"step": state.step, **flat})
+                        history["skipped_steps"] += int(flat.get("numerics/skipped", 0.0) > 0)
+                        if timed:
+                            tel.record_numerics(flat, step=state.step)
                 steps_in_window += 1
                 recovered = False
-                if (i + 1) % fetch_every == 0 or i == total_steps - 1:
+                if log_step:
                     inflight.clear()
                     vals = newest_losses(steps_in_window)
                     window = []
@@ -391,38 +584,87 @@ class DiffusionTrainer:
                         self._recover(next(v for v in vals if self._abnormal(v)))
                         recovered = True
                     else:
-                        ips = steps_in_window * bsz / max(time.perf_counter() - t0, 1e-9)
+                        dt = max(time.perf_counter() - t0, 1e-9)
+                        ips = steps_in_window * bsz / dt
+                        if flops is None and "train_step" in programs:
+                            flops = programs["train_step"]["flops"]
+                        step_mfu = mfu(flops, dt / steps_in_window, peak) if flops else None
                         losses.append(loss)
                         history["steps"].append(i + 1)
                         history["loss"].append(loss)
                         history["imgs_per_sec"].append(ips)
+                        history["mfu"].append(step_mfu)
                         metrics.update(imgs_per_sec=ips, loss_window_mean=float(np.mean(vals)))
+                        if step_mfu is not None:
+                            metrics["mfu"] = step_mfu
+                        if timed and flops and device_meter.steps:
+                            device_meter.flops_per_step = flops
+                            mfu_dev = device_meter.mfu()
+                            if mfu_dev is not None:
+                                metrics["mfu_device"] = mfu_dev
                         if ring_n:
                             metrics["window_losses"] = vals
                         for cb in callbacks:
                             cb(i + 1, loss, metrics)
                         if cfg.keep_best_state and loss < self.best_loss:
                             self._snapshot_best(loss)
+                        if timed:
+                            register_programs()
+                            tel.gauge("train/loss").set(loss)
+                            tel.gauge("train/imgs_per_sec").set(ips)
+                            if step_mfu is not None:
+                                tel.gauge("train/mfu").set(step_mfu)
+                            memory.record(tel.registry)
+                            agg = {"step_time": dt / steps_in_window, "imgs_per_sec": ips,
+                                   "loss": loss}
+                            if timer.last is not None:
+                                agg["data_wait"] = timer.last.get("data_wait", 0.0)
+                                agg["device_time"] = timer.last.get("device", 0.0)
+                            tel.aggregate(agg, step=i + 1)
+                            tel.export(step=i + 1)
                     steps_in_window, t0 = 0, time.perf_counter()
                 if not recovered and save_every and (i + 1) % save_every == 0:
-                    bad = None
-                    if not cfg.gate_nonfinite and steps_in_window:
-                        # no gate: a non-finite update may have landed, so
-                        # the save reads the newest loss first
-                        bad = next((v for v in newest_losses(1) if self._abnormal(v)), None)
-                    if bad is None:
-                        save()
-                    else:
-                        self._recover(bad)
-                        window, steps_in_window, t0 = [], 0, time.perf_counter()
-            save()
+                    with timer.phase("checkpoint"):
+                        bad = None
+                        if not cfg.gate_nonfinite and steps_in_window:
+                            # no gate: a non-finite update may have landed, so
+                            # the save reads the newest loss first
+                            bad = next((v for v in newest_losses(1) if self._abnormal(v)),
+                                       None)
+                        if bad is None:
+                            with tel.span("ckpt.save", cat="checkpoint", args={"step": i + 1}):
+                                save()
+                            goodput.persist()
+                        else:
+                            self._recover(bad)
+                            window, steps_in_window, t0 = [], 0, time.perf_counter()
+                settle_step(i, compile_step)
+                if devprof is not None and log_step:
+                    devprof.poll_trigger()
+            reclassify_warm_compile()
+            with goodput.measure_badput("checkpoint_commit"), \
+                    tel.span("ckpt.final_save", cat="checkpoint"):
+                save()
         finally:
             upload.close()
             if profiler is not None:
                 close_profiler()
+            if devprof is not None and devprof.active():
+                with goodput.measure_badput("profile"):
+                    close_devprof(None)
             if installed:
                 signal.signal(signal.SIGTERM,
                               prev_handler if prev_handler is not None else signal.SIG_DFL)
+            if timed:
+                try:
+                    tel.flush()
+                except OSError as e:
+                    record_event("telemetry_lost", "telemetry.flush", detail=repr(e))
         history["final_loss"] = losses[-1] if losses else float("nan")
         history["best_loss"] = self.best_loss
+        prod, bad = goodput.raw_counters()
+        history["goodput"] = {
+            "productive_s": prod - gp_base_prod,
+            "badput_s": {k: round(v - gp_base_bad.get(k, 0.0), 6) for k, v in bad.items()
+                         if v - gp_base_bad.get(k, 0.0) > 0.0}}
         return history

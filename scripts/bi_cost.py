@@ -7,13 +7,18 @@ at a shape whose kernel runs faster than the host launches it (beside the
 kernel's device time), the host share of the served route's 6426 bi
 launches a request.
 
-    PYTHONPATH=. python3 scripts/bi_cost.py TREE [--launch-only] [--out FILE]
+    PYTHONPATH=. python3 scripts/bi_cost.py TREE [--launch-only] [--wrappers-of OLD]
+                                             [--out FILE]
 
 TREE is a checkout (`.` for the working tree; an older commit unpacked with
 `git archive` into a git-ignored directory); its chip_smoke.py and package
 are imported and its kernels built into TREE/build/kernels. To compare two
 checkouts on one card, run them in one call in turns: old, new, new, old.
-Needs CUDA.
+The host's pace wanders between processes by more than a small change to a
+wrapper costs, so `--wrappers-of OLD` also times OLD's
+`ops/batch_invariant.py` wrappers, loaded into TREE's package (TREE's
+kernels; the two must take the same C entry points), in turns with TREE's
+own in one process. Needs CUDA.
 """
 import argparse
 import json
@@ -43,13 +48,28 @@ def host_us(calls: dict, loop: int = 500, reps: int = 20) -> dict:
     return least
 
 
-def launch_costs(cs, dev) -> dict:
+def old_wrappers(tree: str):
+    """`tree`'s ``ops/batch_invariant.py`` as a module of the running
+    package, so its relative imports resolve to the running package's
+    ``_build`` and library."""
+    import importlib.util
+    name = "flaxdiff_tpu_torch.ops._old_batch_invariant"
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(tree, "flaxdiff_tpu_torch", "ops", "batch_invariant.py"))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def launch_costs(cs, dev, old=None) -> dict:
     """host_us and the device time (CUDA graph replays) of the time
     embedding's bi_linear and a small 3x3 bi_conv2d, in bf16 under inference
     mode, as the served route calls them; and, where the checkout's library
     takes a route code, host_us of its C entry points called directly on the
     mma.sync route and on the wgmma route (three tensor maps a launch), which
-    separates the launcher's cost from the wrapper's."""
+    separates the launcher's cost from the wrapper's. `old`: another
+    checkout's wrappers (``old_wrappers``), timed in the same turns."""
     import torch
     from flaxdiff_tpu_torch.ops import _build
     from flaxdiff_tpu_torch.ops import batch_invariant as bi
@@ -61,6 +81,9 @@ def launch_costs(cs, dev) -> dict:
     gemm, conv = "bi_linear [2,1,512]x512", "bi_conv2d [2,8^2,64->64] 3x3"
     wrapped = {gemm: lambda: bi.bi_linear(x, w, b),
                conv: lambda: bi.bi_conv2d(xc, wc, bc, (1, 1), ((1, 1), (1, 1)))}
+    if old is not None:
+        wrapped[gemm + " (old)"] = lambda: old.bi_linear(x, w, b)
+        wrapped[conv + " (old)"] = lambda: old.bi_conv2d(xc, wc, bc, (1, 1), ((1, 1), (1, 1)))
     direct = {}
     if hasattr(bi, "ROUTES"):
         lib, code, stream = _build.library(), _build.dtype_code(x), _build.stream_handle(dev)
@@ -90,6 +113,8 @@ def main() -> int:
     parser.add_argument("tree")
     parser.add_argument("--launch-only", action="store_true",
                         help="read the host's and the card's time a bi call only")
+    parser.add_argument("--wrappers-of", dest="old", metavar="OLD",
+                        help="also time checkout OLD's bi wrappers in this process")
     parser.add_argument("--out", help="append the readings here as one JSON line")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
@@ -116,8 +141,9 @@ def main() -> int:
         cs.install_route_census()
     build_s = time.perf_counter() - t0
     row = {"tree": args.tree, "device": torch.cuda.get_device_name(0), "build_s": build_s}
+    old = old_wrappers(os.path.abspath(args.old)) if args.old else None
     if args.launch_only:
-        return emit({**row, **launch_costs(cs, dev)}, args.out)
+        return emit({**row, **launch_costs(cs, dev, old)}, args.out)
     state = cs.random_state(Unet(**cs.UNET, device="cpu"), 0)
     traj = cs.main_path(dev, state)
     model, _, _ = cs.serving_model(dev, state)
@@ -131,7 +157,7 @@ def main() -> int:
                 "round8_wall_ms_per_step": round8["ms_per_step"],
                 "round8_busy_ms_per_step": (None if round8["busy_ms"] is None
                                             else round8["busy_ms"] / cs.SERVE15_ROUND),
-                **launch_costs(cs, dev)})
+                **launch_costs(cs, dev, old)})
     return emit(row, args.out)
 
 

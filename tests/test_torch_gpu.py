@@ -6,6 +6,7 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 """
 import contextlib
+import json
 
 import pytest
 import torch
@@ -626,6 +627,31 @@ def test_tiny_unet_train_step_card_matches_cpu(cuda):
             assert max(float(g.abs().max()), float(r.abs().max())) <= 1e-6 * gmax, name
             continue
         torch.testing.assert_close(g.cpu(), r, atol=1e-4 * float(r.abs().max()), rtol=0)
+
+
+def test_train_step_flops_on_the_card_equal_the_cpu_count(cuda):
+    """A train step's model FLOPs on the card, where autograd runs the flash
+    backward on its device thread, equal the CPU count: attention's four
+    backward products are counted there too."""
+    import numpy as np
+    from flaxdiff_tpu_torch.models import Unet
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.profiling import model_flops
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.trainer import DiffusionTrainer, TrainerConfig, adamw
+
+    cfg = dict(output_channels=3, emb_features=32, feature_depths=(32, 64),
+               attention_configs=(None, {"heads": 2, "dim_head": 32}), num_res_blocks=1,
+               norm_groups=8)
+    sample = np.random.default_rng(0).integers(0, 256, (2, 16, 16, 3), dtype=np.uint8)
+    counts = {}
+    for dev in (cuda, torch.device("cpu")):
+        trainer = DiffusionTrainer(Unet(**cfg, device=dev), adamw(1e-3),
+                                   CosineNoiseSchedule(1000), EpsilonPredictionTransform(),
+                                   TrainerConfig(), device=dev)
+        counts[dev.type] = model_flops(trainer.train_step,
+                                       {"sample": torch.from_numpy(sample).to(dev)})
+    assert counts["cuda"] == counts["cpu"] > 0
 
 
 # --- the AdaLN kernels (B10-B13) ---------------------------------------------------
@@ -1388,3 +1414,62 @@ def test_bi_linear_gives_77_token_rows_the_same_bits_at_batch_1_to_16(cuda, n, d
     ref = bi_linear(x, w, b)
     for batch in range(1, 16):
         assert torch.equal(bi_linear(x[:batch], w, b), ref[:batch]), batch
+
+
+def test_telemetry_fit_syncs_only_on_sampled_steps(cuda, monkeypatch, tmp_path):
+    """fit under an enabled hub, sampled every 3rd step, under sync debug
+    mode "error": the device closes (``_settle``) and the window's fetch are
+    the only waits (each counted with the mode lifted around it), so of 6
+    steps only 1 (the first), 3 and 6 close the device phase; the memory
+    gauges, the program row and the phase rows add none. The gauges are the
+    allocator's, never the host's."""
+    import numpy as np
+    from flaxdiff_tpu_torch.models import Unet
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import CosineNoiseSchedule
+    from flaxdiff_tpu_torch.telemetry import MemoryMonitor, Telemetry, read_registry
+    from flaxdiff_tpu_torch.trainer import DiffusionTrainer, TrainerConfig, adamw
+    from flaxdiff_tpu_torch.trainer import trainer as trainer_module
+
+    cfg = dict(output_channels=3, emb_features=32, feature_depths=(32, 64),
+               attention_configs=(None, {"heads": 2, "dim_head": 32}), num_res_blocks=1,
+               norm_groups=8)
+    tel = Telemetry.create(str(tmp_path / "tel"))
+    trainer = DiffusionTrainer(Unet(**cfg, device=cuda), adamw(1e-3), CosineNoiseSchedule(1000),
+                               EpsilonPredictionTransform(),
+                               TrainerConfig(log_every=6, pipeline_depth=0,
+                                             telemetry_sample_every=3),
+                               device=cuda, telemetry=tel)
+    rng = np.random.default_rng(0)
+    batches = [{"sample": rng.integers(0, 256, (2, 16, 16, 3), dtype=np.uint8)}
+               for _ in range(8)]
+    trainer.fit(iter(batches[:1]), total_steps=1)     # builds the kernels, warms the allocator
+    torch.cuda.synchronize()
+    waits = []
+
+    def lifted(fn, what):
+        def call(*a):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                waits.append(what)
+                return fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+
+    monkeypatch.setattr(trainer_module, "_settle", lifted(trainer_module._settle, "settle"))
+    monkeypatch.setattr(trainer_module, "_fetch_losses",
+                        lifted(trainer_module._fetch_losses, "fetch"))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hist = trainer.fit(iter(batches[1:]), total_steps=6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tel.close()
+    assert waits == ["settle", "settle", "settle", "fetch"] and hist["steps"] == [6]
+    rows = [json.loads(line) for line in (tmp_path / "tel" / "telemetry.jsonl").read_text()
+            .splitlines()]
+    assert [r["step"] for r in rows if r["type"] == "step_phases"][-3:] == [1, 3, 6]
+    assert len(read_registry(str(tmp_path / "tel" / "programs.jsonl"))) == 1
+    stats = MemoryMonitor(cuda).sample()
+    assert stats["memory/bytes_in_use"] > 0 and not any("host" in k for k in stats)

@@ -50,6 +50,32 @@ def test_no_source_file_imports_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+# the modules of the telemetry slice: each is walked by the two tests above
+# (no jax, flax or flaxdiff_tpu import, at import time or in the source)
+TELEMETRY_SLICE = ("flaxdiff_tpu_torch.profiling", "flaxdiff_tpu_torch.resilience.coordination",
+                   "flaxdiff_tpu_torch.telemetry.aggregate", "flaxdiff_tpu_torch.telemetry.devprof",
+                   "flaxdiff_tpu_torch.telemetry.flightrec", "flaxdiff_tpu_torch.telemetry.goodput",
+                   "flaxdiff_tpu_torch.telemetry.memory", "flaxdiff_tpu_torch.telemetry.phases",
+                   "flaxdiff_tpu_torch.telemetry.programs", "flaxdiff_tpu_torch.trainer.logging",
+                   "flaxdiff_tpu_torch.trainer.registry",
+                   "flaxdiff_tpu_torch.trainer.autoencoder_trainer",
+                   "flaxdiff_tpu_torch.ops.linear_attention")
+
+
+def test_the_telemetry_slice_is_covered():
+    assert set(TELEMETRY_SLICE) <= set(_modules())
+    code = ("import importlib, sys\n"
+            f"for m in {list(TELEMETRY_SLICE)!r}:\n"
+            "    importlib.import_module(m)\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
+
+
 def test_entry_points_default_to_cuda():
     from flaxdiff_tpu_torch.models import Unet
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform

@@ -256,7 +256,7 @@ def exported(tmp_path_factory):
     jm = JaxUnet(**TINY)
     shapes = (np.zeros((1, 16, 16, 3), np.float32), np.zeros((1,), np.float32),
               np.zeros((1, HASH["max_length"], HASH["features"]), np.float32))
-    init = jm.init(jax.random.PRNGKey(0), *shapes)["params"]
+    init = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), *shapes))["params"]
     params, ema = randomize(init, 31), randomize(init, 32)
     inputs = _jax_input_config()
     _save_jax_run(run, params, ema, _config(inputs))
@@ -389,7 +389,7 @@ def test_cli_trains_resumes_and_serves_prompts(tmp_path, capsys):
     for name, buf in whole.state.buffers().items():
         assert torch.equal(resumed.state.buffers()[name], buf), name
     assert sorted(p.name for p in (tmp_path / "a").iterdir()) == [
-        "2", "4", "6", "hash_table.npy", "pipeline_config.json"]
+        "2", "4", "6", "hash_table.npy", "pipeline_config.json", "train_log.jsonl"]
 
     pipe = DiffusionInferencePipeline.from_checkpoint(str(tmp_path / "a"), device="cpu")
     out = pipe.generate_samples(resolution=16, diffusion_steps=2, sampler="ddim",
@@ -403,10 +403,11 @@ def test_cli_trains_resumes_and_serves_prompts(tmp_path, capsys):
         "encoder"] == {"type": "hash", "vocab_size": 4096, "features": 64, "max_length": 77}
 
 
-# --grad_accum, once refused here, is ported (tests/test_torch_train_options.py);
-# --telemetry_dir (A14) takes its place
+# --grad_accum, once refused here, is ported (tests/test_torch_train_options.py),
+# and so is --telemetry_dir (tests/test_torch_telemetry.py); --wandb_project
+# (wandb is not installed on the port's machines) takes its place
 @pytest.mark.parametrize("flag", [["--mesh_fsdp", "2"], ["--text_encoder", "clip"],
-                                  ["--telemetry_dir", "tel"], ["--dataset", "oxford_flowers102"]])
+                                  ["--wandb_project", "p"], ["--dataset", "oxford_flowers102"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, flag):
     with pytest.raises(SystemExit):
         train.parse_args(_cli(tmp_path, 2, *flag))

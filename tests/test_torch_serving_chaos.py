@@ -30,7 +30,7 @@ from flaxdiff_tpu_torch.serving import (BrownoutConfig, DeviceLost,
                                   ServingScheduler, classify)
 from flaxdiff_tpu_torch.serving import scheduler as sched_mod
 from flaxdiff_tpu_torch.telemetry.reqtrace import RequestTracer
-from flaxdiff_tpu_torch.telemetry import Telemetry, TraceRecorder
+from flaxdiff_tpu_torch.telemetry import JsonlExporter, Telemetry, TraceRecorder
 from test_torch_serving import REQ, FakeEngine, _solo, pipelines
 from test_torch_unet import one_torch_thread  # noqa: F401 (autouse)
 
@@ -510,7 +510,7 @@ def _run(sched, reqs):
 
 def test_traced_replay_reconciles_with_the_histograms(tiny_pipe, tmp_path):
     tel = Telemetry(recorder=TraceRecorder(str(tmp_path / "trace.json")),
-                    jsonl_path=str(tmp_path / "telemetry.jsonl"))
+                    exporters=[JsonlExporter(str(tmp_path / "telemetry.jsonl"))])
     sched = ServingScheduler(pipeline=tiny_pipe, telemetry=tel, autostart=False,
                              config=SchedulerConfig(round_steps=2, batch_buckets=(2,)))
     outs = _run(sched, _trace_requests())

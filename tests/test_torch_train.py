@@ -28,6 +28,7 @@ from flaxdiff_tpu.trainer.train_state import TrainState as JaxTrainState
 from flaxdiff_tpu.trainer.train_step import TrainStepConfig as JaxStepConfig
 from flaxdiff_tpu.trainer.train_step import _make_loss_builder as jax_loss_builder
 from flaxdiff_tpu.trainer.train_step import make_train_step as jax_make_train_step
+from flaxdiff_tpu.utils import normalize_images as jax_normalize_images
 from test_torch_unet import TINY, randomize, one_torch_thread  # noqa: F401 (autouse)
 
 from flaxdiff_tpu_torch import convert, predictors, schedulers, utils
@@ -242,35 +243,48 @@ def torch_batch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["float", "uint8"])
-def jax_trainer(request):
-    """The tiny UNet with seeded weights and the JAX step, jitted once per
-    module: (params, jitted step, jitted value-and-grad, config)."""
-    normalize = request.param
+def torch_draws(arrays):
+    """JAX draws (numpy or jax arrays) as torch tensors."""
+    return tuple(torch.from_numpy(np.array(a)) for a in arrays)
+
+
+@pytest.fixture(scope="module")
+def jax_trainer():
+    """The tiny UNet with seeded weights (drawn over the tree's shapes from
+    ``jax.eval_shape``: no eager init) and the JAX step on float samples,
+    jitted once per module with the step's own draws made inside the same
+    program: ``step(state, batch) -> (draws, state, loss)`` and
+    ``value_and_grad(state, batch) -> (draws, (loss, grads))``; every case
+    of the module shares it."""
+    normalize = False
     jm = JaxUnet(**TINY)
     x = np.zeros((1, RES, RES, 3), np.float32)
-    params = randomize(jm.init(jax.random.PRNGKey(0), x, np.zeros((1,), np.float32),
-                               np.zeros((1, CTX_LEN, CTX_DIM), np.float32))["params"], 11)
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x, np.zeros((1,), np.float32),
+                                            np.zeros((1, CTX_LEN, CTX_DIM), np.float32)))
+    params = randomize(shapes["params"], 11)
     apply_fn = lambda p, x, t, c: jm.apply({"params": p}, x, t, c)
     cfg = JaxStepConfig(uncond_prob=0.12, ema_decay=0.999, normalize=normalize,
                         weighted_loss=True)
     null = np.zeros((1, CTX_LEN, CTX_DIM), np.float32)
     schedule, transform = JaxCosine(timesteps=1000), JaxEps()
-    step = jax.jit(jax_make_train_step(apply_fn, schedule, transform, cfg, null_cond=null,
-                                       gate_nonfinite=True))
+    shape = (BATCH, RES, RES, 3)
+    step = jax_make_train_step(apply_fn, schedule, transform, cfg, null_cond=null,
+                               gate_nonfinite=True)
     build = jax_loss_builder(apply_fn, schedule, transform, cfg, None, None, null)
-    value_and_grad = jax.jit(lambda st, b: jax.value_and_grad(build(st, b))(st.params))
+    drawn_step = jax.jit(lambda st, b: (jax_draw_arrays(st, shape), *step(st, b)))
+    value_and_grad = jax.jit(lambda st, b: (jax_draw_arrays(st, shape),
+                                            jax.value_and_grad(build(st, b))(st.params)))
     state0 = JaxTrainState.create(apply_fn=apply_fn, params=params, tx=optax.adamw(LR),
                                   rng=jax.random.PRNGKey(SEED), ema_decay=0.999)
-    return dict(normalize=normalize, params=params, step=step, value_and_grad=value_and_grad,
-                state0=state0)
+    return dict(params=params, step=drawn_step,
+                value_and_grad=value_and_grad, state0=state0)
 
 
-def port_trainer(jt):
+def port_trainer(jt, normalize=False):
     """The port's model, state and step at the JAX side's initial weights."""
     model = Unet(**TINY, in_channels=3, context_dim=CTX_DIM, device="cpu")
     model.load_flax_params(jt["params"], fourier_freqs(TINY["emb_features"]))
-    cfg = TrainStepConfig(uncond_prob=0.12, ema_decay=0.999, normalize=jt["normalize"],
+    cfg = TrainStepConfig(uncond_prob=0.12, ema_decay=0.999, normalize=normalize,
                           weighted_loss=True)
     null = torch.zeros(1, CTX_LEN, CTX_DIM)
     from flaxdiff_tpu_torch.trainer import TrainState
@@ -297,17 +311,29 @@ def assert_lr_quantum(out, ref, what):
     assert share >= 0.99, f"{what}: only {share:.4f} of elements within 1e-2 lr"
 
 
-def test_train_step_loss_grads_and_three_steps_match_jax(jax_trainer):
+def jax_inputs(batch):
+    """What the JAX float step takes for a port batch: uint8 samples
+    normalized by the JAX package's ``normalize_images``."""
+    x = batch["sample"]
+    if x.dtype == np.uint8:
+        x = np.asarray(jax_normalize_images(x))
+    return {**batch, "sample": x}
+
+
+@pytest.mark.parametrize("normalize", [False, True], ids=["float", "uint8"])
+def test_train_step_loss_grads_and_three_steps_match_jax(jax_trainer, normalize):
+    """The port's step on float samples, and on uint8 samples it normalizes
+    itself, against the one JAX float step (uint8 samples normalized for it
+    as ``normalize_images`` does)."""
     jt = jax_trainer
-    state, step, build = port_trainer(jt)
+    state, step, build = port_trainer(jt, normalize)
     rng = np.random.default_rng(21)
-    batches = [make_batch(rng, jt["normalize"]) for _ in range(3)]
+    batches = [make_batch(rng, normalize) for _ in range(3)]
     jstate = jt["state0"]
 
     # loss and gradients at the same params and draws
-    draws = jax_draws(jstate, (BATCH, RES, RES, 3))
-    ref_loss, ref_grads = jt["value_and_grad"](jstate, batches[0])
-    loss = build(torch_batch(batches[0]), *draws)(state.model)
+    draws, (ref_loss, ref_grads) = jt["value_and_grad"](jstate, jax_inputs(batches[0]))
+    loss = build(torch_batch(batches[0]), *torch_draws(draws))(state.model)
     np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-5)
     grads = dict(zip([n for n, _, _ in state.layout],
                      torch.autograd.grad(loss, list(state.model.parameters()))))
@@ -325,9 +351,9 @@ def test_train_step_loss_grads_and_three_steps_match_jax(jax_trainer):
     # three steps with the JAX step's draws
     dropped = 0
     for batch in batches:
-        noise, t, mask = jax_draws(jstate, (BATCH, RES, RES, 3))
+        draws, jstate, jloss = jt["step"](jstate, jax_inputs(batch))
+        noise, t, mask = torch_draws(draws)
         dropped += int(mask.sum())
-        jstate, jloss = jt["step"](jstate, batch)
         loss = step(state, torch_batch(batch), noise, t, mask)
         np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4)
     assert dropped > 0, "the draws never exercised the CFG splice"
@@ -338,8 +364,8 @@ def test_train_step_loss_grads_and_three_steps_match_jax(jax_trainer):
     assert np.median(moved) > LR, "the params barely moved: the comparison would be empty"
 
 
-@pytest.mark.parametrize("jax_trainer", [False], indirect=True, ids=["float"])
-def test_edm_train_step_loss_and_grads_match_jax(jax_trainer):
+@pytest.mark.parametrize("samples", ["float"])
+def test_edm_train_step_loss_and_grads_match_jax(jax_trainer, samples):
     """EDM training through the same loss builder: float timesteps (ln sigma
     ~ N(-1.2, 1.2) mapped through the inverse ramp), c_in on x_t, c_noise =
     log(sigma) / 4 into the UNet, the c_skip / c_out wrap and the EDM
@@ -352,9 +378,11 @@ def test_edm_train_step_loss_and_grads_match_jax(jax_trainer):
     schedule = JaxEDM(timesteps=1000)
     build = jax_loss_builder(apply_fn, schedule, JaxKarras(), cfg, None, None, null)
     batch = make_batch(np.random.default_rng(29), False)
-    ref_loss, ref_grads = jax.jit(jax.value_and_grad(build(jt["state0"], batch)))(
-        jt["params"])
-    draws = jax_draws(jt["state0"], (BATCH, RES, RES, 3), schedule)
+    shape = (BATCH, RES, RES, 3)
+    draws, (ref_loss, ref_grads) = jax.jit(lambda p: (
+        jax_draw_arrays(jt["state0"], shape, schedule),
+        jax.value_and_grad(build(jt["state0"], batch))(p)))(jt["params"])
+    draws = torch_draws(draws)
     t = draws[1]
     assert t.dtype == torch.float32 and not torch.equal(t, t.round())
 
@@ -378,8 +406,8 @@ def test_edm_train_step_loss_and_grads_match_jax(jax_trainer):
         assert_close_to_max(g.numpy(), ref[name], 1e-4, f"grad {name}")
 
 
-@pytest.mark.parametrize("jax_trainer", [False], indirect=True, ids=["float"])
-def test_nonfinite_gate_matches_jax(jax_trainer):
+@pytest.mark.parametrize("samples", ["float"])
+def test_nonfinite_gate_matches_jax(jax_trainer, samples):
     """A batch with a NaN: params, moments and EMA stay where they were, on
     both sides, and the step counter advances; the next step agrees."""
     jt = jax_trainer
@@ -389,9 +417,8 @@ def test_nonfinite_gate_matches_jax(jax_trainer):
     bad["sample"][1, 3, 4, 0] = np.nan
     jstate = jt["state0"]
     before = [t.clone() for t in (state.params, state.exp_avg, state.exp_avg_sq, state.ema)]
-    draws = jax_draws(jstate, (BATCH, RES, RES, 3))
-    jstate, jloss = jt["step"](jstate, bad)
-    loss = step(state, torch_batch(bad), *draws)
+    draws, jstate, jloss = jt["step"](jstate, bad)
+    loss = step(state, torch_batch(bad), *torch_draws(draws))
     assert np.isnan(float(jloss)) and torch.isnan(loss)
     adam = jstate.opt_state[0]
     assert state.step == int(jstate.step) == int(adam.count) == 1
@@ -399,20 +426,19 @@ def test_nonfinite_gate_matches_jax(jax_trainer):
                                before, (jstate.params, adam.mu, adam.nu, jstate.ema_params)):
         assert torch.equal(now, then)
         np.testing.assert_array_equal(now.numpy(), port_layout(state, tree))
-    draws = jax_draws(jstate, (BATCH, RES, RES, 3))
-    jstate, _ = jt["step"](jstate, good)
-    step(state, torch_batch(good), *draws)
+    draws, jstate, _ = jt["step"](jstate, good)
+    step(state, torch_batch(good), *torch_draws(draws))
     assert_lr_quantum(state.params.numpy(), port_layout(state, jstate.params), "params")
 
 
-@pytest.mark.parametrize("jax_trainer", [False], indirect=True, ids=["float"])
-def test_train_state_from_flax_continues_the_jax_run(jax_trainer):
+@pytest.mark.parametrize("samples", ["float"])
+def test_train_state_from_flax_continues_the_jax_run(jax_trainer, samples):
     """Two JAX steps, the state converted, then one more step on each side."""
     jt = jax_trainer
     rng = np.random.default_rng(23)
     jstate = jt["state0"]
     for _ in range(2):
-        jstate, _ = jt["step"](jstate, make_batch(rng, False))
+        _, jstate, _ = jt["step"](jstate, make_batch(rng, False))
     model = Unet(**TINY, in_channels=3, context_dim=CTX_DIM, device="cpu")
     state = convert.train_state_from_flax(jstate, model, AdamW(LR))
     adam = jstate.opt_state[0]
@@ -426,9 +452,8 @@ def test_train_state_from_flax_continues_the_jax_run(jax_trainer):
                        state.params[off:off + shape.numel()])
     batch = make_batch(rng, False)
     _, step, _ = port_trainer(jt)
-    draws = jax_draws(jstate, (BATCH, RES, RES, 3))
-    jstate, jloss = jt["step"](jstate, batch)
-    loss = step(state, torch_batch(batch), *draws)
+    draws, jstate, jloss = jt["step"](jstate, batch)
+    loss = step(state, torch_batch(batch), *torch_draws(draws))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     assert_lr_quantum(state.params.numpy(), port_layout(state, jstate.params), "params")
     assert_lr_quantum(state.exp_avg.numpy(), port_layout(state, jstate.opt_state[0].mu), "mu")

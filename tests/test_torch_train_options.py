@@ -82,7 +82,8 @@ def _torch_leaves(params):
 
 def _jax_params(seed=0):
     model = _JaxDenoiser()
-    init = model.init(jax.random.PRNGKey(seed), jnp.zeros((1,) + SHAPE[1:]), jnp.zeros((1,)))
+    init = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(seed), jnp.zeros((1,) + SHAPE[1:]),
+                                             jnp.zeros((1,))))
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map(
         lambda p: jnp.asarray((0.3 * rng.standard_normal(p.shape)).astype(np.float32)),

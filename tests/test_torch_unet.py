@@ -69,8 +69,14 @@ def randomize(params, seed):
     return jax.tree_util.tree_map_with_path(leaf, params)
 
 
+def flax_shapes(jmod, *args):
+    """The flax parameter tree's shapes (``jax.eval_shape``: no eager init;
+    the arguments are closed over, so Python ints stay static)."""
+    return jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), *args))["params"]
+
+
 def flax_to_torch(jmod, tmod, seed, *args):
-    params = randomize(jmod.init(jax.random.PRNGKey(0), *args)["params"], seed)
+    params = randomize(flax_shapes(jmod, *args), seed)
     tmod.load_state_dict(convert.state_dict_from_flax(tmod, params), strict=True)
     return params
 
@@ -166,7 +172,7 @@ def tiny_pair():
     t = np.array([17.0, 640.0], np.float32)
     ctx = rng.standard_normal((2, 7, 12)).astype(np.float32)
     jm = JaxUnet(**TINY)
-    params = randomize(jm.init(jax.random.PRNGKey(0), x, t, ctx)["params"], 11)
+    params = randomize(flax_shapes(jm, x, t, ctx), 11)
     freqs = np.array(jax.random.normal(jax.random.PRNGKey(42), (16,)) * 16.0)
     tm = Unet(**TINY, in_channels=3, context_dim=12, device="cpu").eval()
     tm.load_flax_params(params, freqs)
