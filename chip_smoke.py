@@ -221,6 +221,31 @@ Phases; any failure exits non-zero and prints no result line.
      relative, every gradient 1e-3 of its max|g|), then 3 + 10 bf16 steps at
      batch 8 of 256x256: B4-B7 once per GroupNorm call per step, ms per
      step, images/s, peak memory.
+  18. Data, FSDP and sequence parallelism on one card (at most 60 s).
+     (a) Phase 10's CLI cell (UNet-text-128, batch 16, bf16) for 10 steps
+     saving at 5, then the same with --mesh_data 1 --mesh_fsdp 1 --mesh_seq
+     1 on a one-rank NCCL process group started here (the trainer's
+     collectives run through NCCL), then a resume under the mesh from step
+     5: every loss and the final params, EMA and both moments of the mesh
+     run bit-equal to the run without it, the resume bit-equal to the
+     uninterrupted mesh run, every kernel once per call per step; ms per
+     step of both runs. (b) The ring's hop loop (parallel/ring_attention.py)
+     with the in-process transport over 4 sequence shards, forward and
+     backward, against one flash call over the whole sequence and its
+     backward: UNet-text-256's level-2 self-attention [2, 4096, 8, 64] and
+     UNet3D-T2V's level-0 spatial self-attention [32, 1024, 4, 80 -> 128],
+     bf16, the output within flash's forward limits and the gradients within
+     its backward limits times the hops (each hop's kernels round a partial
+     gradient to bf16), lse within 1e-4; one f32 case [2, 1024, 8, 64]
+     within 1e-5; device ms of the loop beside the single call; each flash
+     kernel launched once per shard per hop. (c) Fault C7: phase 7's DiT-B/2
+     train step with backend "ring" and "ulysses" under a one-rank mesh
+     bit-equal to "auto" without one; phase 4's CFG call (UNet-text-256,
+     bf16, inference mode) with "prebuilt" bit-equal to "xla" (with its
+     warning), with "performer" finite.
+     What one card cannot show: a ring or an FSDP step across ranks, NCCL
+     between cards and its speed (the CPU tests hold gloo worlds of 4
+     against the JAX package).
 Every inference-mode path's launches include bi_gemm's and bi_conv's, one
 per routed Dense and ConvLayer call (counted by a module pre-hook). Each
 phase's seconds (phase_s) are printed before the kernels' line.
@@ -4333,6 +4358,292 @@ def telemetry_paths(dev, phase10: dict) -> dict:
     return out
 
 
+# --- phase 18: data, FSDP and sequence parallelism on one card ----------------------
+
+# 18a: phase 10's CLI cell for MESH18_STEPS steps, saving at MESH18_SAVE, with
+# and without a one-rank mesh, and a resume under the mesh from MESH18_SAVE
+MESH18_STEPS, MESH18_SAVE = 10, 5
+MESH18_FLAGS = {"mesh_data": 1, "mesh_fsdp": 1, "mesh_seq": 1}
+# 18b: the ring's hop loop over RING18_HOPS sequence shards in one process,
+# at UNet-text-256's level-2 self-attention and UNet3D-T2V's level-0 spatial
+# self-attention (head dim 80, padded to 128 as the dispatch pads it), and
+# one f32 case
+RING18_HOPS = 4
+RING18_CASES = {"unet_text_256_level2_self": ((2, 4096, 8, 64), BF16),
+                "unet3d_t2v_level0_spatial": ((32, 1024, 4, 80), BF16),
+                "f32": ((2, 1024, 8, 64), F32)}
+# 18c: phase 7's DiT-B/2 step and phase 4's CFG call under C7's backends
+C7_STEP_BACKENDS = ("ring", "ulysses")
+
+
+def one_rank_group(dev) -> None:
+    """A one-rank NCCL process group on this card (the CLI and the trainer
+    then run their collectives through NCCL)."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+
+
+def mesh18_cli(dev, per_step: dict) -> dict:
+    """18a: the CLI's run with the mesh flags on a one-rank NCCL group, bit
+    for bit the run without them (every loss; the final params, EMA and
+    both moments), and a resume under the mesh bit for bit the
+    uninterrupted run."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from flaxdiff_tpu_torch import train
+    from flaxdiff_tpu_torch.ops import launch_counts
+    from flaxdiff_tpu_torch.trainer import Checkpointer
+
+    root = tempfile.mkdtemp(prefix="flaxdiff_mesh_")
+    res = {}
+    args = lambda d: with_flags(cli_args(d, MESH18_STEPS, dev), save_every=MESH18_SAVE,
+                                log_every=1)
+    meshed = lambda d: with_flags(args(d), **MESH18_FLAGS)
+
+    def ms_per_step(hist):
+        # windows of one step; the first holds the warm-up
+        return float(np.median([TRAIN_BATCH * 1e3 / ips for ips in hist["imgs_per_sec"][1:]]))
+
+    try:
+        plain, mesh, resumed = (os.path.join(root, n) for n in ("plain", "mesh", "resumed"))
+        hist_plain = train.main(args(plain))
+        one_rank_group(dev)
+        try:
+            reset_counts()
+            hist_mesh = train.main(meshed(mesh))
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            copy_run(mesh, resumed, MESH18_SAVE)
+            hist_resumed = train.main(meshed(resumed))
+            check(dist.is_initialized(), "the CLI left the caller's process group alone")
+        finally:
+            dist.destroy_process_group()
+        check(counts == routed({k: MESH18_STEPS * per_step.get(k, 0) for k in counts}),
+              "the mesh run launched every forward and backward kernel once per call per step")
+        final = lambda d: Checkpointer(d).restore(MESH18_STEPS)[0]
+        a, b, c = final(plain), final(mesh), final(resumed)
+        names = ("params", "ema", "exp_avg", "exp_avg_sq")
+        res = {"losses_plain": hist_plain["loss"], "losses_mesh": hist_mesh["loss"],
+               "losses_resumed": hist_resumed["loss"],
+               "ms_per_step_plain": ms_per_step(hist_plain),
+               "ms_per_step_mesh": ms_per_step(hist_mesh), "launches": counts,
+               "mesh_diff": {k: float((a[k] - b[k]).abs().max()) for k in names},
+               "resume_diff": {k: float((b[k] - c[k]).abs().max()) for k in names}}
+        log(f"  losses without / with the mesh: " + " ".join(f"{x:.5f}" for x in hist_plain["loss"])
+            + " / " + " ".join(f"{x:.5f}" for x in hist_mesh["loss"]))
+        log(f"  {res['ms_per_step_plain']:.3f} ms per step without the mesh, "
+            f"{res['ms_per_step_mesh']:.3f} with it (median of steps 2-{MESH18_STEPS}); "
+            f"largest differences {res['mesh_diff']}, the resume's {res['resume_diff']}")
+        check(hist_mesh["loss"] == hist_plain["loss"] and len(hist_mesh["loss"]) == MESH18_STEPS,
+              "every loss of the mesh run equals the run without it")
+        check(all(torch.equal(a[k], b[k]) for k in names),
+              "the mesh run's params, EMA and moments equal the run without it bit for bit")
+        check(hist_resumed["loss"] == hist_mesh["loss"][MESH18_SAVE:]
+              and all(torch.equal(b[k], c[k]) for k in names),
+              "the resume under the mesh equals the uninterrupted run bit for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def ring18(dev) -> dict:
+    """18b: the ring's hop loop (parallel/ring_attention.py, the in-process
+    transport: one process holds the 4 shards) forward and backward, against
+    one flash call over the whole sequence and its backward."""
+    from flaxdiff_tpu_torch.ops import launch_counts
+    from flaxdiff_tpu_torch.ops.flash_attention import (_kernels, flash_delta, padded_head_dim)
+    from flaxdiff_tpu_torch.parallel import InProcessTransport, ring_backward, ring_forward
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    transport = InProcessTransport(RING18_HOPS)
+    res, launches = {}, {k: 0 for k in launch_counts()}
+    for label, ((b, s, h, d), dtype) in RING18_CASES.items():
+        width = padded_head_dim(d)
+        # the dispatch's zero padding of the head dim, at the true dim's scale
+        pad = lambda t: torch.nn.functional.pad(t, (0, width - d))
+        q, k, v, do = (pad(torch.randn(b, s, h, d, generator=gen, device=dev, dtype=dtype))
+                       for _ in range(4))
+        scale = d ** -0.5
+        fwd, bwd_dq, bwd_dkv = _kernels(width)
+        split = lambda t: list(t.chunk(RING18_HOPS, dim=1))
+
+        def single():
+            out, lse = fwd(q, k, v, scale)
+            delta = flash_delta(out, do)
+            return (out, lse, bwd_dq(q, k, v, do, lse, delta, scale),
+                    *bwd_dkv(q, k, v, do, lse, delta, scale))
+
+        def ring():
+            outs, lses = ring_forward(split(q), split(k), split(v), transport, scale)
+            grads = ring_backward(split(q), split(k), split(v), outs, lses, split(do), transport,
+                                  scale)
+            return (torch.cat(outs, 1), torch.cat(lses, 2), *(torch.cat(g, 1) for g in grads))
+
+        want = single()
+        torch.cuda.synchronize()
+        reset_counts()
+        got = ring()
+        torch.cuda.synchronize()
+        if dtype != F32:
+            for name, n in launch_counts().items():
+                launches[name] += n
+        names = ("out", "lse", "dq", "dk", "dv")
+        readings = {}
+        for name, x, y in zip(names, got, want):
+            x, y = x[..., :d] if x.ndim == 4 else x, y[..., :d] if y.ndim == 4 else y
+            if name == "lse":
+                readings[name] = {"max_abs_err": max_err(x, y)}
+            elif dtype == F32:
+                readings[name] = compare(x, y, atol=1e-5 * float(y.abs().max()), rtol=1e-5,
+                                         rms_rel=1e-5)
+            elif name == "out":
+                # flash's forward limits (phase 2)
+                readings[name] = compare(x, y, atol=4e-3, rtol=BF16_RTOL, rms_rel=1e-2)
+            else:
+                # flash's backward limits (4e-3 of the largest, RMS 1e-3) for each
+                # of the hops: every hop's kernels round their partial gradient
+                # to bf16 before the f32 sum, one bf16 rounding a hop where the
+                # single call makes one in all (as the JAX package's ring does)
+                readings[name] = compare(x, y, atol=RING18_HOPS * 4e-3 * float(y.float().abs().max()),
+                                         rtol=BF16_RTOL, rms_rel=RING18_HOPS * 1e-3)
+        for name, r in readings.items():
+            log(f"  ring {label} {(b, s, h, d)} {dtype}: {name} " + (
+                f"max err {r['max_abs_err']:.3g}" if name == "lse" else
+                f"least atol {r['least_atol']:.3g} (atol {r['atol']:.3g}), rms rel "
+                f"{r['rms_rel']:.3g} (limit {r['rms_rel_limit']:.3g})"))
+            if name == "lse":
+                check(r["max_abs_err"] <= 1e-4, f"ring {label}: lse within 1e-4 of the single call")
+            else:
+                check(passes(r), f"ring {label} {name}: {r}")
+        del got, want
+        case = {"shape": [b, s, h, d], "padded": width, "dtype": str(dtype).split(".")[-1],
+                "readings": readings}
+        if dtype != F32:
+            case["ring_ms"] = graph_ms(ring, 1)
+            case["single_ms"] = graph_ms(single, 1)
+            log(f"  ring {label}: {RING18_HOPS}-hop loop {case['ring_ms']:.3f} ms device, one flash "
+                f"call {case['single_ms']:.3f} ms (forward and backward each)")
+        res[label] = case
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    hops2 = 2 * RING18_HOPS * RING18_HOPS      # two bf16 shapes, n shards x n hops
+    expected = {k: 0 for k in launches}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        expected[name] = hops2
+    log(f"  ring launches {launches}, expected {expected}")
+    check(launches == expected, "the hop loop launched each flash kernel once per shard per hop")
+    res["launches"] = launches
+    return res
+
+
+def c7_paths(dev) -> dict:
+    """18c: phase 7's DiT-B/2 step with backend "ring" and "ulysses" under a
+    one-rank mesh, bit for bit "auto" without one (the gate stays shut at
+    one seq rank); phase 4's CFG call with "prebuilt" bit for bit "xla",
+    and with "performer" finite."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from flaxdiff_tpu_torch.models import SimpleDiT, Unet
+    from flaxdiff_tpu_torch.parallel import create_mesh
+    from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform
+    from flaxdiff_tpu_torch.schedulers import LinearNoiseSchedule
+    from flaxdiff_tpu_torch.trainer import AdamW, DiffusionTrainer, TrainerConfig
+
+    res = {}
+    rng = np.random.default_rng(7)
+    batch = {"sample": torch.from_numpy(rng.standard_normal(
+        (DIT_TRAIN_BATCH, DIT_RES, DIT_RES, DIT_CH)).astype(np.float32)).to(dev),
+        "cond": torch.from_numpy(rng.standard_normal(
+            (DIT_TRAIN_BATCH, TEXT_LEN, TEXT_DIM)).astype(np.float32)).to(dev)}
+    dit_state = random_state(SimpleDiT(**DIT, device="cpu"), 1)
+
+    def dit_step(backend, mesh):
+        model = SimpleDiT(**DIT, backend=backend, dtype="bfloat16", device=dev)
+        model.load_state_dict(dit_state)
+        trainer = DiffusionTrainer(
+            model, AdamW(TRAIN_LR), LinearNoiseSchedule(1000), EpsilonPredictionTransform(),
+            TrainerConfig(normalize=False, seed=0), null_cond=torch.zeros(1, TEXT_LEN, TEXT_DIM),
+            device=dev, mesh=mesh)
+        loss = trainer.train_step(batch)
+        out = {k: v.clone() for k, v in trainer.state.buffers().items()}
+        out["loss"] = loss
+        del trainer, model
+        return out
+
+    auto = dit_step("auto", None)
+    one_rank_group(dev)
+    try:
+        mesh = create_mesh({"data": 1, "fsdp": 1, "seq": 1, "tensor": 1})
+        for backend in C7_STEP_BACKENDS:
+            got = dit_step(backend, mesh)
+            same = {k: bool(torch.equal(got[k], auto[k])) for k in auto}
+            res[f"dit_step_{backend}"] = same
+            log(f"  DiT-B/2 step, backend {backend} under a one-rank mesh: bit-equal to auto "
+                f"{all(same.values())} (loss {float(got['loss']):.6f})")
+            check(all(same.values()), f"the {backend} DiT step equals auto bit for bit: {same}")
+            del got
+    finally:
+        dist.destroy_process_group()
+    del auto
+    torch.cuda.empty_cache()
+
+    unet_state = random_state(Unet(**UNET, device="cpu"), 0)
+    x = torch.from_numpy(rng.standard_normal((SERVE_BATCH, RESOLUTION, RESOLUTION, 3)).astype(
+        np.float32)).to(dev)
+    t = torch.full((SERVE_BATCH,), 500.0, device=dev)
+    ctx = torch.from_numpy(rng.standard_normal((SERVE_BATCH, TEXT_LEN, TEXT_DIM)).astype(
+        np.float32)).to(dev)
+    ctx[1:] = 0.0                  # the CFG call's conditional and null rows
+
+    def cfg_call(backend):
+        cfg = dict(UNET, attention_configs=tuple(
+            None if a is None else dict(a, backend=backend) for a in UNET["attention_configs"]))
+        model = Unet(**cfg, dtype="bfloat16", device=dev)
+        model.load_state_dict(unet_state)
+        model.eval()
+        with torch.inference_mode(), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = model(x, t, ctx)
+        torch.cuda.synchronize()
+        del model
+        return out, caught
+
+    xla, _ = cfg_call("xla")
+    prebuilt, caught = cfg_call("prebuilt")
+    performer, _ = cfg_call("performer")
+    res["prebuilt_equals_xla"] = bool(torch.equal(prebuilt, xla))
+    res["prebuilt_warned"] = any("prebuilt" in str(w.message) for w in caught)
+    res["performer_finite"] = bool(torch.isfinite(performer).all())
+    log(f"  UNet-text-256 CFG call: prebuilt bit-equal to xla {res['prebuilt_equals_xla']} "
+        f"(warned {res['prebuilt_warned']}), performer finite {res['performer_finite']} "
+        f"(max |out - xla| {max_err(performer, xla):.3g})")
+    check(res["prebuilt_equals_xla"] and res["prebuilt_warned"],
+          "prebuilt warns and equals xla bit for bit")
+    check(res["performer_finite"] and performer.shape == xla.shape, "performer's call is finite")
+    return res
+
+
+def parallel_paths(dev) -> dict:
+    """Phase 18 (see the module docstring)."""
+    out = {}
+    for key, fn in (("mesh_cli", lambda: mesh18_cli(dev, {**PER_FORWARD, **PER_BACKWARD})),
+                    ("ring", lambda: ring18(dev)), ("c7", lambda: c7_paths(dev))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
 def forward_breakdown(call, what: str):
     """One CFG model call: its time as launched from Python (CUDA events)
     beside its device busy time (the same call replayed as a CUDA graph);
@@ -4646,6 +4957,21 @@ def main() -> int:
     phase17_s = sum(r["phase_s"] for r in tel17.values())
     log(f"phase 17 {phase17_s:.1f} s (17a {tel17['cli']['phase_s']:.1f}, 17b "
         f"{tel17['serving']['phase_s']:.1f}, 17c {tel17['autoencoder']['phase_s']:.1f}) on {smi}")
+
+    torch.cuda.empty_cache()
+    stamp("18")
+    log(f"phase 18: data, FSDP and sequence parallelism on one card: phase 10's CLI cell on a "
+        f"one-rank NCCL mesh, the ring's {RING18_HOPS}-hop loop at full width, C7's backends")
+    par18 = parallel_paths(dev)
+    phase18_s = sum(r["phase_s"] for r in par18.values())
+    m18 = par18["mesh_cli"]
+    log(f"mesh CLI: {m18['ms_per_step_mesh']:.3f} ms per step on a one-rank mesh, "
+        f"{m18['ms_per_step_plain']:.3f} without (phase 10's fit {cli['fit']['ms_per_step']:.3f}); "
+        + "; ".join(f"ring {k} {v['ring_ms']:.3f} ms against one call {v['single_ms']:.3f}"
+                    for k, v in par18["ring"].items() if isinstance(v, dict) and "ring_ms" in v)
+        + f"; phase 18 {phase18_s:.1f} s (18a {m18['phase_s']:.1f}, 18b "
+        f"{par18['ring']['phase_s']:.1f}, 18c {par18['c7']['phase_s']:.1f}) on {smi}")
+    check(phase18_s <= 60.0, f"phase 18 within 60 s: {phase18_s:.1f}")
     stamp("end")
     order = list(starts)
     phase_s = {a: starts[b] - starts[a] for a, b in zip(order, order[1:])}
@@ -4667,7 +4993,8 @@ def main() -> int:
              "dit_cached_serving_scheduler": serving["cached"],
              "unet_cli_packed_shards": data["fit"],
              "unet_cli_telemetry": tel17["cli"], "unet_serving_telemetry": tel17["serving"],
-             "autoencoder_training": tel17["autoencoder"]}
+             "autoencoder_training": tel17["autoencoder"],
+             "ring": par18["ring"], "mesh_cli": par18["mesh_cli"]}
     kernels, summary = [], []
     for kname in REPLACES:
         mine = [c for c in cases if c["name"] == kname]
@@ -4696,7 +5023,8 @@ def main() -> int:
               "dit_trajectory": dit_traj, "dit_training": dit_train,
               "samplers": samplers_res, "edm_training": edm_train, "cli": cli,
               "families": families, "options": options, "t2v": t2v, "cache": cache,
-              "serving": serving, "data": data, "telemetry": tel17, "phase_s": phase_s,
+              "serving": serving, "data": data, "telemetry": tel17, "parallel": par18,
+              "phase_s": phase_s,
               "total_s": time.perf_counter() - t0}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

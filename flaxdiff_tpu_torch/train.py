@@ -41,6 +41,21 @@ with ``--autoencoder_opts '{"npz": "sd_vae.npz"}'`` loads converted weights;
 without, both codecs take random weights from ``{"seed": N}``); serve such a
 run with ``from_checkpoint(checkpoint_dir, autoencoder=SDVAE.from_npz(...))``.
 
+Across ranks, one process per card::
+
+    torchrun --nproc_per_node N -m flaxdiff_tpu_torch.train --mesh_fsdp N ...
+
+``--mesh_data/--mesh_fsdp/--mesh_seq`` lay the ranks out as the JAX CLI's
+mesh (data -1 takes the rest); the process group comes from ``torchrun``'s
+environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``): NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``; a process group the
+caller already started is used as it is (mesh flags with neither are
+refused). Each rank
+trains on its data x fsdp block of the global ``--batch_size`` rows, and
+rank 0 alone writes the logs, telemetry, registry, pipeline config and
+checkpoints. With no ``torchrun`` environment and no mesh flags the run is
+one process's, as before.
+
 Only what is ported is accepted; any other flag of ``train.py`` is refused
 (ROADMAP.md names the items that port them).
 """
@@ -56,6 +71,10 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+
+
+# the JAX CLI's mesh flags and defaults (data takes the ranks left over)
+MESH_DEFAULTS = {"mesh_data": -1, "mesh_fsdp": 1, "mesh_seq": 1, "mesh_tensor": 1}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -106,6 +125,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help=">1 accumulates gradients over k micro-batches per optimizer update "
                         "(optax.MultiSteps)")
     p.add_argument("--ema_decay", type=float, default=0.999)
+    # parallelism (train.py:97-102): ranks of the process group
+    p.add_argument("--mesh_data", type=int, default=MESH_DEFAULTS["mesh_data"])
+    p.add_argument("--mesh_fsdp", type=int, default=MESH_DEFAULTS["mesh_fsdp"])
+    p.add_argument("--mesh_seq", type=int, default=MESH_DEFAULTS["mesh_seq"])
+    p.add_argument("--mesh_tensor", type=int, default=MESH_DEFAULTS["mesh_tensor"],
+                   help="refused above 1: tensor parallelism is ROADMAP.md A12's second half")
     p.add_argument("--checkpoint_dir", default="./checkpoints/run")
     p.add_argument("--save_every", type=int, default=1000)
     p.add_argument("--log_every", type=int, default=100)
@@ -195,6 +220,9 @@ class Run:
     telemetry: Any = None
     logger: Any = None
     validator: Any = None
+    mesh: Any = None
+    rank: int = 0                 # global rank; 0 writes the run's files
+    owns_group: bool = False      # make_run started the process group
 
 
 # --val_metrics name -> its EvaluationMetric factory in metrics/
@@ -212,6 +240,10 @@ def _refuse_unported(args: argparse.Namespace) -> None:
                          "half; only warn is ported")
     if args.prometheus_textfile and not args.telemetry_dir:
         raise SystemExit("--prometheus_textfile requires --telemetry_dir")
+    if args.mesh_tensor > 1:
+        raise SystemExit(f"--mesh_tensor {args.mesh_tensor}: tensor parallelism (partition rules "
+                         "with the tensor axis, head-parallel flash) is ROADMAP.md A12's second "
+                         "half")
     if args.num_frames:
         raise SystemExit(f"--num_frames {args.num_frames}: the video and audio-video sources "
                          "read clips with OpenCV and ffmpeg (ROADMAP.md A9's rest)")
@@ -238,6 +270,45 @@ def _refuse_unported(args: argparse.Namespace) -> None:
             "concatenation")
 
 
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+
+def _distributed(args: argparse.Namespace):
+    """(device, mesh, owns_group): the counterpart of
+    ``jax.distributed.initialize()`` and the CLI's mesh (train.py:316-323).
+    No process group, no ``torchrun`` environment and the mesh flags at
+    their defaults: this process alone, no mesh. Otherwise the caller's
+    group, or one started from ``torchrun``'s environment (NCCL on
+    ``cuda:LOCAL_RANK``, gloo on the CPU)."""
+    import torch.distributed as dist
+    from .device import resolve_device
+    from .parallel import create_mesh
+    env = all(k in os.environ for k in TORCHRUN_ENV)
+    flags = any(getattr(args, k) != v for k, v in MESH_DEFAULTS.items())
+    if not (dist.is_initialized() or env or flags):
+        return resolve_device(args.device), None, False
+    if not (dist.is_initialized() or env):
+        raise SystemExit("the --mesh_* flags take their ranks from torchrun's environment "
+                         "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) or from a "
+                         "process group the caller started: run under torchrun")
+    name = args.device
+    if env and (name is None or name == "cuda"):
+        name = f"cuda:{os.environ['LOCAL_RANK']}"
+    device = resolve_device(name)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(device)
+    owns = not dist.is_initialized()
+    if owns:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                init_method="env://")
+    mesh = create_mesh({"data": args.mesh_data, "fsdp": args.mesh_fsdp,
+                        "seq": args.mesh_seq, "tensor": args.mesh_tensor},
+                       device_type=device.type)
+    return device, mesh, owns
+
+
 def make_run(argv: Optional[List[str]] = None) -> Run:
     """Parse `argv`, build the data, model, optimizer chain and trainer,
     restore the newest checkpoint of ``--checkpoint_dir`` if there is one,
@@ -245,7 +316,6 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
     logger (``train_log.jsonl``) and, with ``--telemetry_dir``, its
     telemetry hub."""
     from .data import get_dataset, iterate_batches, prefetch_map
-    from .device import resolve_device
     from .inference.pipeline import HASH_TABLE_FILENAME, save_pipeline_config
     from .inference.registry import build_model
     from .inputs import ConditionalInputConfig, DiffusionInputConfig, HashTextEncoder
@@ -256,17 +326,30 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
     from .trainer import (Checkpointer, DiffusionTrainer, MultiSteps, TrainerConfig,
                           ValidationConfig, Validator, chain, clip_by_global_norm, optim,
                           warmup_cosine_decay_schedule)
+    from .parallel import use_mesh
     from .typing import Policy
 
     args = parse_args(argv)
     _refuse_unported(args)
-    device = resolve_device(args.device)
+    device, mesh, owns_group = _distributed(args)
+    rank = 0 if mesh is None else torch.distributed.get_rank()
+    blocks = 1
+    if mesh is not None:
+        from .parallel import batch_shard, mesh_shape_for
+        block, blocks = batch_shard(mesh)
+        if args.batch_size % blocks:
+            raise SystemExit(f"--batch_size {args.batch_size} is not divisible by the mesh's "
+                             f"{blocks} data x fsdp ranks")
+        if rank == 0:
+            print(f"mesh: {mesh_shape_for(mesh)}")
     os.makedirs(args.checkpoint_dir, exist_ok=True)
 
-    from .trainer.logging import make_logger
-    logger = make_logger(jsonl_path=os.path.join(args.checkpoint_dir, "train_log.jsonl"))
+    from .trainer.logging import MultiLogger, make_logger
+    # rank 0 alone writes the run's files
+    logger = (make_logger(jsonl_path=os.path.join(args.checkpoint_dir, "train_log.jsonl"))
+              if rank == 0 else MultiLogger([]))
     telemetry = None
-    if args.telemetry_dir:
+    if args.telemetry_dir and rank == 0:
         # a world of one over the in-memory transport keeps a single-host run
         # on the aggregation path of a multi-host one (train.py:548-557); main
         # makes the hub process-global, so layers without plumbing land on it
@@ -295,7 +378,10 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
         table_path = os.path.join(args.checkpoint_dir, HASH_TABLE_FILENAME)
         encoder = HashTextEncoder(table=np.load(table_path) if os.path.exists(table_path)
                                   else None)
-        np.save(table_path, encoder.table.numpy())
+        if mesh is not None:
+            torch.distributed.barrier()        # every rank has read it before rank 0 writes
+        if rank == 0:
+            np.save(table_path, encoder.table.numpy())
     conditions = [ConditionalInputConfig(encoder=encoder)] if encoder is not None else []
     input_config = DiffusionInputConfig("sample", (args.image_size, args.image_size, 3),
                                         conditions)
@@ -340,17 +426,18 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
                       profile_dir=args.profile_dir,
                       telemetry_sample_every=args.telemetry_sample_every),
         null_cond=null_cond, device=device, checkpointer=ckpt, policy=policy,
-        autoencoder=autoencoder, telemetry=telemetry)
+        autoencoder=autoencoder, telemetry=telemetry, mesh=mesh)
     start = 0
-    if ckpt.latest_step() is not None:
+    if trainer.latest_checkpoint_step() is not None:
         restore = (telemetry.goodput.measure_badput("restart") if telemetry is not None
                    else contextlib.nullcontext())
         with restore:
             start = trainer.restore_checkpoint()
-        print(f"resumed from step {start}; training up to --total_steps {args.total_steps} "
-              f"({max(args.total_steps - start, 0)} more), where the JAX train.py would "
-              f"train {args.total_steps} more")
-    save_pipeline_config(args.checkpoint_dir, {
+        if rank == 0:
+            print(f"resumed from step {start}; training up to --total_steps "
+                  f"{args.total_steps} ({max(args.total_steps - start, 0)} more), where the "
+                  f"JAX train.py would train {args.total_steps} more")
+    config = {
         "model": {"name": args.architecture, **model_kwargs},
         "schedule": {"name": args.schedule, "timesteps": args.timesteps},
         "predictor": args.predictor,
@@ -358,18 +445,28 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
         "autoencoder": ({"name": args.autoencoder, **autoencoder.serialize()}
                         if autoencoder is not None else None),
         "flat_params": args.flat_params,
-    })
+    }
+    if rank == 0:
+        save_pipeline_config(args.checkpoint_dir, config)
 
     def encode_text(batch):
         if encoder is not None:
             batch["cond"] = encoder(batch["text"]).numpy()
         return batch
 
+    def my_rows(batch):
+        """This rank's data x fsdp block of the global batch's rows."""
+        if mesh is None:
+            return batch
+        rows = args.batch_size // blocks
+        return {k: v[block * rows:(block + 1) * rows] for k, v in batch.items()}
+
     def batches(step: int) -> Iterator[Dict[str, Any]]:
-        """The host stream from batch `step` on, text encoded two batches
-        ahead in a background thread."""
-        return prefetch_map(encode_text, iterate_batches(dataset, args.batch_size, args.seed,
-                                                         start_batch=step), depth=2)
+        """The host stream from batch `step` on (this rank's rows of it),
+        text encoded two batches ahead in a background thread."""
+        return prefetch_map(lambda b: encode_text(my_rows(b)),
+                            iterate_batches(dataset, args.batch_size, args.seed,
+                                            start_batch=step), depth=2)
 
     validate = validator = None
     if args.val_every:
@@ -398,12 +495,16 @@ def make_run(argv: Optional[List[str]] = None) -> Run:
                 unc = input_config.get_unconditionals(args.val_samples)[0].to(device)
             real = next(iterate_batches(dataset, args.batch_size, args.seed, start_batch=step))
             t0 = time.perf_counter()
-            result = validator.run(trainer.get_params(use_ema=True), cond, unc, batch=real)
+            # under a mesh every rank samples (a ring attention is collective)
+            scope = contextlib.nullcontext() if mesh is None else use_mesh(mesh)
+            with scope:
+                result = validator.run(trainer.get_params(use_ema=True), cond, unc, batch=real)
             return {"step": step, "wall_s": time.perf_counter() - t0,
                     "samples": Validator.to_uint8(result["samples"]),
                     "metrics": result["metrics"]}
 
-    return Run(args, trainer, start, batches, validate, telemetry, logger, validator)
+    return Run(args, trainer, start, batches, validate, telemetry, logger, validator, mesh,
+               rank, owns_group)
 
 
 def _merge(total: Dict[str, Any], hist: Dict[str, Any], offset: int) -> None:
@@ -436,7 +537,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     (train.py:772-810). Windows, validation metrics and grids and
     resilience events go to the run's logger; the run ends recorded in the
     model registry (train.py:833-850) and, with ``--telemetry_dir``, with a
-    last snapshot and the goodput line."""
+    last snapshot and the goodput line. Under a mesh every rank trains and
+    validates; rank 0 alone prints, logs and records, and a process group
+    the run started is destroyed at its end."""
     from .telemetry import set_global_telemetry
     from .trainer.logging import attach_resilience
     from .trainer.registry import ModelRegistry
@@ -445,6 +548,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     detach = attach_resilience(logger)
     prev_tel = set_global_telemetry(tel) if tel is not None else None
     run_name = args.run_name or os.path.basename(os.path.normpath(args.checkpoint_dir))
+    say = print if run.rank == 0 else (lambda *a, **k: None)
     hist: Dict[str, Any] = {}
     remaining, done = args.total_steps - run.start_step, 0
     try:
@@ -454,14 +558,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                 if args.val_every else args.total_steps
 
             def log(s, loss, metrics, at=step):
-                print(json.dumps({"step": at + s, "loss": loss,
+                say(json.dumps({"step": at + s, "loss": loss,
                                   **{k: v for k, v in metrics.items() if k != "window_losses"}}))
                 logger.log({"loss": loss, **metrics}, step=at + s)
 
             chunk = trainer.fit(run.batches(step), total_steps=end - step,
                                 save_every=args.save_every, callbacks=[log])
             for row in chunk.get("numerics", []):
-                print(json.dumps(row))
+                say(json.dumps(row))
             _merge(hist, chunk, done)
             done += end - step
             if chunk["preempted"]:
@@ -475,7 +579,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                 with scope:
                     result = run.validate(run.start_step + done)
                 hist.setdefault("validation", []).append(result)
-                print(json.dumps({"step": result["step"], "val/wall_s": result["wall_s"],
+                say(json.dumps({"step": result["step"], "val/wall_s": result["wall_s"],
                                   **{f"val/{k}": v for k, v in result["metrics"].items()}}))
                 logger.log({f"val/{k}": v for k, v in result["metrics"].items()},
                            step=result["step"])
@@ -483,7 +587,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         trainer.checkpointer.close()
         hist["checkpoint"] = dict(trainer.checkpointer.last_save)
         final_step = trainer.state.step
-        if "final_loss" in hist:
+        if "final_loss" in hist and run.rank == 0:
             logger.log({"final_loss": hist["final_loss"]}, step=final_step)
             # the run and its best metrics across runs (train.py:833-850),
             # at the step whose checkpoint holds them
@@ -510,6 +614,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         if tel is not None:
             tel.close()
             set_global_telemetry(prev_tel)
+        if run.owns_group:
+            torch.distributed.destroy_process_group()
     if tel is not None:
         t = tel.goodput.totals()
         if t["goodput_fraction"] is not None:
@@ -517,7 +623,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                   f"(badput {t['badput_total_s']:.1f} s: "
                   + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(t["badput_s"].items()))
                   + f") over {t['incarnations']} incarnation(s)")
-    print(f"done: step {trainer.state.step}, final loss {hist.get('final_loss', float('nan')):.4f}")
+    say(f"done: step {trainer.state.step}, final loss {hist.get('final_loss', float('nan')):.4f}")
     return hist
 
 

@@ -16,8 +16,16 @@ waits for the copies, writes the files and drops the oldest steps beyond
 ``max_to_keep``. ``wait_until_finished`` joins it; a write error is raised
 there or at the next save.
 
-Not ported: ``torch.distributed.checkpoint`` sharding, coordinated commits,
-the step ledger, retries and verification (ROADMAP.md A12, A14's second half).
+A state sharded over a mesh (``TrainState(mesh=...)``) is saved by every
+rank together: ``state_dict`` gathers the shards (a collective, run on all
+ranks before any writer thread starts), and global rank 0 alone writes them
+in the one-process format above. Restoring reads that file, and the state
+keeps each rank's slice, so a checkpoint written under one mesh restores
+under another or under none (as the JAX trainer restores onto any mesh).
+
+Not ported: ``torch.distributed.checkpoint`` sharded files, coordinated
+commits, the step ledger, retries and verification (ROADMAP.md A14's
+second half).
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import time
 from typing import Any, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 STATE_FILE, META_FILE = "state.pt", "meta.json"
 
@@ -73,13 +82,23 @@ class Checkpointer:
         """Start writing `state` (a ``TrainState``) and `extra` (tensors and
         plain values) as `step`; returns whether a save started. A step
         already on disk is not rewritten (after a rollback the re-reached
-        step's files hold the earlier state)."""
+        step's files hold the earlier state). A sharded state gathers on
+        every rank first; only global rank 0 looks at the directory and
+        writes, and the other ranks report ``"started"``."""
         self.wait_until_finished()
+        sharded = getattr(state, "mesh", None) is not None
+        writer = not sharded or dist.get_rank() == 0
+        t0 = time.perf_counter()
+        payload = state.state_dict() if sharded else None
+        if not writer:
+            self.last_save_result = "started"
+            self.last_save = {"step": step, "blocked_s": time.perf_counter() - t0}
+            return True
         if step in self.all_steps():
             self.last_save_result = "skipped_exists"
             return False
-        t0 = time.perf_counter()
-        payload = state.state_dict()
+        if payload is None:
+            payload = state.state_dict()
         for name, t in list(payload.items()):
             if isinstance(t, torch.Tensor):
                 payload[name] = self._host_copy(name, t)

@@ -93,12 +93,16 @@ def lamb(learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.9
 class ClipByGlobalNorm:
     """``optax.clip_by_global_norm``: ``select(norm < max_norm, g,
     g / norm * max_norm)``. The flat gradient buffer has the tree's global
-    norm, so one vector norm is the whole reduction."""
+    norm, so one vector norm is the whole reduction; a sharded state passes
+    its `norm_fn`, which sums the slices' squared norms across the ranks
+    (``TrainState.global_norm``)."""
 
     max_norm: float
 
-    def __call__(self, grads: torch.Tensor) -> torch.Tensor:
-        norm = torch.linalg.vector_norm(grads)
+    def __call__(self, grads: torch.Tensor,
+                 norm_fn: Callable[[torch.Tensor], torch.Tensor] = torch.linalg.vector_norm
+                 ) -> torch.Tensor:
+        norm = norm_fn(grads)
         return torch.where(norm < self.max_norm, grads, grads / norm * self.max_norm)
 
 

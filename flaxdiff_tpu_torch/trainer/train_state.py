@@ -15,6 +15,22 @@ device, optax's count) counts the updates that landed: it drives Adam's bias
 corrections and the learning-rate schedule, and stays where it is on a step
 the loss scale rejected and on the micro-steps of an accumulation. Both are
 checkpointed.
+
+Under a mesh (``mesh=``, ``parallel.create_mesh``) the flat buffers are
+sharded over its fsdp dim, the counterpart of the JAX package's per-leaf
+FSDP specs (``parallel/partition.py`` ``fsdp_sharding_tree``) in the design
+of FSDP1's flat parameter: params, EMA, both moments and the accumulator are
+padded with zeros to a multiple of the fsdp size and each rank keeps one
+contiguous slice (``params`` is then the rank's slice). Before the forward
+``gather_params`` fills the whole buffer the module views
+(``all_gather``); ``grads`` reduce-scatters the backward's flat gradient
+over fsdp, all-reduces it over data and divides by data x fsdp, leaving
+each rank its slice of the global batch's mean gradient. The optimizer, the
+EMA and the gate are elementwise, so they run on the slice; the clip's
+global norm, lamb's per-parameter norms, the loss scale's verdict and the
+gate counter sum their partials across the ranks. The padding stays zero and
+never enters a norm, the counter or a checkpoint. Collectives run even on a
+group of one rank.
 """
 from __future__ import annotations
 
@@ -24,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import collectives
 from ..telemetry.numerics import segment_norms, tree_nonfinite_count
 from .loss_scale import DynamicScale
 from .optim import AdamW, MultiSteps, Optimizer, as_chain, every_k
@@ -33,6 +50,8 @@ __all__ = ["AdamW", "TrainState"]
 # the buffers the optimizer owns (optax's opt_state), by kind
 _OPT_FLOATS = ("exp_avg", "exp_avg_sq", "acc")
 _OPT_INTS = ("count", "mini_step")
+# the buffers of the parameters' flat layout, sharded under a mesh
+_FLAT = ("params", "ema") + _OPT_FLOATS
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -51,26 +70,36 @@ class TrainState:
     uses; `loss_ring_size` > 0 keeps a device ring of that many losses,
     written at ``step % size``; `gate_counter` keeps a [3] int32 count of
     the elements the non-finite gate masked in params / optimizer state /
-    EMA."""
+    EMA. `mesh`: shard the flat buffers over its fsdp dim and reduce the
+    gradients over data x fsdp (the module above); None keeps one process's
+    whole state."""
 
     def __init__(self, model: nn.Module, tx: Optimizer, ema_decay: Optional[float] = 0.999,
                  dynamic_scale: Optional[DynamicScale] = None, loss_ring_size: int = 0,
-                 gate_counter: bool = False):
+                 gate_counter: bool = False, mesh=None):
         params = list(model.named_parameters())
         if any(p.dtype != torch.float32 for _, p in params):
             raise TypeError("the train state keeps f32 parameters")
-        self.model, self.tx = model, tx
+        self.model, self.tx, self.mesh = model, tx, mesh
         self.layout = []          # (name, offset, shape)
         offset = 0
         for name, p in params:
             self.layout.append((name, offset, p.shape))
             offset += p.numel()
-        self.params = torch.cat([p.detach().reshape(-1) for _, p in params])
-        for (_, p), (_, off, shape) in zip(params, self.layout):
-            p.data = self.params[off:off + p.numel()].view(shape)
-        dev = self.params.device
+        self.numel = offset
         self.lengths = [shape.numel() for _, _, shape in self.layout]
-        self._lengths = torch.tensor(self.lengths, device=dev)
+        flat = torch.cat([p.detach().reshape(-1) for _, p in params])
+        if mesh is None:
+            # the module views the state's own params
+            self.params = self.module_params = flat
+            self.shard_offset, self.shard_size = 0, offset
+            self._seg_lengths = self.lengths
+        else:
+            self._init_shards(flat)
+        for (_, p), (_, off, shape) in zip(params, self.layout):
+            p.data = self.module_params[off:off + p.numel()].view(shape)
+        dev = self.params.device
+        self._lengths = torch.tensor(self._seg_lengths, device=dev)
         self.exp_avg = torch.zeros_like(self.params)
         self.exp_avg_sq = torch.zeros_like(self.params)
         self.ema = self.params.clone() if ema_decay is not None else None
@@ -85,6 +114,105 @@ class TrainState:
         self.step = 0
         self._table: Optional[torch.Tensor] = None
 
+    # -- the fsdp shards --------------------------------------------------------
+
+    def _init_shards(self, flat: torch.Tensor) -> None:
+        """Every rank starts from global rank 0's params; this rank keeps its
+        slice of them padded to a multiple of the fsdp size. A mesh without
+        an fsdp (or data) dim has nothing to shard (or reduce) over it."""
+        from ..parallel.mesh import AXIS_DATA, AXIS_FSDP, axis_group, axis_rank, axis_size
+        mesh = self.mesh
+        self._fsdp_group, self._data_group = axis_group(mesh, AXIS_FSDP), axis_group(mesh, AXIS_DATA)
+        self.fsdp_size = axis_size(mesh, AXIS_FSDP)
+        self.batch_ranks = axis_size(mesh, AXIS_DATA) * self.fsdp_size
+        collectives.check_device(None, flat)
+        torch.distributed.broadcast(flat, src=0)
+        padded = -(-self.numel // self.fsdp_size) * self.fsdp_size
+        self.shard_size = padded // self.fsdp_size
+        self.shard_offset = axis_rank(mesh, AXIS_FSDP) * self.shard_size
+        self.module_params = torch.zeros(padded, dtype=flat.dtype, device=flat.device)
+        self.module_params[:self.numel] = flat
+        # without an fsdp dim the slice is the whole buffer the module views
+        self.params = self.module_params if self._fsdp_group is None else \
+            self.module_params[self.shard_offset:self.shard_offset + self.shard_size].clone()
+        # each parameter's piece of this slice, then the slice's padding
+        lo, hi = self.shard_offset, self.shard_offset + self.shard_size
+        self._seg_lengths = [max(0, min(off + n, hi) - max(off, lo))
+                             for (_, off, _), n in zip(self.layout, self.lengths)]
+        self._seg_lengths.append(self.shard_size - sum(self._seg_lengths))
+
+    def shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole flat buffer of this layout (itself
+        without a mesh)."""
+        if self.mesh is None:
+            return full
+        full = torch.as_tensor(full).to(self.params.device).reshape(-1)
+        lo = self.shard_offset
+        piece = full[lo:min(lo + self.shard_size, self.numel)]
+        return torch.cat([piece, piece.new_zeros(self.shard_size - piece.numel())])
+
+    def gather(self, shard: torch.Tensor) -> torch.Tensor:
+        """The whole flat buffer from the fsdp ranks' slices (a collective
+        under a mesh; the buffer itself without one)."""
+        if self.mesh is None:
+            return shard
+        if self._fsdp_group is None:
+            return shard[:self.numel]
+        return collectives.all_gather_flat(shard, self._fsdp_group)[:self.numel]
+
+    def gather_params(self) -> None:
+        """Fill the buffer the module views from the ranks' param slices
+        (before a forward); nothing to do without a mesh."""
+        if self.mesh is not None and self._fsdp_group is not None:
+            collectives.all_gather_into(self.module_params, self.params, self._fsdp_group)
+
+    def mean_over_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the data x fsdp ranks of a per-rank value (each
+        rank's mean over its rows: their mean is the global batch's), the
+        same on every rank; `x` itself without a mesh."""
+        if self.mesh is None:
+            return x
+        out = x.detach().float().reshape(1).clone()
+        for group in (self._fsdp_group, self._data_group):
+            if group is not None:
+                collectives.all_reduce_(out, group)
+        return (out / self.batch_ranks).reshape(x.shape)
+
+    def all_ranks(self, flag: torch.Tensor) -> torch.Tensor:
+        """A device bool true on every rank of the world (itself without a
+        mesh): one verdict for the whole world."""
+        if self.mesh is None:
+            return flag
+        out = flag.reshape(1).to(torch.int32)
+        collectives.all_reduce_(out, None, torch.distributed.ReduceOp.MIN)
+        return out.reshape(flag.shape).bool()
+
+    def _sum_over_shards(self, partial: torch.Tensor) -> torch.Tensor:
+        """Sum a per-slice partial over the fsdp ranks (the data replicas
+        hold the same slices)."""
+        if self.mesh is None or self._fsdp_group is None:
+            return partial
+        return collectives.all_reduce_(partial.clone(), self._fsdp_group)
+
+    def global_norm(self, flat: torch.Tensor) -> torch.Tensor:
+        """The L2 norm of a flat buffer of this layout: the slices' squared
+        norms summed across the ranks before the root (at one rank the root
+        of a squared norm gives the norm back exactly)."""
+        norm = torch.linalg.vector_norm(flat)
+        if self.mesh is None:
+            return norm
+        return _sqrt(self._sum_over_shards((norm * norm).reshape(1))).reshape(())
+
+    def segment_norms(self, flat: torch.Tensor) -> torch.Tensor:
+        """Each parameter's L2 norm (under a mesh, then the slice's padding,
+        0), the slices' squared norms summed across the ranks."""
+        norms = segment_norms(flat, self._seg_lengths)
+        if self.mesh is None:
+            return norms
+        return _sqrt(self._sum_over_shards(norms * norms))
+
+    # -- layout --------------------------------------------------------------------
+
     def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
         """Parameter name -> its view of a flat buffer of this layout."""
         return {name: flat[off:off + shape.numel()].view(shape)
@@ -96,11 +224,21 @@ class TrainState:
                           for name, _, _ in self.layout]).to(self.params.device)
 
     def grads(self, loss: torch.Tensor) -> torch.Tensor:
-        """d loss / d params as one flat buffer (zeros where unused)."""
+        """d loss / d params as one flat buffer (zeros where unused); under a
+        mesh this rank's slice of its mean over the data x fsdp ranks."""
         params = [p for p in self.model.parameters()]
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        return torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
-                          for p, g in zip(params, grads)])
+        parts = [(torch.zeros_like(p) if g is None else g).reshape(-1)
+                 for p, g in zip(params, grads)]
+        if self.mesh is None:
+            return torch.cat(parts)
+        pad = self.module_params.numel() - self.numel
+        shard = torch.cat(parts + [parts[0].new_zeros(pad)])
+        if self._fsdp_group is not None:
+            shard = collectives.reduce_scatter_flat(shard, self._fsdp_group)
+        if self._data_group is not None:
+            collectives.all_reduce_(shard, self._data_group)
+        return shard / self.batch_ranks
 
     # -- the optimizer chain -----------------------------------------------------
 
@@ -126,8 +264,8 @@ class TrainState:
     def _trust_ratio(self, update: torch.Tensor) -> torch.Tensor:
         """optax's scale_by_trust_ratio per parameter, ||p|| / ||u|| (1 where
         either is 0), spread over the parameter's elements."""
-        pn = segment_norms(self.params, self.lengths)
-        un = segment_norms(update, self.lengths)
+        pn = self.segment_norms(self.params)
+        un = self.segment_norms(update)
         ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
         return torch.repeat_interleave(ratio, self._lengths, output_size=self.params.numel())
 
@@ -146,7 +284,7 @@ class TrainState:
             grads = self.acc + (grads - self.acc) / (self.mini_step + 1)
             acc = grads
         for transform in chain.transforms:
-            grads = transform(grads)
+            grads = transform(grads, self.global_norm)
         # index_select, not [count]: a 0-dim index tensor is read back to the host
         lr, bc1, bc2 = self._schedule().index_select(0, self.count.view(1))[0].unbind()
         mu = (1.0 - tx.b1) * grads + tx.b1 * self.exp_avg
@@ -194,7 +332,8 @@ class TrainState:
                 zero = torch.zeros((), dtype=torch.int32, device=self.params.device)
                 count = lambda names: sum((tree_nonfinite_count(new[n]) for n in names
                                            if n in new), zero)
-                counts = torch.stack([count(("params",)), count(_OPT_FLOATS), count(("ema",))])
+                counts = self._sum_over_shards(
+                    torch.stack([count(("params",)), count(_OPT_FLOATS), count(("ema",))]))
                 if verdict is not None:
                     counts = torch.where(verdict, torch.zeros_like(counts), counts)
                 self.gate_events += counts
@@ -225,8 +364,13 @@ class TrainState:
 
     def state_dict(self) -> dict[str, Any]:
         """Every buffer, the step and the layout ([name, shape] per
-        parameter, in buffer order), the tensors as they are (no copy)."""
-        return {**self.buffers(), "step": self.step,
+        parameter, in buffer order), the tensors as they are (no copy);
+        under a mesh the flat buffers gathered whole (a collective every
+        rank runs), so the format is one process's."""
+        bufs = self.buffers()
+        if self.mesh is not None:
+            bufs = {k: self.gather(v) if k in _FLAT else v for k, v in bufs.items()}
+        return {**bufs, "step": self.step,
                 "layout": [[name, list(shape)] for name, _, shape in self.layout]}
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
@@ -255,7 +399,9 @@ class TrainState:
                 raise ValueError(f"{name}: the checkpoint has {'no ' * (src is None)}{name}, "
                                  f"the state {'none' if buf is None else 'one'}")
             if buf is not None:
-                if src.shape != buf.shape:
-                    raise ValueError(f"{name}: shape {tuple(src.shape)}, want {tuple(buf.shape)}")
-                buf.copy_(src)
+                want = (self.numel,) if name in _FLAT else tuple(buf.shape)
+                if tuple(src.shape) != want:
+                    raise ValueError(f"{name}: shape {tuple(src.shape)}, want {want}")
+                buf.copy_(self.shard(src) if name in _FLAT else src)
         self.step = int(state["step"])
+        self.gather_params()

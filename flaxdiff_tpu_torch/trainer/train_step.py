@@ -13,6 +13,12 @@ such draw (the JAX step's ``vae_key``, the fourth of the step's keys).
 
 With a ``NumericsConfig`` the step is the monitored twin: it also returns
 the health aux (``telemetry/numerics.py``).
+
+Under a mesh (the state's) the step fills the module's params from the fsdp
+slices first, its gradients are the slice of their mean over the data x
+fsdp ranks (``TrainState.grads``), the loss scale's verdict is one for the
+world, and the returned loss is the global batch's mean, all-reduced on the
+device with no host read.
 """
 from __future__ import annotations
 
@@ -110,18 +116,22 @@ def make_train_step(schedule: NoiseSchedule, transform: PredictionTransform,
     def train_step(state: TrainState, batch: Batch, noise: torch.Tensor, t: torch.Tensor,
                    uncond_mask: Optional[torch.Tensor] = None,
                    vae_noise: Optional[torch.Tensor] = None):
+        if numerics is not None and state.mesh is not None:
+            raise ValueError("the monitored step's norms over a sharded state are not ported "
+                             "(ROADMAP.md A12's second half)")
         loss_fn = build(batch, noise, t, uncond_mask, vae_noise)
         scale, finite = state.dynamic_scale, None
+        state.gather_params()
         if scale is not None:
             scaled = loss_fn(state.model) * scale.scale
             grads = state.grads(scaled) / scale.scale
-            loss = scaled.detach() / scale.scale
-            finite = torch.isfinite(grads).all()
+            loss = state.mean_over_batch(scaled.detach() / scale.scale)
+            finite = state.all_ranks(torch.isfinite(grads).all())
             scale.update(finite)
         else:
             loss = loss_fn(state.model)
             grads = state.grads(loss)
-            loss = loss.detach()
+            loss = state.mean_over_batch(loss.detach())
         if numerics is None:
             state.apply_gradients(grads, config.ema_decay, gate_nonfinite, finite=finite,
                                   loss=loss)

@@ -11,6 +11,19 @@ goodput attribution, the MFU meter, memory gauges at log cadence, device
 profile windows (``profile_cadence`` / ``profile_trigger``) and the program
 registry's rows of the step and its monitored twin.
 
+Under a mesh (``mesh=``, ``parallel.create_mesh`` over a process group:
+one process per card, ``torchrun``) the state is sharded over fsdp and the
+gradients reduced over data x fsdp (``TrainState``); each rank's batch holds
+its data x fsdp block of the global batch's rows (ranks of one seq group the
+same rows), and the step's draws are made for the global batch on every
+rank alike, each keeping its rows: an N-rank step is the one-process step
+on the global batch up to reduction order, and the generator's state is the
+same on every rank. The step runs under ``use_mesh``, so attention layers
+with ``backend="ring"`` or ``"ulysses"`` go sequence-parallel. Checkpoints
+gather the shards and global rank 0 writes them; which step to restore and
+whether SIGTERM stops the run (at a log step) are agreed across the ranks.
+The monitored step (``numerics_cadence``) is not ported under a mesh.
+
 Not ported (ROADMAP.md A14's second half): the anomaly detector's actions
 other than ``warn`` (``skip_step``, ``rollback``) with the NaN provenance
 probe, the watchdog, elastic worlds and coordinated restarts, and the data
@@ -31,6 +44,9 @@ import torch
 from torch import nn
 
 from ..data.prefetch import prefetch_to_device
+from ..parallel import collectives
+from ..parallel.context import use_mesh
+from ..parallel.mesh import batch_shard
 from ..device import DeviceLike, make_generator, resolve_device
 from ..predictors import PredictionTransform
 from ..resilience.events import record_event
@@ -130,16 +146,21 @@ class DiffusionTrainer:
                  null_cond: Optional[torch.Tensor] = None, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None,
                  checkpointer: Optional[Checkpointer] = None, policy: Optional[Policy] = None,
-                 autoencoder=None, telemetry=None):
+                 autoencoder=None, telemetry=None, mesh=None):
         """`policy`: the mixed-precision policy; a float16 compute dtype
         keeps a dynamic loss scale in the state (trainer.py:335-339).
         `autoencoder`: latent diffusion, the codec frozen and moved to the
         trainer's device; batches stay pixels and are encoded in the step.
         `telemetry`: a ``telemetry.Telemetry`` hub (default: the
-        process-global one, disabled unless replaced)."""
+        process-global one, disabled unless replaced). `mesh`: a
+        ``DeviceMesh`` of ``parallel.create_mesh`` (the module docstring);
+        None trains in this process alone."""
         if config.gate_counter and not config.gate_nonfinite:
             raise ValueError("gate_counter counts the in-graph gate's activations — it requires "
                              "gate_nonfinite")
+        if mesh is not None and config.numerics_cadence > 0:
+            raise ValueError("numerics_cadence: the monitored step's norms over a sharded state "
+                             "are not ported (ROADMAP.md A12's second half)")
         self.device = resolve_device(device)
         self.config = config
         self.telemetry = telemetry
@@ -148,9 +169,10 @@ class DiffusionTrainer:
         scale = None
         if policy is not None and policy.compute_dtype == torch.float16:
             scale = DynamicScale(device=self.device)
+        self.mesh = mesh
         self.state = TrainState(model.to(self.device), optimizer, config.ema_decay,
                                 dynamic_scale=scale, loss_ring_size=max(config.loss_ring, 0),
-                                gate_counter=config.gate_counter)
+                                gate_counter=config.gate_counter, mesh=mesh)
         self.generator = make_generator(config.seed, self.device) if generator is None \
             else generator
         self.checkpointer = checkpointer
@@ -177,20 +199,28 @@ class DiffusionTrainer:
                  for k, v in batch.items() if k in ("sample", "cond") and v is not None}
         x = batch["sample"]
         gen, dev = self.generator, self.device
-        shape, vae_shape = x.shape, None
+        # under a mesh the draws are the global batch's, this rank keeping
+        # its block of rows (one block of one without a mesh)
+        block, blocks = (0, 1) if self.mesh is None else batch_shard(self.mesh)
+        rows = x.shape[0] * blocks
+        shape, vae_shape = (rows, *x.shape[1:]), None
         if self.autoencoder is not None:
             # the latent's shape (inputs/config.py's ceil division), and the
             # posterior mean's: a clip's frames folded into its batch
             d, c = self.autoencoder.downscale_factor, self.autoencoder.latent_channels
-            *lead, h, w, _ = x.shape
+            *lead, h, w, _ = shape
             shape = (*lead, -(-h // d), -(-w // d), c)
             vae_shape = (math.prod(lead), *shape[-3:])
-        noise = torch.randn(shape, generator=gen, device=dev)
-        t = self.schedule.sample_timesteps(gen, x.shape[0])
-        uncond_mask = torch.rand(x.shape[0], generator=gen, device=dev) < self.config.uncond_prob
-        vae_noise = None if vae_shape is None else torch.randn(vae_shape, generator=gen,
-                                                               device=dev)
-        return step(self.state, batch, noise, t, uncond_mask, vae_noise)
+        mine = lambda a: a if a is None else a.view(blocks, -1, *a.shape[1:])[block]
+        noise = mine(torch.randn(shape, generator=gen, device=dev))
+        t = mine(self.schedule.sample_timesteps(gen, rows))
+        uncond_mask = mine(torch.rand(rows, generator=gen, device=dev) < self.config.uncond_prob)
+        vae_noise = mine(None if vae_shape is None else torch.randn(vae_shape, generator=gen,
+                                                                    device=dev))
+        if self.mesh is None:
+            return step(self.state, batch, noise, t, uncond_mask, vae_noise)
+        with use_mesh(self.mesh):
+            return step(self.state, batch, noise, t, uncond_mask, vae_noise)
 
     def train_step(self, batch: Mapping[str, "torch.Tensor | np.ndarray"]) -> torch.Tensor:
         """One step on {"sample": [B, (T,) H, W, C], "cond": optional
@@ -208,7 +238,8 @@ class DiffusionTrainer:
     def get_params(self, use_ema: bool = True) -> dict[str, torch.Tensor]:
         """Parameter name -> tensor: the EMA copy, or the live parameters."""
         flat = self.state.ema if use_ema and self.state.ema is not None else self.state.params
-        return {name: t.detach() for name, t in self.state.views(flat).items()}
+        # under a mesh the fsdp slices gathered whole: every rank calls this
+        return {name: t.detach() for name, t in self.state.views(self.state.gather(flat)).items()}
 
     # -- best state and checkpoints -------------------------------------------
 
@@ -221,6 +252,31 @@ class DiffusionTrainer:
         for k, v in bufs.items():
             self.best_state[k].copy_(v)
         self.best_loss, self.best_step = loss, self.state.step
+
+    def _from_rank0(self, value: int) -> int:
+        """Global rank 0's `value` on every rank (itself without a mesh)."""
+        if self.mesh is None:
+            return value
+        t = torch.tensor([value], dtype=torch.int64, device=self.device)
+        collectives.check_device(None, t)
+        torch.distributed.broadcast(t, src=0)
+        return int(t.item())
+
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether `flag` is set on any rank (itself without a mesh)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        collectives.all_reduce_(t, None, torch.distributed.ReduceOp.MAX)
+        return bool(t.item())
+
+    def latest_checkpoint_step(self) -> Optional[int]:
+        """The newest complete checkpoint step (None without one); under a
+        mesh global rank 0's answer, on every rank."""
+        if self.checkpointer is None:
+            return None
+        step = self._from_rank0(-1 if (s := self.checkpointer.latest_step()) is None else s)
+        return None if step < 0 else step
 
     def save_checkpoint(self) -> bool:
         """Start an asynchronous save of the state, the generator's state and
@@ -238,6 +294,10 @@ class DiffusionTrainer:
         (flaxdiff_tpu/trainer/trainer.py:629-655)."""
         if self.checkpointer is None:
             raise ValueError("trainer has no checkpointer")
+        if step is None and self.mesh is not None:
+            step = self.latest_checkpoint_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint under {self.checkpointer.directory}")
         state, extra = self.checkpointer.restore(step)
         self.state.load_state_dict(state)
         self.generator.set_state(extra["generator"])
@@ -261,7 +321,7 @@ class DiffusionTrainer:
                     v.copy_(self.best_state[k])
             self.state.step = self.best_step
             return self.best_step
-        if self.checkpointer is not None and self.checkpointer.latest_step() is not None:
+        if self.latest_checkpoint_step() is not None:
             restored = self.restore_checkpoint()
             warnings.warn(f"abnormal loss {bad_loss}; no best state, restored checkpoint "
                           f"step {restored}", RuntimeWarning, stacklevel=2)
@@ -356,8 +416,7 @@ class DiffusionTrainer:
         programs: Dict[str, Dict[str, Any]] = {}
         flops: Optional[float] = None
 
-        if cfg.restore_at_start and self.checkpointer is not None \
-                and self.checkpointer.latest_step() is not None:
+        if cfg.restore_at_start and self.latest_checkpoint_step() is not None:
             with goodput.measure_badput("restart"):
                 self.restore_checkpoint()
 
@@ -366,7 +425,10 @@ class DiffusionTrainer:
                 self.save_checkpoint()
                 history["saves"][self.checkpointer.last_save_result] += 1
 
+        # under a mesh a SIGTERM stops the run at the next log step, once the
+        # ranks agree (each rank's collectives must stay in one order)
         stop, prev_handler, installed = [False], None, False
+        stop_agreed = False
         if cfg.checkpoint_on_sigterm:
             def on_term(signum, frame):
                 stop[0] = True
@@ -496,7 +558,7 @@ class DiffusionTrainer:
             with goodput.measure_badput("data_stall"):
                 batch = next(upload) if total_steps > 0 else None
             for i in range(total_steps):
-                if stop[0]:
+                if stop[0] if self.mesh is None else stop_agreed:
                     history["preempted"] = True
                     break
                 if cfg.profile_dir is not None:
@@ -533,7 +595,8 @@ class DiffusionTrainer:
                         loss = run_step("train_step", self.train_step, batch)
                 if not ring_n:
                     window.append(loss)
-                bsz = batch["sample"].shape[0]
+                bsz = batch["sample"].shape[0] * (1 if self.mesh is None
+                                                  else self.state.batch_ranks)
                 done = None
                 if cuda and (cfg.pipeline_depth > 0 or (timed and timer.sampled)):
                     done = torch.cuda.Event()
@@ -565,6 +628,8 @@ class DiffusionTrainer:
                 recovered = False
                 if log_step:
                     inflight.clear()
+                    if self.mesh is not None:
+                        stop_agreed = self._any_rank(stop[0])
                     vals = newest_losses(steps_in_window)
                     window = []
                     loss = vals[-1]

@@ -408,11 +408,15 @@ def jax_trainer():
     cfg = JaxStepConfig(uncond_prob=0.12, ema_decay=0.999, normalize=False, weighted_loss=True)
     null = np.zeros((1, CTX_LEN, CTX_DIM), np.float32)
     schedule, transform = JaxLinear(timesteps=1000), JaxEps()
-    step = jax_make_train_step(apply_fn, schedule, transform, cfg, null_cond=null,
-                               gate_nonfinite=True)
+    jax_step = jax_make_train_step(apply_fn, schedule, transform, cfg, null_cond=null,
+                                   gate_nonfinite=True)
     build = jax_loss_builder(apply_fn, schedule, transform, cfg, None, None, null)
-    # eager: one call, cheaper than compiling it
-    value_and_grad = lambda st, b: jax.value_and_grad(build(st, b))(st.params)
+    # one jitted program for every call: the loss and gradients at the state,
+    # and the step (an eager step re-dispatched every op on each call)
+    program = jax.jit(lambda st, b: (jax.value_and_grad(build(st, b))(st.params),
+                                     *jax_step(st, b)))
+    value_and_grad = lambda st, b: program(st, b)[0]
+    step = lambda st, b: program(st, b)[1:]
     state0 = JaxTrainState.create(apply_fn=apply_fn, params=params, tx=optax.adamw(LR),
                                   rng=jax.random.PRNGKey(SEED), ema_decay=0.999)
     return dict(params=params, step=step, value_and_grad=value_and_grad, state0=state0,

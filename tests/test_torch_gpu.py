@@ -1473,3 +1473,87 @@ def test_telemetry_fit_syncs_only_on_sampled_steps(cuda, monkeypatch, tmp_path):
     assert len(read_registry(str(tmp_path / "tel" / "programs.jsonl"))) == 1
     stats = MemoryMonitor(cuda).sample()
     assert stats["memory/bytes_in_use"] > 0 and not any("host" in k for k in stats)
+
+
+# --- data, FSDP and sequence parallelism (flaxdiff_tpu_torch/parallel/) ----------------
+
+def test_ring_hop_loop_matches_one_flash_call(cuda):
+    """The ring's hop loop over 4 sequence shards in one process (the
+    in-process transport) against one flash call over the whole sequence,
+    bf16 [2, 512, 4, 64]: the output within flash's limits, the gradients
+    within its backward limits times the hops (each hop's kernels round a
+    partial gradient to bf16), one launch of each flash kernel per shard
+    per hop."""
+    from flaxdiff_tpu_torch.parallel import InProcessTransport, ring_backward, ring_forward
+    q, k, v, do = (_randn(cuda, 2, 512, 4, 64, dtype=torch.bfloat16, seed=s) for s in range(4))
+    out, lse = flash_fwd(q, k, v)
+    delta = flash_delta(out, do)
+    want = (out, flash_bwd_dq(q, k, v, do, lse, delta), *flash_bwd_dkv(q, k, v, do, lse, delta))
+    split = lambda t: list(t.chunk(4, dim=1))
+    reset_launch_counts()
+    outs, lses = ring_forward(split(q), split(k), split(v), InProcessTransport(4))
+    grads = ring_backward(split(q), split(k), split(v), outs, lses, split(do), InProcessTransport(4))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert [counts[n] for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")] == [16, 16, 16]
+    got = (torch.cat(outs, 1), *(torch.cat(g, 1) for g in grads))
+    torch.testing.assert_close(torch.cat(lses, 2), lse, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=4e-3, rtol=2 ** -7)
+    for g, r in zip(got[1:], want[1:]):
+        scale = float(r.float().abs().max())
+        torch.testing.assert_close(g.float(), r.float(), atol=4 * 4e-3 * scale, rtol=2 ** -7)
+        assert float((g.float() - r.float()).norm() / r.float().norm()) <= 4 * 1e-3
+
+
+def test_cuda_tensor_on_a_gloo_group_raises(cuda):
+    """No collective stages a CUDA tensor through the host: a gloo group
+    refuses it, and an NCCL group refuses a CPU tensor."""
+    import socket
+
+    import torch.distributed as dist
+    from flaxdiff_tpu_torch.parallel import collectives
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="gloo"):
+            collectives.all_reduce_(torch.ones(4, device=cuda), None)
+        with pytest.raises(RuntimeError, match="gloo"):
+            collectives.all_gather_flat(torch.ones(4, device=cuda), None)
+        nccl = dist.new_group([0], backend="nccl")
+        with pytest.raises(RuntimeError, match="NCCL"):
+            collectives.all_reduce_(torch.ones(4), nccl)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_rank_nccl_ring_and_fsdp_step(cuda, tmp_path):
+    """Two cards: the ring over a {seq: 2} NCCL mesh against one flash call,
+    and an {fsdp: 2} step of a small UNet against one rank's step on the
+    global batch (tests/torch_gpu_world.py)."""
+    import os
+
+    import numpy as np
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from torch_world import spawn
+    world = spawn(os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_gpu_world.py"),
+                  2, str(tmp_path), backend="nccl")
+    world.wait()
+    for rank in range(2):
+        assert np.load(tmp_path / f"ring_{rank}.npy").all(), rank
+        assert np.load(tmp_path / f"fsdp_{rank}.npy").all(), rank
+
+
+def test_phase_18_within_its_time(cuda):
+    """chip_smoke.py's phase 18 (18a-c) passes its checks within 60 s."""
+    import os
+    import sys
+    import time
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    chip_smoke.install_route_census()
+    t0 = time.perf_counter()
+    res = chip_smoke.parallel_paths(cuda)
+    assert time.perf_counter() - t0 <= 60.0, {k: r["phase_s"] for k, r in res.items()}

@@ -76,6 +76,17 @@ def test_the_telemetry_slice_is_covered():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
 
 
+# the parallel slice (A12's first half): walked by the two tests above
+PARALLEL_SLICE = ("flaxdiff_tpu_torch.parallel", "flaxdiff_tpu_torch.parallel.collectives",
+                  "flaxdiff_tpu_torch.parallel.context", "flaxdiff_tpu_torch.parallel.mesh",
+                  "flaxdiff_tpu_torch.parallel.ring_attention",
+                  "flaxdiff_tpu_torch.parallel.sequence", "flaxdiff_tpu_torch.parallel.ulysses")
+
+
+def test_the_parallel_slice_is_covered():
+    assert set(PARALLEL_SLICE) <= set(_modules())
+
+
 def test_entry_points_default_to_cuda():
     from flaxdiff_tpu_torch.models import Unet
     from flaxdiff_tpu_torch.predictors import EpsilonPredictionTransform

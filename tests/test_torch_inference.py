@@ -405,8 +405,10 @@ def test_cli_trains_resumes_and_serves_prompts(tmp_path, capsys):
 
 # --grad_accum, once refused here, is ported (tests/test_torch_train_options.py),
 # and so is --telemetry_dir (tests/test_torch_telemetry.py); --wandb_project
-# (wandb is not installed on the port's machines) takes its place
-@pytest.mark.parametrize("flag", [["--mesh_fsdp", "2"], ["--text_encoder", "clip"],
+# (wandb is not installed on the port's machines) takes its place. The mesh
+# flags are ported too (tests/test_torch_mesh_train.py); --elastic (elastic
+# worlds, ROADMAP.md A14's second half) takes --mesh_fsdp's place
+@pytest.mark.parametrize("flag", [["--elastic"], ["--text_encoder", "clip"],
                                   ["--wandb_project", "p"], ["--dataset", "oxford_flowers102"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, flag):
     with pytest.raises(SystemExit):

@@ -57,6 +57,13 @@ def assert_close_to_max(out, ref, tol, what=""):
     assert err <= bound, f"{what}: max error {err:.3g} above {bound:.3g}"
 
 
+def jitted_vjp(fn, args, cotangent):
+    """``jax.vjp`` of `fn` at `args` applied to `cotangent`, as one jitted
+    program: the interpreted Pallas kernels run about twice as fast jitted
+    as eagerly, compile included."""
+    return jax.jit(lambda a, c: jax.vjp(fn, *a)[1](c))(tuple(map(jnp.asarray, args)), cotangent)
+
+
 def torch_vjp(fn, args, cotangent):
     """Gradients of <fn(*args), cotangent> with respect to every arg."""
     ts = [torch.from_numpy(a).requires_grad_() for a in args]
@@ -80,9 +87,7 @@ def test_flash_backward_matches_pallas_kernels(lq, lk, d):
     g = rng.standard_normal((2, lq, 2, d)).astype(np.float32)
     # 16-row blocks: the interpreted kernels stream several q and kv blocks
     # and mask a padded tail
-    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, None, 16, 16, True),
-                     *map(jnp.asarray, (q, k, v)))
-    refs = vjp(g)
+    refs = jitted_vjp(lambda a, b, c: jax_flash(a, b, c, None, 16, 16, True), (q, k, v), g)
     outs = torch_vjp(lambda a, b, c: dot_product_attention(a, b, c, backend="flash"),
                      (q, k, v), g)
     eager = torch_vjp(eager_attention, (q, k, v), g)
@@ -111,8 +116,7 @@ def test_attention_dispatch_pads_odd_head_dims_through_autograd(d):
         assert pad == (-d) % 128
         return jax_flash(a, b, c, 1.0 / np.sqrt(d), 16, 16, True)[..., :d]
 
-    _, vjp = jax.vjp(reference, *map(jnp.asarray, (q, k, v)))
-    refs = vjp(g)
+    refs = jitted_vjp(reference, (q, k, v), g)
     outs = torch_vjp(lambda a, b, c: dot_product_attention(a, b, c, backend="auto"), (q, k, v), g)
     eager = torch_vjp(eager_attention, (q, k, v), g)
     for name, out, ref, second in zip("qkv", outs, refs, eager):
@@ -144,9 +148,8 @@ def test_groupnorm_backward_matches_pallas_kernels(shape, apply_silu, mean):
     scale = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
     bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
     g = rng.standard_normal(shape).astype(np.float32)
-    _, vjp = jax.vjp(lambda a, s, b: jax_gn(a, s, b, groups=8, eps=1e-6, apply_silu=apply_silu,
-                                            interpret=True, force_pallas=True), x, scale, bias)
-    refs = vjp(g)
+    refs = jitted_vjp(lambda a, s, b: jax_gn(a, s, b, groups=8, eps=1e-6, apply_silu=apply_silu,
+                                             interpret=True, force_pallas=True), (x, scale, bias), g)
     outs = torch_vjp(lambda a, s, b: fused_groupnorm_silu(a, s, b, groups=8,
                                                           apply_silu=apply_silu),
                      (x, scale, bias), g)
@@ -174,9 +177,8 @@ def test_groupnorm_backward_blocks_match_pallas_kernels(shape, groups):
     scale = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
     bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
     g = rng.standard_normal(shape).astype(np.float32)
-    _, vjp = jax.vjp(lambda a, s, b: jax_gn(a, s, b, groups=groups, eps=1e-6, apply_silu=True,
-                                            interpret=True, force_pallas=True), x, scale, bias)
-    refs = vjp(g)
+    refs = jitted_vjp(lambda a, s, b: jax_gn(a, s, b, groups=groups, eps=1e-6, apply_silu=True,
+                                             interpret=True, force_pallas=True), (x, scale, bias), g)
     xt, gt, st, bt = map(torch.from_numpy, (x, g, scale, bias))
     mean, rstd = groupnorm_finalize(groupnorm_stats(xt, groups), hw, c, 1e-6)
     gsums, csums = groupnorm_bwd_stats(xt, gt, mean, rstd, st, bt, True)
@@ -191,8 +193,7 @@ def test_geglu_backward_matches_pallas_kernel():
     rng = np.random.default_rng(5)
     proj = (2.0 * rng.standard_normal((2, 37, 192))).astype(np.float32)
     g = rng.standard_normal((2, 37, 96)).astype(np.float32)
-    _, vjp = jax.vjp(lambda p: jax_geglu(p, interpret=True, force_pallas=True), proj)
-    (ref,) = vjp(g)
+    (ref,) = jitted_vjp(lambda p: jax_geglu(p, interpret=True, force_pallas=True), (proj,), g)
     (out,) = torch_vjp(fused_geglu, (proj,), g)
 
     def eager(p):
@@ -254,8 +255,8 @@ def jax_trainer():
     ``jax.eval_shape``: no eager init) and the JAX step on float samples,
     jitted once per module with the step's own draws made inside the same
     program: ``step(state, batch) -> (draws, state, loss)`` and
-    ``value_and_grad(state, batch) -> (draws, (loss, grads))``; every case
-    of the module shares it."""
+    ``value_and_grad(state, batch) -> (draws, (loss, grads))``, both views
+    of one compiled program; every case of the module shares it."""
     normalize = False
     jm = JaxUnet(**TINY)
     x = np.zeros((1, RES, RES, 3), np.float32)
@@ -271,9 +272,12 @@ def jax_trainer():
     step = jax_make_train_step(apply_fn, schedule, transform, cfg, null_cond=null,
                                gate_nonfinite=True)
     build = jax_loss_builder(apply_fn, schedule, transform, cfg, None, None, null)
-    drawn_step = jax.jit(lambda st, b: (jax_draw_arrays(st, shape), *step(st, b)))
-    value_and_grad = jax.jit(lambda st, b: (jax_draw_arrays(st, shape),
-                                            jax.value_and_grad(build(st, b))(st.params)))
+    # one program: the draws, the loss and gradients at the state, and the
+    # step (one compile of the UNet's backward, not one for each)
+    program = jax.jit(lambda st, b: (jax_draw_arrays(st, shape),
+                                     jax.value_and_grad(build(st, b))(st.params), *step(st, b)))
+    drawn_step = lambda st, b: (lambda d, _, new, loss: (d, new, loss))(*program(st, b))
+    value_and_grad = lambda st, b: program(st, b)[:2]
     state0 = JaxTrainState.create(apply_fn=apply_fn, params=params, tx=optax.adamw(LR),
                                   rng=jax.random.PRNGKey(SEED), ema_decay=0.999)
     return dict(params=params, step=drawn_step,
